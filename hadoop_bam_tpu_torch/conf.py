@@ -1,0 +1,75 @@
+"""Configuration: the string property map of the Hadoop ``Configuration``.
+
+Counterpart of ``hadoop_bam_tpu/conf.py`` with only the keys the in-core
+coordinate sort reads.  The key strings are the reference's, so one dict
+drives both packages (:func:`from_reference_conf`).
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Mapping, Optional
+
+BAM_BOUNDED_TRAVERSAL = "hadoopbam.bam.bounded-traversal"
+BAM_ENABLE_BAI_SPLITTER = "hadoopbam.bam.enable-bai-splitter"
+BAM_WRITE_SPLITTING_BAI = "hadoopbam.bam.write-splitting-bai"
+BAM_MARK_DUPLICATES = "hadoopbam.bam.mark-duplicates"
+BAM_SORT_ORDER = "hadoopbam.bam.sort-order"
+#: BGZF inflate on the device ("true"/"false"; unset: on for a CUDA device).
+INFLATE_LANES = "hadoopbam.inflate.lanes"
+#: Device DEFLATE for part writes — not in this port yet ("true" raises).
+DEFLATE_LANES = "hadoopbam.deflate.lanes"
+#: Device-resident part writes — not in this port yet ("true" raises).
+WRITE_DEVICE = "hadoopbam.write.device"
+#: Split read-ahead depth (this key → HBAM_READ_DEPTH → 2).
+READ_DEPTH = "hadoopbam.read.depth"
+ERRORS_MODE = "hadoopbam.errors"
+
+_TRUE_WORDS = frozenset(("yes", "true", "t", "y", "1", "on", "enabled"))
+_FALSE_WORDS = frozenset(("no", "false", "f", "n", "0", "off", "disabled"))
+
+
+class Configuration:
+    """A string-property map with the reference's lenient parsing."""
+
+    def __init__(self, props: Optional[Mapping[str, str]] = None) -> None:
+        self._props: dict = {k: str(v) for k, v in (props or {}).items()}
+
+    def set(self, key: str, value) -> None:
+        self._props[key] = str(value)
+
+    def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
+        return self._props.get(key, default)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._props
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._props)
+
+    def get_boolean(self, key: str, default: bool = False) -> bool:
+        """yes/no, true/false, t/f, y/n, 1/0, on/off, enabled/disabled, any
+        case; anything else is ``default``."""
+        raw = self._props.get(key)
+        if raw is None:
+            return default
+        word = raw.strip().lower()
+        if word in _TRUE_WORDS:
+            return True
+        if word in _FALSE_WORDS:
+            return False
+        return default
+
+    def get_int(self, key: str, default: int = 0) -> int:
+        raw = self._props.get(key)
+        if raw is None:
+            return default
+        try:
+            return int(raw.strip())
+        except ValueError:
+            return default
+
+
+def from_reference_conf(d: Mapping[str, str]) -> Configuration:
+    """The port's Configuration from the key/value dict the reference's
+    ``Configuration`` takes."""
+    return Configuration(d)

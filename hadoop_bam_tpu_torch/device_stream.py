@@ -1,0 +1,158 @@
+"""DeviceStream: one job's device policy, member decode, parse, split drive.
+
+Counterpart of ``hadoop_bam_tpu/device_stream.py`` for the in-core sort:
+``StreamPolicy.resolve`` (the inflate gate), ``decode_members`` (the
+inflate seam of the split reader), ``read_splits`` (the double-buffered
+split drive) and ``parse_split`` (the inflate→parse seam).  The device is
+explicit; counters go to the stream's :class:`~.utils.tracing.Metrics`.
+"""
+
+from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from .conf import DEFLATE_LANES, INFLATE_LANES, READ_DEPTH, WRITE_DEVICE
+from .ops import decode, flate
+from .utils.tracing import Metrics
+
+DEFAULT_DEPTH = 2
+_FALSE_ENV = ("0", "false", "no", "off", "")
+
+
+def resolve_depth(conf=None) -> int:
+    """``hadoopbam.read.depth`` → ``HBAM_READ_DEPTH`` → 2; at least 1."""
+    if conf is not None:
+        v = conf.get_int(READ_DEPTH, 0)
+        if v > 0:
+            return v
+    env = os.environ.get("HBAM_READ_DEPTH")
+    if env:
+        try:
+            return max(1, int(env))
+        except ValueError:
+            return DEFAULT_DEPTH
+    return DEFAULT_DEPTH
+
+
+def _gate(env_var: str, conf, key: str, auto: bool) -> bool:
+    """Env var (0/1 force) → conf key → ``auto``."""
+    env = os.environ.get(env_var)
+    if env is not None:
+        return env.strip().lower() not in _FALSE_ENV
+    if conf is not None and key in conf:
+        return conf.get_boolean(key)
+    return auto
+
+
+class StreamPolicy:
+    """The gates, resolved once per stream.  On a CUDA device the
+    reference's local-latency auto rule resolves inflate to on; the write
+    side's gates (deflate lanes, device write) are not ported yet and are
+    on only when a conf key or env var asks, which the sort refuses."""
+
+    def __init__(self, inflate_lanes: bool, deflate_lanes: bool, device_write: bool,
+                 depth: int) -> None:
+        self.inflate_lanes = inflate_lanes
+        self.deflate_lanes = deflate_lanes
+        self.device_write = device_write
+        self.depth = depth
+
+    @classmethod
+    def resolve(cls, conf, device: torch.device) -> "StreamPolicy":
+        on_card = device.type == "cuda"
+        return cls(
+            inflate_lanes=_gate("HBAM_INFLATE_LANES", conf, INFLATE_LANES, on_card),
+            deflate_lanes=_gate("HBAM_DEFLATE_LANES", conf, DEFLATE_LANES, False),
+            device_write=_gate("HBAM_DEVICE_WRITE", conf, WRITE_DEVICE, False),
+            depth=resolve_depth(conf),
+        )
+
+
+class DeviceStream:
+    def __init__(self, device: torch.device, conf=None) -> None:
+        self.device = device
+        self.policy = StreamPolicy.resolve(conf, device)
+        self.metrics = Metrics()
+        self.inflate_stats = flate.CodecTierStats()
+
+    def default_device_parse(self) -> bool:
+        """The device parse runs by default on a CUDA device."""
+        return self.device.type == "cuda"
+
+    def attach_window(self, dev: torch.Tensor) -> torch.Tensor:
+        """The inflate kernel left a split window on the device; the
+        reader's batch keeps it."""
+        self.metrics.count("device_stream.windows")
+        return dev
+
+    def decode_members(self, data, coffsets, csizes, usizes):
+        """Inflate a batch of members on the stream's device:
+        ``(out, out_offsets, window)`` (see
+        :func:`~.ops.flate.inflate_blocks_device`).  Failures raise."""
+        self.metrics.count("device_stream.decodes")
+        return flate.inflate_blocks_device(
+            data, coffsets, csizes, usizes, self.device, self.metrics,
+            stats=self.inflate_stats,
+        )
+
+    def read_splits(self, fmt, splits, fields=None, with_keys: bool = True) -> Iterator:
+        """Yield decoded split batches in order, ``depth`` splits in flight:
+        split k+1's file read, upload and inflate run while the caller
+        handles split k."""
+        d = self.policy.depth
+
+        def read_one(s):
+            return fmt.read_split(s, fields=fields, with_keys=with_keys, stream=self)
+
+        if d <= 1 or len(splits) <= 1:
+            for s in splits:
+                yield read_one(s)
+            return
+        pool = ThreadPoolExecutor(max_workers=d)
+        futs = [pool.submit(read_one, s) for s in splits[: d + 1]]
+        nxt = d + 1
+        try:
+            for i in range(len(splits)):
+                b = futs[i].result()
+                futs[i] = None  # keep only ~depth + 1 batches alive
+                if nxt < len(splits):
+                    futs.append(pool.submit(read_one, splits[nxt]))
+                    nxt += 1
+                yield b
+                del b
+        finally:
+            for f in futs:
+                if f is not None:
+                    f.cancel()
+            pool.shutdown(wait=True, cancel_futures=True)
+
+    def parse_split(self, b):
+        """Launch the chain and key kernels over one split's record stream.
+
+        Returns ``(keys, unmapped, meta)`` tensors on the device (``meta`` =
+        ``[count, ok]`` of the walk), or None for an empty split.  The
+        stream is a view of the resident window when the batch has one;
+        otherwise the host bytes are uploaded (counted).  Nothing waits on
+        the device."""
+        n_i = b.n_records
+        if n_i == 0:
+            return None
+        rec_off = b.soa["rec_off"]
+        s0 = int(rec_off[0]) - 4
+        s1 = int(rec_off[-1] + b.soa["rec_len"][-1])
+        dd = b.device_data
+        if dd is not None:
+            stream = dd[s0:s1]
+            self.metrics.count("sort_bam.device_parse_residency")
+        elif self.device.type == "cuda":
+            stream = torch.from_numpy(np.ascontiguousarray(b.data[s0:s1])).to(self.device)
+            self.metrics.count("device_stream.uploaded_windows")
+            self.metrics.count_h2d(s1 - s0, "parse_stream")
+        else:
+            stream = torch.from_numpy(np.ascontiguousarray(b.data[s0:s1]))
+        return decode.keys_from_stream_device(stream, s1 - s0, n_i)

@@ -1,0 +1,410 @@
+"""BAM input format: split planning, split reading, part writing.
+
+Counterpart of ``hadoop_bam_tpu/io/bam.py`` for the in-core coordinate sort:
+``BamInputFormat.get_splits`` (``.splitting-bai`` index, else the split
+guesser; the ``.bai`` splitter and interval traversal are later work),
+``read_split`` with the strict path of ``read_virtual_range`` (batched
+member inflate on the device or the host, spill blocks for a tail record,
+the host chain walk, the split's resident window), ``RecordBatch``,
+``ChunkedRecords``, ``gather_record_array`` and the host branch of
+``write_part_fast``.  Only local paths are read.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..conf import BAM_BOUNDED_TRAVERSAL, BAM_ENABLE_BAI_SPLITTER, Configuration
+from ..spec import bam, bgzf, indices
+from .guesser import BamSplitGuesser
+from .splits import FileVirtualSplit
+
+SPLITTING_BAI_EXT = indices.SPLITTING_BAI_EXT
+DEFAULT_SPLIT_SIZE = 4 << 20
+
+#: The columns the sort needs: key inputs + record extents.
+SORT_FIELDS = ("refid", "pos", "flag", "rec_off", "rec_len")
+
+
+@dataclass
+class RecordBatch:
+    """A decoded split: SoA fixed fields, the record stream, host keys.
+
+    Record i's body is ``data[soa['rec_off'][i] : + soa['rec_len'][i]]``.
+    ``device_data``, when set, is a uint8 tensor on the device holding the
+    same bytes as ``data`` — the inflate kernel's output left resident for
+    the chain kernel."""
+
+    soa: dict
+    data: np.ndarray
+    keys: np.ndarray
+    device_data: Optional[object] = None
+
+    @property
+    def n_records(self) -> int:
+        off = self.soa.get("rec_off")
+        return len(off) if off is not None else len(self.keys)
+
+
+@dataclass
+class ChunkedRecords:
+    """Several batches as one, without copying their payloads: record r
+    lives at ``chunks[chunk_id[r]][rec_off[r] - 4 : rec_off[r] + rec_len[r]]``."""
+
+    chunks: List[np.ndarray]
+    chunk_id: np.ndarray
+    soa: dict
+
+    @property
+    def n_records(self) -> int:
+        return len(self.soa["rec_off"])
+
+    @classmethod
+    def from_batches(cls, batches: Sequence[RecordBatch]) -> "ChunkedRecords":
+        if not batches:
+            return cls([], np.empty(0, np.int32), {
+                "rec_off": np.empty(0, np.int64), "rec_len": np.empty(0, np.int64)})
+        return cls(
+            chunks=[b.data for b in batches],
+            chunk_id=np.concatenate(
+                [np.full(b.n_records, i, dtype=np.int32) for i, b in enumerate(batches)]
+            ),
+            soa={
+                k: np.concatenate([b.soa[k] for b in batches])
+                for k in ("rec_off", "rec_len")
+            },
+        )
+
+
+def splitting_bai_path(path: str) -> str:
+    return path + SPLITTING_BAI_EXT
+
+
+def _read_range(path: str, start: int, length: int) -> bytearray:
+    """``length`` bytes from ``start`` (fewer at EOF), in a writable buffer
+    so tensors can be made from it without a copy."""
+    buf = bytearray(length)
+    with open(path, "rb") as f:
+        f.seek(start)
+        n = f.readinto(buf)
+    del buf[n:]
+    return buf
+
+
+def _read_header(data) -> Tuple[bam.BamHeader, int]:
+    """Header + the virtual offset of the first record."""
+    r = bgzf.BgzfReader(data)
+    hdr = bam.read_header_stream(r)
+    return hdr, r.tell_voffset()
+
+
+def read_header_voffset(path: str) -> Tuple[bam.BamHeader, int]:
+    """Header + first-record virtual offset, reading the file in growing
+    prefixes."""
+    size = os.path.getsize(path)
+    chunk = 1 << 20
+    while True:
+        try:
+            return _read_header(_read_range(path, 0, chunk))
+        except (bgzf.BgzfError, bam.BamError):
+            if chunk >= size:
+                raise
+            chunk *= 8
+
+
+def read_header(path: str) -> bam.BamHeader:
+    return read_header_voffset(path)[0]
+
+
+class BamInputFormat:
+    """Split planning + split reading for BAM files."""
+
+    def __init__(self, conf: Optional[Configuration] = None):
+        self.conf = conf or Configuration()
+
+    def get_splits(
+        self, paths: Sequence[str], split_size: int = DEFAULT_SPLIT_SIZE
+    ) -> List[FileVirtualSplit]:
+        if self.conf.get_boolean(BAM_BOUNDED_TRAVERSAL):
+            raise NotImplementedError(
+                "interval traversal is not ported yet (ROADMAP A.3)"
+            )
+        splits: List[FileVirtualSplit] = []
+        for path in sorted(paths):
+            splits.extend(self._splits_for_file(path, split_size))
+        return splits
+
+    def _splits_for_file(self, path: str, split_size: int) -> List[FileVirtualSplit]:
+        size = os.path.getsize(path)
+        byte_splits = [(s, min(s + split_size, size)) for s in range(0, size, split_size)]
+        if not byte_splits:
+            return []
+        idx_path = splitting_bai_path(path)
+        if os.path.exists(idx_path):
+            try:
+                idx = indices.SplittingBai.load(idx_path)
+                if idx.bam_size() != size:
+                    raise IOError("splitting-bai does not match file size")
+                return self._indexed_splits(path, byte_splits, idx)
+            except IOError:
+                pass  # a bad index: plan with the guesser
+        if self.conf.get_boolean(BAM_ENABLE_BAI_SPLITTER):
+            raise NotImplementedError(".bai split planning is not ported yet (ROADMAP A.3)")
+        return self._probabilistic_splits(path, byte_splits)
+
+    def _indexed_splits(self, path, byte_splits, idx) -> List[FileVirtualSplit]:
+        if idx.size() == 1:
+            return []  # no alignments
+        out: List[FileVirtualSplit] = []
+        for j, (start, end) in enumerate(byte_splits):
+            vstart = idx.next_alignment(start)
+            if j == len(byte_splits) - 1:
+                prev = idx.prev_alignment(end)
+                vend = None if prev is None else prev | 0xFFFF
+            else:
+                vend = idx.next_alignment(end)
+            if vstart is None or vend is None:
+                return self._probabilistic_splits(path, byte_splits)
+            if vstart < vend:
+                out.append(FileVirtualSplit(path, vstart, vend))
+        return out
+
+    def _probabilistic_splits(self, path, byte_splits) -> List[FileVirtualSplit]:
+        with open(path, "rb") as f:
+            data = f.read()
+        hdr, _ = _read_header(data)
+        guesser = BamSplitGuesser(data, hdr.n_refs)
+        out: List[FileVirtualSplit] = []
+        for beg, end in byte_splits:
+            aligned_beg = guesser.guess_next_record_start(beg, end)
+            aligned_end = (end << 16) | 0xFFFF
+            if aligned_beg == end:
+                if not out:
+                    raise IOError(
+                        f"'{path}': no reads in first split: bad BAM file or "
+                        "tiny split size?"
+                    )
+                out[-1].vend = aligned_end
+            else:
+                out.append(FileVirtualSplit(path, aligned_beg, aligned_end))
+        return out
+
+    def read_split(
+        self,
+        split: FileVirtualSplit,
+        fields: Optional[Sequence[str]] = None,
+        with_keys: bool = True,
+        stream=None,
+    ) -> RecordBatch:
+        """Inflate the split's members and decode its records as one batch.
+
+        Only the split's byte window (plus a margin for a tail record that
+        spills past it) is read; the margin widens until the tail fits.
+        With a :class:`~hadoop_bam_tpu_torch.device_stream.DeviceStream`
+        whose policy has inflate on, members inflate on its device."""
+        size = os.path.getsize(split.path)
+        cstart = min(split.vstart >> 16, size)
+        cend = min(split.vend >> 16, size)
+        margin = 4 << 20
+        while True:
+            end_byte = min(cend + margin, size)
+            window = _read_range(split.path, cstart, end_byte - cstart)
+            at_eof = end_byte >= size
+            shift = cstart << 16
+            try:
+                return read_virtual_range(
+                    window, split.vstart - shift, split.vend - shift,
+                    with_keys=with_keys, fields=fields, stream=stream,
+                )
+            except (bam.BamError, bgzf.BgzfError):
+                if at_eof:
+                    raise
+                margin *= 4
+
+
+def _empty_soa(fields: Optional[Sequence[str]] = None) -> dict:
+    return {
+        k: np.empty(0, dtype=np.int64)
+        for k in (bam.SOA_FIELDS if fields is None else fields)
+    }
+
+
+def read_virtual_range(
+    data: bytes,
+    vstart: int,
+    vend: int,
+    with_keys: bool = True,
+    fields: Optional[Sequence[str]] = None,
+    stream=None,
+) -> RecordBatch:
+    """Decode all records whose start voffset lies in ``[vstart, vend)``.
+
+    Members from ``vstart >> 16`` through the one holding ``vend`` inflate
+    in one batch; the record chain is walked from ``vstart & 0xffff``;
+    records at or past ``vend`` are cut off, and a record spanning past the
+    window pulls in spill members, inflated on the host.  The device copy
+    of the window is kept as the batch's ``device_data`` only when it is
+    exact: no spill member was needed (tier-downs already drop it)."""
+    if fields is not None and with_keys:
+        fields = tuple(dict.fromkeys(tuple(fields) + SORT_FIELDS))
+    if vstart >= vend:
+        return RecordBatch(
+            soa=_empty_soa(fields), data=np.empty(0, np.uint8), keys=np.empty(0, np.int64)
+        )
+    file_end = len(data)
+    cstart = vstart >> 16
+    cend = min(vend >> 16, file_end)
+
+    co_l: List[int] = []
+    cs_l: List[int] = []
+    us_l: List[int] = []
+    pos = cstart
+    while pos < file_end and pos <= cend:
+        csize, usize = bgzf.read_block_at(data, pos)
+        co_l.append(pos)
+        cs_l.append(csize)
+        us_l.append(usize)
+        pos += csize
+    spill_pos = pos
+
+    dev = None
+    if stream is not None and stream.policy.inflate_lanes:
+        out, offs, dev = stream.decode_members(data, co_l, cs_l, us_l)
+    else:
+        out, offs = bgzf.inflate_blocks(data, co_l, cs_l, us_l)
+    buf = out
+    plen = len(out)
+    uoffs_l: List[int] = [int(x) for x in offs[:-1]]
+    voffs_l: List[int] = list(co_l)
+    usize_l: List[int] = list(us_l)
+
+    up0 = vstart & 0xFFFF
+    if up0 > (us_l[0] if us_l else 0):
+        raise bgzf.BgzfError("vstart uoffset beyond block payload")
+
+    def spill_one() -> bool:
+        nonlocal spill_pos, buf, plen
+        if spill_pos >= file_end:
+            return False
+        csize, usize = bgzf.read_block_at(data, spill_pos)
+        sp_out, _ = bgzf.inflate_blocks(data, [spill_pos], [csize], [usize])
+        if plen + usize > len(buf):
+            grown = np.empty(max(2 * len(buf), plen + usize), dtype=np.uint8)
+            grown[:plen] = buf[:plen]
+            buf = grown
+        buf[plen : plen + usize] = sp_out
+        uoffs_l.append(plen)
+        voffs_l.append(spill_pos)
+        usize_l.append(usize)
+        plen += usize
+        spill_pos += csize
+        return True
+
+    # The payload offset equivalent to "record voffset >= vend".
+    vc = vend >> 16
+    if vc >= file_end or not voffs_l:
+        vend_off = None  # the last split takes everything
+    else:
+        bi = max(0, int(np.searchsorted(voffs_l, vc, side="right")) - 1)
+        if voffs_l[bi] == vc:
+            vend_off = uoffs_l[bi] + min(vend & 0xFFFF, usize_l[bi])
+        else:
+            vend_off = uoffs_l[bi] + usize_l[bi]
+
+    # The host chain walk; a tail record past the window pulls in spill
+    # members and resumes.
+    rec_parts: List[np.ndarray] = []
+    p = uoffs_l[0] + up0 if uoffs_l else 0
+    while True:
+        offs_k, resume = bam.record_chain_partial(buf, p, plen)
+        k = int(np.searchsorted(offs_k, vend_off, side="left")) if vend_off is not None else len(offs_k)
+        rec_parts.append(offs_k[:k])
+        if k < len(offs_k):
+            break
+        if vend_off is not None and resume >= vend_off:
+            break
+        if resume + 4 <= plen:
+            if not spill_one():
+                raise bam.BamError("truncated record at end of file")
+        elif spill_pos < file_end:
+            spill_one()
+        else:
+            break  # <= 3 trailing bytes at EOF
+        p = resume
+
+    arr = buf[:plen]
+    offsets = np.concatenate(rec_parts) if rec_parts else np.empty(0, dtype=np.int64)
+    soa = bam.soa_decode(arr, offsets, fields=fields) if len(offsets) else _empty_soa(fields)
+    keys = (
+        bam.soa_keys(soa, arr)
+        if with_keys and len(soa["rec_off"])
+        else np.empty(0, dtype=np.int64)
+    )
+    device_data = None
+    if dev is not None and plen == len(out):
+        device_data = stream.attach_window(dev)
+    return RecordBatch(soa=soa, data=arr, keys=keys, device_data=device_data)
+
+
+def gather_record_array(batch, order: Optional[np.ndarray] = None) -> np.ndarray:
+    """Size word + body of every record, permuted by ``order``."""
+    soa = batch.soa
+    if len(soa["rec_off"]) == 0:
+        return np.empty(0, np.uint8)
+    if isinstance(batch, ChunkedRecords):
+        views = [memoryview(c) for c in batch.chunks]
+        cid = batch.chunk_id
+    else:
+        views = [memoryview(batch.data)]
+        cid = np.zeros(len(soa["rec_off"]), dtype=np.int32)
+    off = np.asarray(soa["rec_off"], dtype=np.int64)
+    end = off + np.asarray(soa["rec_len"], dtype=np.int64)
+    if order is not None:
+        order = np.asarray(order, dtype=np.int64)
+        cid, off, end = cid[order], off[order], end[order]
+    pieces = [
+        views[c][s - 4 : e] for c, s, e in zip(cid.tolist(), off.tolist(), end.tolist())
+    ]
+    return np.frombuffer(b"".join(pieces), dtype=np.uint8)
+
+
+def write_part_fast(
+    out,
+    batch,
+    order: Optional[np.ndarray] = None,
+    level: int = 6,
+    splitting_bai_stream=None,
+    granularity: int = indices.DEFAULT_GRANULARITY,
+    threads: Optional[int] = None,
+) -> int:
+    """Write a headerless, terminator-less part: record gather, then BGZF
+    members every ``MAX_PAYLOAD`` bytes.  The ``.splitting-bai`` offsets
+    follow from the fixed blocking.  Returns the bytes written."""
+    payload = gather_record_array(batch, order)
+    block_payload = bgzf.MAX_PAYLOAD
+    blob, sizes = bgzf.deflate_blocks(
+        payload, level=level, threads=threads, block_payload=block_payload
+    )
+    out.write(blob)
+    if splitting_bai_stream is not None:
+        ln = batch.soa["rec_len"].astype(np.int64) + 4
+        if order is not None:
+            ln = ln[order]
+        logical = np.cumsum(ln) - ln
+        co = np.cumsum(sizes) - sizes
+        bi = logical // block_payload
+        voffs = (co[bi] << 16) | (logical % block_payload)
+        n = len(voffs)
+        pick = np.zeros(n, dtype=bool)
+        if n:
+            pick[0] = True
+            pick |= (np.arange(n) + 1) % granularity == 0
+        b = indices.SplittingBaiBuilder(granularity)
+        b.voffsets = [int(v) for v in voffs[pick]]
+        b.count = n
+        b.finish(len(blob)).save(splitting_bai_stream)
+    return len(blob)

@@ -1,0 +1,68 @@
+"""Post-job merge: headerless parts → one BAM (+ merged ``.splitting-bai``).
+
+Counterpart of ``hadoop_bam_tpu/io/merger.py`` (util/SAMFileMerger.java
+semantics): require the ``_SUCCESS`` marker, take ``part-[mr]-NNNNN`` in
+order, write the header block, append the parts untouched and the BGZF
+terminator, and merge the per-part indices by shifting their offsets.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import shutil
+from typing import List
+
+from ..spec import bam, bgzf, indices
+
+SUCCESS_MARKER = "_SUCCESS"
+_PART_RE = re.compile(r"^part-[mr]-\d{5}.*$")
+
+
+def list_parts(directory: str) -> List[str]:
+    """Sorted part files, their ``.splitting-bai`` companions excluded."""
+    return sorted(
+        os.path.join(directory, x)
+        for x in os.listdir(directory)
+        if _PART_RE.match(x) and not x.endswith(indices.SPLITTING_BAI_EXT)
+    )
+
+
+def prepare_bam_header_block(header: bam.BamHeader, level: int = 6) -> bytes:
+    """The leading BGZF members holding magic, header text and refs, a
+    member every ``MAX_PAYLOAD`` bytes (the reference's ``BgzfWriter``)."""
+    return bgzf.deflate_blocks(header.encode(), level=level)[0]
+
+
+def merge_bam_parts(
+    part_dir: str,
+    out_path: str,
+    header: bam.BamHeader,
+    write_splitting_bai: bool = False,
+) -> None:
+    if not os.path.exists(os.path.join(part_dir, SUCCESS_MARKER)):
+        raise FileNotFoundError(
+            f"no {SUCCESS_MARKER} marker in {part_dir}: job output incomplete"
+        )
+    parts = list_parts(part_dir)
+    header_block = prepare_bam_header_block(header)
+    part_lengths: List[int] = []
+    with open(out_path, "wb") as out:
+        out.write(header_block)
+        for p in parts:
+            with open(p, "rb") as f:
+                shutil.copyfileobj(f, out, 4 << 20)
+            part_lengths.append(os.path.getsize(p))
+        out.write(bgzf.TERMINATOR)
+    if not write_splitting_bai:
+        return
+    idx_paths = [p + indices.SPLITTING_BAI_EXT for p in parts]
+    if parts and all(os.path.exists(p) for p in idx_paths):
+        with open(out_path + indices.SPLITTING_BAI_EXT, "wb") as f:
+            indices.merge_splitting_bais(
+                [indices.SplittingBai.load(p) for p in idx_paths],
+                part_lengths,
+                header_length=len(header_block),
+                total_length=os.path.getsize(out_path),
+                out=f,
+            )

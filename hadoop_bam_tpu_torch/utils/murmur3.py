@@ -1,0 +1,109 @@
+"""MurmurHash3_x64_128 (first 64 bits) with the reference's exact semantics,
+vectorized over ragged slices of one byte buffer.
+
+Counterpart of ``hadoop_bam_tpu/utils/murmur3.py``
+(``murmurhash3_int32_batch``).  The reference (util/MurmurHash3.java) keeps
+one quirk in its mixing loop — the right-shift operand is h1 where canonical
+murmur reads h2 — and this copy keeps it too, because the hashes become
+the sort keys of unmapped reads (BAMRecordReader.java:97-110).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_M = (1 << 64) - 1
+#: The x64_128 mixing constants.
+C1 = 0x87C37B91114253D5
+C2 = 0x4CF5AD432745937F
+
+_C1_U = np.uint64(C1)
+_C2_U = np.uint64(C2)
+
+
+def _rotl_vec(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+
+def _fmix_vec(k: np.ndarray) -> np.ndarray:
+    k = k ^ (k >> np.uint64(33))
+    k = k * np.uint64(0xFF51AFD7ED558CCD)
+    k = k ^ (k >> np.uint64(33))
+    k = k * np.uint64(0xC4CEB9FE1A85EC53)
+    return k ^ (k >> np.uint64(33))
+
+
+def _mix_vec(h1, h2, k1, k2):
+    k1 = _rotl_vec(k1 * _C1_U, 31) * _C2_U
+    h1 = h1 ^ k1
+    h1 = _rotl_vec(h1, 27) + h2
+    h1 = h1 * np.uint64(5) + np.uint64(0x52DCE729)
+    k2 = _rotl_vec(k2 * _C2_U, 33) * _C1_U
+    h2 = h2 ^ k2
+    # Reference quirk preserved: the right-shift operand is h1, not h2.
+    h2 = ((h2 << np.uint64(31)) | (h1 >> np.uint64(33))) + h1
+    h2 = h2 * np.uint64(5) + np.uint64(0x38495AB5)
+    return h1, h2
+
+
+def murmurhash3_int32_batch(
+    data: np.ndarray, offs: np.ndarray, lens: np.ndarray, seed: int = 0
+) -> np.ndarray:
+    """Vectorized :func:`murmurhash3_int32` over ragged buffer slices.
+
+    Hashes ``data[offs[i] : offs[i] + lens[i]]`` for every row in one
+    numpy pass (uint64 wrap-around arithmetic; one ``_mix`` round per
+    16-byte block index, rows masked once past their own length).
+    Bit-exact with the scalar path, including the reference's h1/h2 mixing
+    quirk and Java's implicit ``(int)`` truncation of the result.
+    """
+    offs = np.asarray(offs, dtype=np.int64)
+    lens = np.asarray(lens, dtype=np.int64)
+    n = len(offs)
+    if n == 0:
+        return np.zeros(0, dtype=np.int32)
+    maxlen = int(lens.max()) if n else 0
+    # Pad to whole 16-byte blocks plus one spare block so a row whose
+    # length is an exact multiple still has an (all-zero) tail window.
+    W = ((max(maxlen, 0) + 15) // 16) * 16 + 16
+    col = np.arange(W, dtype=np.int64)[None, :]
+    idx = offs[:, None] + col
+    valid = col < lens[:, None]
+    m = np.where(
+        valid, np.asarray(data)[np.clip(idx, 0, len(data) - 1)], 0
+    ).astype(np.uint8)
+    # Little-endian 8-byte words per row (explicit assembly: endianness-
+    # independent, unlike a raw .view).
+    shifts = (np.uint64(8) * np.arange(8, dtype=np.uint64))[None, None, :]
+    w64 = (m.reshape(n, W // 8, 8).astype(np.uint64) << shifts).sum(
+        axis=2, dtype=np.uint64
+    )
+    nblocks = (lens // 16).astype(np.int64)
+    h1 = np.full(n, np.uint64(seed & _M))
+    h2 = np.full(n, np.uint64(seed & _M))
+    for i in range(int(nblocks.max()) if n else 0):
+        act = i < nblocks
+        nh1, nh2 = _mix_vec(h1, h2, w64[:, 2 * i], w64[:, 2 * i + 1])
+        h1 = np.where(act, nh1, h1)
+        h2 = np.where(act, nh2, h2)
+    # Tail (last <16 bytes): the padded matrix is zero past each row's
+    # length, so the tail words need no per-byte masking.
+    toff = (nblocks * 2).astype(np.int64)
+    tk1 = np.take_along_axis(w64, toff[:, None], axis=1)[:, 0]
+    tk2 = np.take_along_axis(w64, toff[:, None] + 1, axis=1)[:, 0]
+    tn = lens & 15
+    k2v = _rotl_vec(tk2 * _C2_U, 33) * _C1_U
+    h2 = np.where(tn > 8, h2 ^ k2v, h2)
+    # Rows with 0 < tn <= 8 must hash only tn bytes into k1; w64 already
+    # zero-pads, so tk1 is exactly int.from_bytes(tail[:min(tn,8)], "le").
+    k1v = _rotl_vec(tk1 * _C1_U, 31) * _C2_U
+    h1 = np.where(tn > 0, h1 ^ k1v, h1)
+    ulen = lens.astype(np.uint64)
+    h1 = h1 ^ ulen
+    h2 = h2 ^ ulen
+    h1 = h1 + h2
+    h2 = h2 + h1
+    h1 = _fmix_vec(h1)
+    h2 = _fmix_vec(h2)
+    h1 = h1 + h2
+    return (h1 & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)

@@ -1,0 +1,147 @@
+"""Rules of the PyTorch port: it imports nothing of JAX or of the JAX
+package, it runs on the card unless told otherwise, it carries the same
+constant tables, and what it has not ported yet raises."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any import of jax now fails
+import hadoop_bam_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = [m for m in sys.modules if m == "hadoop_bam_tpu" or m.startswith("hadoop_bam_tpu.")]
+assert not bad, bad
+assert len(names) >= 20, names
+print("ok", len(names))
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("ok")
+
+
+def test_sort_bam_without_device_raises_when_no_card(tmp_path, monkeypatch):
+    from hadoop_bam_tpu_torch import pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.sort_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.sort_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"), device="cuda")
+
+
+def _cu_table(src: str, name: str) -> list:
+    m = re.search(name + r"\[\d+\] = \{([^}]*)\}", src)
+    return [int(x) for x in m.group(1).replace("\n", " ").split(",") if x.strip()]
+
+
+def test_constant_tables_equal_the_reference():
+    from hadoop_bam_tpu.ops import flate as jflate
+    from hadoop_bam_tpu.ops.pallas.crc32 import CRC_TABLES
+    from hadoop_bam_tpu.utils import murmur3 as jm
+    from hadoop_bam_tpu_torch.ops import flate as tflate
+    from hadoop_bam_tpu_torch.utils import murmur3 as tm
+
+    cu = (REPO / "hadoop_bam_tpu_torch" / "csrc" / "inflate.cu").read_text()
+    for py, c in (("LEN_BASE", "kLenBase"), ("LEN_EXTRA", "kLenExtra"),
+                  ("DIST_BASE", "kDistBase"), ("DIST_EXTRA", "kDistExtra"),
+                  ("CLC_ORDER", "kClcOrder")):
+        ref = getattr(jflate, py)
+        assert np.array_equal(getattr(tflate, py), ref), py
+        assert _cu_table(cu, c) == [int(x) for x in ref], c
+    assert np.array_equal(tflate.CRC32_TABLE, CRC_TABLES[0])
+    assert (tm.C1, tm.C2) == (jm._C1, jm._C2)
+
+
+def test_reference_conf_dict_drives_both_packages():
+    from hadoop_bam_tpu import conf as jconf
+    from hadoop_bam_tpu_torch import conf as tconf
+
+    d = {jconf.INFLATE_LANES: "on", jconf.BAM_WRITE_SPLITTING_BAI: "yes",
+         jconf.READ_DEPTH: "3", jconf.DEFLATE_LANES: "off"}
+    a, b = jconf.Configuration(d), tconf.from_reference_conf(d)
+    for key in ("INFLATE_LANES", "BAM_WRITE_SPLITTING_BAI", "DEFLATE_LANES",
+                "WRITE_DEVICE", "READ_DEPTH", "BAM_MARK_DUPLICATES", "BAM_SORT_ORDER",
+                "ERRORS_MODE", "BAM_BOUNDED_TRAVERSAL", "BAM_ENABLE_BAI_SPLITTER"):
+        k = getattr(tconf, key)
+        assert k == getattr(jconf, key)
+        assert a.get_boolean(k) == b.get_boolean(k)
+        assert a.get_int(k, -1) == b.get_int(k, -1)
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        {"memory_budget": 1 << 20},
+        {"mark_duplicates": True},
+        {"sort_order": "queryname"},
+        {"mesh": object()},
+        {"distributed": object()},
+        {"errors": "salvage"},
+        {"conf": {"hadoopbam.deflate.lanes": "true"}},
+        {"conf": {"hadoopbam.write.device": "true"}},
+        {"conf": {"hadoopbam.bam.mark-duplicates": "true"}},
+    ],
+    ids=["memory_budget", "mark_duplicates", "queryname", "mesh", "distributed",
+         "salvage", "conf_deflate_lanes", "conf_device_write", "conf_mark_duplicates"],
+)
+def test_options_outside_the_slice_raise(tmp_path, kwargs):
+    from hadoop_bam_tpu_torch import pipeline
+    from hadoop_bam_tpu_torch.conf import Configuration
+
+    kw = dict(kwargs)
+    if "conf" in kw:
+        kw["conf"] = Configuration(kw["conf"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pipeline.sort_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"),
+                          device="cpu", **kw)
+
+
+def test_stream_policy_gates(monkeypatch):
+    from hadoop_bam_tpu_torch.conf import INFLATE_LANES, Configuration
+    from hadoop_bam_tpu_torch.device_stream import StreamPolicy
+
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    monkeypatch.delenv("HBAM_INFLATE_LANES", raising=False)
+    assert StreamPolicy.resolve(None, cuda).inflate_lanes  # the auto rule on a card
+    assert not StreamPolicy.resolve(None, cpu).inflate_lanes
+    assert StreamPolicy.resolve(Configuration({INFLATE_LANES: "true"}), cpu).inflate_lanes
+    monkeypatch.setenv("HBAM_INFLATE_LANES", "0")
+    assert not StreamPolicy.resolve(Configuration({INFLATE_LANES: "true"}), cuda).inflate_lanes
+    assert StreamPolicy.resolve(None, cuda).depth == 2
+    monkeypatch.setenv("HBAM_READ_DEPTH", "5")
+    assert StreamPolicy.resolve(None, cpu).depth == 5
+
+
+def test_plain_versions_do_not_count_launches():
+    from hadoop_bam_tpu_torch.ops.kernels import chain as kch
+    from hadoop_bam_tpu_torch.ops.kernels import inflate as kin
+
+    before = (kin.LAUNCHES.value, kch.WALK_LAUNCHES.value, kch.KEYS_LAUNCHES.value)
+    s = torch.zeros(0, dtype=torch.uint8)
+    offs, meta = kch.record_chain(s, 0)
+    kch.stream_keys(s, 0, offs, meta, 0)
+    assert (kin.LAUNCHES.value, kch.WALK_LAUNCHES.value, kch.KEYS_LAUNCHES.value) == before
+
+
+def test_mixed_devices_raise():
+    from hadoop_bam_tpu_torch.ops.kernels import use_plain
+
+    with pytest.raises(ValueError):
+        use_plain(torch.zeros(1), torch.zeros(1, device="meta"))
