@@ -6,11 +6,13 @@ Run on a machine with one NVIDIA H100:
 
 Phases: print the card; build the CUDA kernels from ``csrc/``; hold each
 kernel against its plain PyTorch version on the card (exact equality);
-drive ``sort_bam`` at full size on a synthetic BAM and hold its output
-byte for byte against the port's CPU run; time every kernel at the main
-path's shapes.  Any failure exits non-zero.  The last line of standard
-output is ``{"ok": true, "device": {...}}``; the line before it is the
-kernel table as JSON.  Imports neither JAX nor the JAX package.
+drive ``sort_bam`` at full size on a synthetic BAM with the default gates
+(every kernel on), with the write side's gates off (byte-identical to the
+port's CPU run) and with one resident split (byte-identical to the host
+gather + deflate lanes); time every kernel at the main path's shapes.
+Any failure exits non-zero.  The last line of standard output is
+``{"ok": true, "device": {...}}``; the line before it is the kernel table
+as JSON.  Imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -333,6 +335,135 @@ def check_chain(seed: int) -> dict:
     return {"max_abs_err": 0.0}
 
 
+def check_crc32(seed: int) -> dict:
+    """The CRC32 kernel against its plain version and zlib: empty, 1-byte,
+    word-boundary, unaligned, multi-member and full-size windows."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops.kernels import crc32 as kcrc
+
+    rng = np.random.default_rng(seed)
+    stream = rng.integers(0, 256, 3 * 0xDF00, dtype=np.uint8)
+    offs = np.array([0, 0, 10, 64, 100, 17, 2995, 0, 3, 0xDF00, 5], dtype=np.int64)
+    lens = np.array([0, 1, 4, 256, 123, 33, 5, 3000, 0xDF00, 0xDF00, 1], dtype=np.int64)
+    got = kcrc.crc32_device(torch.from_numpy(stream).cuda(), offs, lens).cpu()
+    plain = kcrc.crc32_device(torch.from_numpy(stream), offs, lens)
+    k = got.view(torch.int32).numpy().view(np.uint32).astype(np.int64)
+    p = plain.view(torch.int32).numpy().view(np.uint32).astype(np.int64)
+    want = np.array([zlib.crc32(stream[o : o + n].tobytes()) for o, n in zip(offs, lens)])
+    if not (np.array_equal(k, p) and np.array_equal(k, want)):
+        raise AssertionError(f"crc32 kernel {k} plain {p} zlib {want}")
+    log(f"crc32 kernel == plain == zlib: {len(offs)} windows, max_abs_err 0")
+    return {"max_abs_err": float(np.abs(k - p).max())}
+
+
+def check_gather(seed: int) -> dict:
+    """The gather kernel against its plain version and the host gather +
+    ``patch_flags``, on a permuted record stream with a duplicate mask."""
+    import torch
+
+    from hadoop_bam_tpu_torch.io.bam import RecordBatch, gather_record_array, patch_flags
+    from hadoop_bam_tpu_torch.ops.kernels import gather as kg
+    from hadoop_bam_tpu_torch.spec import bam
+
+    rng = np.random.default_rng(seed)
+    s = chain_stream(seed)
+    offs, _ = bam.record_chain_partial(s, 0, len(s))
+    soa = bam.soa_decode(s, offs)
+    order = rng.permutation(len(offs))
+    dup = rng.random(len(offs)) < 0.3
+    src = (soa["rec_off"] - 4)[order]
+    ln = (soa["rec_len"] + 4)[order]
+    host = gather_record_array(RecordBatch(soa=soa, data=s, keys=np.empty(0)), order).copy()
+    patch_flags(host, (np.cumsum(ln) - ln)[dup[order]])
+    k, total = kg.gather_stream_device(torch.from_numpy(s).cuda(), src, ln, dup_mask=dup[order])
+    p, _ = kg.gather_stream_device(torch.from_numpy(s), src, ln, dup_mask=dup[order])
+    k = k.cpu().numpy()
+    if not (total == len(host) and np.array_equal(k, p.numpy()) and np.array_equal(k, host)):
+        raise AssertionError("gather kernel differs from plain / host gather")
+    log(f"gather kernel == plain == host gather + patch_flags: {len(offs)} records, "
+        f"{int(dup.sum())} marked, max_abs_err 0")
+    return {"max_abs_err": float(np.count_nonzero(k != p.numpy()))}
+
+
+def deflate_corpus(seed: int) -> list:
+    """The reference's edge cases: empty, 3 bytes, zero runs, random bytes,
+    BAM records, a member exactly at a chunk multiple, full-size members."""
+    rng = np.random.default_rng(seed)
+    s = chain_stream(seed).tobytes()
+    synth = synth_records(0, 210, rng).reshape(-1).tobytes()
+    return [
+        b"", b"ACG", b"\0" * 480, b"\0" * 20000,
+        bytes(rng.integers(0, 256, 400, dtype=np.uint8)),
+        bytes(rng.integers(0, 4, 3000, dtype=np.uint8)),
+        s[:500], s[1000:9192], (b"part-write-cap!!" * 1024)[:8192],
+        synth[:0xDF00], synth[5:5 + 0xDF00], bytes(rng.integers(0, 256, 0xDF00, dtype=np.uint8)),
+    ]
+
+
+def _deflate_both(payloads, **kw):
+    import torch
+
+    from hadoop_bam_tpu_torch.ops.kernels import deflate as kd
+
+    P = max(1, max(len(p) for p in payloads))
+    mat = np.zeros((len(payloads), P), dtype=np.uint8)
+    for i, p in enumerate(payloads):
+        mat[i, : len(p)] = np.frombuffer(p, dtype=np.uint8)
+    lens = np.array([len(p) for p in payloads], dtype=np.int64)
+    k = [t.cpu().numpy() for t in kd.deflate_lanes(torch.from_numpy(mat).cuda(), lens, **kw)]
+    p = [t.numpy() for t in kd.deflate_lanes(torch.from_numpy(mat), lens, **kw)]
+    return k, p
+
+
+def check_deflate_rows(payloads, comp, clens, ok, what: str) -> None:
+    """Every accepted row decodes to its payload through zlib and through
+    the port's inflate kernel."""
+    rows = [comp[i, : clens[i]].tobytes() for i in range(len(payloads)) if ok[i]]
+    want = [p for i, p in enumerate(payloads) if ok[i]]
+    for i, (c, p) in enumerate(zip(rows, want)):
+        d = zlib.decompressobj(-15)
+        if d.decompress(c) != p or not d.eof:
+            raise AssertionError(f"{what}: row {i} does not inflate to its payload (zlib)")
+    from hadoop_bam_tpu_torch.ops.kernels import inflate as kin
+
+    args = pack_members(rows, [len(p) for p in want], "cuda")
+    meta = kin.inflate_members(*args).cpu().numpy()
+    out = args[5].cpu().numpy()
+    oo = args[3].cpu().numpy()
+    for i, p in enumerate(want):
+        o = int(oo[i])
+        if not (meta[i, 1] == 1 and out[o : o + len(p)].tobytes() == p):
+            raise AssertionError(f"{what}: row {i} does not inflate to its payload (kernel)")
+
+
+def check_deflate(seed: int) -> dict:
+    """The deflate kernel against its plain version (rows, clens, ok), at
+    the default chunk and at chunk_bytes=512 (narrower hash heads), with a
+    max_clen decline; every row through zlib and the inflate kernel."""
+    payloads = deflate_corpus(seed)
+    bad = 0
+    clens = None
+    for kw in ({}, {"max_clen": 2000}):
+        (kc, kl, ko), (pc, pl, po) = _deflate_both(payloads, **kw)
+        clens = kl if clens is None else clens
+        if not (np.array_equal(kl, pl) and np.array_equal(ko, po) and np.array_equal(kc, pc)):
+            raise AssertionError(f"deflate kernel differs from plain ({kw})")
+        bad += int(np.count_nonzero(kc != pc))
+        if not kw and not ko.all():
+            raise AssertionError(f"deflate declined accepted members: {ko}")
+        check_deflate_rows(payloads, kc, kl, ko, f"deflate {kw}")
+    small = [p for p in payloads if len(p) <= 9000]
+    (kc, kl, ko), (pc, pl, po) = _deflate_both(small, chunk_bytes=512)
+    if not (np.array_equal(kl, pl) and np.array_equal(ko, po) and np.array_equal(kc, pc)):
+        raise AssertionError("deflate kernel differs from plain (chunk_bytes=512)")
+    check_deflate_rows(small, kc, kl, ko, "deflate chunk 512")
+    log(f"deflate kernel == plain: {len(payloads)} members (+{len(small)} at chunk 512), "
+        f"clens {clens.tolist()}; every row inflates through zlib and the inflate kernel, "
+        "max_abs_err 0")
+    return {"max_abs_err": float(bad)}
+
+
 # ---------------------------------------------------------------------------
 # The main path
 # ---------------------------------------------------------------------------
@@ -450,86 +581,244 @@ def record_digests(path: str):
     return b.keys, dig
 
 
-def launch_counts() -> dict:
+def _counters():
     from hadoop_bam_tpu_torch.ops.kernels import chain as kch
+    from hadoop_bam_tpu_torch.ops.kernels import crc32 as kcrc
+    from hadoop_bam_tpu_torch.ops.kernels import deflate as kd
+    from hadoop_bam_tpu_torch.ops.kernels import gather as kg
     from hadoop_bam_tpu_torch.ops.kernels import inflate as kin
 
-    return {c.name: c.value for c in (kin.LAUNCHES, kch.WALK_LAUNCHES, kch.KEYS_LAUNCHES)}
+    return (kin.LAUNCHES, kch.WALK_LAUNCHES, kch.KEYS_LAUNCHES, kd.LAUNCHES, kg.LAUNCHES,
+            kcrc.LAUNCHES)
+
+
+def launch_counts() -> dict:
+    return {c.name: c.value for c in _counters()}
 
 
 def reset_counts() -> None:
-    from hadoop_bam_tpu_torch.ops.kernels import chain as kch
-    from hadoop_bam_tpu_torch.ops.kernels import inflate as kin
-
-    for c in (kin.LAUNCHES, kch.WALK_LAUNCHES, kch.KEYS_LAUNCHES):
+    for c in _counters():
         c.reset()
 
 
-def main_path(work: str, n: int, seed: int) -> dict:
-    """Phases 5 and 6: sort a synthetic BAM on the card and on the CPU;
-    the outputs must be byte-identical, sorted, and hold the input's
-    records."""
+def bgzf_content(path: str) -> bytes:
+    """The decompressed bytes of a BGZF file (header, records, terminator)."""
+    from hadoop_bam_tpu_torch.spec import bgzf
+
+    with open(path, "rb") as f:
+        data = f.read()
+    co, cs, us = bgzf.scan_blocks(data)
+    out, _ = bgzf.inflate_blocks(data, co, cs, us)
+    return out.tobytes()
+
+
+def timed_sort(src: str, out: str, what: str, **kw):
+    """One ``sort_bam`` with the launch counts zeroed just before it and
+    read just after it."""
     import torch
 
-    from hadoop_bam_tpu_torch.conf import INFLATE_LANES, Configuration
     from hadoop_bam_tpu_torch.pipeline import sort_bam
+
+    reset_counts()
+    if kw.get("device") == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = sort_bam(src, out, **kw)
+    if kw.get("device") == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    c = st.counters
+    log(f"sort_bam({what}): {st.n_records} records, {st.n_splits} splits, backend "
+        f"{st.backend}, wall {wall:.3f} s, {st.n_records / wall:.0f} reads/s, "
+        f"{os.path.getsize(out)} bytes out")
+    log("  phases (s): " + json.dumps({k: round(v, 3) for k, v in st.seconds.items()}))
+    log(f"  launches: {json.dumps(launches)}")
+    log("  counters: " + json.dumps({k: v for k, v in sorted(c.items()) if v and (
+        k.startswith(("flate.", "bam.", "sort_bam.", "device_stream.")))}))
+    log("  transfers: " + json.dumps({k: v for k, v in c.items() if k.startswith("transfers.")}))
+    return st, wall, launches
+
+
+def main_path(work: str, n: int, seed: int) -> dict:
+    """Sort a synthetic BAM: (1) on the card with the default gates (every
+    kernel on), (2) on the card with the write gates off and (3) on the
+    CPU, byte-identical to (2), with (1)'s records equal to (3)'s; then
+    (4) with one resident split and the default gates (the device part
+    write), byte-identical to (5), the same split through host gather +
+    deflate lanes."""
+    from hadoop_bam_tpu_torch.conf import (DEFLATE_LANES, INFLATE_LANES, WRITE_DEVICE,
+                                            Configuration)
 
     src = os.path.join(work, "in.bam")
     t0 = time.perf_counter()
     size = synth_bam(src, n, seed)
     log(f"synthetic BAM: {n} records, {size} bytes, built in "
         f"{time.perf_counter() - t0:.1f} s")
-    conf = Configuration({INFLATE_LANES: "true"})
-    out_gpu = os.path.join(work, "sorted.cuda.bam")
-    out_cpu = os.path.join(work, "sorted.cpu.bam")
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st = sort_bam(src, out_gpu, conf=conf, device="cuda", device_parse=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = launch_counts()
+    out = {k: os.path.join(work, f"sorted.{k}.bam")
+           for k in ("lanes", "zlib", "cpu", "resident", "resident_host")}
+    # (1) The main path: sort_bam as a user calls it on the card.
+    st, wall, launches = timed_sort(src, out["lanes"], "cuda, default gates", device="cuda")
     c = st.counters
-    log(f"sort_bam(cuda): {st.n_records} records, {st.n_splits} splits, "
-        f"backend {st.backend}, wall {wall:.3f} s, {st.n_records / wall:.0f} reads/s")
-    log(f"  phases (s): " + json.dumps({k: round(v, 3) for k, v in st.seconds.items()}))
-    log(f"  launches: {json.dumps(launches)}")
-    log(f"  flate.lanes_tierdown {c.get('flate.lanes_tierdown', 0)}, members on the kernel "
-        f"{c.get('flate.inflate.lanes', 0)}, resident windows "
-        f"{c.get('sort_bam.device_parse_residency', 0)}, uploaded windows "
-        f"{c.get('device_stream.uploaded_windows', 0)}")
-    log(f"  h2d bytes {c.get('transfers.h2d_bytes', 0)}, d2h bytes "
-        f"{c.get('transfers.d2h_bytes', 0)}: " + json.dumps(
-            {k: v for k, v in c.items() if k.startswith("transfers.")}))
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    if c.get("flate.lanes_tierdown", 0) != 0:
+    missing = [k for k in ("inflate_members", "record_chain", "stream_keys", "deflate_members")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels of the main path never launched: {missing}")
+    if c.get("flate.lanes_tierdown", 0) or c.get("flate.deflate_lanes_tierdown", 0):
         raise AssertionError("members tiered down on clean input")
-    if st.n_records != n:
-        raise AssertionError(f"sorted {st.n_records} records of {n}")
-    t0 = time.perf_counter()
-    st_cpu = sort_bam(src, out_cpu, conf=conf, device="cpu", device_parse=True)
-    log(f"sort_bam(cpu): wall {time.perf_counter() - t0:.3f} s")
-    with open(out_gpu, "rb") as f:
+    if c.get("flate.deflate.lanes", 0) <= 0 or st.n_records != n:
+        raise AssertionError(f"sorted {st.n_records} of {n} records, "
+                             f"{c.get('flate.deflate.lanes', 0)} members on the lanes")
+    log(f"  bam.device_write_tierdown.no_residency "
+        f"{c.get('bam.device_write_tierdown.no_residency', 0)} of {st.n_splits} parts")
+    # (2), (3) The write side's gates off: parts through host zlib at level 6.
+    off = Configuration({INFLATE_LANES: "true", DEFLATE_LANES: "false", WRITE_DEVICE: "false"})
+    st_z, wall_z, _ = timed_sort(src, out["zlib"], "cuda, write gates off", conf=off,
+                                 device="cuda", device_parse=True)
+    st_cpu, wall_cpu, _ = timed_sort(src, out["cpu"], "cpu, write gates off", conf=off,
+                                     device="cpu", device_parse=True)
+    with open(out["zlib"], "rb") as f:
         a = f.read()
-    with open(out_cpu, "rb") as f:
+    with open(out["cpu"], "rb") as f:
         b = f.read()
     if a != b:
         raise AssertionError("cuda and cpu outputs differ")
-    log(f"cuda output == cpu output: {len(a)} bytes")
-    keys_out, dig_out = record_digests(out_gpu)
+    log(f"cuda output == cpu output (write gates off): {len(a)} bytes")
+    if bgzf_content(out["lanes"]) != bgzf_content(out["cpu"]):
+        raise AssertionError("default-gate output decompresses to other bytes than the cpu run")
+    ratio = os.path.getsize(out["lanes"]) / len(a)
+    log(f"default-gate output decompresses to the cpu run's bytes; size "
+        f"{os.path.getsize(out['lanes'])} = {ratio:.4f} x zlib level 6 ({len(a)})")
+    keys_out, dig_out = record_digests(out["lanes"])
     _, dig_in = record_digests(src)
     if not np.all(np.diff(keys_out) >= 0):
         raise AssertionError("output keys are not monotone")
     if not np.array_equal(np.sort(dig_out), np.sort(dig_in)):
         raise AssertionError("output records differ from the input's")
     log(f"re-read: {len(keys_out)} records, keys monotone, record multiset equal")
-    return {"src": src, "launches": launches, "wall": wall, "stats": st, "cpu": st_cpu}
+    # (4), (5) One split holds the whole file, so its window stays resident
+    # and the part is gathered, CRC'd and deflated on the card.
+    whole = size + 1
+    st_r, wall_r, launches_r = timed_sort(src, out["resident"], "cuda, default gates, one split",
+                                          device="cuda", split_size=whole)
+    cr = st_r.counters
+    if not (cr.get("bam.device_write_parts", 0) == st_r.n_splits
+            and cr.get("bam.device_write_tierdown.no_residency", 0) == 0):
+        raise AssertionError(f"device write did not take every part: {cr}")
+    if min(launches_r[k] for k in ("gather_stream", "crc32", "deflate_members")) <= 0:
+        raise AssertionError(f"device write kernels never launched: {launches_r}")
+    host_lanes = Configuration({WRITE_DEVICE: "false", DEFLATE_LANES: "true"})
+    timed_sort(src, out["resident_host"], "cuda, host gather + lanes, one split",
+               conf=host_lanes, device="cuda", split_size=whole)
+    with open(out["resident"], "rb") as f:
+        a = f.read()
+    with open(out["resident_host"], "rb") as f:
+        b = f.read()
+    if a != b:
+        raise AssertionError("device write differs from host gather + deflate lanes")
+    log(f"device write == host gather + deflate lanes: {len(a)} bytes")
+    return {"src": src, "launches": launches, "launches_resident": launches_r, "wall": wall,
+            "stats": st, "cpu": st_cpu, "ratio": ratio}
 
 
-def time_kernels(src: str, checks: dict, launches: dict) -> list:
-    """Phase 7: each kernel at the main path's shapes (the input's first
-    split), beside its plain version and its bound."""
+def _part_like(host, up0, seed):
+    """A main-path part's records from the input's first split, in a
+    random order (a coordinate sort scatters them so): size-word starts
+    and lengths in the window."""
+    from hadoop_bam_tpu_torch.spec import bam
+
+    offs_h, _ = bam.record_chain_partial(host, up0, len(host))
+    soa = bam.soa_decode(host, offs_h)
+    order = np.random.default_rng(seed).permutation(len(offs_h))
+    return (soa["rec_off"] - 4)[order], (soa["rec_len"] + 4)[order]
+
+
+def time_write_kernels(inflated, host, up0, checks: dict, launches: dict,
+                       launches_r: dict, seed: int) -> list:
+    """The write side's kernels at a main-path part's shapes: the gather of
+    one split's records, the deflate and CRC32 of the gathered stream's
+    DEV_LZ_PAYLOAD members.  Every member is also held against the plain
+    version and decoded through zlib and the inflate kernel."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops import flate
+    from hadoop_bam_tpu_torch.ops.kernels import crc32 as kcrc
+    from hadoop_bam_tpu_torch.ops.kernels import deflate as kd
+    from hadoop_bam_tpu_torch.ops.kernels import gather as kg
+
+    src, ln = _part_like(host, up0, seed)
+    host_t = torch.from_numpy(host)
+    g, total = kg.gather_stream_device(inflated, src, ln)
+    gp, _ = kg.gather_stream_device(host_t, src, ln)
+    if not np.array_equal(g.cpu().numpy(), gp.numpy()):
+        raise AssertionError("gather kernel differs from plain at the main path's shape")
+    rows = []
+    n_rec = len(src)
+    k_ms = cuda_ms(lambda: kg.gather_stream_device(inflated, src, ln), iters=10)
+    p_ms = host_ms(lambda: kg.gather_stream_device(host_t, src, ln), iters=1)
+    rows.append({
+        "name": "gather_stream", "route": "cuda",
+        "source": "hadoop_bam_tpu_torch/csrc/write.cu",
+        "replaces": "hadoop_bam_tpu/ops/pallas/gather_stream.py:93",
+        "launches": launches_r["gather_stream"], "launches_from": "sort_bam(cuda), one split",
+        "max_abs_err": checks["gather"], "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": (2 * total + 20 * n_rec) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None, "shape": f"{n_rec} records, {total} bytes",
+    })
+    lens = flate._block_lens(total, flate.DEV_LZ_PAYLOAD)
+    offs = np.arange(len(lens), dtype=np.int64) * flate.DEV_LZ_PAYLOAD
+    gh = g.cpu()
+    kc, kl, ko = [t.cpu().numpy() for t in kd.deflate_lanes_stream(g, lens, offs=offs)]
+    t0 = time.perf_counter()
+    pc, pl, po = [t.numpy() for t in kd.deflate_lanes_stream(gh, lens, offs=offs)]
+    p_ms = (time.perf_counter() - t0) * 1e3
+    if not (np.array_equal(kl, pl) and np.array_equal(ko, po) and np.array_equal(kc, pc)):
+        raise AssertionError("deflate kernel differs from plain on the gathered part")
+    if not ko.all():
+        raise AssertionError("deflate declined members of the gathered part")
+    ghn = gh.numpy()
+    check_deflate_rows([ghn[o : o + n].tobytes() for o, n in zip(offs, lens)], kc, kl, ko,
+                       "deflate, gathered part")
+    k_ms = cuda_ms(lambda: kd.deflate_lanes_stream(g, lens, offs=offs), iters=3, warmup=1)
+    out_b = int(kl.astype(np.int64).sum())
+    rows.append({
+        "name": "deflate_members", "route": "cuda",
+        "source": "hadoop_bam_tpu_torch/csrc/deflate.cu",
+        "replaces": "hadoop_bam_tpu/ops/pallas/deflate_lanes.py:328",
+        "launches": launches["deflate_members"], "launches_from": "sort_bam(cuda), default gates",
+        "max_abs_err": float(np.count_nonzero(kc != pc)), "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": (total + out_b + 20 * len(lens)) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None,
+        "shape": f"{len(lens)} members, {total} -> {out_b} bytes",
+    })
+    log(f"deflate kernel == plain on the gathered part: {len(lens)} full-size members, every "
+        "row inflates through zlib and the inflate kernel")
+    kcr = kcrc.crc32_device(g, offs, lens).cpu()
+    pcr = kcrc.crc32_device(gh, offs, lens)
+    want = np.array([zlib.crc32(ghn[o : o + n]) for o, n in zip(offs, lens)], dtype=np.int64)
+    got = kcr.view(torch.int32).numpy().view(np.uint32).astype(np.int64)
+    if not (torch.equal(kcr.view(torch.int32), pcr.view(torch.int32)) and np.array_equal(got, want)):
+        raise AssertionError("crc32 kernel differs from plain / zlib on the gathered part")
+    k_ms = cuda_ms(lambda: kcrc.crc32_device(g, offs, lens), iters=10)
+    p_ms = host_ms(lambda: kcrc.crc32_device(gh, offs, lens), iters=1)
+    rows.append({
+        "name": "crc32", "route": "cuda",
+        "source": "hadoop_bam_tpu_torch/csrc/write.cu",
+        "replaces": "hadoop_bam_tpu/ops/pallas/crc32.py:131",
+        "launches": launches_r["crc32"], "launches_from": "sort_bam(cuda), one split",
+        "max_abs_err": checks["crc32"], "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": (total + 16 * len(lens)) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None, "shape": f"{len(lens)} members, {total} bytes",
+    })
+    for r in rows:
+        log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms) at {r['shape']}")
+    return rows
+
+
+def time_kernels(src: str, checks: dict, launches: dict, launches_r: dict, seed: int) -> list:
+    """Each kernel at the main path's shapes (the input's first split and a
+    part of its records), beside its plain version and its bound."""
     import torch
 
     from hadoop_bam_tpu_torch.conf import INFLATE_LANES, Configuration
@@ -565,7 +854,7 @@ def time_kernels(src: str, checks: dict, launches: dict) -> list:
     def args(dev):
         comp = torch.zeros(len(raw) + kin.COMP_PAD, dtype=torch.uint8, device=dev)
         comp[: len(raw)].copy_(torch.from_numpy(raw.copy()))
-        t = lambda a: torch.from_numpy(a).to(dev)
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
         out = torch.empty(total, dtype=torch.uint8, device=dev)
         return (comp, t(comp_off), t(clens), t(out_off), t(us.astype(np.int32)), out,
                 int(clens.max()))
@@ -620,7 +909,7 @@ def time_kernels(src: str, checks: dict, launches: dict) -> list:
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms) at {r['shape']}")
-    return rows
+    return rows + time_write_kernels(inflated, host, up0, checks, launches, launches_r, seed)
 
 
 def card_line() -> str:
@@ -648,6 +937,7 @@ def main() -> int:
     from hadoop_bam_tpu_torch import _build
 
     log(card_line())
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     built = _build.build(force=True)
     log(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -658,6 +948,9 @@ def main() -> int:
     checks = {
         "inflate": check_inflate(args.seed)["max_abs_err"],
         "chain": check_chain(args.seed)["max_abs_err"],
+        "crc32": check_crc32(args.seed)["max_abs_err"],
+        "gather": check_gather(args.seed)["max_abs_err"],
+        "deflate": check_deflate(args.seed)["max_abs_err"],
     }
     torch.cuda.synchronize()
     if args.kernels_only:
@@ -667,7 +960,8 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke.", dir=REPO)
     try:
         res = main_path(work, args.records, args.seed)
-        rows = time_kernels(res["src"], checks, res["launches"])
+        rows = time_kernels(res["src"], checks, res["launches"], res["launches_resident"],
+                            args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,8 +1,10 @@
 """PyTorch and CUDA port of ``hadoop_bam_tpu`` for NVIDIA Hopper (H100).
 
-This slice ports the in-core coordinate sort (:func:`pipeline.sort_bam`):
-BGZF inflate and the BAM record chain run as hand-written CUDA kernels
-(``csrc/``), keys sort with ``torch.sort``, parts are written on the host.
+The port covers the in-core coordinate sort (:func:`pipeline.sort_bam`):
+BGZF inflate, the BAM record chain, the sorted record gather, the member
+CRC32 and the LZ77 + fixed-Huffman deflate run as hand-written CUDA kernels
+(``csrc/``), keys sort with ``torch.sort``, and the host frames the BGZF
+members and merges the parts.
 Module names mirror the reference package, which the port never imports.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -16,9 +16,10 @@ BAM_MARK_DUPLICATES = "hadoopbam.bam.mark-duplicates"
 BAM_SORT_ORDER = "hadoopbam.bam.sort-order"
 #: BGZF inflate on the device ("true"/"false"; unset: on for a CUDA device).
 INFLATE_LANES = "hadoopbam.inflate.lanes"
-#: Device DEFLATE for part writes — not in this port yet ("true" raises).
+#: Device DEFLATE of parts ("true"/"false"; unset: on for a CUDA device).
 DEFLATE_LANES = "hadoopbam.deflate.lanes"
-#: Device-resident part writes — not in this port yet ("true" raises).
+#: Device-resident part writes: gather, CRC32 and deflate on the card
+#: ("true"/"false"; unset: on for a CUDA device).
 WRITE_DEVICE = "hadoopbam.write.device"
 #: Split read-ahead depth (this key → HBAM_READ_DEPTH → 2).
 READ_DEPTH = "hadoopbam.read.depth"

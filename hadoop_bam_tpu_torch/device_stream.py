@@ -1,23 +1,28 @@
 """DeviceStream: one job's device policy, member decode, parse, split drive.
 
 Counterpart of ``hadoop_bam_tpu/device_stream.py`` for the in-core sort:
-``StreamPolicy.resolve`` (the inflate gate), ``decode_members`` (the
-inflate seam of the split reader), ``read_splits`` (the double-buffered
-split drive) and ``parse_split`` (the inflate→parse seam).  The device is
-explicit; counters go to the stream's :class:`~.utils.tracing.Metrics`.
+``StreamPolicy.resolve`` (the inflate, deflate-lanes and device-write
+gates), ``decode_members`` (the inflate seam of the split reader),
+``read_splits`` (the double-buffered split drive), ``parse_split`` (the
+inflate→parse seam) and ``encode_part`` (the gather→deflate seam of the
+part writer).  The device is explicit; counters go to the stream's
+:class:`~.utils.tracing.Metrics`.
 """
 
 from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .conf import DEFLATE_LANES, INFLATE_LANES, READ_DEPTH, WRITE_DEVICE
+from .io.bam import ChunkedRecords
 from .ops import decode, flate
+from .ops.kernels import OutsideInt32Domain
+from .ops.kernels.gather import gather_stream_device
 from .utils.tracing import Metrics
 
 DEFAULT_DEPTH = 2
@@ -50,10 +55,9 @@ def _gate(env_var: str, conf, key: str, auto: bool) -> bool:
 
 
 class StreamPolicy:
-    """The gates, resolved once per stream.  On a CUDA device the
-    reference's local-latency auto rule resolves inflate to on; the write
-    side's gates (deflate lanes, device write) are not ported yet and are
-    on only when a conf key or env var asks, which the sort refuses."""
+    """The gates, resolved once per stream, each by its env var, then its
+    conf key, then the reference's local-accelerator auto rule: on for a
+    CUDA device, off for the CPU."""
 
     def __init__(self, inflate_lanes: bool, deflate_lanes: bool, device_write: bool,
                  depth: int) -> None:
@@ -67,8 +71,8 @@ class StreamPolicy:
         on_card = device.type == "cuda"
         return cls(
             inflate_lanes=_gate("HBAM_INFLATE_LANES", conf, INFLATE_LANES, on_card),
-            deflate_lanes=_gate("HBAM_DEFLATE_LANES", conf, DEFLATE_LANES, False),
-            device_write=_gate("HBAM_DEVICE_WRITE", conf, WRITE_DEVICE, False),
+            deflate_lanes=_gate("HBAM_DEFLATE_LANES", conf, DEFLATE_LANES, on_card),
+            device_write=_gate("HBAM_DEVICE_WRITE", conf, WRITE_DEVICE, on_card),
             depth=resolve_depth(conf),
         )
 
@@ -156,3 +160,55 @@ class DeviceStream:
         else:
             stream = torch.from_numpy(np.ascontiguousarray(b.data[s0:s1]))
         return decode.keys_from_stream_device(stream, s1 - s0, n_i)
+
+    def encode_part(
+        self, batch, order: Optional[np.ndarray], dup_mask: Optional[np.ndarray], level: int
+    ) -> Optional[Tuple[bytes, np.ndarray]]:
+        """The device-resident part: the sorted gather with the duplicate
+        flag patch, the deflate lanes and the CRC32 column all run on the
+        card from the batch's resident stream, and only compressed rows and
+        the CRC column come back.  Returns ``(blob, member sizes)`` blocked
+        at ``DEV_LZ_PAYLOAD``, or None to send the part to the host gather:
+        no resident stream (``bam.device_write_tierdown.no_residency``), a
+        geometry past the int32 domain (``...size``), or no records.
+        Kernel failures raise."""
+        if isinstance(batch, ChunkedRecords):
+            flat = batch.device_flat
+            if flat is None:
+                self.metrics.count("bam.device_write_tierdown.no_residency")
+                return None
+            base = batch.chunk_base[np.asarray(batch.chunk_id, dtype=np.int64)]
+            src = base + np.asarray(batch.soa["rec_off"], np.int64) - 4
+        else:
+            flat = batch.device_data
+            if flat is None:
+                self.metrics.count("bam.device_write_tierdown.no_residency")
+                return None
+            src = np.asarray(batch.soa["rec_off"], np.int64) - 4
+        lens = np.asarray(batch.soa["rec_len"], np.int64) + 4
+        if order is not None:
+            src = src[order]
+            lens = lens[order]
+        if len(src) == 0:
+            return None  # an empty part: the host path writes its canonical form
+        dm = None
+        if dup_mask is not None:
+            dm = dup_mask[order] if order is not None else dup_mask
+            if not dm.any():
+                dm = None
+        try:
+            gathered, _ = gather_stream_device(flat, src, lens, dup_mask=dm)
+        except OutsideInt32Domain:
+            self.metrics.count("bam.device_write_tierdown.size")
+            return None
+        if self.device.type == "cuda":
+            self.metrics.count_h2d(len(src) * 20 + (0 if dm is None else len(dm)), "write_cols")
+        res = flate.deflate_blocks_device(
+            None, level=level, block_payload=flate.DEV_LZ_PAYLOAD, device_input=gathered,
+            metrics=self.metrics,
+        )
+        if dm is not None:
+            self.metrics.count("bam.duplicate_flags_patched", int(dm.sum()))
+        self.metrics.count("bam.device_write_parts")
+        self.metrics.count("device_stream.parts_encoded")
+        return res

@@ -6,8 +6,10 @@ guesser; the ``.bai`` splitter and interval traversal are later work),
 ``read_split`` with the strict path of ``read_virtual_range`` (batched
 member inflate on the device or the host, spill blocks for a tail record,
 the host chain walk, the split's resident window), ``RecordBatch``,
-``ChunkedRecords``, ``gather_record_array`` and the host branch of
-``write_part_fast``.  Only local paths are read.
+``ChunkedRecords`` (with the write path's flat resident stream),
+``gather_record_array``, ``patch_flags`` and ``write_part_fast`` (device-
+resident assembly, host gather + deflate lanes, host gather + zlib).
+Only local paths are read.
 """
 
 from __future__ import annotations
@@ -17,9 +19,12 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..conf import BAM_BOUNDED_TRAVERSAL, BAM_ENABLE_BAI_SPLITTER, Configuration
+from ..ops import flate
 from ..spec import bam, bgzf, indices
+from ..utils.tracing import Metrics
 from .guesser import BamSplitGuesser
 from .splits import FileVirtualSplit
 
@@ -53,21 +58,42 @@ class RecordBatch:
 @dataclass
 class ChunkedRecords:
     """Several batches as one, without copying their payloads: record r
-    lives at ``chunks[chunk_id[r]][rec_off[r] - 4 : rec_off[r] + rec_len[r]]``."""
+    lives at ``chunks[chunk_id[r]][rec_off[r] - 4 : rec_off[r] + rec_len[r]]``.
+
+    ``device_flat``, when set, is the batches' resident windows as one uint8
+    tensor on the device (chunk c starts at ``chunk_base[c]``): the device
+    part write gathers from it."""
 
     chunks: List[np.ndarray]
     chunk_id: np.ndarray
     soa: dict
+    device_flat: Optional[torch.Tensor] = None
+    chunk_base: Optional[np.ndarray] = None
 
     @property
     def n_records(self) -> int:
         return len(self.soa["rec_off"])
 
+    def release_device(self) -> None:
+        """Drop the resident stream once the parts are written."""
+        self.device_flat = None
+        self.chunk_base = None
+
     @classmethod
-    def from_batches(cls, batches: Sequence[RecordBatch]) -> "ChunkedRecords":
+    def from_batches(
+        cls, batches: Sequence[RecordBatch], keep_device: bool = False
+    ) -> "ChunkedRecords":
+        """``keep_device`` keeps the windows as :attr:`device_flat` (one
+        ``torch.cat``, no copy for a single batch), and only when every
+        batch has one, as the reference does."""
         if not batches:
             return cls([], np.empty(0, np.int32), {
                 "rec_off": np.empty(0, np.int64), "rec_len": np.empty(0, np.int64)})
+        flat = base = None
+        if keep_device and all(b.device_data is not None for b in batches):
+            parts = [b.device_data for b in batches]
+            flat = parts[0] if len(parts) == 1 else torch.cat(parts)
+            base = np.cumsum([0] + [len(b.data) for b in batches[:-1]]).astype(np.int64)
         return cls(
             chunks=[b.data for b in batches],
             chunk_id=np.concatenate(
@@ -77,6 +103,8 @@ class ChunkedRecords:
                 k: np.concatenate([b.soa[k] for b in batches])
                 for k in ("rec_off", "rec_len")
             },
+            device_flat=flat,
+            chunk_base=base,
         )
 
 
@@ -372,6 +400,17 @@ def gather_record_array(batch, order: Optional[np.ndarray] = None) -> np.ndarray
     return np.frombuffer(b"".join(pieces), dtype=np.uint8)
 
 
+def patch_flags(stream: np.ndarray, rec_starts: np.ndarray, bits: int = 0x400) -> None:
+    """OR ``bits`` into the flag field (bytes 18/19 past the size word) of
+    the records whose size words sit at ``rec_starts`` of a gathered stream,
+    in place: the duplicate-marking write, applied to the gathered copy and
+    never to the source payloads."""
+    if len(rec_starts) == 0:
+        return
+    stream[rec_starts + 18] |= np.uint8(bits & 0xFF)
+    stream[rec_starts + 19] |= np.uint8((bits >> 8) & 0xFF)
+
+
 def write_part_fast(
     out,
     batch,
@@ -380,15 +419,62 @@ def write_part_fast(
     splitting_bai_stream=None,
     granularity: int = indices.DEFAULT_GRANULARITY,
     threads: Optional[int] = None,
+    device_deflate: Optional[bool] = None,
+    device_write: Optional[bool] = None,
+    dup_mask: Optional[np.ndarray] = None,
+    device_stream=None,
 ) -> int:
-    """Write a headerless, terminator-less part: record gather, then BGZF
-    members every ``MAX_PAYLOAD`` bytes.  The ``.splitting-bai`` offsets
-    follow from the fixed blocking.  Returns the bytes written."""
-    payload = gather_record_array(batch, order)
-    block_payload = bgzf.MAX_PAYLOAD
-    blob, sizes = bgzf.deflate_blocks(
-        payload, level=level, threads=threads, block_payload=block_payload
-    )
+    """Write a headerless, terminator-less part; returns the bytes written.
+
+    ``device_write`` (default: ``device_stream``'s policy, else off) takes
+    the device-resident assembly
+    (:meth:`~hadoop_bam_tpu_torch.device_stream.DeviceStream.encode_part`):
+    gather, flag patch, CRC32 and deflate on the card from the batch's
+    resident stream.  Without residency, or past the int32 domain, it tiers
+    down (counted) to the host gather.  ``device_deflate`` (default:
+    ``device_stream``'s policy, else off) sends the host-gathered stream
+    through the deflate lanes; otherwise host zlib at ``level``.  Both
+    device forms cut a member every ``DEV_LZ_PAYLOAD`` bytes and write the
+    same bytes; the host form every ``MAX_PAYLOAD``.  ``dup_mask`` (bool per
+    batch row) ORs ``FLAG_DUPLICATE`` into the written copies of those
+    rows.  The ``.splitting-bai`` offsets follow from the fixed blocking
+    and the member sizes.  The device paths run on ``device_stream``'s
+    device and count into its metrics."""
+    if device_stream is None and (device_write or device_deflate):
+        raise ValueError("device_write / device_deflate need a device_stream")
+    if device_write is None:
+        device_write = device_stream is not None and device_stream.policy.device_write
+    if device_deflate is None:
+        device_deflate = device_stream is not None and device_stream.policy.deflate_lanes
+    metrics = device_stream.metrics if device_stream is not None else Metrics()
+    res = None
+    if device_write:
+        res = device_stream.encode_part(batch, order=order, dup_mask=dup_mask, level=level)
+    if res is not None:
+        blob, sizes = res
+        block_payload = flate.DEV_LZ_PAYLOAD
+    else:
+        payload = gather_record_array(batch, order)
+        if dup_mask is not None:
+            dm = dup_mask[order] if order is not None else dup_mask
+            if dm.any():
+                ln = batch.soa["rec_len"].astype(np.int64) + 4
+                if order is not None:
+                    ln = ln[order]
+                payload = payload.copy()
+                patch_flags(payload, (np.cumsum(ln) - ln)[dm])
+                metrics.count("bam.duplicate_flags_patched", int(dm.sum()))
+        if device_deflate:
+            block_payload = flate.DEV_LZ_PAYLOAD
+            blob, sizes = flate.deflate_blocks_device(
+                payload, level=level, block_payload=block_payload,
+                device=device_stream.device, metrics=metrics,
+            )
+        else:
+            block_payload = bgzf.MAX_PAYLOAD
+            blob, sizes = bgzf.deflate_blocks(
+                payload, level=level, threads=threads, block_payload=block_payload
+            )
     out.write(blob)
     if splitting_bai_stream is not None:
         ln = batch.soa["rec_len"].astype(np.int64) + 4

@@ -34,6 +34,12 @@ class LaunchCounter:
             self._n = 0
 
 
+class OutsideInt32Domain(ValueError):
+    """A geometry the reference's int32 device programs cannot address.
+    Raised by a wrapper's host check before any launch; the part writer
+    turns it into the counted tier-down ``bam.device_write_tierdown.size``."""
+
+
 def use_plain(*tensors: torch.Tensor) -> bool:
     """True when every tensor is on the CPU (the plain version runs), False
     when every tensor is on one CUDA device (the kernel runs).  Anything

@@ -4,8 +4,10 @@ Counterpart of ``hadoop_bam_tpu/pipeline.py`` ``sort_bam`` (in-core,
 coordinate order), ``_finish_device_parse`` and ``_unmapped_hash32``.
 Splits are read double-buffered; each split's members inflate on the
 device; the chain and key kernels build the split's int64 keys from the
-resident window; one stable ``torch.sort`` orders the job; parts are
-gathered and deflated on the host and merged into one BAM.
+resident window; one stable ``torch.sort`` orders the job; each part is
+gathered, CRC'd and deflated on the device from the resident windows (or,
+when a split has no window, gathered on the host and deflated by the
+lanes), framed on the host and merged into one BAM.
 """
 
 from __future__ import annotations
@@ -78,17 +80,19 @@ def sort_bam(
 
     ``device`` defaults to ``cuda`` and raises when there is no card; pass
     ``"cpu"`` to run every kernel's plain version instead.  Member inflate
-    follows ``hadoopbam.inflate.lanes`` / ``HBAM_INFLATE_LANES`` (on by
-    default on a card); ``device_parse`` (default ``HBAM_DEVICE_PARSE``,
-    else on for a card) builds keys with the chain kernels from the
-    resident windows, else keys are built on the host.  A device record
-    count that disagrees with the host walk raises: on clean input only a
-    kernel bug can cause it.
+    follows ``hadoopbam.inflate.lanes`` / ``HBAM_INFLATE_LANES``, the part
+    deflate ``hadoopbam.deflate.lanes`` / ``HBAM_DEFLATE_LANES`` and the
+    device-resident part write ``hadoopbam.write.device`` /
+    ``HBAM_DEVICE_WRITE``; each is on by default on a card.  With all three
+    off, parts are gathered and compressed by host zlib at ``level``.
+    ``device_parse`` (default ``HBAM_DEVICE_PARSE``, else on for a card)
+    builds keys with the chain kernels from the resident windows, else keys
+    are built on the host.  A device record count that disagrees with the
+    host walk raises: on clean input only a kernel bug can cause it.
 
     Not ported yet (each raises ``NotImplementedError``): ``memory_budget``,
     ``mark_duplicates``, ``sort_order="queryname"``, ``mesh`` /
-    ``distributed``, the write side's ``hadoopbam.deflate.lanes`` and
-    ``hadoopbam.write.device``, and ``errors="salvage"``."""
+    ``distributed`` and ``errors="salvage"``."""
     dev = resolve_device(device)
     if isinstance(in_paths, str):
         in_paths = [in_paths]
@@ -108,10 +112,7 @@ def sort_bam(
     if (errors or "strict") != "strict":
         raise _not_ported(f"errors={errors!r}", "A.7")
     stream = DeviceStream(dev, conf=conf)
-    if stream.policy.deflate_lanes:
-        raise _not_ported("deflate_lanes (device DEFLATE of parts)", "A.1")
-    if stream.policy.device_write:
-        raise _not_ported("device_write (device-resident part writes)", "A.1")
+    use_device_write = stream.policy.device_write
 
     fmt = BamInputFormat(conf)
     header = read_header(in_paths[0]).with_sort_order("coordinate")
@@ -131,7 +132,8 @@ def sort_bam(
     for b in stream.read_splits(fmt, splits, fields=fields, with_keys=not device_parse):
         if device_parse:
             parsed.append(stream.parse_split(b))
-        b.device_data = None  # the chain kernels hold their own view
+        if not use_device_write:
+            b.device_data = None  # the chain kernels hold their own view
         b.soa = {"rec_off": b.soa["rec_off"], "rec_len": b.soa["rec_len"]}
         batches.append(b)
     n = sum(b.n_records for b in batches)
@@ -151,7 +153,9 @@ def sort_bam(
         perm = np.empty(0, dtype=np.int64)
 
     t_write = time.perf_counter()
-    merged = ChunkedRecords.from_batches(batches)
+    merged = ChunkedRecords.from_batches(batches, keep_device=use_device_write)
+    for b in batches:
+        b.device_data = None  # the flat stream, if any, holds the windows now
     with contextlib.ExitStack() as stack:
         if part_dir is not None:
             td = part_dir
@@ -159,8 +163,11 @@ def sort_bam(
         else:
             td = stack.enter_context(tempfile.TemporaryDirectory(
                 dir=os.path.dirname(os.path.abspath(out_path)) or "."))
-        _write_parts(td, merged, perm, len(batches), level, write_splitting_bai,
-                     write_workers)
+        try:
+            _write_parts(td, merged, perm, len(batches), level, write_splitting_bai,
+                         write_workers, stream)
+        finally:
+            merged.release_device()  # the resident payload is dead once the parts exist
         merge_bam_parts(td, out_path, header, write_splitting_bai=write_splitting_bai)
     counters = stream.metrics.counters()
     counters.update({f"flate.inflate.{k}": v for k, v in stream.inflate_stats.as_dict().items()})
@@ -172,9 +179,10 @@ def sort_bam(
     return SortStats(n, len(splits), backend, str(dev), counters, seconds)
 
 
-def _write_parts(td, merged, perm, n_batches, level, write_splitting_bai, workers):
+def _write_parts(td, merged, perm, n_batches, level, write_splitting_bai, workers, stream):
     """One part per split, as the reference's executor writes them:
-    ``part-r-NNNNN`` (+ ``.splitting-bai``), then ``_SUCCESS``."""
+    ``part-r-NNNNN`` (+ ``.splitting-bai``), then ``_SUCCESS``.  The write
+    tiers follow ``stream``'s policy."""
     n = len(perm)
     n_parts = max(1, n_batches)
     bounds = [n * i // n_parts for i in range(n_parts + 1)]
@@ -189,7 +197,10 @@ def _write_parts(td, merged, perm, n_batches, level, write_splitting_bai, worker
         try:
             with open(tmp, "wb") as f:
                 write_part_fast(f, merged, order=order, level=level,
-                                splitting_bai_stream=sb, threads=threads)
+                                splitting_bai_stream=sb, threads=threads,
+                                device_deflate=stream.policy.deflate_lanes,
+                                device_write=stream.policy.device_write,
+                                device_stream=stream)
         finally:
             if sb is not None:
                 sb.close()

@@ -215,7 +215,8 @@ def test_member_tierdown_is_per_member(monkeypatch):
     assert out.tobytes() == b"".join(payloads)
     assert dev is None
     assert m.get("flate.lanes_tierdown") == 1
-    assert stats.as_dict() == {"lanes": 2, "host": 1, "tierdown_ok0": 1, "tierdown_crc": 0}
+    assert stats.as_dict() == {"lanes": 2, "xla": 0, "host": 1, "tierdown_size": 0,
+                               "tierdown_vmem": 0, "tierdown_ok0": 1, "tierdown_crc": 0}
 
 
 def test_crc_mismatch_tiers_down_and_raises():

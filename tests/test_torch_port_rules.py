@@ -1,6 +1,7 @@
 """Rules of the PyTorch port: it imports nothing of JAX or of the JAX
 package, it runs on the card unless told otherwise, it carries the same
-constant tables, and what it has not ported yet raises."""
+constant tables, what it has ported runs on the CPU through the plain
+versions, and what it has not ported yet raises."""
 
 import os
 import re
@@ -94,12 +95,10 @@ def test_reference_conf_dict_drives_both_packages():
         {"mesh": object()},
         {"distributed": object()},
         {"errors": "salvage"},
-        {"conf": {"hadoopbam.deflate.lanes": "true"}},
-        {"conf": {"hadoopbam.write.device": "true"}},
         {"conf": {"hadoopbam.bam.mark-duplicates": "true"}},
     ],
     ids=["memory_budget", "mark_duplicates", "queryname", "mesh", "distributed",
-         "salvage", "conf_deflate_lanes", "conf_device_write", "conf_mark_duplicates"],
+         "salvage", "conf_mark_duplicates"],
 )
 def test_options_outside_the_slice_raise(tmp_path, kwargs):
     from hadoop_bam_tpu_torch import pipeline
@@ -113,17 +112,54 @@ def test_options_outside_the_slice_raise(tmp_path, kwargs):
                           device="cpu", **kw)
 
 
-def test_stream_policy_gates(monkeypatch):
+@pytest.mark.parametrize(
+    "conf",
+    [{"hadoopbam.deflate.lanes": "true"}, {"hadoopbam.write.device": "true"}],
+    ids=["conf_deflate_lanes", "conf_device_write"],
+)
+def test_write_gates_sort_on_the_cpu(tmp_path, conf):
+    """Each write-side gate sorts on the CPU through the plain versions, to
+    the same records as the host write."""
+    from test_torch_sort_bam import _write_bam
+
+    from hadoop_bam_tpu_torch import pipeline
     from hadoop_bam_tpu_torch.conf import INFLATE_LANES, Configuration
+    from hadoop_bam_tpu_torch.spec import bgzf
+
+    src = str(tmp_path / "in.bam")
+    _write_bam(src, n=30)
+    outs = []
+    for c in (dict(conf, **{INFLATE_LANES: "true"}), {}):
+        out = str(tmp_path / f"out{len(outs)}.bam")
+        st = pipeline.sort_bam(src, out, conf=Configuration(c), device="cpu", level=1,
+                               split_size=1 << 20)
+        assert st.n_records == 30
+        with open(out, "rb") as f:
+            data = f.read()
+        outs.append(bgzf.inflate_blocks(data, *bgzf.scan_blocks(data))[0].tobytes())
+    assert outs[0] == outs[1]
+
+
+def test_stream_policy_gates(monkeypatch):
+    from hadoop_bam_tpu_torch.conf import (DEFLATE_LANES, INFLATE_LANES, WRITE_DEVICE,
+                                            Configuration)
     from hadoop_bam_tpu_torch.device_stream import StreamPolicy
 
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    monkeypatch.delenv("HBAM_INFLATE_LANES", raising=False)
-    assert StreamPolicy.resolve(None, cuda).inflate_lanes  # the auto rule on a card
-    assert not StreamPolicy.resolve(None, cpu).inflate_lanes
-    assert StreamPolicy.resolve(Configuration({INFLATE_LANES: "true"}), cpu).inflate_lanes
-    monkeypatch.setenv("HBAM_INFLATE_LANES", "0")
-    assert not StreamPolicy.resolve(Configuration({INFLATE_LANES: "true"}), cuda).inflate_lanes
+    for env in ("HBAM_INFLATE_LANES", "HBAM_DEFLATE_LANES", "HBAM_DEVICE_WRITE"):
+        monkeypatch.delenv(env, raising=False)
+    for gate, key, env in (("inflate_lanes", INFLATE_LANES, "HBAM_INFLATE_LANES"),
+                           ("deflate_lanes", DEFLATE_LANES, "HBAM_DEFLATE_LANES"),
+                           ("device_write", WRITE_DEVICE, "HBAM_DEVICE_WRITE")):
+        assert getattr(StreamPolicy.resolve(None, cuda), gate)  # the auto rule on a card
+        assert not getattr(StreamPolicy.resolve(None, cpu), gate)
+        assert getattr(StreamPolicy.resolve(Configuration({key: "true"}), cpu), gate)
+        assert not getattr(StreamPolicy.resolve(Configuration({key: "false"}), cuda), gate)
+        monkeypatch.setenv(env, "0")
+        assert not getattr(StreamPolicy.resolve(Configuration({key: "true"}), cuda), gate)
+        monkeypatch.setenv(env, "1")
+        assert getattr(StreamPolicy.resolve(Configuration({key: "false"}), cpu), gate)
+        monkeypatch.delenv(env)
     assert StreamPolicy.resolve(None, cuda).depth == 2
     monkeypatch.setenv("HBAM_READ_DEPTH", "5")
     assert StreamPolicy.resolve(None, cpu).depth == 5
@@ -131,13 +167,37 @@ def test_stream_policy_gates(monkeypatch):
 
 def test_plain_versions_do_not_count_launches():
     from hadoop_bam_tpu_torch.ops.kernels import chain as kch
+    from hadoop_bam_tpu_torch.ops.kernels import crc32 as kcrc
+    from hadoop_bam_tpu_torch.ops.kernels import deflate as kd
+    from hadoop_bam_tpu_torch.ops.kernels import gather as kg
     from hadoop_bam_tpu_torch.ops.kernels import inflate as kin
 
-    before = (kin.LAUNCHES.value, kch.WALK_LAUNCHES.value, kch.KEYS_LAUNCHES.value)
+    counters = (kin.LAUNCHES, kch.WALK_LAUNCHES, kch.KEYS_LAUNCHES, kd.LAUNCHES, kg.LAUNCHES,
+                kcrc.LAUNCHES)
+    before = [c.value for c in counters]
     s = torch.zeros(0, dtype=torch.uint8)
     offs, meta = kch.record_chain(s, 0)
     kch.stream_keys(s, 0, offs, meta, 0)
-    assert (kin.LAUNCHES.value, kch.WALK_LAUNCHES.value, kch.KEYS_LAUNCHES.value) == before
+    data = torch.arange(200, dtype=torch.int64).to(torch.uint8)
+    kcrc.crc32_device(data, [0, 10], [100, 50])
+    kg.gather_stream_device(data, [0, 100], [50, 60], dup_mask=[True, False])
+    kd.deflate_lanes_stream(data, [120, 80])
+    assert [c.value for c in counters] == before
+
+
+def test_a_kernel_that_cannot_build_raises(tmp_path, monkeypatch):
+    """No fallback hides the card: without a compiler the build raises."""
+    from hadoop_bam_tpu_torch import _build
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    for name in ("deflate", "write"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.load(name)
 
 
 def test_mixed_devices_raise():
