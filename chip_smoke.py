@@ -2,14 +2,18 @@
 
 Run on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--records N] [--seed S]
+    python3 chip_smoke.py [--records N] [--pairs N] [--seed S]
 
 Phases: print the card; build the CUDA kernels from ``csrc/``; hold each
 kernel against its plain PyTorch version on the card (exact equality);
 drive ``sort_bam`` at full size on a synthetic BAM with the default gates
 (every kernel on), with the write side's gates off (byte-identical to the
 port's CPU run) and with one resident split (byte-identical to the host
-gather + deflate lanes); time every kernel at the main path's shapes.
+gather + deflate lanes); drive ``ingest_fastq`` on 250,000 synthetic read
+pairs with the default gates, with the deflate lanes off and on the CPU
+(byte-identical to the card without lanes; the lanes' output decompresses
+to the same bytes), and hold ``ingest_oracle`` to it on a prefix; time
+every kernel at the paths' shapes.
 Any failure exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table
 as JSON.  Imports neither JAX nor the JAX package.
@@ -465,6 +469,163 @@ def check_deflate(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# FASTQ: corpus and the record-scan kernel
+# ---------------------------------------------------------------------------
+
+READ_LEN = 151
+SCAN_CHUNK = 0xDF00  # the ingest's default claim region
+SCAN_OVERLAP = 2048
+
+
+def fastq_pairs(n_pairs: int, seed: int, crlf: bool = False, at_quals: bool = False):
+    """``(r1, r2)`` FASTQ texts of ``n_pairs`` read pairs: 151 bp reads with
+    Phred+33 qualities and CASAVA 1.8 ids
+    (``@INST:RUN:FC:LANE:TILE:X:Y 1:N:0:BARCODE``) in cluster order (lane,
+    tile, then a random walk of X/Y), not in name order.  ``at_quals``
+    starts every third quality string with ``@``."""
+    rng = np.random.default_rng(seed)
+    eol = b"\r\n" if crlf else b"\n"
+    lane = 1 + (np.arange(n_pairs) * 4 // max(n_pairs, 1))
+    tile = 1101 + (np.arange(n_pairs) * 96 // max(n_pairs, 1)) % 24
+    x = rng.integers(1000, 32000, n_pairs)
+    y = np.cumsum(rng.integers(1, 40, n_pairs)) % 40000 + 1000
+    texts = []
+    for mate in (1, 2):
+        seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n_pairs, READ_LEN))]
+        qual = rng.integers(35, 75, (n_pairs, READ_LEN), dtype=np.uint8)
+        if at_quals:
+            qual[::3, 0] = ord("@")
+        bc = "ATCACGTT" if mate == 1 else "ATCACGTA"
+        ids = [f"@A00123:8:HV2JKDSXX:{lane[i]}:{tile[i]}:{x[i]}:{y[i]} {mate}:N:0:{bc}".encode()
+               for i in range(n_pairs)]
+        rows = [b"".join((ids[i], eol, seq[i].tobytes(), eol, b"+", eol, qual[i].tobytes(), eol))
+                for i in range(n_pairs)]
+        texts.append(b"".join(rows))
+    return texts[0], texts[1]
+
+
+def scan_chunks_of(run: bytes):
+    """The ingest's chunking of one aligned run: ``(starts, lens,
+    chunk_lens, aligned, final)`` columns."""
+    offs = np.arange(0, len(run), SCAN_CHUNK, dtype=np.int64)
+    lens = np.minimum(SCAN_CHUNK + SCAN_OVERLAP, len(run) - offs)
+    return (offs, lens, np.minimum(SCAN_CHUNK, len(run) - offs), offs == 0,
+            offs + lens >= len(run))
+
+
+def _scan_both(blob: bytes, cols, caps):
+    """The record-scan kernel and its plain version on the same windows:
+    ``(meta, rows)`` per side, rows cut to each chunk's ``n``."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops.kernels import record_scan as krs
+
+    out = []
+    for dev in ("cuda", "cpu"):
+        data = torch.from_numpy(np.frombuffer(blob, np.uint8).copy()).to(dev)
+        rows, meta, base = krs.scan_windows(data, *cols, caps)
+        meta = meta.cpu().numpy()
+        rows = rows.cpu().numpy()
+        base = base.cpu().numpy()
+        out.append((meta, [rows[b : b + n] for b, n in zip(base.tolist(), meta[:, 0].tolist())]))
+    return out
+
+
+def check_record_scan(seed: int) -> dict:
+    """The record-scan kernel against its plain version (meta and rows,
+    exactly) at the ingest's full geometry (57,088-byte claims + 2,048
+    bytes of overlap): >= 256 chunks of the smoke corpus; a CRLF corpus
+    whose qualities begin with '@'; a garbage and a clean chunk in one
+    launch; a chunk past its record cap; an unaligned head; every accepted
+    chunk also against the NumPy host scan."""
+    from hadoop_bam_tpu_torch.ops.kernels import record_scan as krs
+
+    r1, _ = fastq_pairs(42_000, seed)
+    crlf, _ = fastq_pairs(2_000, seed + 1, crlf=True, at_quals=True)
+    cases = []
+    cols = scan_chunks_of(r1)
+    n_main = len(cols[0])
+    if n_main < 256:
+        raise AssertionError(f"record-scan corpus has {n_main} chunks, want >= 256")
+    cases.append(("smoke corpus", r1, cols, [krs.default_rec_cap(SCAN_CHUNK + SCAN_OVERLAP)]
+                  * n_main))
+    cc = scan_chunks_of(crlf)
+    cases.append(("crlf, @-qualities", crlf, cc, [krs.default_rec_cap(SCAN_CHUNK + SCAN_OVERLAP)]
+                  * len(cc[0])))
+    garbage = bytes(np.random.default_rng(seed).integers(1, 128, SCAN_CHUNK + SCAN_OVERLAP,
+                                                         dtype=np.uint8))
+    clean = r1[: SCAN_CHUNK + SCAN_OVERLAP]
+    blob = garbage + clean + r1[17 : 17 + SCAN_CHUNK + SCAN_OVERLAP]
+    w = SCAN_CHUNK + SCAN_OVERLAP
+    mixed = (np.array([0, w, 2 * w]), np.array([w, w, w]), np.array([SCAN_CHUNK] * 3),
+             np.array([True, True, False]), np.array([False, False, False]))
+    cases.append(("garbage + clean + unaligned", blob, mixed, [1664] * 3))
+    cases.append(("record cap overflow", clean, (np.array([0]), np.array([w]),
+                  np.array([SCAN_CHUNK]), np.array([True]), np.array([False])), [64]))
+    bad = 0
+    verdicts = {}
+    for what, data, cols, caps in cases:
+        (mk, rk), (mp, rp) = _scan_both(data, cols, caps)
+        if not np.array_equal(mk, mp):
+            raise AssertionError(f"record_scan meta differs from plain ({what}): "
+                                 f"{mk[(mk != mp).any(1)][:4]} vs {mp[(mk != mp).any(1)][:4]}")
+        for k, (a, b) in enumerate(zip(rk, rp)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"record_scan rows differ from plain ({what}, chunk {k})")
+            bad += int(np.count_nonzero(a != b))
+        starts, lens, cl, al, fi = cols
+        for k in np.flatnonzero(mk[:, 1]).tolist():
+            s = int(starts[k])
+            host = krs.scan_window_host(data[s : s + int(lens[k])], int(cl[k]), bool(al[k]),
+                                        bool(fi[k]))
+            if not np.array_equal(rk[k], host):
+                raise AssertionError(f"record_scan differs from the host scan ({what}, chunk {k})")
+        verdicts[what] = [int(mk[:, 1].sum()), len(mk)]
+    if verdicts["garbage + clean + unaligned"] != [2, 3] or verdicts["record cap overflow"] != [0, 1]:
+        raise AssertionError(f"record_scan verdicts {verdicts}")
+    if verdicts["smoke corpus"] != [n_main, n_main]:
+        raise AssertionError(f"record_scan declined smoke chunks: {verdicts}")
+    log(f"record_scan kernel == plain: {sum(v[1] for v in verdicts.values())} chunks "
+        f"({n_main} at full geometry), ok/total {json.dumps(verdicts)}, every ok chunk == "
+        "host scan, max_abs_err 0")
+    return {"max_abs_err": float(bad), "corpus": r1}
+
+
+def time_record_scan(run: bytes, checks: dict, launches: int, launches_from: str) -> dict:
+    """The record-scan kernel over one ingest input's chunks, beside its
+    plain version and its bound."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops.kernels import record_scan as krs
+
+    cols = scan_chunks_of(run)
+    cap = krs.default_rec_cap(SCAN_CHUNK + SCAN_OVERLAP)
+    caps = [cap] * len(cols[0])
+    g = torch.from_numpy(np.frombuffer(run, np.uint8).copy()).cuda()
+    c = torch.from_numpy(np.frombuffer(run, np.uint8).copy())
+    k_ms = cuda_ms(lambda: krs.scan_windows(g, *cols, caps), iters=10)
+    p_ms = host_ms(lambda: krs.scan_windows(c, *cols, caps), iters=1)
+    _, meta, _ = krs.scan_windows(g, *cols, caps)
+    n_rec = int(meta[:, 0].sum())
+    # The windows cover the run; each byte is read once, whatever the overlap.
+    # Per chunk: six columns in (32 bytes) and [n, ok] out (8); 32 bytes a row.
+    moved = len(run) + (32 + 8) * len(caps) + 32 * n_rec
+    row = {
+        "name": "record_scan", "route": "cuda",
+        "source": "hadoop_bam_tpu_torch/csrc/record_scan.cu",
+        "replaces": "hadoop_bam_tpu/ops/pallas/record_scan.py:305",
+        "launches": launches, "launches_from": launches_from,
+        "max_abs_err": checks["record_scan"], "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None,
+        "shape": f"{len(caps)} chunks, {len(run)} bytes, {n_rec} records",
+    }
+    log(f"  record_scan: {k_ms:.4f} ms (plain {p_ms:.3f} ms, bound {row['bound_ms']:.4f} ms) "
+        f"at {row['shape']}")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # The main path
 # ---------------------------------------------------------------------------
 
@@ -587,9 +748,10 @@ def _counters():
     from hadoop_bam_tpu_torch.ops.kernels import deflate as kd
     from hadoop_bam_tpu_torch.ops.kernels import gather as kg
     from hadoop_bam_tpu_torch.ops.kernels import inflate as kin
+    from hadoop_bam_tpu_torch.ops.kernels import record_scan as krs
 
     return (kin.LAUNCHES, kch.WALK_LAUNCHES, kch.KEYS_LAUNCHES, kd.LAUNCHES, kg.LAUNCHES,
-            kcrc.LAUNCHES)
+            kcrc.LAUNCHES, krs.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -719,6 +881,182 @@ def main_path(work: str, n: int, seed: int) -> dict:
     log(f"device write == host gather + deflate lanes: {len(a)} bytes")
     return {"src": src, "launches": launches, "launches_resident": launches_r, "wall": wall,
             "stats": st, "cpu": st_cpu, "ratio": ratio}
+
+
+# ---------------------------------------------------------------------------
+# The ingest path
+# ---------------------------------------------------------------------------
+
+GZ_MEMBER_BYTES = 60_000  # R2's gzip members: each fits a BGZF frame when repacked
+ORACLE_PAIRS = 20_000  # the prefix the pure-host ingest_oracle is held to
+
+
+def write_fastq_inputs(work: str, r1: bytes, r2: bytes, tag: str):
+    """R1 as BGZF at level 6, R2 as plain multi-member gzip (members of at
+    most 60,000 uncompressed bytes, level 6).  Returns the two paths."""
+    import gzip
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hadoop_bam_tpu_torch.spec import bgzf
+
+    p1 = os.path.join(work, f"{tag}_R1.fastq.bgz")
+    p2 = os.path.join(work, f"{tag}_R2.fastq.gz")
+    with open(p1, "wb") as f:
+        f.write(bgzf.deflate_blocks(r1, level=6)[0] + bgzf.TERMINATOR)
+    cuts = [r2[k : k + GZ_MEMBER_BYTES] for k in range(0, len(r2), GZ_MEMBER_BYTES)]
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        members = list(pool.map(lambda c: gzip.compress(c, 6, mtime=0), cuts))
+    with open(p2, "wb") as f:
+        f.write(b"".join(members))
+    return p1, p2
+
+
+def device_time(trace_path: str) -> dict:
+    """The device's work in a ``torch.profiler`` chrome trace: the union of
+    its kernel, copy and set intervals (``busy_s``) and, per kernel name
+    (copies and sets by kind), ``[count, ms]``, the 12 largest."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    spans = []
+    by_name: dict = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        ts, dur = float(e["ts"]), float(e.get("dur", 0.0))
+        spans.append((ts, ts + dur))
+        name = e["name"].replace("(anonymous namespace)::", "")
+        key = name.split("(")[0][:80] if e["cat"] == "kernel" else e["cat"]
+        n, us = by_name.get(key, (0, 0.0))
+        by_name[key] = (n + 1, us + dur)
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return {"busy_s": busy / 1e6, "events": len(spans),
+            "by_name": {k: [n, round(us / 1e3, 3)] for k, (n, us) in top}}
+
+
+def timed_ingest(paths, out: str, what: str, trace: bool = False, **kw):
+    """One ``ingest_fastq`` with the launch counts zeroed just before it and
+    read just after it; with ``trace``, under ``torch.profiler`` (device
+    activity only), its device time logged beside the wall."""
+    import contextlib
+
+    import torch
+
+    from hadoop_bam_tpu_torch.ingest import ingest_fastq
+
+    on_card = kw.get("device") == "cuda"
+    reset_counts()
+    if on_card:
+        torch.cuda.synchronize()
+    ctx = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+           if trace else contextlib.nullcontext())
+    with ctx as prof:
+        t0 = time.perf_counter()
+        st = ingest_fastq(paths[0], out, r2=paths[1], **kw)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = launch_counts()
+    c = st.counters
+    log(f"ingest_fastq({what}): {st.n_records} records, wall {wall:.3f} s, "
+        f"{st.n_records / wall:.0f} reads/s, {st.out_bytes} bytes out")
+    log("  stages (s): " + json.dumps({k: round(v, 3) for k, v in st.seconds.items()}))
+    log("  stats: " + json.dumps(st.counts()))
+    log(f"  launches: {json.dumps(launches)}")
+    log("  counters: " + json.dumps({k: v for k, v in sorted(c.items()) if v and k.startswith(
+        ("flate.", "fastq.", "ingest.", "collate.", "salvage.", "device_stream."))}))
+    log("  transfers: " + json.dumps({k: v for k, v in c.items() if k.startswith("transfers.")}))
+    if trace:
+        path = out + ".trace.json"
+        prof.export_chrome_trace(path)
+        dev = device_time(path)
+        os.remove(path)
+        if dev["events"]:
+            log(f"  device (torch.profiler): busy {dev['busy_s']:.6f} s of the wall {wall:.6f} s,"
+                f" idle {1 - dev['busy_s'] / wall:.6f}; {dev['events']} device events")
+            log("  device time by kernel [count, ms]: " + json.dumps(dev["by_name"]))
+        else:
+            log("  device (torch.profiler): the trace holds no device events; not measured")
+    return st, wall, launches
+
+
+def ingest_phase(work: str, n_pairs: int, seed: int) -> dict:
+    """FASTQ ingest of ``n_pairs`` synthetic read pairs: (a) on the card with
+    the default gates, (b) on the card with the deflate lanes off, (c) the
+    port on the CPU; (b) == (c) byte for byte, (a) decompresses to (c)'s
+    bytes; then the port's ``ingest_oracle`` on a prefix of
+    ``ORACLE_PAIRS`` equals the CPU run at that size.  (a) runs under
+    ``torch.profiler`` for the card's busy time."""
+    from hadoop_bam_tpu_torch.conf import DEFLATE_LANES, Configuration
+    from hadoop_bam_tpu_torch.ingest import ingest_oracle
+
+    t0 = time.perf_counter()
+    r1, r2 = fastq_pairs(n_pairs, seed)
+    paths = write_fastq_inputs(work, r1, r2, "full")
+    log(f"synthetic FASTQ: {n_pairs} pairs, {len(r1) + len(r2)} bytes of text, "
+        f"{os.path.getsize(paths[0])} + {os.path.getsize(paths[1])} bytes compressed, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {k: os.path.join(work, f"ingest.{k}.bam") for k in ("a", "b", "c", "pc", "oracle")}
+    st_a, wall_a, launches = timed_ingest(paths, out["a"], "cuda, default gates", trace=True,
+                                          device="cuda")
+    c = st_a.counters
+    missing = [k for k in ("inflate_members", "record_scan", "deflate_members")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels of the ingest path never launched: {missing}")
+    if st_a.scan_lanes == 0 or st_a.scan_serial or c.get("flate.lanes_tierdown", 0) \
+            or c.get("flate.deflate_lanes_tierdown", 0):
+        raise AssertionError(f"the card tiered down on clean input: {st_a.counts()}")
+    if st_a.n_records != 2 * n_pairs or st_a.n_pairs != n_pairs or st_a.n_repacked == 0:
+        raise AssertionError(f"ingest stats {st_a.counts()}")
+    off = Configuration({DEFLATE_LANES: "false"})
+    st_b, _, _ = timed_ingest(paths, out["b"], "cuda, deflate lanes off", conf=off,
+                              device="cuda")
+    st_c, _, _ = timed_ingest(paths, out["c"], "cpu", device="cpu")
+    with open(out["b"], "rb") as f:
+        b = f.read()
+    with open(out["c"], "rb") as f:
+        cc = f.read()
+    if b != cc:
+        raise AssertionError("ingest: card output (deflate lanes off) differs from the cpu run")
+    log(f"ingest (b) == (c): {len(cc)} bytes")
+    if bgzf_content(out["a"]) != bgzf_content(out["c"]):
+        raise AssertionError("ingest: default-gate output decompresses to other bytes than (c)")
+    ratio = os.path.getsize(out["a"]) / len(cc)
+    log(f"ingest (a) decompresses to (c)'s bytes; size {os.path.getsize(out['a'])} = "
+        f"{ratio:.4f} x (c)")
+    for k in ("n_records", "n_pairs", "n_members", "n_repacked", "scan_chunks"):
+        if getattr(st_a, k) != getattr(st_c, k) or getattr(st_b, k) != getattr(st_c, k):
+            raise AssertionError(f"ingest stats differ between runs: {k}")
+    # The oracle on a prefix of the same corpus.
+    cut1 = _pair_prefix(r1, ORACLE_PAIRS)
+    cut2 = _pair_prefix(r2, ORACLE_PAIRS)
+    ppaths = write_fastq_inputs(work, cut1, cut2, "prefix")
+    t0 = time.perf_counter()
+    n_or = ingest_oracle(ppaths[0], out["oracle"], r2=ppaths[1])
+    t_or = time.perf_counter() - t0
+    st_p, _, _ = timed_ingest(ppaths, out["pc"], f"cpu, {ORACLE_PAIRS}-pair prefix", device="cpu")
+    with open(out["oracle"], "rb") as f:
+        o = f.read()
+    with open(out["pc"], "rb") as f:
+        p = f.read()
+    if o != p or n_or != st_p.n_records:
+        raise AssertionError("ingest_oracle differs from the cpu ingest on the prefix")
+    log(f"ingest_oracle == ingest_fastq(cpu) on {ORACLE_PAIRS} pairs: {len(o)} bytes, "
+        f"oracle {t_or:.1f} s")
+    return {"launches": launches, "stats": st_a, "wall": wall_a, "r1": r1}
+
+
+def _pair_prefix(text: bytes, n_pairs: int) -> bytes:
+    """The first ``n_pairs`` records of a FASTQ text (4 lines each)."""
+    pos = 0
+    for _ in range(4 * n_pairs):
+        pos = text.index(b"\n", pos) + 1
+    return text[:pos]
 
 
 def _part_like(host, up0, seed):
@@ -924,6 +1262,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--records", type=int, default=2_000_000)
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--pairs", type=int, default=250_000,
+                    help="read pairs of the ingest phase")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel-vs-plain checks")
     args = ap.parse_args()
@@ -951,17 +1291,24 @@ def main() -> int:
         "crc32": check_crc32(args.seed)["max_abs_err"],
         "gather": check_gather(args.seed)["max_abs_err"],
         "deflate": check_deflate(args.seed)["max_abs_err"],
+        "record_scan": check_record_scan(args.seed)["max_abs_err"],
     }
     torch.cuda.synchronize()
     if args.kernels_only:
         return 0
     if args.records != 2_000_000:
         log(f"records cut from 2000000 to {args.records}")
+    if args.pairs != 250_000:
+        log(f"ingest pairs cut from 250000 to {args.pairs}")
     work = tempfile.mkdtemp(prefix="chip_smoke.", dir=REPO)
     try:
         res = main_path(work, args.records, args.seed)
         rows = time_kernels(res["src"], checks, res["launches"], res["launches_resident"],
                             args.seed)
+        os.remove(res["src"])
+        ing = ingest_phase(work, args.pairs, args.seed)
+        rows.append(time_record_scan(ing["r1"], checks, ing["launches"]["record_scan"],
+                                     "ingest_fastq(cuda), default gates"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -4,7 +4,8 @@ The port covers the in-core coordinate sort (:func:`pipeline.sort_bam`):
 BGZF inflate, the BAM record chain, the sorted record gather, the member
 CRC32 and the LZ77 + fixed-Huffman deflate run as hand-written CUDA kernels
 (``csrc/``), keys sort with ``torch.sort``, and the host frames the BGZF
-members and merges the parts.
+members and merges the parts.  FASTQ ingest (:func:`ingest.ingest_fastq`)
+adds the FASTQ record-scan kernel and the name collation.
 Module names mirror the reference package, which the port never imports.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

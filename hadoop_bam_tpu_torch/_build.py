@@ -48,6 +48,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "hbt_gather_stream": [_P, _P, _P, _P, _P, _I64, _I32, _P, _P],
         "hbt_crc32_members": [_P, _P, _P, _I64, _P, _P],
     },
+    "record_scan": {
+        "hbt_record_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P],
+    },
 }
 
 _lock = threading.Lock()

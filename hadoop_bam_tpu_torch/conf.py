@@ -1,8 +1,8 @@
 """Configuration: the string property map of the Hadoop ``Configuration``.
 
 Counterpart of ``hadoop_bam_tpu/conf.py`` with only the keys the in-core
-coordinate sort reads.  The key strings are the reference's, so one dict
-drives both packages (:func:`from_reference_conf`).
+coordinate sort and the FASTQ ingest read.  The key strings are the
+reference's, so one dict drives both packages (:func:`from_reference_conf`).
 """
 
 from __future__ import annotations
@@ -24,6 +24,18 @@ WRITE_DEVICE = "hadoopbam.write.device"
 #: Split read-ahead depth (this key → HBAM_READ_DEPTH → 2).
 READ_DEPTH = "hadoopbam.read.depth"
 ERRORS_MODE = "hadoopbam.errors"
+#: FASTQ quality encoding ("sanger"/"illumina") and failed-QC filtering
+#: ("true"/"false"): the FASTQ-specific key, else the generic input key.
+FASTQ_BASE_QUALITY_ENCODING = "hbam.fastq-input.base-quality-encoding"
+FASTQ_FILTER_FAILED_QC = "hbam.fastq-input.filter-failed-qc"
+INPUT_BASE_QUALITY_ENCODING = "hbam.input.base-quality-encoding"
+INPUT_FILTER_FAILED_QC = "hbam.input.filter-failed-qc"
+#: FASTQ ingest: claim region per record-scan chunk (default 57088), scan
+#: overlap past the claim (default 2048), and the device scan gate
+#: ("true"/"false"; unset: follows the inflate gate).
+INGEST_CHUNK_BYTES = "hadoopbam.ingest.chunk-bytes"
+INGEST_SCAN_OVERLAP = "hadoopbam.ingest.scan-overlap"
+INGEST_DEVICE_SCAN = "hadoopbam.ingest.device-scan"
 
 _TRUE_WORDS = frozenset(("yes", "true", "t", "y", "1", "on", "enabled"))
 _FALSE_WORDS = frozenset(("no", "false", "f", "n", "0", "off", "disabled"))

@@ -4,8 +4,8 @@ Counterpart of ``hadoop_bam_tpu/device_stream.py`` for the in-core sort:
 ``StreamPolicy.resolve`` (the inflate, deflate-lanes and device-write
 gates), ``decode_members`` (the inflate seam of the split reader),
 ``read_splits`` (the double-buffered split drive), ``parse_split`` (the
-inflate→parse seam) and ``encode_part`` (the gather→deflate seam of the
-part writer).  The device is explicit; counters go to the stream's
+inflate→parse seam), ``encode_part`` (the gather→deflate seam of the
+part writer) and ``deflate_stream`` (the BGZF seam of the ingest writer).  The device is explicit; counters go to the stream's
 :class:`~.utils.tracing.Metrics`.
 """
 
@@ -23,6 +23,7 @@ from .io.bam import ChunkedRecords
 from .ops import decode, flate
 from .ops.kernels import OutsideInt32Domain
 from .ops.kernels.gather import gather_stream_device
+from .spec import bgzf
 from .utils.tracing import Metrics
 
 DEFAULT_DEPTH = 2
@@ -212,3 +213,20 @@ class DeviceStream:
         self.metrics.count("bam.device_write_parts")
         self.metrics.count("device_stream.parts_encoded")
         return res
+
+    def deflate_stream(self, payload, level: int, block_payload: int) -> bytes:
+        """Back-to-back BGZF members of a host byte stream, no terminator,
+        a cut every ``block_payload`` bytes.  With the deflate lanes armed:
+        :func:`~.ops.flate.deflate_blocks_device` on the stream's device
+        (per-member host-zlib tier-down, counted; ``block_payload`` at most
+        ``DEV_MAX_PAYLOAD``); otherwise host zlib at ``level``, byte for
+        byte what the reference's ``native.deflate_blocks`` writes."""
+        a = np.frombuffer(payload, dtype=np.uint8)
+        if self.policy.deflate_lanes:
+            self.metrics.count("device_stream.deflates")
+            blob, _ = flate.deflate_blocks_device(
+                a, level=level, block_payload=block_payload, use_lanes=True,
+                device=self.device, metrics=self.metrics,
+            )
+            return blob
+        return bgzf.deflate_blocks(a, level=level, block_payload=block_payload)[0]

@@ -25,6 +25,7 @@ _SEQ_NIB_TABLE = bytes(
 CIGAR_OPS = "MIDNSHP=X"
 _CIGAR_ENCODE = {c: i for i, c in enumerate(CIGAR_OPS)}
 
+FLAG_PAIRED = 0x1
 FLAG_UNMAPPED = 0x4
 INT_MAX = 0x7FFFFFFF  # Java Integer.MAX_VALUE, the unmapped refIdx sentinel
 

@@ -102,6 +102,11 @@ def find_next_block(buf, start: int, end: Optional[int] = None) -> int:
     return -1
 
 
+def is_bgzf(data) -> bool:
+    """Does ``data`` begin with a valid BGZF block header?"""
+    return parse_block_header(data, 0) is not None
+
+
 def inflate_block(buf, pos: int = 0, check_crc: bool = True) -> Tuple[bytes, int]:
     """Inflate one BGZF block at ``pos``; returns ``(payload, csize)``."""
     hdr = parse_block_header(buf, pos)

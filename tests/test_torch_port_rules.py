@@ -205,3 +205,86 @@ def test_mixed_devices_raise():
 
     with pytest.raises(ValueError):
         use_plain(torch.zeros(1), torch.zeros(1, device="meta"))
+
+
+def test_ingest_fastq_without_device_raises_when_no_card(tmp_path, monkeypatch):
+    from hadoop_bam_tpu_torch import ingest
+
+    p = tmp_path / "r.fastq"
+    p.write_bytes(b"@r0\nACGT\n+\nIIII\n")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ingest.ingest_fastq(str(p), str(tmp_path / "out.bam"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ingest.ingest_fastq(str(p), str(tmp_path / "out.bam"), device="cuda")
+
+
+@pytest.mark.parametrize("kwargs", [{"deadline": 1.0}, {"resource_cache": object()}],
+                         ids=["deadline", "resource_cache"])
+def test_ingest_serve_options_raise(tmp_path, kwargs):
+    from hadoop_bam_tpu_torch import ingest
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+        ingest.ingest_fastq(str(tmp_path / "r.fastq"), str(tmp_path / "out.bam"),
+                            device="cpu", **kwargs)
+
+
+def test_record_scan_that_cannot_build_raises(tmp_path, monkeypatch):
+    from hadoop_bam_tpu_torch import _build
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    assert "hbt_record_scan" in _build.SIGNATURES["record_scan"]
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("record_scan")
+
+
+@pytest.mark.parametrize("conf", [{}, {"hadoopbam.ingest.device-scan": "true"}],
+                         ids=["default_scan", "device_scan"])
+def test_salvage_does_not_swallow_a_kernel_failure(tmp_path, monkeypatch, conf):
+    """A kernel that fails raises through ingest salvage; only corrupt data is
+    quarantined."""
+    import gzip
+
+    from hadoop_bam_tpu_torch import ingest
+    from hadoop_bam_tpu_torch.conf import Configuration
+    from hadoop_bam_tpu_torch.ops.kernels import inflate as kin
+    from hadoop_bam_tpu_torch.ops.kernels import record_scan as krs
+
+    p = tmp_path / "r.fastq.gz"
+    p.write_bytes(gzip.compress(b"".join(b"@r%d\nACGT\n+\nIIII\n" % i for i in range(20))))
+
+    def broken(*a, **k):
+        raise RuntimeError("inflate_members: CUDA error 700 at launch")
+
+    monkeypatch.setattr(kin, "inflate_members", broken)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ingest.ingest_fastq(str(p), str(tmp_path / "o.bam"), device="cpu", errors="salvage",
+                            conf=Configuration(conf))
+    monkeypatch.undo()
+    if conf:
+        monkeypatch.setattr(krs, "scan_windows", broken)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            ingest.ingest_fastq(str(p), str(tmp_path / "o.bam"), device="cpu",
+                                errors="salvage", conf=Configuration(conf))
+
+
+def test_reference_conf_dict_drives_the_ingest_keys():
+    from hadoop_bam_tpu import conf as jconf
+    from hadoop_bam_tpu_torch import conf as tconf
+
+    keys = ("FASTQ_BASE_QUALITY_ENCODING", "FASTQ_FILTER_FAILED_QC",
+            "INPUT_BASE_QUALITY_ENCODING", "INPUT_FILTER_FAILED_QC", "INGEST_CHUNK_BYTES",
+            "INGEST_SCAN_OVERLAP", "INGEST_DEVICE_SCAN")
+    d = {getattr(jconf, k): v for k, v in zip(keys, ("illumina", "true", "sanger", "no", "4096",
+                                                      "512", "false"))}
+    a, b = jconf.Configuration(d), tconf.from_reference_conf(d)
+    for key in keys:
+        k = getattr(tconf, key)
+        assert k == getattr(jconf, key)
+        assert a.get(k) == b.get(k) and a.get_int(k, -1) == b.get_int(k, -1)
+        assert a.get_boolean(k) == b.get_boolean(k)
