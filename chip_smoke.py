@@ -2,7 +2,7 @@
 
 Run on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--records N] [--pairs N] [--seed S]
+    python3 chip_smoke.py [--records N] [--pairs N] [--variants N] [--seed S]
 
 Phases: print the card; build the CUDA kernels from ``csrc/``; hold each
 kernel against its plain PyTorch version on the card (exact equality);
@@ -12,8 +12,10 @@ port's CPU run) and with one resident split (byte-identical to the host
 gather + deflate lanes); drive ``ingest_fastq`` on 250,000 synthetic read
 pairs with the default gates, with the deflate lanes off and on the CPU
 (byte-identical to the card without lanes; the lanes' output decompresses
-to the same bytes), and hold ``ingest_oracle`` to it on a prefix; time
-every kernel at the paths' shapes.
+to the same bytes), and hold ``ingest_oracle`` to it on a prefix; query
+three regions of a synthetic 4,500,000-site BCF call set with
+``variants_blob`` on the card and on the CPU (byte-identical, and equal to
+the generator's records); time every kernel at the paths' shapes.
 Any failure exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table
 as JSON.  Imports neither JAX nor the JAX package.
@@ -626,6 +628,281 @@ def time_record_scan(run: bytes, checks: dict, launches: int, launches_from: str
 
 
 # ---------------------------------------------------------------------------
+# BCF: the call-set generator and the record-chain kernel
+# ---------------------------------------------------------------------------
+
+SAMPLES = ("NA12878", "NA12891", "NA12892")  # a trio
+BCF_RECORD = 109  # bytes of every generated record (see synth_bcf_rows)
+#: A window on chr1 where the generator places no site.
+EMPTY_WINDOW = ("chr1", 125_000_001, 126_000_000)
+VARIANT_REGIONS = ("chr20:10,000,001-11,000,000", "chr21",
+                   f"{EMPTY_WINDOW[0]}:{EMPTY_WINDOW[1]}-{EMPTY_WINDOW[2]}")
+
+
+def bcf_header_lines() -> list:
+    """The call set's VCF header: GATK-style INFO AC/AF/AN/DP and FORMAT
+    GT:AD:DP:GQ:PL over the 25 GRCh38 contigs, three samples."""
+    return (["##fileformat=VCFv4.2", '##FILTER=<ID=PASS,Description="All filters passed">']
+            + [f"##contig=<ID={c},length={n}>" for c, n in GRCH38]
+            + ['##INFO=<ID=AC,Number=A,Type=Integer,Description="Allele count">',
+               '##INFO=<ID=AF,Number=A,Type=Float,Description="Allele frequency">',
+               '##INFO=<ID=AN,Number=1,Type=Integer,Description="Total number of alleles">',
+               '##INFO=<ID=DP,Number=1,Type=Integer,Description="Approximate read depth">',
+               '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
+               '##FORMAT=<ID=AD,Number=R,Type=Integer,Description="Allelic depths">',
+               '##FORMAT=<ID=DP,Number=1,Type=Integer,Description="Read depth">',
+               '##FORMAT=<ID=GQ,Number=1,Type=Integer,Description="Genotype quality">',
+               '##FORMAT=<ID=PL,Number=G,Type=Integer,Description="Genotype likelihoods">',
+               "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t" + "\t".join(SAMPLES)])
+
+
+def synth_sites(n: int, seed: int):
+    """``(contig, pos)`` of about ``n`` sites placed in proportion to contig
+    length, sorted by (contig, pos), none in :data:`EMPTY_WINDOW`."""
+    rng = np.random.default_rng(seed)
+    lens = np.asarray([c[1] for c in GRCH38], dtype=np.int64)
+    want = np.round(n * lens / lens.sum()).astype(np.int64)
+    contig, pos = [], []
+    for ci, (name, ln) in enumerate(GRCH38):
+        p = np.unique(rng.integers(1, ln + 1, int(want[ci])))
+        if name == EMPTY_WINDOW[0]:
+            p = p[(p < EMPTY_WINDOW[1]) | (p > EMPTY_WINDOW[2])]
+        contig.append(np.full(len(p), ci, dtype=np.int64))
+        pos.append(p)
+    return np.concatenate(contig), np.concatenate(pos)
+
+
+def synth_bcf_rows(contig: np.ndarray, pos: np.ndarray, seed: int) -> np.ndarray:
+    """The BCF records of biallelic SNVs at ``(contig, pos)``: uint8 rows of
+    :data:`BCF_RECORD` bytes, each exactly what ``spec/bcf.encode_record``
+    writes for it.  INFO AC (1..6), AF (AC/6 as its %g text in float32),
+    AN=6, DP (<= 126); FORMAT GT, AD and DP (int8), GQ (int8) and PL
+    (int16: every sample has a likelihood above 127)."""
+    rng = np.random.default_rng(seed)
+    n = len(pos)
+    alt = rng.choice(3, (n, 3), p=[0.45, 0.35, 0.20])  # alt alleles per sample
+    none = alt.sum(1) == 0
+    alt[none, 0] = 1  # a site carries at least one alt allele
+    ac = alt.sum(1)
+    # AF as the float32 of its %g text, so decode and re-encode keep its bits
+    af = np.asarray([float(f"{k / 6:g}") for k in range(7)], dtype=np.float32)[ac]
+    dp_s = rng.integers(15, 43, (n, 3))
+    ref_ad = np.where(alt == 0, dp_s, np.where(alt == 1, dp_s // 2, rng.integers(0, 3, (n, 3))))
+    alt_ad = dp_s - ref_ad
+    gq = rng.integers(20, 100, (n, 3))
+    pl = rng.integers(128, 2000, (n, 3, 3))
+    pl[np.arange(n)[:, None], np.arange(3)[None, :], alt] = 0
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    ref = rng.integers(0, 4, n)
+    alt_b = (ref + rng.integers(1, 4, n)) % 4
+    qual = np.round(rng.uniform(30, 3000, n), 2).astype(np.float32)
+    rows = np.zeros((n, BCF_RECORD), dtype=np.uint8)
+
+    def put(col: int, vals, nbytes: int) -> None:
+        v = np.asarray(vals).astype(np.int64) & ((1 << (8 * nbytes)) - 1)
+        for k in range(nbytes):
+            rows[:, col + k] = (v >> (8 * k)) & 0xFF
+
+    def const(col: int, data: bytes) -> None:
+        rows[:, col : col + len(data)] = np.frombuffer(data, np.uint8)
+
+    put(0, np.full(n, 50), 4)  # l_shared
+    put(4, np.full(n, BCF_RECORD - 58), 4)  # l_indiv
+    put(8, contig, 4)
+    put(12, pos - 1, 4)
+    put(16, np.ones(n), 4)  # rlen
+    put(20, qual.view(np.uint32), 4)
+    put(24, np.full(n, (2 << 16) | 4), 4)
+    put(28, np.full(n, (5 << 24) | 3), 4)
+    const(32, b"\x07\x17")  # ID: an empty string; REF: one char
+    rows[:, 34] = bases[ref]
+    rows[:, 35] = 0x17
+    rows[:, 36] = bases[alt_b]
+    const(37, b"\x11\x00\x11\x01\x11")  # FILTER PASS; AC key; AC value type
+    put(42, ac, 1)
+    const(43, b"\x11\x02\x15")  # AF key, value type
+    put(46, af.view(np.uint32), 4)
+    const(50, b"\x11\x03\x11\x06\x11\x04\x11")  # AN key, AN=6, DP key, value type
+    put(57, dp_s.sum(1), 1)
+    const(58, b"\x11\x05\x21")  # GT: two int8 per sample
+    gt = np.stack([np.where(alt >= 2, 4, 2), np.where(alt >= 1, 4, 2)], axis=2)
+    rows[:, 61:67] = gt.reshape(n, 6)
+    const(67, b"\x11\x06\x21")  # AD: two int8 per sample
+    rows[:, 70:76] = np.stack([ref_ad, alt_ad], axis=2).reshape(n, 6)
+    const(76, b"\x11\x04\x11")  # DP
+    rows[:, 79:82] = dp_s
+    const(82, b"\x11\x07\x11")  # GQ
+    rows[:, 85:88] = gq
+    const(88, b"\x11\x08\x32")  # PL: three int16 per sample
+    pl16 = pl.reshape(n, 9).astype("<i2").view(np.uint8).reshape(n, 18)
+    rows[:, 91:109] = pl16
+    return rows
+
+
+def synth_bcf(path: str, n: int, seed: int, level: int = 6):
+    """Write a BGZF-BCF call set of about ``n`` sites; returns ``(contig,
+    pos, rows, header bytes)``."""
+    from hadoop_bam_tpu_torch.spec import bcf, bgzf
+    from hadoop_bam_tpu_torch.spec.vcf import VcfHeader
+
+    contig, pos = synth_sites(n, seed)
+    rows = synth_bcf_rows(contig, pos, seed + 1)
+    head = bcf.encode_header(VcfHeader(bcf_header_lines()))
+    blob, _ = bgzf.deflate_blocks(np.concatenate([np.frombuffer(head, np.uint8),
+                                                  rows.reshape(-1)]), level=level)
+    with open(path, "wb") as f:
+        f.write(blob)
+        f.write(bgzf.TERMINATOR)
+    return contig, pos, rows, head
+
+
+def check_bcf_rows(rows: np.ndarray, contig: np.ndarray, pos: np.ndarray, k: int, seed: int):
+    """A sample of generated records decodes with ``spec/bcf.decode_record``
+    to its site and re-encodes to the same bytes."""
+    from hadoop_bam_tpu_torch.spec import bcf
+    from hadoop_bam_tpu_torch.spec.vcf import VcfHeader
+
+    hdr = bcf.BcfHeader(VcfHeader(bcf_header_lines()))
+    for i in np.random.default_rng(seed).choice(len(rows), min(k, len(rows)), replace=False):
+        raw = rows[i].tobytes()
+        v, end = bcf.decode_record(raw, 0, hdr)
+        if (end, v.chrom, v.pos) != (len(raw), GRCH38[contig[i]][0], int(pos[i])) or \
+                bcf.encode_record(hdr, v) != raw:
+            raise AssertionError(f"generated record {i} is not canonical: {v.format_line()}")
+
+
+def varied_bcf_payload(seed: int, n: int = 3000) -> bytes:
+    """Records the generator does not make, encoded by the port's spec: SNVs
+    and indels, POS=0, symbolic deletions with INFO END, sites-only records,
+    missing QUAL/FILTER/values, IDs, flags and strings."""
+    from hadoop_bam_tpu_torch.spec import bcf
+    from hadoop_bam_tpu_torch.spec.vcf import VcfHeader, parse_variant_line
+
+    rng = np.random.default_rng(seed)
+    lines = bcf_header_lines()
+    lines[-1:-1] = ['##INFO=<ID=END,Number=1,Type=Integer,Description="End">',
+                    '##INFO=<ID=DB,Number=0,Type=Flag,Description="dbSNP">',
+                    '##INFO=<ID=NOTE,Number=1,Type=String,Description="Note">']
+    hdr = bcf.BcfHeader(VcfHeader(lines))
+    out = []
+    for i, p in enumerate(np.sort(rng.integers(1, 10**6, n)).tolist()):
+        kind = i % 9
+        p = 0 if i == 0 else p
+        ref, alt = ("ACGT"[i % 4], "GT"[i % 2]) if kind else ("ACG", "A")
+        info = f"AC={1 + i % 6};AF=0.5;AN=6;DP={i % 500}"
+        if kind == 1:
+            ref, alt, info = "A", "<DEL>", f"END={p + 500};DP=3"
+        elif kind == 2:
+            info += ";DB;NOTE=x" + str(i)
+        qual = "." if kind == 3 else f"{i % 997 / 7:.2f}"
+        vid = f"rs{i}" if kind == 4 else "."
+        filt = "." if kind == 5 else "PASS"
+        fields = ["chr7", str(p), vid, ref, alt, qual, filt, info]
+        if kind != 6:
+            gts = ["0/1:3,4:7:50:20,0,300", "./.:.:.:.:.", f"1|1:0,{i % 300}:9:99:900,600,0"]
+            fields += ["GT:AD:DP:GQ:PL"] + gts
+        out.append(bcf.encode_record(hdr, parse_variant_line("\t".join(fields))))
+    return b"".join(out)
+
+
+def bcf_walk_cases(seed: int, big: bytes) -> dict:
+    """``(payload, start, limit)`` of the chain-walk check: the generated
+    call set at a split's size and the varied records, each clean, as a
+    window with a straddling tail, with a corrupt l_shared, with a corrupt
+    l_indiv, truncated, and an empty window."""
+    import struct
+
+    cases = {}
+    for tag, payload in (("call set", big), ("varied", varied_bcf_payload(seed))):
+        offs = [0]
+        while offs[-1] + 8 <= len(payload):
+            ls, li = struct.unpack_from("<II", payload, offs[-1])
+            offs.append(offs[-1] + 8 + ls + li)
+        k = len(offs) // 2
+        bad_s = bytearray(payload)
+        struct.pack_into("<I", bad_s, offs[k], 7)
+        bad_i = bytearray(payload)
+        struct.pack_into("<I", bad_i, offs[k + 1] + 4, 0x90000000)
+        cut = payload[: offs[k + 2] + 20]
+        cases.update({
+            f"{tag}: clean": (payload, 0, len(payload)),
+            f"{tag}: window, straddling tail": (payload, offs[3], offs[k + 5] - 5),
+            f"{tag}: corrupt l_shared": (bytes(bad_s), 0, len(payload)),
+            f"{tag}: corrupt l_indiv": (bytes(bad_i), 0, len(payload)),
+            f"{tag}: truncated": (cut, 0, len(cut)),
+            f"{tag}: empty window": (payload, offs[k], offs[k]),
+        })
+    return cases
+
+
+def check_bcf_chain(seed: int, big: bytes) -> dict:
+    """The BCF chain kernel against its plain version (columns, count and
+    ok, exactly) on every case of :func:`bcf_walk_cases`; the tiered walk
+    answers clean windows on the card and re-walks corrupt ones on the
+    host."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops.kernels import bcf_chain as kb
+
+    bad = 0
+    verdicts = {}
+    for what, (buf, start, limit) in bcf_walk_cases(seed, big).items():
+        t = torch.from_numpy(np.frombuffer(buf, np.uint8).copy())
+        cols_k, meta_k = kb.walk_chain_device(t.cuda(), start, limit)
+        cols_p, meta_p = kb.walk_chain_device(t, start, limit)
+        count = int(meta_p[0])
+        if meta_k.cpu().tolist() != meta_p.tolist():
+            raise AssertionError(f"bcf_chain [count, ok] differs from plain ({what}): "
+                                 f"{meta_k.cpu().tolist()} vs {meta_p.tolist()}")
+        diff = int((cols_k[:, :count].cpu() != cols_p[:, :count]).sum())
+        if diff:
+            raise AssertionError(f"bcf_chain columns differ from plain ({what}): {diff} values")
+        _, _, ok, tier = kb.walk_chain(t.cuda(), start, limit, host=buf)
+        verdicts[what] = [count, int(meta_p[1]), tier]
+        if tier != ("device" if meta_p[1] else "host") or ok != bool(meta_p[1]):
+            raise AssertionError(f"walk_chain tier {tier} for {what}")
+        bad += diff
+    oks = [v[1] for v in verdicts.values()]
+    if oks != [1, 1, 0, 0, 0, 1] * 2:
+        raise AssertionError(f"bcf_chain verdicts {verdicts}")
+    log(f"bcf_chain kernel == plain: {len(verdicts)} windows [count, ok, tier] "
+        f"{json.dumps(verdicts)}, max_abs_err 0")
+    return {"max_abs_err": float(bad)}
+
+
+def time_bcf_chain(path: str, checks: dict, launches: int, launches_from: str) -> dict:
+    """The chain kernel over one split of the call set (the first), beside
+    its plain version and its bound."""
+    import torch
+
+    from hadoop_bam_tpu_torch.io.bcf import BcfInputFormat, _read_bcf_split_local
+    from hadoop_bam_tpu_torch.ops.kernels import bcf_chain as kb
+
+    split = BcfInputFormat().get_splits([path])[0]
+    _, payload, p, end, _ = _read_bcf_split_local(split)
+    g = torch.from_numpy(np.frombuffer(payload, np.uint8).copy()).cuda()
+    c = torch.from_numpy(np.frombuffer(payload, np.uint8).copy())
+    k_ms = cuda_ms(lambda: kb.walk_chain_device(g, p, end), iters=10)
+    p_ms = host_ms(lambda: kb.walk_chain_device(c, p, end), iters=1)
+    _, meta = kb.walk_chain_device(g, p, end)
+    n_rec = int(meta[0])
+    row = {
+        "name": "bcf_chain", "route": "cuda",
+        "source": "hadoop_bam_tpu_torch/csrc/bcf_chain.cu",
+        "replaces": "hadoop_bam_tpu/ops/pallas/bcf_chain.py:172",
+        "launches": launches, "launches_from": launches_from,
+        "max_abs_err": checks["bcf_chain"], "ms": k_ms, "plain_ms": p_ms,
+        # per record: 8 B of lengths + 24 B of fixed fields read, 28 B of columns written
+        "bound_ms": (8 + 24 + 28) * n_rec / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None,
+        "shape": f"one split: {n_rec} records, {end - p} bytes",
+    }
+    log(f"  bcf_chain: {k_ms:.4f} ms (plain {p_ms:.3f} ms, bound {row['bound_ms']:.4f} ms) "
+        f"at {row['shape']}")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # The main path
 # ---------------------------------------------------------------------------
 
@@ -743,6 +1020,7 @@ def record_digests(path: str):
 
 
 def _counters():
+    from hadoop_bam_tpu_torch.ops.kernels import bcf_chain as kb
     from hadoop_bam_tpu_torch.ops.kernels import chain as kch
     from hadoop_bam_tpu_torch.ops.kernels import crc32 as kcrc
     from hadoop_bam_tpu_torch.ops.kernels import deflate as kd
@@ -751,7 +1029,7 @@ def _counters():
     from hadoop_bam_tpu_torch.ops.kernels import record_scan as krs
 
     return (kin.LAUNCHES, kch.WALK_LAUNCHES, kch.KEYS_LAUNCHES, kd.LAUNCHES, kg.LAUNCHES,
-            kcrc.LAUNCHES, krs.LAUNCHES)
+            kcrc.LAUNCHES, krs.LAUNCHES, kb.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -1033,22 +1311,122 @@ def ingest_phase(work: str, n_pairs: int, seed: int) -> dict:
         if getattr(st_a, k) != getattr(st_c, k) or getattr(st_b, k) != getattr(st_c, k):
             raise AssertionError(f"ingest stats differ between runs: {k}")
     # The oracle on a prefix of the same corpus.
-    cut1 = _pair_prefix(r1, ORACLE_PAIRS)
-    cut2 = _pair_prefix(r2, ORACLE_PAIRS)
+    n_or = min(ORACLE_PAIRS, n_pairs)
+    cut1 = _pair_prefix(r1, n_or)
+    cut2 = _pair_prefix(r2, n_or)
     ppaths = write_fastq_inputs(work, cut1, cut2, "prefix")
     t0 = time.perf_counter()
-    n_or = ingest_oracle(ppaths[0], out["oracle"], r2=ppaths[1])
+    n_rec_or = ingest_oracle(ppaths[0], out["oracle"], r2=ppaths[1])
     t_or = time.perf_counter() - t0
-    st_p, _, _ = timed_ingest(ppaths, out["pc"], f"cpu, {ORACLE_PAIRS}-pair prefix", device="cpu")
+    st_p, _, _ = timed_ingest(ppaths, out["pc"], f"cpu, {n_or}-pair prefix", device="cpu")
     with open(out["oracle"], "rb") as f:
         o = f.read()
     with open(out["pc"], "rb") as f:
         p = f.read()
-    if o != p or n_or != st_p.n_records:
+    if o != p or n_rec_or != st_p.n_records:
         raise AssertionError("ingest_oracle differs from the cpu ingest on the prefix")
-    log(f"ingest_oracle == ingest_fastq(cpu) on {ORACLE_PAIRS} pairs: {len(o)} bytes, "
+    log(f"ingest_oracle == ingest_fastq(cpu) on {n_or} pairs: {len(o)} bytes, "
         f"oracle {t_or:.1f} s")
     return {"launches": launches, "stats": st_a, "wall": wall_a, "r1": r1}
+
+
+def timed_variants(path: str, region: str, what: str, trace: bool = False, conf=None,
+                   device: str = "cuda"):
+    """One ``variants_blob`` with the launch counts zeroed just before it and
+    read just after it; with ``trace``, under ``torch.profiler`` (device
+    activity only).  Returns ``(blob, wall, launches, counters)``."""
+    import contextlib
+
+    import torch
+
+    from hadoop_bam_tpu_torch.device_stream import DeviceStream
+    from hadoop_bam_tpu_torch.serve.endpoints import variants_blob
+    from hadoop_bam_tpu_torch.utils.backend import resolve_device
+
+    stream = DeviceStream(resolve_device(device), conf=conf)
+    on_card = stream.device.type == "cuda"
+    reset_counts()
+    if on_card:
+        torch.cuda.synchronize()
+    ctx = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+           if trace else contextlib.nullcontext())
+    timings: dict = {}
+    with ctx as prof:
+        t0 = time.perf_counter()
+        blob = variants_blob(path, region, stream=stream, timings=timings)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = launch_counts()
+    c = stream.metrics.counters()
+    log(f"variants_blob({what}): {c.get('serve.variants.records', 0)} records, wall {wall:.3f} s, "
+        f"{len(blob)} bytes out")
+    log("  phases (s): " + json.dumps({k: round(v, 3) for k, v in timings.items()}))
+    log(f"  launches: {json.dumps(launches)}")
+    log("  counters: " + json.dumps({k: v for k, v in sorted(c.items()) if v and k.startswith(
+        ("bcf.", "variants.", "flate.", "device_stream.", "serve."))}))
+    log("  transfers: " + json.dumps({k: v for k, v in c.items() if k.startswith("transfers.")}))
+    if trace:
+        tpath = os.path.join(os.path.dirname(path), "variants.trace.json")
+        prof.export_chrome_trace(tpath)
+        dev = device_time(tpath)
+        os.remove(tpath)
+        if dev["events"]:
+            log(f"  device (torch.profiler): busy {dev['busy_s']:.6f} s of the wall {wall:.6f} s,"
+                f" idle {1 - dev['busy_s'] / wall:.6f}; {dev['events']} device events")
+            log("  device time by kernel [count, ms]: " + json.dumps(dev["by_name"]))
+        else:
+            log("  device (torch.profiler): the trace holds no device events; not measured")
+    return blob, wall, launches, c
+
+
+def variants_phase(work: str, n_sites: int, seed: int) -> dict:
+    """Ranged queries of a synthetic call set of ``n_sites`` sites: per
+    region of :data:`VARIANT_REGIONS`, ``variants_blob`` on the card with the
+    default gates (inflate, chain walk and join on the card; the first
+    region under ``torch.profiler``) and on the CPU with the walk and
+    inflate gates on (the plain versions), byte-identical, and the blob
+    decodes to exactly the generator's records of the region."""
+    from hadoop_bam_tpu_torch.conf import BCF_CHAIN, INFLATE_LANES, Configuration
+    from hadoop_bam_tpu_torch.utils.intervals import MAX_END, parse_interval
+
+    path = os.path.join(work, "calls.bcf")
+    t0 = time.perf_counter()
+    contig, pos, rows, head = synth_bcf(path, n_sites, seed)
+    log(f"synthetic BCF call set: {len(pos)} sites, {rows.size} bytes of records, "
+        f"{os.path.getsize(path)} bytes BGZF at level 6, built in {time.perf_counter() - t0:.1f} s")
+    check_bcf_rows(rows, contig, pos, 2000, seed)
+    log("generated records: a sample of 2000 decodes to its sites and re-encodes to its bytes")
+    names = [c for c, _ in GRCH38]
+    cpu_conf = Configuration({BCF_CHAIN: "true", INFLATE_LANES: "true"})
+    first = None
+    for k, region in enumerate(VARIANT_REGIONS):
+        blob, wall, launches, c = timed_variants(path, region, f"cuda, {region}", trace=(k == 0))
+        missing = [x for x in ("inflate_members", "bcf_chain") if launches[x] <= 0]
+        if missing:
+            raise AssertionError(f"kernels of the variants path never launched: {missing}")
+        if c.get("bcf.chain.host_walks", 0) or c.get("flate.lanes_tierdown", 0) \
+                or c.get("variants.join_host", 0):
+            raise AssertionError(f"the card tiered down on clean input: {c}")
+        blob_cpu, _, _, _ = timed_variants(path, region, f"cpu, {region}", conf=cpu_conf,
+                                           device="cpu")
+        if blob != blob_cpu:
+            raise AssertionError(f"variants {region}: card and cpu blobs differ")
+        iv = parse_interval(region)
+        keep = (contig == names.index(iv.contig)) & (pos >= iv.start) & (pos <= min(iv.end, MAX_END))
+        if bgzf_bytes(blob) != head + rows[keep].tobytes():
+            raise AssertionError(f"variants {region}: blob differs from the generator's records")
+        log(f"variants {region}: cuda == cpu ({len(blob)} bytes), decodes to the generator's "
+            f"{int(keep.sum())} records")
+        if first is None:
+            first = {"launches": launches, "wall": wall}
+    return {"path": path, "launches": first["launches"]}
+
+
+def bgzf_bytes(blob: bytes) -> bytes:
+    from hadoop_bam_tpu_torch.spec import bgzf
+
+    return bgzf.inflate_blocks(blob, *bgzf.scan_blocks(blob))[0].tobytes()
 
 
 def _pair_prefix(text: bytes, n_pairs: int) -> bytes:
@@ -1264,6 +1642,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--pairs", type=int, default=250_000,
                     help="read pairs of the ingest phase")
+    ap.add_argument("--variants", type=int, default=4_500_000,
+                    help="sites of the variants phase's call set")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel-vs-plain checks")
     args = ap.parse_args()
@@ -1293,6 +1673,9 @@ def main() -> int:
         "deflate": check_deflate(args.seed)["max_abs_err"],
         "record_scan": check_record_scan(args.seed)["max_abs_err"],
     }
+    contig, pos = synth_sites(120_000, args.seed)  # about one split of the call set
+    big = synth_bcf_rows(contig, pos, args.seed).tobytes()
+    checks["bcf_chain"] = check_bcf_chain(args.seed, big)["max_abs_err"]
     torch.cuda.synchronize()
     if args.kernels_only:
         return 0
@@ -1300,6 +1683,8 @@ def main() -> int:
         log(f"records cut from 2000000 to {args.records}")
     if args.pairs != 250_000:
         log(f"ingest pairs cut from 250000 to {args.pairs}")
+    if args.variants != 4_500_000:
+        log(f"variant sites cut from 4500000 to {args.variants}")
     work = tempfile.mkdtemp(prefix="chip_smoke.", dir=REPO)
     try:
         res = main_path(work, args.records, args.seed)
@@ -1309,6 +1694,10 @@ def main() -> int:
         ing = ingest_phase(work, args.pairs, args.seed)
         rows.append(time_record_scan(ing["r1"], checks, ing["launches"]["record_scan"],
                                      "ingest_fastq(cuda), default gates"))
+        del ing
+        var = variants_phase(work, args.variants, args.seed)
+        rows.append(time_bcf_chain(var["path"], checks, var["launches"]["bcf_chain"],
+                                   f"variants_blob(cuda), {VARIANT_REGIONS[0]}"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -51,6 +51,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "record_scan": {
         "hbt_record_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P],
     },
+    "bcf_chain": {
+        "hbt_bcf_chain_walk": [_P, _I64, _I64, _I64, _P, _I64, _P, _P],
+    },
 }
 
 _lock = threading.Lock()

@@ -19,6 +19,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.backend import resolve_device
 from ..utils.tracing import Metrics
 
 _I32MAX = 2**31 - 1
@@ -102,15 +103,16 @@ def collate_by_name(
     device: Optional[torch.device] = None,
     metrics: Optional[Metrics] = None,
 ) -> Collation:
-    """Run the collation over read-order columns on ``device`` (default
-    the CPU).  ``cols`` needs ``qh1``/``qh2``/``flag``/``pos``; ``active``
+    """Run the collation over read-order columns on ``device``, resolved
+    as every entry point of the port resolves it: None means the card, and
+    raises when there is none; the CPU runs only when asked for.  ``cols`` needs ``qh1``/``qh2``/``flag``/``pos``; ``active``
     selects the rows to group (default all); ``candidates`` the rows
     eligible for mate pairing (default ``cols['cand']``, else ``active``)."""
+    dev = resolve_device(device)
     n = len(cols["qh1"])
     if n == 0:
         return Collation(order=np.empty(0, np.int64), group=np.empty(0, np.int32),
                          n_groups=0, mate=np.empty(0, np.int32), n_pairs=0)
-    dev = torch.device("cpu") if device is None else torch.device(device)
     act = np.ones(n, np.int32) if active is None else np.asarray(active, np.int32)
     if candidates is None:
         cand = cols.get("cand")

@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from ..spec.bam import FLAG_PAIRED
+from ..utils.backend import resolve_device
 from ..utils.tracing import Metrics
 from .device import Collation, collate_by_name
 
@@ -169,9 +170,10 @@ def queryname_perm(cols: Dict[str, np.ndarray], device=None,
                    metrics: Optional[Metrics] = None) -> Tuple[np.ndarray, QuerynameStats]:
     """The queryname-sort output permutation (int64[N], read-order indices
     in output order): samtools natural name order, then flag, position and
-    read index.  The collation groups by hash on ``device``; the host sorts
-    only the verified bucket representatives, and one ``lexsort``
-    finishes."""
+    read index.  The collation groups by hash on ``device`` (None: the
+    card, which raises when there is none); the host sorts only the
+    verified bucket representatives, and one ``lexsort`` finishes."""
+    device = resolve_device(device)
     n = len(cols["qh1"])
     if n == 0:
         return np.empty(0, np.int64), QuerynameStats(0, 0, 0)

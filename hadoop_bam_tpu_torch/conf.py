@@ -1,7 +1,7 @@
 """Configuration: the string property map of the Hadoop ``Configuration``.
 
 Counterpart of ``hadoop_bam_tpu/conf.py`` with only the keys the in-core
-coordinate sort and the FASTQ ingest read.  The key strings are the
+coordinate sort, the FASTQ ingest and the BCF variant plane read.  The key strings are the
 reference's, so one dict drives both packages (:func:`from_reference_conf`).
 """
 
@@ -36,6 +36,13 @@ INPUT_FILTER_FAILED_QC = "hbam.input.filter-failed-qc"
 INGEST_CHUNK_BYTES = "hadoopbam.ingest.chunk-bytes"
 INGEST_SCAN_OVERLAP = "hadoopbam.ingest.scan-overlap"
 INGEST_DEVICE_SCAN = "hadoopbam.ingest.device-scan"
+#: BCF input: intervals a split keeps (``chr:start-stop[,...]``), the
+#: record decoder's stringency ("STRICT" raises on a bad record, anything
+#: else stops the split there) and the device record-chain walk
+#: ("true"/"false"; unset: on for a CUDA device).
+VCF_INTERVALS = "hadoopbam.vcf.intervals"
+VCFRECORDREADER_VALIDATION_STRINGENCY = "hadoopbam.vcfrecordreader.validation-stringency"
+BCF_CHAIN = "hadoopbam.bcf.chain"
 
 _TRUE_WORDS = frozenset(("yes", "true", "t", "y", "1", "on", "enabled"))
 _FALSE_WORDS = frozenset(("no", "false", "f", "n", "0", "off", "disabled"))
@@ -84,5 +91,6 @@ class Configuration:
 
 def from_reference_conf(d: Mapping[str, str]) -> Configuration:
     """The port's Configuration from the key/value dict the reference's
-    ``Configuration`` takes."""
+    ``Configuration`` takes; every key above keeps the reference's string,
+    so one dict drives both packages."""
     return Configuration(d)

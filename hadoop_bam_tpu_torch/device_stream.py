@@ -5,7 +5,9 @@ Counterpart of ``hadoop_bam_tpu/device_stream.py`` for the in-core sort:
 gates), ``decode_members`` (the inflate seam of the split reader),
 ``read_splits`` (the double-buffered split drive), ``parse_split`` (the
 inflate→parse seam), ``encode_part`` (the gather→deflate seam of the
-part writer) and ``deflate_stream`` (the BGZF seam of the ingest writer).  The device is explicit; counters go to the stream's
+part writer), ``deflate_stream`` (the BGZF seam of the ingest writer) and
+``walk_bcf_records`` (the BCF record-chain seam of the variant plane).  The
+device is explicit; counters go to the stream's
 :class:`~.utils.tracing.Metrics`.
 """
 
@@ -18,10 +20,11 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from .conf import DEFLATE_LANES, INFLATE_LANES, READ_DEPTH, WRITE_DEVICE
+from .conf import BCF_CHAIN, DEFLATE_LANES, INFLATE_LANES, READ_DEPTH, WRITE_DEVICE
 from .io.bam import ChunkedRecords
 from .ops import decode, flate
 from .ops.kernels import OutsideInt32Domain
+from .ops.kernels.bcf_chain import walk_chain
 from .ops.kernels.gather import gather_stream_device
 from .spec import bgzf
 from .utils.tracing import Metrics
@@ -61,10 +64,11 @@ class StreamPolicy:
     CUDA device, off for the CPU."""
 
     def __init__(self, inflate_lanes: bool, deflate_lanes: bool, device_write: bool,
-                 depth: int) -> None:
+                 depth: int, use_bcf_chain: bool = False) -> None:
         self.inflate_lanes = inflate_lanes
         self.deflate_lanes = deflate_lanes
         self.device_write = device_write
+        self.use_bcf_chain = use_bcf_chain
         self.depth = depth
 
     @classmethod
@@ -75,6 +79,7 @@ class StreamPolicy:
             deflate_lanes=_gate("HBAM_DEFLATE_LANES", conf, DEFLATE_LANES, on_card),
             device_write=_gate("HBAM_DEVICE_WRITE", conf, WRITE_DEVICE, on_card),
             depth=resolve_depth(conf),
+            use_bcf_chain=_gate("HBAM_BCF_CHAIN", conf, BCF_CHAIN, on_card),
         )
 
 
@@ -230,3 +235,24 @@ class DeviceStream:
             )
             return blob
         return bgzf.deflate_blocks(a, level=level, block_payload=block_payload)[0]
+
+    def walk_bcf_records(self, payload, start: int, limit: int,
+                         resident: Optional[torch.Tensor] = None):
+        """Walk a BCF record chain through the stream's gate: ``(cols,
+        count, ok, tier)`` from :func:`~.ops.kernels.bcf_chain.walk_chain`,
+        or None when the gate is off.  ``resident`` is the window the
+        inflate kernel left on the device (the same bytes as ``payload``):
+        the walk reads it in place; otherwise ``payload`` is uploaded
+        (counted)."""
+        if not self.policy.use_bcf_chain:
+            return None
+        self.metrics.count("device_stream.bcf_walks")
+        if resident is not None:
+            t = resident
+            self.metrics.count("bcf.chain.resident_windows")
+        else:
+            t = torch.from_numpy(np.frombuffer(payload, np.uint8).copy()).to(self.device)
+            if self.device.type == "cuda":
+                self.metrics.count("bcf.chain.uploaded_windows")
+                self.metrics.count_h2d(t.numel(), "bcf_payload")
+        return walk_chain(t, start, limit, host=payload)

@@ -1,7 +1,7 @@
 """BGZF framing: block header parse, block inflate/deflate, batched host codec.
 
 Counterpart of ``hadoop_bam_tpu/spec/bgzf.py`` (header walk, single-block
-codec, ``TERMINATOR``) plus the batched host codec that the reference keeps
+codec, virtual offsets, ``BgzfWriter``, ``TERMINATOR``) plus the batched host codec that the reference keeps
 in C++ (``hadoop_bam_tpu/native``): here it is Python ``zlib`` over a thread
 pool (zlib releases the GIL).  Raw DEFLATE with ``compressobj(level,
 DEFLATED, -15, 8, Z_DEFAULT_STRATEGY)`` — the native library's parameters —
@@ -14,7 +14,7 @@ import os
 import struct
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional, Sequence, Tuple
+from typing import BinaryIO, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -38,6 +38,14 @@ class BgzfError(IOError):
 
 def default_threads() -> int:
     return max(1, os.cpu_count() or 1)
+
+
+def make_voffset(coffset: int, uoffset: int) -> int:
+    return (coffset << 16) | uoffset
+
+
+def split_voffset(voffset: int) -> Tuple[int, int]:
+    return voffset >> 16, voffset & 0xFFFF
 
 
 def parse_block_header(buf, pos: int = 0) -> Optional[Tuple[int, int]]:
@@ -269,3 +277,38 @@ class BgzfReader:
             raise BgzfError(f"EOF: wanted {n} bytes, got {len(b)}")
         return b
 
+
+
+class BgzfWriter:
+    """Block-at-a-time BGZF writer: a member every ``MAX_PAYLOAD`` bytes.
+    ``append_terminator=False`` leaves the EOF member off, so part files
+    concatenate (BGZFCompressionOutputStream.java:43-46)."""
+
+    def __init__(self, stream: BinaryIO, level: int = 6, append_terminator: bool = True):
+        self._stream = stream
+        self._level = level
+        self._append_terminator = append_terminator
+        self._buf = bytearray()
+        self._closed = False
+
+    def write(self, data: bytes) -> None:
+        self._buf.extend(data)
+        while len(self._buf) >= MAX_PAYLOAD:
+            self._flush_block(MAX_PAYLOAD)
+
+    def _flush_block(self, n: int) -> None:
+        block = compress_block(bytes(self._buf[:n]), self._level)
+        del self._buf[:n]
+        self._stream.write(block)
+
+    def flush(self) -> None:
+        while self._buf:
+            self._flush_block(min(len(self._buf), MAX_PAYLOAD))
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self.flush()
+        if self._append_terminator:
+            self._stream.write(TERMINATOR)
+        self._closed = True

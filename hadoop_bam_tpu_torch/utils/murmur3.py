@@ -2,10 +2,12 @@
 vectorized over ragged slices of one byte buffer.
 
 Counterpart of ``hadoop_bam_tpu/utils/murmur3.py``
-(``murmurhash3_int32_batch``).  The reference (util/MurmurHash3.java) keeps
+(``murmurhash3_int32_batch``, and ``murmurhash3_chars`` for the contig keys
+of VCF records).  The reference (util/MurmurHash3.java) keeps
 one quirk in its mixing loop — the right-shift operand is h1 where canonical
 murmur reads h2 — and this copy keeps it too, because the hashes become
-the sort keys of unmapped reads (BAMRecordReader.java:97-110).
+the sort keys of unmapped reads (BAMRecordReader.java:97-110) and of
+unknown VCF contigs (VCFRecordReader.java:200-204).
 """
 
 from __future__ import annotations
@@ -107,3 +109,70 @@ def murmurhash3_int32_batch(
     h2 = _fmix_vec(h2)
     h1 = h1 + h2
     return (h1 & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+
+
+def _signed64(x: int) -> int:
+    x &= _M
+    return x - (1 << 64) if x >= 1 << 63 else x
+
+
+def _rotl(x: int, r: int) -> int:
+    return ((x << r) | (x >> (64 - r))) & _M
+
+
+def _fmix(k: int) -> int:
+    k ^= k >> 33
+    k = (k * 0xFF51AFD7ED558CCD) & _M
+    k ^= k >> 33
+    k = (k * 0xC4CEB9FE1A85EC53) & _M
+    k ^= k >> 33
+    return k
+
+
+def _mix(h1: int, h2: int, k1: int, k2: int) -> tuple:
+    k1 = _rotl((k1 * C1) & _M, 31)
+    h1 ^= (k1 * C2) & _M
+    h1 = (_rotl(h1, 27) + h2) & _M
+    h1 = (h1 * 5 + 0x52DCE729) & _M
+    k2 = _rotl((k2 * C2) & _M, 33)
+    h2 ^= (k2 * C1) & _M
+    # Reference quirk: the right-shift operand is h1, not h2.
+    h2 = ((h2 << 31) | (h1 >> 33)) & _M
+    h2 = (h2 + h1) & _M
+    h2 = (h2 * 5 + 0x38495AB5) & _M
+    return h1, h2
+
+
+def murmurhash3_chars(chars: str, seed: int = 0) -> int:
+    """Hash the UTF-16 code units of a string (MurmurHash3.java:105-171), as
+    a Java-``long``-style signed 64-bit int.  Astral characters become
+    surrogate pairs, as Java's char-indexed loop sees them."""
+    enc = chars.encode("utf-16-le", "surrogatepass")
+    units = [int.from_bytes(enc[i : i + 2], "little") for i in range(0, len(enc), 2)]
+    h1 = h2 = seed & _M
+    length = len(units)
+    nblocks = length // 8
+    for i in range(nblocks):
+        u = units[i * 8 : i * 8 + 8]
+        k1 = u[0] | u[1] << 16 | u[2] << 32 | u[3] << 48
+        k2 = u[4] | u[5] << 16 | u[6] << 32 | u[7] << 48
+        h1, h2 = _mix(h1, h2, k1, k2)
+    tail = units[nblocks * 8 :]
+    n = length & 7
+    if n > 4:
+        k2 = 0
+        for j in range(4, n):
+            k2 |= tail[j] << (16 * (j - 4))
+        h2 ^= (_rotl((k2 * C2) & _M, 33) * C1) & _M
+    if n > 0:
+        k1 = 0
+        for j in range(min(n, 4)):
+            k1 |= tail[j] << (16 * j)
+        h1 ^= (_rotl((k1 * C1) & _M, 31) * C2) & _M
+    h1 ^= length
+    h2 ^= length
+    h1 = (h1 + h2) & _M
+    h2 = (h2 + h1) & _M
+    h1 = _fmix(h1)
+    h2 = _fmix(h2)
+    return _signed64(h1 + h2)

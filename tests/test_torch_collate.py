@@ -86,13 +86,13 @@ def test_seed_matches_the_reference():
 def test_collate_by_name_matches_the_reference(seed):
     names, flags = _corpus(seed)
     cols = _cols(names, flags)
-    _same_collation(tdev.collate_by_name(cols), jdev.collate_by_name(cols))
+    _same_collation(tdev.collate_by_name(cols, device="cpu"), jdev.collate_by_name(cols))
     n = len(names)
     active = (np.arange(n) % 5 != 0).astype(np.int32)
-    _same_collation(tdev.collate_by_name(cols, active=active),
+    _same_collation(tdev.collate_by_name(cols, active=active, device="cpu"),
                     jdev.collate_by_name(cols, active=active))
     zeros = np.zeros(n, np.int32)
-    _same_collation(tdev.collate_by_name(cols, candidates=zeros),
+    _same_collation(tdev.collate_by_name(cols, candidates=zeros, device="cpu"),
                     jdev.collate_by_name(cols, candidates=zeros))
 
 
@@ -100,7 +100,7 @@ def test_collate_by_name_matches_the_reference(seed):
 def test_collate_padding_edges(n):
     names, flags = _corpus(5, n_names=10)
     cols = _cols(names[:n], flags[:n])
-    _same_collation(tdev.collate_by_name(cols), jdev.collate_by_name(cols))
+    _same_collation(tdev.collate_by_name(cols, device="cpu"), jdev.collate_by_name(cols))
 
 
 def test_collate_core_with_extreme_tie_keys():
@@ -130,13 +130,13 @@ def test_queryname_perm_and_counts_match_the_reference(seed):
     names, flags = _corpus(seed)
     cols = _cols(names, flags)
     m = Metrics()
-    perm, st = thost.queryname_perm(cols, metrics=m)
+    perm, st = thost.queryname_perm(cols, device="cpu", metrics=m)
     jperm, jst = jhost.queryname_perm(cols)
     np.testing.assert_array_equal(perm, jperm)
     assert (st.n_records, st.n_groups, st.n_collisions) == (
         jst.n_records, jst.n_groups, jst.n_collisions)
     assert m.get("collate.groups") == st.n_groups
-    got = thost.collation_counts(cols, tdev.collate_by_name(cols), m)
+    got = thost.collation_counts(cols, tdev.collate_by_name(cols, device="cpu"), m)
     want = jhost.collation_counts(cols, jdev.collate_by_name(cols))
     assert got == want
     assert got["pairs"] > 0 and got["orphans"] > 0 and got["singletons"] > 0
@@ -166,12 +166,12 @@ def test_forced_hash_collision_is_repaired_like_the_reference():
     for r in range(len(names) - 4, len(names)):
         cols["qh1"][r], cols["qh2"][r] = 12345, -6789
     m = Metrics()
-    got, n_coll = thost.verify_and_repair(tdev.collate_by_name(cols), cols, m)
+    got, n_coll = thost.verify_and_repair(tdev.collate_by_name(cols, device="cpu"), cols, m)
     want, j_coll = jhost.verify_and_repair(jdev.collate_by_name(cols), cols)
     assert n_coll == j_coll == 1
     assert m.get("collate.hash_collisions") == 1
     _same_collation(got, want)
-    perm, st = thost.queryname_perm(cols)
+    perm, st = thost.queryname_perm(cols, device="cpu")
     jperm, jst = jhost.queryname_perm(cols)
     np.testing.assert_array_equal(perm, jperm)
     assert st.n_collisions == jst.n_collisions == 1

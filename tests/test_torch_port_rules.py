@@ -27,7 +27,7 @@ for n in names:
 import chip_smoke
 bad = [m for m in sys.modules if m == "hadoop_bam_tpu" or m.startswith("hadoop_bam_tpu.")]
 assert not bad, bad
-assert len(names) >= 20, names
+assert len(names) >= 45, names
 print("ok", len(names))
 """
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -141,16 +141,18 @@ def test_write_gates_sort_on_the_cpu(tmp_path, conf):
 
 
 def test_stream_policy_gates(monkeypatch):
-    from hadoop_bam_tpu_torch.conf import (DEFLATE_LANES, INFLATE_LANES, WRITE_DEVICE,
-                                            Configuration)
+    from hadoop_bam_tpu_torch.conf import (BCF_CHAIN, DEFLATE_LANES, INFLATE_LANES,
+                                            WRITE_DEVICE, Configuration)
     from hadoop_bam_tpu_torch.device_stream import StreamPolicy
 
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    for env in ("HBAM_INFLATE_LANES", "HBAM_DEFLATE_LANES", "HBAM_DEVICE_WRITE"):
+    for env in ("HBAM_INFLATE_LANES", "HBAM_DEFLATE_LANES", "HBAM_DEVICE_WRITE",
+                "HBAM_BCF_CHAIN"):
         monkeypatch.delenv(env, raising=False)
     for gate, key, env in (("inflate_lanes", INFLATE_LANES, "HBAM_INFLATE_LANES"),
                            ("deflate_lanes", DEFLATE_LANES, "HBAM_DEFLATE_LANES"),
-                           ("device_write", WRITE_DEVICE, "HBAM_DEVICE_WRITE")):
+                           ("device_write", WRITE_DEVICE, "HBAM_DEVICE_WRITE"),
+                           ("use_bcf_chain", BCF_CHAIN, "HBAM_BCF_CHAIN")):
         assert getattr(StreamPolicy.resolve(None, cuda), gate)  # the auto rule on a card
         assert not getattr(StreamPolicy.resolve(None, cpu), gate)
         assert getattr(StreamPolicy.resolve(Configuration({key: "true"}), cpu), gate)
@@ -166,6 +168,7 @@ def test_stream_policy_gates(monkeypatch):
 
 
 def test_plain_versions_do_not_count_launches():
+    from hadoop_bam_tpu_torch.ops.kernels import bcf_chain as kbcf
     from hadoop_bam_tpu_torch.ops.kernels import chain as kch
     from hadoop_bam_tpu_torch.ops.kernels import crc32 as kcrc
     from hadoop_bam_tpu_torch.ops.kernels import deflate as kd
@@ -173,7 +176,7 @@ def test_plain_versions_do_not_count_launches():
     from hadoop_bam_tpu_torch.ops.kernels import inflate as kin
 
     counters = (kin.LAUNCHES, kch.WALK_LAUNCHES, kch.KEYS_LAUNCHES, kd.LAUNCHES, kg.LAUNCHES,
-                kcrc.LAUNCHES)
+                kcrc.LAUNCHES, kbcf.LAUNCHES)
     before = [c.value for c in counters]
     s = torch.zeros(0, dtype=torch.uint8)
     offs, meta = kch.record_chain(s, 0)
@@ -182,6 +185,7 @@ def test_plain_versions_do_not_count_launches():
     kcrc.crc32_device(data, [0, 10], [100, 50])
     kg.gather_stream_device(data, [0, 100], [50, 60], dup_mask=[True, False])
     kd.deflate_lanes_stream(data, [120, 80])
+    kbcf.walk_chain(data.to(torch.uint8), 0, 200)
     assert [c.value for c in counters] == before
 
 
@@ -288,3 +292,47 @@ def test_reference_conf_dict_drives_the_ingest_keys():
         assert k == getattr(jconf, key)
         assert a.get(k) == b.get(k) and a.get_int(k, -1) == b.get_int(k, -1)
         assert a.get_boolean(k) == b.get_boolean(k)
+
+
+def test_reference_conf_dict_drives_the_variant_keys():
+    from hadoop_bam_tpu import conf as jconf
+    from hadoop_bam_tpu_torch import conf as tconf
+
+    keys = ("VCF_INTERVALS", "VCFRECORDREADER_VALIDATION_STRINGENCY", "BCF_CHAIN")
+    d = {getattr(jconf, k): v for k, v in zip(keys, ("chr1:1-5,chr2", "lenient", "on"))}
+    a, b = jconf.Configuration(d), tconf.from_reference_conf(d)
+    for key in keys:
+        k = getattr(tconf, key)
+        assert k == getattr(jconf, key)
+        assert a.get(k) == b.get(k) and a.get_boolean(k) == b.get_boolean(k)
+
+
+def test_variant_and_collate_entry_points_raise_when_no_card(tmp_path, monkeypatch):
+    """``variants_blob``, ``collate_by_name`` and ``queryname_perm`` run on
+    the card unless the caller asks for the CPU."""
+    from hadoop_bam_tpu_torch.collate import device as cdev
+    from hadoop_bam_tpu_torch.collate import host as chost
+    from hadoop_bam_tpu_torch.serve.endpoints import variants_blob
+
+    cols = {k: np.arange(4, dtype=np.int32) for k in ("qh1", "qh2", "flag", "pos")}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: variants_blob(str(tmp_path / "x.bcf"), "chr1:1-10"),
+                 lambda: variants_blob(str(tmp_path / "x.bcf"), "chr1", device="cuda"),
+                 lambda: cdev.collate_by_name(cols),
+                 lambda: chost.queryname_perm(cols)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_bcf_chain_that_cannot_build_raises(tmp_path, monkeypatch):
+    from hadoop_bam_tpu_torch import _build
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    assert "hbt_bcf_chain_walk" in _build.SIGNATURES["bcf_chain"]
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("bcf_chain")
