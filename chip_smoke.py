@@ -2,7 +2,8 @@
 
 Run on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--records N] [--pairs N] [--variants N] [--seed S]
+    python3 chip_smoke.py [--records N] [--pairs N] [--variants N]
+                          [--cram-records N] [--seed S]
 
 Phases: print the card; build the CUDA kernels from ``csrc/``; hold each
 kernel against its plain PyTorch version on the card (exact equality);
@@ -15,7 +16,10 @@ pairs with the default gates, with the deflate lanes off and on the CPU
 to the same bytes), and hold ``ingest_oracle`` to it on a prefix; query
 three regions of a synthetic 4,500,000-site BCF call set with
 ``variants_blob`` on the card and on the CPU (byte-identical, and equal to
-the generator's records); time every kernel at the paths' shapes.
+the generator's records); sort a synthetic no-ref rANS CRAM of 300,000
+records on the card (its rANS blocks through the decode kernel) to the
+content of the sort of its BAM twin; time every kernel at the paths'
+shapes.
 Any failure exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table
 as JSON.  Imports neither JAX nor the JAX package.
@@ -977,19 +981,25 @@ def synth_records(i0: int, n: int, rng) -> np.ndarray:
     return rows
 
 
-def synth_bam(path: str, n: int, seed: int, level: int = 6) -> int:
-    """Write an unsorted BAM of ``n`` synthetic records; returns its size."""
+BAM_TEXT = "@HD\tVN:1.6\tSO:unsorted\n" + "".join(
+    f"@SQ\tSN:{c}\tLN:{ln}\n" for c, ln in GRCH38
+) + "@PG\tID:chip_smoke\tPN:chip_smoke\n"
+
+
+def synth_rows(n: int, seed: int) -> np.ndarray:
+    """``n`` synthetic records (:func:`synth_records`) as uint8 [n, 280]."""
+    rng = np.random.default_rng(seed)
+    chunk = 250_000
+    return np.concatenate([synth_records(i, min(chunk, n - i), rng) for i in range(0, n, chunk)])
+
+
+def synth_bam(path: str, n: int, seed: int, level: int = 6, rows=None) -> int:
+    """Write an unsorted BAM of ``n`` synthetic records (or of ``rows``);
+    returns its size."""
     from hadoop_bam_tpu_torch.spec import bam, bgzf
 
-    rng = np.random.default_rng(seed)
-    text = "@HD\tVN:1.6\tSO:unsorted\n" + "".join(
-        f"@SQ\tSN:{c}\tLN:{ln}\n" for c, ln in GRCH38
-    ) + "@PG\tID:chip_smoke\tPN:chip_smoke\n"
-    header = bam.BamHeader(text, list(GRCH38))
-    chunk = 250_000
-    stream = np.concatenate(
-        [synth_records(i, min(chunk, n - i), rng).reshape(-1) for i in range(0, n, chunk)]
-    )
+    header = bam.BamHeader(BAM_TEXT, list(GRCH38))
+    stream = (synth_rows(n, seed) if rows is None else rows).reshape(-1)
     body, _ = bgzf.deflate_blocks(stream, level=level)
     with open(path, "wb") as f:
         f.write(bgzf.deflate_blocks(header.encode(), level=level)[0])
@@ -1026,10 +1036,11 @@ def _counters():
     from hadoop_bam_tpu_torch.ops.kernels import deflate as kd
     from hadoop_bam_tpu_torch.ops.kernels import gather as kg
     from hadoop_bam_tpu_torch.ops.kernels import inflate as kin
+    from hadoop_bam_tpu_torch.ops.kernels import rans as kr
     from hadoop_bam_tpu_torch.ops.kernels import record_scan as krs
 
     return (kin.LAUNCHES, kch.WALK_LAUNCHES, kch.KEYS_LAUNCHES, kd.LAUNCHES, kg.LAUNCHES,
-            kcrc.LAUNCHES, krs.LAUNCHES, kb.LAUNCHES)
+            kcrc.LAUNCHES, krs.LAUNCHES, kb.LAUNCHES, kr.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -1052,9 +1063,12 @@ def bgzf_content(path: str) -> bytes:
     return out.tobytes()
 
 
-def timed_sort(src: str, out: str, what: str, **kw):
+def timed_sort(src: str, out: str, what: str, trace: bool = False, **kw):
     """One ``sort_bam`` with the launch counts zeroed just before it and
-    read just after it."""
+    read just after it; with ``trace``, under ``torch.profiler`` (device
+    activity only)."""
+    import contextlib
+
     import torch
 
     from hadoop_bam_tpu_torch.pipeline import sort_bam
@@ -1062,11 +1076,14 @@ def timed_sort(src: str, out: str, what: str, **kw):
     reset_counts()
     if kw.get("device") == "cuda":
         torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st = sort_bam(src, out, **kw)
-    if kw.get("device") == "cuda":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    ctx = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+           if trace else contextlib.nullcontext())
+    with ctx as prof:
+        t0 = time.perf_counter()
+        st = sort_bam(src, out, **kw)
+        if kw.get("device") == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = launch_counts()
     c = st.counters
     log(f"sort_bam({what}): {st.n_records} records, {st.n_splits} splits, backend "
@@ -1075,8 +1092,10 @@ def timed_sort(src: str, out: str, what: str, **kw):
     log("  phases (s): " + json.dumps({k: round(v, 3) for k, v in st.seconds.items()}))
     log(f"  launches: {json.dumps(launches)}")
     log("  counters: " + json.dumps({k: v for k, v in sorted(c.items()) if v and (
-        k.startswith(("flate.", "bam.", "sort_bam.", "device_stream.")))}))
+        k.startswith(("flate.", "bam.", "sort_bam.", "device_stream.", "cram.")))}))
     log("  transfers: " + json.dumps({k: v for k, v in c.items() if k.startswith("transfers.")}))
+    if trace:
+        log_device_time(prof, out + ".trace.json", wall)
     return st, wall, launches
 
 
@@ -1216,6 +1235,20 @@ def device_time(trace_path: str) -> dict:
             "by_name": {k: [n, round(us / 1e3, 3)] for k, (n, us) in top}}
 
 
+def log_device_time(prof, trace_path: str, wall: float) -> None:
+    """Log the card's busy time, idle share and time by kernel from a
+    ``torch.profiler`` run that took ``wall`` seconds."""
+    prof.export_chrome_trace(trace_path)
+    dev = device_time(trace_path)
+    os.remove(trace_path)
+    if dev["events"]:
+        log(f"  device (torch.profiler): busy {dev['busy_s']:.6f} s of the wall {wall:.6f} s,"
+            f" idle {1 - dev['busy_s'] / wall:.6f}; {dev['events']} device events")
+        log("  device time by kernel [count, ms]: " + json.dumps(dev["by_name"]))
+    else:
+        log("  device (torch.profiler): the trace holds no device events; not measured")
+
+
 def timed_ingest(paths, out: str, what: str, trace: bool = False, **kw):
     """One ``ingest_fastq`` with the launch counts zeroed just before it and
     read just after it; with ``trace``, under ``torch.profiler`` (device
@@ -1249,16 +1282,7 @@ def timed_ingest(paths, out: str, what: str, trace: bool = False, **kw):
         ("flate.", "fastq.", "ingest.", "collate.", "salvage.", "device_stream."))}))
     log("  transfers: " + json.dumps({k: v for k, v in c.items() if k.startswith("transfers.")}))
     if trace:
-        path = out + ".trace.json"
-        prof.export_chrome_trace(path)
-        dev = device_time(path)
-        os.remove(path)
-        if dev["events"]:
-            log(f"  device (torch.profiler): busy {dev['busy_s']:.6f} s of the wall {wall:.6f} s,"
-                f" idle {1 - dev['busy_s'] / wall:.6f}; {dev['events']} device events")
-            log("  device time by kernel [count, ms]: " + json.dumps(dev["by_name"]))
-        else:
-            log("  device (torch.profiler): the trace holds no device events; not measured")
+        log_device_time(prof, out + ".trace.json", wall)
     return st, wall, launches
 
 
@@ -1367,16 +1391,7 @@ def timed_variants(path: str, region: str, what: str, trace: bool = False, conf=
         ("bcf.", "variants.", "flate.", "device_stream.", "serve."))}))
     log("  transfers: " + json.dumps({k: v for k, v in c.items() if k.startswith("transfers.")}))
     if trace:
-        tpath = os.path.join(os.path.dirname(path), "variants.trace.json")
-        prof.export_chrome_trace(tpath)
-        dev = device_time(tpath)
-        os.remove(tpath)
-        if dev["events"]:
-            log(f"  device (torch.profiler): busy {dev['busy_s']:.6f} s of the wall {wall:.6f} s,"
-                f" idle {1 - dev['busy_s'] / wall:.6f}; {dev['events']} device events")
-            log("  device time by kernel [count, ms]: " + json.dumps(dev["by_name"]))
-        else:
-            log("  device (torch.profiler): the trace holds no device events; not measured")
+        log_device_time(prof, os.path.join(os.path.dirname(path), "variants.trace.json"), wall)
     return blob, wall, launches, c
 
 
@@ -1421,6 +1436,228 @@ def variants_phase(work: str, n_sites: int, seed: int) -> dict:
         if first is None:
             first = {"launches": launches, "wall": wall}
     return {"path": path, "launches": first["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# The CRAM path
+# ---------------------------------------------------------------------------
+
+CRAM_PER_CONTAINER = 10_000  # the CRAM writer's default records per container
+ROW = 280  # bytes of every synthetic BAM record (see synth_records)
+
+
+def cram_container(task) -> bytes:
+    """One no-ref rANS CRAM container of BAM record rows; ``task`` is ``(rows
+    as bytes, first record's counter)``.  Runs in the generator's spawned
+    worker processes."""
+    blob, counter = task
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    from hadoop_bam_tpu_torch.spec import bam, cram
+
+    recs = [bam.decode_record(blob, k)[0] for k in range(0, len(blob), ROW)]
+    return cram.encode_container(recs, counter, 3, codec="rans")
+
+
+def spawn_pool(workers: int):
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    return ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
+
+
+def synth_cram(path: str, rows: np.ndarray) -> int:
+    """Write ``rows`` as a no-ref rANS CRAM, :data:`CRAM_PER_CONTAINER`
+    records per container, the containers encoded by a process pool (the
+    rANS encoder runs in Python); returns the number of containers."""
+    from hadoop_bam_tpu_torch.spec import cram
+
+    tasks = [(rows[i : i + CRAM_PER_CONTAINER].tobytes(), i)
+             for i in range(0, len(rows), CRAM_PER_CONTAINER)]
+    with spawn_pool(min(len(tasks), os.cpu_count() or 1)) as pool:
+        blobs = list(pool.map(cram_container, tasks))
+    with open(path, "wb") as f:
+        f.write(cram.MAGIC + bytes([3, 0]) + b"\x00" * 20)
+        f.write(cram.encode_file_header_container(BAM_TEXT, 3))
+        for b in blobs:
+            f.write(b)
+        f.write(cram.EOF_V3)
+    return len(blobs)
+
+
+def rans_blocks(data: bytes, offset: int = 0) -> list:
+    """The non-empty rANS block payloads of the CRAM containers in ``data``
+    from ``offset`` on (a whole file: pass the first data container's)."""
+    from hadoop_bam_tpu_torch.spec import cram, cram_codecs
+
+    out = []
+    pos = offset
+    while pos < len(data) and not cram.is_eof_marker(data, pos):
+        ch = cram.parse_container_header(data, pos, 3)
+        p = ch.offset + ch.header_size
+        while p < ch.next_offset:
+            fr, p = cram.Block.read_frame(data, p, 3)
+            if fr.method == cram_codecs.METHOD_RANS and fr.payload:
+                out.append(fr.payload)
+        pos = ch.next_offset
+    return out
+
+
+def _drop_context(enc: bytes, ctx: int) -> bytes:
+    """An order-1 stream whose outer table lacks ``ctx`` (a context that is
+    neither the first nor inside an RLE run)."""
+    from hadoop_bam_tpu_torch.spec import cram_codecs as cc
+
+    p, cur = 10, enc[9]
+    while True:
+        _, q = cc._read_freq_table0(enc, p)
+        nxt = enc[q]
+        if nxt == ctx:
+            _, r = cc._read_freq_table0(enc, q + 1)
+            return enc[:q] + enc[r:]
+        if nxt in (0, cur + 1):
+            raise ValueError(f"context {ctx} cannot be dropped")
+        cur, p = nxt, q + 1
+
+
+def rans_cases(seed: int, container: bytes) -> dict:
+    """``{what: (stream, raw or None)}``: every rANS block of one
+    10,000-record container (raw None), edge streams in both orders, and
+    the corrupt streams (raw None)."""
+    from hadoop_bam_tpu_torch.spec import cram_codecs as cc
+
+    rng = np.random.default_rng(seed)
+    xyz = lambda n: rng.choice(np.frombuffer(b"xyz", np.uint8), n).tobytes()  # noqa: E731
+    cases = {f"container block {k} ({len(b)} B)": (b, None)
+             for k, b in enumerate(rans_blocks(container))}
+    edge = {"empty": b"", "1 byte": b"A", "2 bytes": b"AB", "3 bytes": b"ABC",
+            "single symbol": b"B" * 5000, "uniform-256": bytes(range(256)) * 16,
+            "tail 4093": xyz(4093), "tail 4094": xyz(4094), "tail 4095": xyz(4095)}
+    for order in (0, 1):
+        for what, raw in edge.items():
+            cases[f"{what}, order {order}"] = (cc.rans_encode(raw, order), raw)
+    every = rng.integers(0, 256, 100_000, dtype=np.uint8).tobytes()
+    cases["all 256 contexts, order 1"] = (cc.rans_encode(every, 1), every)
+    good = cc.rans_encode(b"QRSTUV" * 300, 0)
+    zero = bytearray(good)
+    at = len(good) - len(cc.parse_rans_plan(good).payload) - 16
+    zero[at : at + 16] = bytes(16)
+    cases.update({
+        "truncated payload": (good[:-40], None),
+        "bad order byte": (bytes([7]) + good[1:], None),
+        "zeroed states": (bytes(zero), None),
+        "order-1 missing context": (
+            _drop_context(cc.rans_encode(b"AC" * 400 + b"AT" * 100, 1), ord("T")), None),
+    })
+    return cases
+
+
+def check_rans(seed: int, container: bytes) -> dict:
+    """The rANS kernel against its plain version (outputs and verdicts,
+    exactly) on every case of :func:`rans_cases`, one launch for all; then
+    its time at one container's blocks (the launch a sort makes per
+    container) beside the plain version and the bound."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops.kernels import rans as kr
+    from hadoop_bam_tpu_torch.spec import cram_codecs as cc
+
+    cases = rans_cases(seed, container)
+    datas = [d for d, _ in cases.values()]
+    outs_k, st_k = kr.rans_lanes(datas, torch.device("cuda"))
+    t0 = time.perf_counter()
+    outs_p, st_p = kr.rans_lanes(datas, torch.device("cpu"))
+    p_all = time.perf_counter() - t0
+    bad = [w for w, a, b in zip(cases, outs_k, outs_p) if a != b]
+    if bad or st_k.as_dict() != st_p.as_dict():
+        raise AssertionError(f"rans kernel differs from plain: {bad}, {st_k.as_dict()} vs "
+                             f"{st_p.as_dict()}")
+    wrong = [w for (w, (_, raw)), o in zip(cases.items(), outs_k) if raw is not None and o != raw]
+    if wrong:
+        raise AssertionError(f"rans kernel decodes other bytes than were encoded: {wrong}")
+    failed = [w for w, o in zip(cases, outs_k) if o is None]
+    if failed != list(cases)[-4:] or (st_k.tierdown_format, st_k.tierdown_ok0) != (1, 3):
+        raise AssertionError(f"rans verdicts: {failed}, {st_k.as_dict()}")
+    blocks = rans_blocks(container)
+    plans = [cc.parse_rans_plan(b) for b in blocks]
+    big = max(p.n_out for p in plans)
+    log(f"rans kernel == plain: {len(cases)} streams ({len(blocks)} blocks of one "
+        f"{CRAM_PER_CONTAINER}-record container, the largest {big} bytes out; edge and corrupt "
+        f"streams), tiers {json.dumps(st_k.as_dict())}, max_abs_err 0; plain {p_all:.1f} s")
+    h = kr.pack(plans)
+    host = [torch.from_numpy(np.ascontiguousarray(h[k])) for k in ("payload", "meta", "lookup")]
+    host += [torch.from_numpy(h["fc"].view(np.int32)), torch.from_numpy(h["cmap"])]
+    dev = [t.cuda() for t in host]
+    k_ms = cuda_ms(lambda: kr.rans_decode_device(*dev, h["out_total"]), iters=5, warmup=1)
+    p_ms = host_ms(lambda: kr.rans_decode_plain(*host, h["out_total"]), iters=1)
+    n_in = sum(len(p.payload) for p in plans)
+    n_out = sum(p.n_out for p in plans)
+    row = {
+        "name": "rans", "route": "cuda",
+        "source": "hadoop_bam_tpu_torch/csrc/rans.cu",
+        "replaces": "hadoop_bam_tpu/ops/pallas/rans_lanes.py:282",
+        "max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": (n_in + n_out) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None,
+        "shape": f"one container: {len(plans)} streams, {n_in} -> {n_out} bytes, "
+                 f"the largest {big} bytes",
+    }
+    log(f"  rans: {k_ms:.4f} ms (plain {p_ms:.3f} ms, bound {row['bound_ms']:.4f} ms) at "
+        f"{row['shape']}")
+    return row
+
+
+def cram_phase(work: str, n: int, seed: int) -> dict:
+    """Sort a synthetic no-ref rANS CRAM of ``n`` records
+    (:data:`CRAM_PER_CONTAINER` per container) on the card with the default
+    gates, under ``torch.profiler``, and its BAM twin (the same records,
+    level 6): the two outputs decompress to the same bytes; every rANS
+    block went through the kernel, one launch per container."""
+    import torch
+
+    from hadoop_bam_tpu_torch.device_stream import DeviceStream
+    from hadoop_bam_tpu_torch.spec import cram
+
+    t0 = time.perf_counter()
+    rows = synth_rows(n, seed + 1)
+    bam_path = os.path.join(work, "twin.bam")
+    synth_bam(bam_path, n, seed + 1, rows=rows)
+    t_rows = time.perf_counter() - t0
+    cram_path = os.path.join(work, "twin.cram")
+    t0 = time.perf_counter()
+    n_cont = synth_cram(cram_path, rows)
+    t_cram = time.perf_counter() - t0
+    log(f"synthetic CRAM corpus: {n} records of 150 bp over GRCh38 (about 10% unmapped, NM:C); "
+        f"BAM twin {os.path.getsize(bam_path)} bytes at level 6 ({t_rows:.1f} s), no-ref rANS "
+        f"CRAM {os.path.getsize(cram_path)} bytes in {n_cont} containers of "
+        f"{CRAM_PER_CONTAINER} records ({t_cram:.1f} s on {min(n_cont, os.cpu_count() or 1)} "
+        f"processes, os.cpu_count() {os.cpu_count()})")
+    log("  the size is a targeted-panel sample, not a 30x genome: the host's per-record "
+        "decode after the codecs and the Python rANS encoder set it")
+    with open(cram_path, "rb") as f:
+        data = f.read()
+    chs = cram.iter_containers(data)
+    got = cram.decode_container(data, chs[1], 3, stream=DeviceStream(torch.device("cuda")))
+    if b"".join(r.encode() for r in got) != rows[:CRAM_PER_CONTAINER].tobytes():
+        raise AssertionError("the first CRAM container does not decode to its rows")
+    log(f"container 1 decodes to its {len(got)} rows byte for byte")
+    n_blocks = len(rans_blocks(data, chs[1].offset))
+    out_c = os.path.join(work, "sorted.cram.bam")
+    out_b = os.path.join(work, "sorted.twin.bam")
+    st, wall, launches = timed_sort(cram_path, out_c, "cuda, .cram, default gates", trace=True,
+                                    device="cuda")
+    c = st.counters
+    if launches["rans"] != n_cont or st.n_records != n or st.backend != "single-device":
+        raise AssertionError(f"CRAM sort: {launches['rans']} rans launches for {n_cont} "
+                             f"containers, {st.n_records} records, backend {st.backend}")
+    if c.get("cram.rans.lanes_slices", 0) != n_blocks or c.get("cram.rans.host_slices", 0):
+        raise AssertionError(f"CRAM sort: {n_blocks} rANS blocks in the file, counters {c}")
+    timed_sort(bam_path, out_b, "cuda, BAM twin, default gates", device="cuda")
+    if bgzf_content(out_c) != bgzf_content(out_b):
+        raise AssertionError("the CRAM sort decompresses to other bytes than its BAM twin's")
+    log(f"sort_bam(.cram) decompresses to sort_bam(BAM twin)'s bytes; {n_blocks} rANS blocks "
+        f"all on the kernel in {n_cont} launches")
+    return {"launches": launches, "wall": wall}
 
 
 def bgzf_bytes(blob: bytes) -> bytes:
@@ -1644,6 +1881,8 @@ def main() -> int:
                     help="read pairs of the ingest phase")
     ap.add_argument("--variants", type=int, default=4_500_000,
                     help="sites of the variants phase's call set")
+    ap.add_argument("--cram-records", type=int, default=300_000,
+                    help="records of the CRAM phase's corpus")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel-vs-plain checks")
     args = ap.parse_args()
@@ -1658,6 +1897,9 @@ def main() -> int:
 
     log(card_line())
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
+    # The rANS check's container encodes (in Python) while the kernels build.
+    pool = spawn_pool(1)
+    container = pool.submit(cram_container, (synth_rows(CRAM_PER_CONTAINER, args.seed).tobytes(), 0))
     t0 = time.perf_counter()
     built = _build.build(force=True)
     log(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -1676,6 +1918,8 @@ def main() -> int:
     contig, pos = synth_sites(120_000, args.seed)  # about one split of the call set
     big = synth_bcf_rows(contig, pos, args.seed).tobytes()
     checks["bcf_chain"] = check_bcf_chain(args.seed, big)["max_abs_err"]
+    rans_row = check_rans(args.seed, container.result())
+    pool.shutdown()
     torch.cuda.synchronize()
     if args.kernels_only:
         return 0
@@ -1685,6 +1929,8 @@ def main() -> int:
         log(f"ingest pairs cut from 250000 to {args.pairs}")
     if args.variants != 4_500_000:
         log(f"variant sites cut from 4500000 to {args.variants}")
+    if args.cram_records != 300_000:
+        log(f"CRAM records cut from 300000 to {args.cram_records}")
     work = tempfile.mkdtemp(prefix="chip_smoke.", dir=REPO)
     try:
         res = main_path(work, args.records, args.seed)
@@ -1698,6 +1944,10 @@ def main() -> int:
         var = variants_phase(work, args.variants, args.seed)
         rows.append(time_bcf_chain(var["path"], checks, var["launches"]["bcf_chain"],
                                    f"variants_blob(cuda), {VARIANT_REGIONS[0]}"))
+        del var
+        cr = cram_phase(work, args.cram_records, args.seed)
+        rows.append(dict(rans_row, launches=cr["launches"]["rans"],
+                         launches_from="sort_bam(cuda, .cram), default gates"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": rows}), flush=True)

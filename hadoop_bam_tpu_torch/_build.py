@@ -54,6 +54,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "bcf_chain": {
         "hbt_bcf_chain_walk": [_P, _I64, _I64, _I64, _P, _I64, _P, _P],
     },
+    "rans": {
+        "hbt_rans_decode": [_P, _P, _P, _P, _P, _P, _P, _I32, _P],
+    },
 }
 
 _lock = threading.Lock()

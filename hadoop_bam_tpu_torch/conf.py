@@ -1,7 +1,8 @@
 """Configuration: the string property map of the Hadoop ``Configuration``.
 
 Counterpart of ``hadoop_bam_tpu/conf.py`` with only the keys the in-core
-coordinate sort, the FASTQ ingest and the BCF variant plane read.  The key strings are the
+coordinate sort (of BAM and CRAM input), the FASTQ ingest and the BCF
+variant plane read.  The key strings are the
 reference's, so one dict drives both packages (:func:`from_reference_conf`).
 """
 
@@ -43,6 +44,13 @@ INGEST_DEVICE_SCAN = "hadoopbam.ingest.device-scan"
 VCF_INTERVALS = "hadoopbam.vcf.intervals"
 VCFRECORDREADER_VALIDATION_STRINGENCY = "hadoopbam.vcfrecordreader.validation-stringency"
 BCF_CHAIN = "hadoopbam.bcf.chain"
+#: CRAM input: the reference FASTA of reference-based CRAM, and the card's
+#: rANS 4x8 decode ("true"/"false"; unset: on for a CUDA device).
+CRAM_REFERENCE_SOURCE_PATH = "hadoopbam.cram.reference-source-path"
+CRAM_RANS_LANES = "hadoopbam.cram.rans-lanes"
+#: AnySAM input: trust the .bam/.cram/.sam extensions (default true), else
+#: sniff the first byte.
+ANYSAM_TRUST_EXTS = "hadoopbam.anysam.trust-exts"
 
 _TRUE_WORDS = frozenset(("yes", "true", "t", "y", "1", "on", "enabled"))
 _FALSE_WORDS = frozenset(("no", "false", "f", "n", "0", "off", "disabled"))

@@ -5,8 +5,9 @@ Counterpart of ``hadoop_bam_tpu/device_stream.py`` for the in-core sort:
 gates), ``decode_members`` (the inflate seam of the split reader),
 ``read_splits`` (the double-buffered split drive), ``parse_split`` (the
 inflate→parse seam), ``encode_part`` (the gather→deflate seam of the
-part writer), ``deflate_stream`` (the BGZF seam of the ingest writer) and
-``walk_bcf_records`` (the BCF record-chain seam of the variant plane).  The
+part writer), ``deflate_stream`` (the BGZF seam of the ingest writer),
+``walk_bcf_records`` (the BCF record-chain seam of the variant plane) and
+``decompress_cram_blocks`` (the rANS seam of the CRAM reader).  The
 device is explicit; counters go to the stream's
 :class:`~.utils.tracing.Metrics`.
 """
@@ -20,13 +21,20 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from .conf import BCF_CHAIN, DEFLATE_LANES, INFLATE_LANES, READ_DEPTH, WRITE_DEVICE
+from .conf import (
+    BCF_CHAIN,
+    CRAM_RANS_LANES,
+    DEFLATE_LANES,
+    INFLATE_LANES,
+    READ_DEPTH,
+    WRITE_DEVICE,
+)
 from .io.bam import ChunkedRecords
 from .ops import decode, flate
 from .ops.kernels import OutsideInt32Domain
 from .ops.kernels.bcf_chain import walk_chain
 from .ops.kernels.gather import gather_stream_device
-from .spec import bgzf
+from .spec import bgzf, cram_codecs
 from .utils.tracing import Metrics
 
 DEFAULT_DEPTH = 2
@@ -64,11 +72,12 @@ class StreamPolicy:
     CUDA device, off for the CPU."""
 
     def __init__(self, inflate_lanes: bool, deflate_lanes: bool, device_write: bool,
-                 depth: int, use_bcf_chain: bool = False) -> None:
+                 depth: int, use_bcf_chain: bool = False, use_rans_lanes: bool = False) -> None:
         self.inflate_lanes = inflate_lanes
         self.deflate_lanes = deflate_lanes
         self.device_write = device_write
         self.use_bcf_chain = use_bcf_chain
+        self.use_rans_lanes = use_rans_lanes
         self.depth = depth
 
     @classmethod
@@ -80,6 +89,7 @@ class StreamPolicy:
             device_write=_gate("HBAM_DEVICE_WRITE", conf, WRITE_DEVICE, on_card),
             depth=resolve_depth(conf),
             use_bcf_chain=_gate("HBAM_BCF_CHAIN", conf, BCF_CHAIN, on_card),
+            use_rans_lanes=_gate("HBAM_RANS_LANES", conf, CRAM_RANS_LANES, on_card),
         )
 
 
@@ -256,3 +266,14 @@ class DeviceStream:
                 self.metrics.count("bcf.chain.uploaded_windows")
                 self.metrics.count_h2d(t.numel(), "bcf_payload")
         return walk_chain(t, start, limit, host=payload)
+
+    def decompress_cram_blocks(self, blocks, errors: str = "strict"):
+        """Decompress one CRAM container's blocks ``(method, payload,
+        raw_size)`` (:func:`~.spec.cram_codecs.decompress_batch`): with the
+        rANS gate armed, its rANS 4x8 blocks decode in one launch of the
+        card's kernel (per-block tier-down to the host tiers, counted under
+        ``cram.rans.*``); disarmed, on the host, moving no ``cram.rans.*``
+        or ``device_stream.*`` counter."""
+        if self.policy.use_rans_lanes:
+            self.metrics.count("device_stream.cram_decodes")
+        return cram_codecs.decompress_batch(blocks, errors=errors, stream=self)

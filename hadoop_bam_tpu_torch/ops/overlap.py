@@ -22,6 +22,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ..utils.backend import resolve_device
+
 _PAD_BEG = (1 << 31) - 1  # window sentinel: begins after any coordinate
 _PAD_END = -(1 << 31)  # window sentinel: ends before any coordinate
 
@@ -56,15 +58,16 @@ def join_mask_np(starts, ends, q_beg, q_end) -> np.ndarray:
 def join_mask_device(
     starts: Column, ends: Column, q_beg, q_end, device: Optional[torch.device] = None
 ) -> torch.Tensor:
-    """The mask form on ``device`` (default: where ``starts`` lies), one
-    coordinate axis, int32 coordinates: a bool tensor there.
+    """The mask form on ``device`` (default: where ``starts`` lies when it
+    is a tensor, else the card), one coordinate axis, int32 coordinates: a
+    bool tensor there.
 
     The few windows are sorted, prefix-maxed and padded to a power of two
     on the host, as the reference does; the records stay where they are.
     Sentinel windows begin past every coordinate, so no search lands on
     one."""
     if device is None:
-        device = starts.device if isinstance(starts, torch.Tensor) else torch.device("cpu")
+        device = starts.device if isinstance(starts, torch.Tensor) else resolve_device(None)
     s = torch.as_tensor(starts, device=device).to(torch.int32)
     e = torch.as_tensor(ends, device=device).to(torch.int32)
     qb_h = np.asarray(_host(q_beg), np.int32)
@@ -99,8 +102,8 @@ def ragged_overlap_mask(
     overlap any window (``q_refid``, ``[q_beg, q_end)``)?  Loops per query
     contig, so each join stays on one coordinate axis.  ``use_device=False``
     is the host twin and returns a numpy bool array; ``use_device=True``
-    joins on ``device`` (default: where ``refid`` lies) and returns a bool
-    tensor there."""
+    joins on ``device`` (default: where ``refid`` lies when it is a tensor,
+    else the card) and returns a bool tensor there."""
     q_refid, q_beg, q_end = (_host(a) for a in (q_refid, q_beg, q_end))
     if not use_device:
         refid, starts, ends = (_host(a) for a in (refid, starts, ends))
@@ -112,7 +115,7 @@ def ragged_overlap_mask(
                 mask[rows] = join_mask_np(starts[rows], ends[rows], q_beg[qsel], q_end[qsel])
         return mask
     if device is None:
-        device = refid.device if isinstance(refid, torch.Tensor) else torch.device("cpu")
+        device = refid.device if isinstance(refid, torch.Tensor) else resolve_device(None)
     refid, starts, ends = (torch.as_tensor(a, device=device) for a in (refid, starts, ends))
     mask = torch.zeros(refid.numel(), dtype=torch.bool, device=device)
     for rid in np.unique(q_refid):

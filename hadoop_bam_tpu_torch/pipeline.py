@@ -1,10 +1,12 @@
-"""The in-core coordinate sort of BAM files on one device.
+"""The in-core coordinate sort of BAM and CRAM files on one device.
 
 Counterpart of ``hadoop_bam_tpu/pipeline.py`` ``sort_bam`` (in-core,
-coordinate order), ``_finish_device_parse`` and ``_unmapped_hash32``.
-Splits are read double-buffered; each split's members inflate on the
-device; the chain and key kernels build the split's int64 keys from the
-resident window; one stable ``torch.sort`` orders the job; each part is
+coordinate order), ``_input_format``, ``_read_any_header``,
+``_finish_device_parse`` and ``_unmapped_hash32``.  Splits are read
+double-buffered; a BAM split's members inflate on the device and the chain
+and key kernels build its int64 keys from the resident window (a CRAM
+split's rANS blocks decode on the device, its records and keys on the
+host); one stable ``torch.sort`` orders the job; each part is
 gathered, CRC'd and deflated on the device from the resident windows (or,
 when a split has no window, gathered on the host and deflated by the
 lanes), framed on the host and merged into one BAM.
@@ -31,8 +33,10 @@ from .conf import (
     Configuration,
 )
 from .device_stream import DeviceStream
+from .io.anysam import AnySamInputFormat, infer_from_file_path
 from .io.bam import SORT_FIELDS, BamInputFormat, ChunkedRecords, RecordBatch, read_header, write_part_fast
 from .io.merger import SUCCESS_MARKER, merge_bam_parts
+from .io.splits import FileVirtualSplit
 from .ops.decode import patch_unmapped_keys
 from .ops.sort import sort_keys
 from .utils.backend import resolve_device
@@ -57,6 +61,21 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+def _input_format(conf, in_paths):
+    """BamInputFormat when every input is ``.bam``, else the AnySAM
+    dispatcher (``.cram`` input; ``.sam`` raises, ROADMAP A.9)."""
+    if all(infer_from_file_path(p) == "bam" for p in in_paths):
+        return BamInputFormat(conf)
+    return AnySamInputFormat(conf)
+
+
+def _read_any_header(fmt, path):
+    """The header by the format's own reader (CRAM: the file-header
+    container), else the BAM reader."""
+    rh = getattr(fmt, "read_header", None)
+    return rh(path) if rh is not None else read_header(path)
+
+
 def sort_bam(
     in_paths: Union[Sequence[str], str],
     out_path: str,
@@ -75,8 +94,8 @@ def sort_bam(
     distributed=None,
     errors: Optional[str] = None,
 ) -> SortStats:
-    """Coordinate-sort BAM file(s) into one BAM, byte for byte what the
-    reference's ``sort_bam`` writes for the same input and options.
+    """Coordinate-sort BAM or CRAM file(s) into one BAM, byte for byte what
+    the reference's ``sort_bam`` writes for the same input and options.
 
     ``device`` defaults to ``cuda`` and raises when there is no card; pass
     ``"cpu"`` to run every kernel's plain version instead.  Member inflate
@@ -89,6 +108,13 @@ def sort_bam(
     builds keys with the chain kernels from the resident windows, else keys
     are built on the host.  A device record count that disagrees with the
     host walk raises: on clean input only a kernel bug can cause it.
+
+    CRAM input (``.cram``, or sniffed when ``hadoopbam.anysam.trust-exts``
+    is false) is read by container-aligned splits; its rANS 4x8 blocks
+    decode on the card per ``hadoopbam.cram.rans-lanes`` /
+    ``HBAM_RANS_LANES`` (on by default on a card), its records and keys on
+    the host (the device parse applies only to BGZF splits);
+    reference-based CRAM needs ``hadoopbam.cram.reference-source-path``.
 
     Not ported yet (each raises ``NotImplementedError``): ``memory_budget``,
     ``mark_duplicates``, ``sort_order="queryname"``, ``mesh`` /
@@ -114,8 +140,8 @@ def sort_bam(
     stream = DeviceStream(dev, conf=conf)
     use_device_write = stream.policy.device_write
 
-    fmt = BamInputFormat(conf)
-    header = read_header(in_paths[0]).with_sort_order("coordinate")
+    fmt = _input_format(conf, in_paths)
+    header = _read_any_header(fmt, in_paths[0]).with_sort_order("coordinate")
     splits = fmt.get_splits(in_paths, split_size=split_size)
     if device_parse is None:
         env = os.environ.get("HBAM_DEVICE_PARSE")
@@ -124,6 +150,8 @@ def sort_bam(
             if env is not None
             else stream.default_device_parse()
         )
+    # CRAM's byte splits have no BGZF window for the chain kernels.
+    device_parse = device_parse and all(isinstance(s, FileVirtualSplit) for s in splits)
 
     t_read = time.perf_counter()
     batches: List[RecordBatch] = []

@@ -1,7 +1,9 @@
 """BAM layout: header codec, record build, record chain, SoA decode and keys.
 
 Counterpart of ``hadoop_bam_tpu/spec/bam.py`` for what the coordinate sort
-needs.  Sort keys follow BAMRecordReader.java:81-121: ``refIdx << 32 | pos0``
+and the CRAM codec need.  :func:`build_record` returns the encoded record
+(size word + body); :class:`BamRecord` is the decoded view the CRAM codec
+reads and returns (:func:`decode_record` over those bytes).  Sort keys follow BAMRecordReader.java:81-121: ``refIdx << 32 | pos0``
 for mapped records, ``INT_MAX << 32 | murmur3(variable bytes)`` for
 unmapped ones, with Java's sign extension of a negative low word.
 """
@@ -10,7 +12,7 @@ from __future__ import annotations
 
 import struct
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -26,7 +28,17 @@ CIGAR_OPS = "MIDNSHP=X"
 _CIGAR_ENCODE = {c: i for i, c in enumerate(CIGAR_OPS)}
 
 FLAG_PAIRED = 0x1
+FLAG_PROPER_PAIR = 0x2
 FLAG_UNMAPPED = 0x4
+FLAG_MATE_UNMAPPED = 0x8
+FLAG_REVERSE = 0x10
+FLAG_MATE_REVERSE = 0x20
+FLAG_FIRST_OF_PAIR = 0x40
+FLAG_SECOND_OF_PAIR = 0x80
+FLAG_SECONDARY = 0x100
+FLAG_FAIL_QC = 0x200
+FLAG_DUPLICATE = 0x400
+FLAG_SUPPLEMENTARY = 0x800
 INT_MAX = 0x7FFFFFFF  # Java Integer.MAX_VALUE, the unmapped refIdx sentinel
 
 _FIXED = struct.Struct("<iiBBHHHIiii")
@@ -79,6 +91,123 @@ class BamHeader:
             nb = name.encode() + b"\x00"
             out += struct.pack("<i", len(nb)) + nb + struct.pack("<i", length)
         return bytes(out)
+
+
+def header_from_text(text: str) -> BamHeader:
+    """Header from SAM text alone: the reference dictionary is rebuilt from
+    the ``@SQ`` lines (the CRAM header reader uses this)."""
+    refs: List[Tuple[str, int]] = []
+    for line in text.split("\n"):
+        if line.startswith("@SQ"):
+            name: Optional[str] = None
+            ln = 0
+            for f in line.split("\t")[1:]:
+                if f.startswith("SN:"):
+                    name = f[3:]
+                elif f.startswith("LN:"):
+                    ln = int(f[3:])
+            refs.append((name or "?", ln))
+    return BamHeader(text, refs)
+
+
+@dataclass
+class BamRecord:
+    """One alignment; fixed fields decoded, variable tails read from
+    ``raw``, the record body (everything after the size word)."""
+
+    refid: int
+    pos: int  # 0-based leftmost, -1 if unplaced
+    mapq: int
+    bin: int
+    flag: int
+    next_refid: int
+    next_pos: int
+    tlen: int
+    raw: bytes
+
+    @property
+    def l_read_name(self) -> int:
+        return self.raw[8]
+
+    @property
+    def n_cigar_op(self) -> int:
+        return struct.unpack_from("<H", self.raw, 12)[0]
+
+    @property
+    def l_seq(self) -> int:
+        return struct.unpack_from("<I", self.raw, 16)[0]
+
+    @property
+    def read_name(self) -> str:
+        return self.raw[32 : 32 + self.l_read_name - 1].decode()
+
+    @property
+    def cigar(self) -> List[Tuple[int, str]]:
+        cig = np.frombuffer(self.raw, dtype="<u4", count=self.n_cigar_op,
+                            offset=32 + self.l_read_name)
+        return [(int(c) >> 4, CIGAR_OPS[int(c) & 0xF]) for c in cig]
+
+    @property
+    def seq(self) -> str:
+        l_seq = self.l_seq
+        if l_seq == 0:
+            return "*"
+        off = 32 + self.l_read_name + 4 * self.n_cigar_op
+        packed = self.raw[off : off + (l_seq + 1) // 2]
+        return "".join(
+            SEQ_DECODE[(packed[i // 2] >> 4) if i % 2 == 0 else (packed[i // 2] & 0xF)]
+            for i in range(l_seq)
+        )
+
+    @property
+    def qual(self) -> bytes:
+        off = 32 + self.l_read_name + 4 * self.n_cigar_op + (self.l_seq + 1) // 2
+        return self.raw[off : off + self.l_seq]
+
+    @property
+    def tags_raw(self) -> bytes:
+        l_seq = self.l_seq
+        return self.raw[32 + self.l_read_name + 4 * self.n_cigar_op + (l_seq + 1) // 2 + l_seq :]
+
+    @property
+    def is_unmapped(self) -> bool:
+        return bool(self.flag & FLAG_UNMAPPED)
+
+    def reference_length(self) -> int:
+        """Span on the reference from the CIGAR."""
+        return sum(n for n, op in self.cigar if op in "MDN=X")
+
+    def encode(self) -> bytes:
+        return struct.pack("<I", len(self.raw)) + self.raw
+
+
+def decode_record(buf, pos: int = 0) -> Tuple[BamRecord, int]:
+    """The record whose size word is at ``pos``: ``(record, offset after)``."""
+    if pos + 4 > len(buf):
+        raise BamError("truncated record: no block_size")
+    (block_size,) = struct.unpack_from("<I", buf, pos)
+    body = bytes(buf[pos + 4 : pos + 4 + block_size])
+    if len(body) != block_size:
+        raise BamError("truncated record body")
+    refid, p, _, mapq, bin_, _, flag, _, nrefid, npos, tlen = _FIXED.unpack_from(body, 0)
+    return BamRecord(refid, p, mapq, bin_, flag, nrefid, npos, tlen, body), pos + 4 + block_size
+
+
+def iter_records(buf, pos: int = 0, end: Optional[int] = None) -> Iterator[BamRecord]:
+    end = len(buf) if end is None else end
+    while pos < end:
+        rec, pos = decode_record(buf, pos)
+        yield rec
+
+
+def record_offsets(buf, pos: int = 0, end: Optional[int] = None) -> np.ndarray:
+    """Offsets of each record's size word from ``pos`` to ``end``; the
+    chain must end exactly at ``end``."""
+    end = len(buf) if end is None else end
+    offs, resume = record_chain_partial(buf, pos, end)
+    if resume != end:
+        raise BamError(f"record chain misaligned: ended at {resume} != {end}")
+    return offs
 
 
 def read_header_stream(reader) -> BamHeader:

@@ -27,7 +27,7 @@ for n in names:
 import chip_smoke
 bad = [m for m in sys.modules if m == "hadoop_bam_tpu" or m.startswith("hadoop_bam_tpu.")]
 assert not bad, bad
-assert len(names) >= 45, names
+assert len(names) >= 51, names
 print("ok", len(names))
 """
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -141,18 +141,19 @@ def test_write_gates_sort_on_the_cpu(tmp_path, conf):
 
 
 def test_stream_policy_gates(monkeypatch):
-    from hadoop_bam_tpu_torch.conf import (BCF_CHAIN, DEFLATE_LANES, INFLATE_LANES,
-                                            WRITE_DEVICE, Configuration)
+    from hadoop_bam_tpu_torch.conf import (BCF_CHAIN, CRAM_RANS_LANES, DEFLATE_LANES,
+                                            INFLATE_LANES, WRITE_DEVICE, Configuration)
     from hadoop_bam_tpu_torch.device_stream import StreamPolicy
 
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     for env in ("HBAM_INFLATE_LANES", "HBAM_DEFLATE_LANES", "HBAM_DEVICE_WRITE",
-                "HBAM_BCF_CHAIN"):
+                "HBAM_BCF_CHAIN", "HBAM_RANS_LANES"):
         monkeypatch.delenv(env, raising=False)
     for gate, key, env in (("inflate_lanes", INFLATE_LANES, "HBAM_INFLATE_LANES"),
                            ("deflate_lanes", DEFLATE_LANES, "HBAM_DEFLATE_LANES"),
                            ("device_write", WRITE_DEVICE, "HBAM_DEVICE_WRITE"),
-                           ("use_bcf_chain", BCF_CHAIN, "HBAM_BCF_CHAIN")):
+                           ("use_bcf_chain", BCF_CHAIN, "HBAM_BCF_CHAIN"),
+                           ("use_rans_lanes", CRAM_RANS_LANES, "HBAM_RANS_LANES")):
         assert getattr(StreamPolicy.resolve(None, cuda), gate)  # the auto rule on a card
         assert not getattr(StreamPolicy.resolve(None, cpu), gate)
         assert getattr(StreamPolicy.resolve(Configuration({key: "true"}), cpu), gate)
@@ -174,9 +175,11 @@ def test_plain_versions_do_not_count_launches():
     from hadoop_bam_tpu_torch.ops.kernels import deflate as kd
     from hadoop_bam_tpu_torch.ops.kernels import gather as kg
     from hadoop_bam_tpu_torch.ops.kernels import inflate as kin
+    from hadoop_bam_tpu_torch.ops.kernels import rans as kr
+    from hadoop_bam_tpu_torch.spec import cram_codecs as cc
 
     counters = (kin.LAUNCHES, kch.WALK_LAUNCHES, kch.KEYS_LAUNCHES, kd.LAUNCHES, kg.LAUNCHES,
-                kcrc.LAUNCHES, kbcf.LAUNCHES)
+                kcrc.LAUNCHES, kbcf.LAUNCHES, kr.LAUNCHES)
     before = [c.value for c in counters]
     s = torch.zeros(0, dtype=torch.uint8)
     offs, meta = kch.record_chain(s, 0)
@@ -186,6 +189,8 @@ def test_plain_versions_do_not_count_launches():
     kg.gather_stream_device(data, [0, 100], [50, 60], dup_mask=[True, False])
     kd.deflate_lanes_stream(data, [120, 80])
     kbcf.walk_chain(data.to(torch.uint8), 0, 200)
+    assert kr.rans_lanes([cc.rans_encode(b"ACGT" * 50, 1)], torch.device("cpu"))[0] == [
+        b"ACGT" * 50]
     assert [c.value for c in counters] == before
 
 
@@ -322,6 +327,74 @@ def test_variant_and_collate_entry_points_raise_when_no_card(tmp_path, monkeypat
                  lambda: chost.queryname_perm(cols)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_overlap_entry_points_raise_when_no_card(monkeypatch):
+    """The ragged join runs on the card when the caller gives host columns
+    and no device, as the reference's does on its default device."""
+    from hadoop_bam_tpu_torch.ops import overlap as tov
+
+    a = np.arange(4, dtype=np.int64)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: tov.join_mask_device(a, a + 1, a, a + 2),
+                 lambda: tov.ragged_overlap_mask(a, a, a + 1, a, a, a + 2, use_device=True)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    t = torch.from_numpy(a)
+    assert tov.join_mask_device(t, t + 1, a, a + 2).device.type == "cpu"
+
+
+def test_sort_bam_on_cram_raises_when_no_card(tmp_path, monkeypatch):
+    from hadoop_bam_tpu_torch import pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pipeline.sort_bam(str(tmp_path / "in.cram"), str(tmp_path / "out.bam"), **kw)
+
+
+def test_rans_kernel_that_cannot_build_raises(tmp_path, monkeypatch):
+    """The rANS tier raises when its kernel cannot build: no host fallback
+    hides it."""
+    from hadoop_bam_tpu_torch import _build
+    from hadoop_bam_tpu_torch.ops.kernels import rans as kr
+    from hadoop_bam_tpu_torch.spec import cram_codecs as cc
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    assert "hbt_rans_decode" in _build.SIGNATURES["rans"]
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("rans")
+
+    def on_card(*args):
+        raise RuntimeError("rans: CUDA error 700 at launch")
+
+    monkeypatch.setattr(kr, "rans_decode_device", on_card)
+    blocks = [(cc.METHOD_RANS, cc.rans_encode(b"ACGT" * 40, 0), 160)]
+
+    from hadoop_bam_tpu_torch.conf import CRAM_RANS_LANES, Configuration
+    from hadoop_bam_tpu_torch.device_stream import DeviceStream
+
+    stream = DeviceStream(torch.device("cpu"), Configuration({CRAM_RANS_LANES: "true"}))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cc.decompress_batch(blocks, stream=stream)
+
+
+def test_reference_conf_dict_drives_the_cram_keys():
+    from hadoop_bam_tpu import conf as jconf
+    from hadoop_bam_tpu_torch import conf as tconf
+
+    keys = ("CRAM_REFERENCE_SOURCE_PATH", "CRAM_RANS_LANES", "ANYSAM_TRUST_EXTS")
+    d = {getattr(jconf, k): v for k, v in zip(keys, ("/x/ref.fa", "on", "false"))}
+    a, b = jconf.Configuration(d), tconf.from_reference_conf(d)
+    for key in keys:
+        k = getattr(tconf, key)
+        assert k == getattr(jconf, key)
+        assert a.get(k) == b.get(k) and a.get_boolean(k, True) == b.get_boolean(k, True)
 
 
 def test_bcf_chain_that_cannot_build_raises(tmp_path, monkeypatch):

@@ -471,7 +471,8 @@ def test_ragged_join_like_the_reference(seed):
             rows = refid == rid
             sel = q_refid == rid
             np.testing.assert_array_equal(
-                tov.join_mask_device(starts[rows], ends[rows], q_beg[sel], q_end[sel]).numpy(),
+                tov.join_mask_device(starts[rows], ends[rows], q_beg[sel], q_end[sel],
+                                     device=torch.device("cpu")).numpy(),
                 jov.join_mask_np(starts[rows], ends[rows], q_beg[sel], q_end[sel]))
     ivs = [jiv.parse_interval(t) for t in ("chr2:5-9", "chrZ:1-5", "chr1")]
     index = {"chr1": 0, "chr2": 1}.__getitem__
