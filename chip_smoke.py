@@ -18,8 +18,11 @@ three regions of a synthetic 4,500,000-site BCF call set with
 ``variants_blob`` on the card and on the CPU (byte-identical, and equal to
 the generator's records); sort a synthetic no-ref rANS CRAM of 300,000
 records on the card (its rANS blocks through the decode kernel) to the
-content of the sort of its BAM twin; time every kernel at the paths'
-shapes.
+content of the sort of its BAM twin; read regions of the sorted BAM
+(``build_bai``, ``flagstat``, ``view_blob`` of three regions, ``depth_stat``
+and a bounded-traversal ``sort_bam``, card against CPU, the views against a
+NumPy overlap oracle, and a view of the CRAM against its BAM twin's); time
+every kernel at the paths' shapes.
 Any failure exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table
 as JSON.  Imports neither JAX nor the JAX package.
@@ -1036,11 +1039,15 @@ def _counters():
     from hadoop_bam_tpu_torch.ops.kernels import deflate as kd
     from hadoop_bam_tpu_torch.ops.kernels import gather as kg
     from hadoop_bam_tpu_torch.ops.kernels import inflate as kin
+    from hadoop_bam_tpu_torch.ops.kernels import histogram as kh
+    from hadoop_bam_tpu_torch.ops.kernels import overlap as kov
     from hadoop_bam_tpu_torch.ops.kernels import rans as kr
     from hadoop_bam_tpu_torch.ops.kernels import record_scan as krs
+    from hadoop_bam_tpu_torch.ops.kernels import unpack as ku
 
     return (kin.LAUNCHES, kch.WALK_LAUNCHES, kch.KEYS_LAUNCHES, kd.LAUNCHES, kg.LAUNCHES,
-            kcrc.LAUNCHES, krs.LAUNCHES, kb.LAUNCHES, kr.LAUNCHES)
+            kcrc.LAUNCHES, krs.LAUNCHES, kb.LAUNCHES, kr.LAUNCHES, kov.LAUNCHES, kh.LAUNCHES,
+            ku.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -1111,7 +1118,8 @@ def main_path(work: str, n: int, seed: int) -> dict:
 
     src = os.path.join(work, "in.bam")
     t0 = time.perf_counter()
-    size = synth_bam(src, n, seed)
+    rows = synth_rows(n, seed)
+    size = synth_bam(src, n, seed, rows=rows)
     log(f"synthetic BAM: {n} records, {size} bytes, built in "
         f"{time.perf_counter() - t0:.1f} s")
     out = {k: os.path.join(work, f"sorted.{k}.bam")
@@ -1177,7 +1185,8 @@ def main_path(work: str, n: int, seed: int) -> dict:
         raise AssertionError("device write differs from host gather + deflate lanes")
     log(f"device write == host gather + deflate lanes: {len(a)} bytes")
     return {"src": src, "launches": launches, "launches_resident": launches_r, "wall": wall,
-            "stats": st, "cpu": st_cpu, "ratio": ratio}
+            "stats": st, "cpu": st_cpu, "ratio": ratio, "sorted": out["zlib"],
+            "flagstat": flagstat_oracle(rows)}
 
 
 # ---------------------------------------------------------------------------
@@ -1657,7 +1666,438 @@ def cram_phase(work: str, n: int, seed: int) -> dict:
         raise AssertionError("the CRAM sort decompresses to other bytes than its BAM twin's")
     log(f"sort_bam(.cram) decompresses to sort_bam(BAM twin)'s bytes; {n_blocks} rANS blocks "
         f"all on the kernel in {n_cont} launches")
-    return {"launches": launches, "wall": wall}
+    os.remove(bam_path)
+    return {"launches": launches, "wall": wall, "cram": cram_path, "twin_sorted": out_b}
+
+
+# ---------------------------------------------------------------------------
+# The region path
+# ---------------------------------------------------------------------------
+
+#: A 1 Mbp window on chr20, the whole of chr21 and a window past chr1's end
+#: (no record reaches it).
+REGIONS = ("chr20:10,000,001-11,000,000", "chr21", "chr1:249,000,001-250,000,000")
+#: The two intervals of the bounded-traversal sort.
+SORT_INTERVALS = "chr20:10000001-11000000,chr21:20000001-25000000"
+REC = 280  # bytes of every synthetic record, size word included
+
+
+def _overlap_case(n: int, k: int, rng):
+    """Row 6 inputs: records over the 25 contigs with refid -2/-1 rows, a
+    negative start and an end wrapped past 2**31 - 1; K intervals."""
+    refid = rng.integers(-2, 25, n).astype(np.int32)
+    start = rng.integers(-10, 250_000_000, n).astype(np.int32)
+    end = (start.astype(np.int64) + rng.integers(1, 500, n)).astype(np.int32)
+    if n >= 3:
+        start[:3], end[:3], refid[:3] = [2**31 - 1, -5, 0], [-(2**31), 3, 1], [0, -2, -1]
+    iv = np.zeros((k, 3), dtype=np.int32)
+    iv[:, 0] = rng.integers(-1, 25, k)
+    iv[:, 1] = rng.integers(0, 240_000_000, k)
+    iv[:, 2] = iv[:, 1] + rng.integers(0, 5_000_000, k)
+    if k:
+        iv[0] = [0, 2**31 - 2, 2**31 - 1]
+    return iv, refid, start, end
+
+
+def check_region(seed: int) -> dict:
+    """Rows 6, 8 and 9 against their plain versions, exactly: the overlap
+    cut with K = 0, 1, 5, 8 and 1,500 (past one shared-memory chunk), no
+    record and one record; the histogram with out-of-range values, no
+    valid position, 128, 256 and 12,288 bins; the unpack with W = 0, no
+    row, an odd B and int32 input."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops.kernels import histogram as kh
+    from hadoop_bam_tpu_torch.ops.kernels import overlap as kov
+    from hadoop_bam_tpu_torch.ops.kernels import unpack as ku
+
+    rng = np.random.default_rng(seed)
+
+    def both(fn, arrays, **kw):
+        got = fn(*[torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays], **kw)
+        want = fn(*[torch.from_numpy(np.ascontiguousarray(a)) for a in arrays], **kw)
+        torch.cuda.synchronize()
+        got = got.cpu()
+        if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{fn.__name__} kernel != plain at {[a.shape for a in arrays]} {kw}")
+        return got
+
+    cases = [(0, 1), (1, 1), (1000, 0), (100_000, 1), (100_000, 5), (100_000, 8), (20_000, 1500)]
+    hits = sum(int(both(kov.overlap_mask, _overlap_case(n, k, rng)).sum()) for n, k in cases)
+    log(f"overlap_mask kernel == plain: {len(cases)} cases (N up to 100000, K 0-1500), "
+        f"{hits} hits, max_abs_err 0")
+    hcases = [(1, 1, 128, 1.0), (1000, 150, 128, 0.9), (777, 33, 256, 0.5), (300, 20, 12288, 0.7),
+              (50, 7, 128, 0.0)]
+    for b, length, nbins, p in hcases:
+        vals = rng.integers(-5, nbins + 30, (b, length)).astype(np.int32)
+        vals[:, : min(3, length)] = rng.integers(2, 42, (b, min(3, length)))
+        valid = (rng.random((b, length)) < p).astype(np.int32)
+        both(kh.quality_histogram, (vals, valid), nbins=nbins)
+    log(f"quality_histogram kernel == plain: {len(hcases)} cases (out-of-range values, no valid "
+        "position, 128-12288 bins), max_abs_err 0")
+    ucases = [(1, 0, np.uint8), (0, 4, np.uint8), (1001, 75, np.uint8), (5, 7, np.int32)]
+    for b, w, dt in ucases:
+        packed = rng.integers(0, 256, (b, w)).astype(dt)
+        if dt == np.int32 and packed.size:
+            packed[0, 0] = -1
+        both(ku.unpack_nibbles, (packed,))
+    log(f"unpack_nibbles kernel == plain: {len(ucases)} cases (W = 0, B = 0, odd B, int32), "
+        "max_abs_err 0")
+    return {"overlap": 0.0, "histogram": 0.0, "unpack": 0.0}
+
+
+def flagstat_oracle(rows: np.ndarray) -> dict:
+    """The flagstat counts of the generator's records, from their flags."""
+    from hadoop_bam_tpu_torch.serve.endpoints import FLAGSTAT_KEYS
+    from hadoop_bam_tpu_torch.spec import bam
+
+    flag = rows[:, 18].astype(np.int64) | (rows[:, 19].astype(np.int64) << 8)
+    mapped = (flag & bam.FLAG_UNMAPPED) == 0
+    paired = (flag & bam.FLAG_PAIRED) != 0
+    mate_mapped = (flag & bam.FLAG_MATE_UNMAPPED) == 0
+    bit = lambda b: (flag & b) != 0  # noqa: E731
+    vals = [len(flag), bit(bam.FLAG_SECONDARY).sum(), bit(bam.FLAG_SUPPLEMENTARY).sum(),
+            bit(bam.FLAG_DUPLICATE).sum(), mapped.sum(), paired.sum(),
+            (paired & bit(bam.FLAG_FIRST_OF_PAIR)).sum(), (paired & bit(bam.FLAG_SECOND_OF_PAIR)).sum(),
+            (paired & mapped & bit(bam.FLAG_PROPER_PAIR)).sum(), (paired & mapped & mate_mapped).sum(),
+            (paired & mapped & ~mate_mapped).sum()]
+    return dict(zip(FLAGSTAT_KEYS, (int(v) for v in vals)))
+
+
+def _i32(rows: np.ndarray, col: int) -> np.ndarray:
+    return np.ascontiguousarray(rows[:, col : col + 4]).view("<i4").ravel().astype(np.int64)
+
+
+def file_records(path: str):
+    """A BAM of synthetic records in file order: uint8 ``[n, 280]`` rows and
+    each record's start virtual offset (member start << 16 | offset in its
+    payload)."""
+    from hadoop_bam_tpu_torch.io.bam import read_header_voffset
+    from hadoop_bam_tpu_torch.spec import bgzf
+
+    with open(path, "rb") as f:
+        raw = f.read()
+    co, cs, us = bgzf.scan_blocks(raw)
+    out, uoffs = bgzf.inflate_blocks(raw, co, cs, us)
+    _, v0 = read_header_voffset(path)
+    p0 = int(uoffs[int(np.searchsorted(co, v0 >> 16))]) + (v0 & 0xFFFF)
+    recs = out[p0:].reshape(-1, REC)
+    if not np.all(_i32(recs, 0) == REC - 4):
+        raise AssertionError(f"{path}: a record is not {REC} bytes")
+    offs = p0 + REC * np.arange(len(recs), dtype=np.int64)
+    bi = np.searchsorted(uoffs[:-1], offs, side="right") - 1
+    return recs, (co.astype(np.int64)[bi] << 16) | (offs - uoffs[bi])
+
+
+def overlap_oracle(recs: np.ndarray, region: str):
+    """``(rid, beg0, end0, mask)``: the records that overlap ``region``
+    (placed, span ``[pos, pos + max(ref_len, 1))``), in NumPy."""
+    from hadoop_bam_tpu_torch.utils.intervals import MAX_END, parse_interval
+
+    iv = parse_interval(region)
+    rid = [c for c, _ in GRCH38].index(iv.contig)
+    beg0, end0 = iv.start - 1, min(iv.end, MAX_END)
+    refid, pos = _i32(recs, 4), _i32(recs, 8)
+    n_cig = recs[:, 16].astype(np.int64) | (recs[:, 17].astype(np.int64) << 8)
+    span = np.where(n_cig > 0, _i32(recs, 47) >> 4, 0)  # one M op, or none
+    mask = (refid == rid) & (pos >= 0) & (pos < end0) & (pos + np.maximum(span, 1) > beg0)
+    return rid, beg0, end0, mask
+
+
+def in_chunks(vstart: np.ndarray, chunks) -> np.ndarray:
+    """Records whose start voffset lies in one of the (sorted, disjoint)
+    chunk spans of a ``.bai`` query."""
+    if not chunks:
+        return np.zeros(len(vstart), dtype=bool)
+    begs = np.asarray([c.beg for c in chunks], dtype=np.int64)
+    ends = np.asarray([c.end for c in chunks], dtype=np.int64)
+    k = np.searchsorted(begs, vstart, side="right") - 1
+    return (k >= 0) & (vstart < ends[np.maximum(k, 0)])
+
+
+def check_view(blob: bytes, header: bytes, recs, vstart, bai, region: str) -> int:
+    """The view holds exactly, in file order, the records that overlap the
+    region and start inside the ``.bai``'s chunk spans of it.  Overlapping
+    records outside every span must be unmapped: the sort keys unmapped
+    reads with a sign-extended hash, so half of them sit at the file's head,
+    before the linear index's offset of their window.  Returns their count."""
+    rid, beg0, end0, ov = overlap_oracle(recs, region)
+    inc = in_chunks(vstart, bai.query(rid, beg0, end0))
+    if bgzf_bytes(blob) != header + recs[ov & inc].tobytes():
+        raise AssertionError(f"view {region}: the blob is not the oracle's records")
+    out = ov & ~inc
+    if np.any((recs[out, 18] & 4) == 0):
+        raise AssertionError(f"view {region}: a mapped overlapping record lies outside the chunks")
+    return int(out.sum())
+
+
+def blob_records(blob: bytes) -> np.ndarray:
+    """A view blob's records as sorted ``V280``."""
+    content = bgzf_bytes(blob)
+    head = len(read_header_of_blob(content))
+    if (len(content) - head) % REC:
+        raise AssertionError("view blob: a record is not 280 bytes")
+    return np.sort(np.frombuffer(content[head:], dtype=f"V{REC}"))
+
+
+def timed_region(fn, what: str, device: str, trace: str = "", conf=None):
+    """One region call ``fn(stream, timings)`` with the launch counts zeroed
+    just before and read just after; with a ``trace`` path, under
+    ``torch.profiler`` (device activity only).  Returns ``(result, wall,
+    launches, counters)``."""
+    import contextlib
+
+    import torch
+
+    from hadoop_bam_tpu_torch.device_stream import DeviceStream
+
+    stream = DeviceStream(torch.device(device), conf=conf)
+    on_card = device == "cuda"
+    reset_counts()
+    if on_card:
+        torch.cuda.synchronize()
+    ctx = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+           if trace else contextlib.nullcontext())
+    timings: dict = {}
+    with ctx as prof:
+        t0 = time.perf_counter()
+        out = fn(stream, timings)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    c = stream.metrics.counters()
+    log(f"{what}: wall {wall:.3f} s")
+    log("  phases (s): " + json.dumps({k: round(v, 4) for k, v in timings.items()}))
+    log(f"  launches: {json.dumps(launches)}")
+    log("  counters: " + json.dumps({k: v for k, v in sorted(c.items()) if v and k.startswith(
+        ("serve.", "pileup.", "flate.", "device_stream.", "bam.", "cram."))}))
+    log("  transfers: " + json.dumps({k: v for k, v in c.items() if k.startswith("transfers.")}))
+    if trace:
+        log_device_time(prof, trace, wall)
+    return out, wall, launch_counts(), c
+
+
+def time_region_kernels(path: str, view_cols, checks: dict, launches: int) -> list:
+    """Rows 6, 8 and 9 at the region path's shapes: row 6 over the chr21
+    view's records (K = 1) and over the sorted file's first 32 MiB split
+    (K = 1 and 8); rows 8 and 9 over that split's quality and packed
+    sequence columns.  Beside each: the plain version (host), the bound and,
+    for row 8, ``torch.bincount`` of the masked in-range values."""
+    import torch
+
+    from hadoop_bam_tpu_torch.io.bam import BamInputFormat
+    from hadoop_bam_tpu_torch.ops import cigar
+    from hadoop_bam_tpu_torch.ops.kernels import histogram as kh
+    from hadoop_bam_tpu_torch.ops.kernels import overlap as kov
+    from hadoop_bam_tpu_torch.ops.kernels import unpack as ku
+
+    fmt = BamInputFormat()
+    b = fmt.read_split(fmt.get_splits([path], split_size=32 << 20)[0], with_keys=False)
+    soa, n = b.soa, b.n_records
+    refid = soa["refid"].astype(np.int32)
+    pos = soa["pos"].astype(np.int32)
+    end = (pos.astype(np.int64) + np.maximum(cigar.reference_lengths_np(b.data, soa), 1)).astype(
+        np.int32)
+    chr21 = np.asarray([[20, 0, 46709983]], dtype=np.int32)
+    k8 = np.asarray([[20, 0, 46709983], [19, 10_000_000, 11_000_000], [0, 0, 1_000_000],
+                     [1, 5_000_000, 6_000_000], [5, 0, 170_000_000], [22, 100, 200],
+                     [24, 0, 16569], [23, 1_000_000, 2_000_000]], dtype=np.int32)
+    t = lambda a, dev: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    times = {}
+    for what, arrays in (("chr21 view, K=1", (chr21, *view_cols)),
+                         ("one split, K=1", (chr21, refid, pos, end)),
+                         ("one split, K=8", (k8, refid, pos, end))):
+        g = [t(a, "cuda") for a in arrays]
+        c = [t(a, "cpu") for a in arrays]
+        nr, k = len(arrays[1]), len(arrays[0])
+        times[what] = (cuda_ms(lambda: kov.overlap_mask(*g), iters=50),
+                       host_ms(lambda: kov.overlap_mask(*c), iters=3),
+                       (13 * nr + 12 * k) / HBM_BYTES_PER_S * 1e3, nr)
+        log(f"  overlap_mask at {what} ({nr} records): {times[what][0]:.4f} ms (plain "
+            f"{times[what][1]:.3f} ms, bound {times[what][2]:.5f} ms)")
+    k_ms, p_ms, bound, nv = times["chr21 view, K=1"]
+    rows = [{
+        "name": "overlap_mask", "route": "cuda", "source": "hadoop_bam_tpu_torch/csrc/region.cu",
+        "replaces": "hadoop_bam_tpu/ops/pallas/overlap.py:46", "launches": launches,
+        "launches_from": f"view_blob(cuda), {REGIONS[0]}", "max_abs_err": checks["overlap"],
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+        "shape": f"the chr21 view's {nv} records, K = 1",
+        "ms_split_k1": times["one split, K=1"][0], "ms_split_k8": times["one split, K=8"][0],
+        "split_records": n,
+    }]
+    # The split's quality and packed-sequence columns (every record 150 bp).
+    l_seq = soa["l_seq"].astype(np.int64)
+    if not np.all(l_seq == 150):
+        raise AssertionError("the synthetic split holds a record that is not 150 bp")
+    seq_off = soa["rec_off"].astype(np.int64) + 32 + soa["l_read_name"] + 4 * soa["n_cigar_op"]
+    seq = b.data[seq_off[:, None] + np.arange(75)]
+    qual = b.data[seq_off[:, None] + 75 + np.arange(150)].astype(np.int32)
+    valid = np.ones_like(qual)
+    gv, gm = t(qual, "cuda"), t(valid, "cuda")
+    cv, cm = t(qual, "cpu"), t(valid, "cpu")
+    k_ms = cuda_ms(lambda: kh.quality_histogram(gv, gm), iters=20)
+    p_ms = host_ms(lambda: kh.quality_histogram(cv, cm), iters=1)
+    lib_ms = cuda_ms(lambda: torch.bincount(gv[(gm != 0) & (gv >= 0) & (gv < 128)], minlength=128),
+                     iters=20)
+    rows.append({
+        "name": "quality_histogram", "route": "cuda",
+        "source": "hadoop_bam_tpu_torch/csrc/region.cu",
+        "replaces": "hadoop_bam_tpu/ops/pallas/histogram.py:71", "launches": 0,
+        "launches_from": "no path calls it (an export, as in the reference)",
+        "max_abs_err": checks["histogram"], "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": (8 * qual.size + 4 * 128) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": lib_ms, "shape": f"one split's quality column: {n} x 150, 128 bins",
+    })
+    gs, cs = t(seq, "cuda"), t(seq, "cpu")
+    k_ms = cuda_ms(lambda: ku.unpack_nibbles(gs), iters=20)
+    p_ms = host_ms(lambda: ku.unpack_nibbles(cs), iters=3)
+    rows.append({
+        "name": "unpack_nibbles", "route": "cuda", "source": "hadoop_bam_tpu_torch/csrc/region.cu",
+        "replaces": "hadoop_bam_tpu/ops/pallas/unpack.py:38", "launches": 0,
+        "launches_from": "no path calls it (an export, as in the reference)",
+        "max_abs_err": checks["unpack"], "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": (seq.size + 8 * seq.size) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None, "shape": f"one split's packed sequence: {n} x 75 bytes",
+    })
+    for r in rows[1:]:
+        log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms, library {r['library_ms']}) at {r['shape']}")
+    return rows
+
+
+def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted: str,
+                 checks: dict) -> list:
+    """The region reads on the main path's sorted BAM (``census``: its
+    generator's flagstat counts): build its ``.bai``; ``flagstat`` on the
+    card and on the CPU (equal, and equal to the census); ``view_blob`` of
+    :data:`REGIONS` on the card (the first traced) and on the CPU
+    (byte-identical, and exactly the records a NumPy overlap oracle over the
+    sorted file keeps, row 6 launched); ``depth_stat`` per base on the
+    chr20 window and binned on chr21, card against CPU; a bounded-traversal
+    ``sort_bam`` of :data:`SORT_INTERVALS`, card against CPU byte for byte;
+    ``view_blob`` of chr21 of the CRAM phase's file (every record that
+    overlaps) against its BAM twin's.  Returns the kernel rows 6, 8 and 9."""
+    from hadoop_bam_tpu_torch.conf import (BAM_BOUNDED_TRAVERSAL, BAM_INTERVALS, DEFLATE_LANES,
+                                            INFLATE_LANES, WRITE_DEVICE, Configuration)
+    from hadoop_bam_tpu_torch.io.bam import read_header
+    from hadoop_bam_tpu_torch.ops import cigar
+    from hadoop_bam_tpu_torch.serve.endpoints import depth_stat, flagstat, view_blob, view_records
+    from hadoop_bam_tpu_torch.spec import indices
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    bai = indices.build_bai(path)
+    with open(path + ".bai", "wb") as f:
+        bai.save(f)
+    log(f"build_bai: {census['total']} records, {os.path.getsize(path + '.bai')} bytes of .bai "
+        f"in {time.perf_counter() - t0:.3f} s ({bai.n_no_coor} without coordinates)")
+    header = read_header(path).encode()
+    fs = {}
+    for dev in ("cuda", "cpu"):
+        fs[dev], _, launches, _ = timed_region(
+            lambda st, tm: flagstat(path, stream=st, timings=tm), f"flagstat({dev})", dev)
+        if dev == "cuda" and launches["inflate_members"] <= 0:
+            raise AssertionError("flagstat(cuda) never launched the inflate kernel")
+    if not fs["cuda"] == fs["cpu"] == census:
+        raise AssertionError(f"flagstat: cuda {fs['cuda']} cpu {fs['cpu']} generator {census}")
+    log(f"flagstat cuda == cpu == the generator's census: {json.dumps(fs['cuda'])}")
+    recs, vstart = file_records(path)
+    first = None
+    for k, region in enumerate(REGIONS):
+        blob, wall, launches, c = timed_region(
+            lambda st, tm: view_blob(path, region, stream=st, timings=tm),
+            f"view_blob(cuda, {region})", "cuda",
+            trace=os.path.join(work, "region.trace.json") if k == 0 else "")
+        # Every cut of a record batch launches row 6; the empty window's
+        # .bai query yields no chunk, so no batch and no launch.
+        if launches["overlap_mask"] != c.get("serve.view.overlap_device", 0) or (
+                launches["overlap_mask"] <= 0 and region != REGIONS[2]):
+            raise AssertionError(f"view {region}: {launches['overlap_mask']} row 6 launches for "
+                                 f"{c.get('serve.view.overlap_device', 0)} cuts")
+        blob_cpu, _, _, _ = timed_region(
+            lambda st, tm: view_blob(path, region, stream=st, timings=tm),
+            f"view_blob(cpu, {region})", "cpu")
+        if blob != blob_cpu:
+            raise AssertionError(f"view {region}: card and cpu blobs differ")
+        head = check_view(blob, header, recs, vstart, bai, region)
+        log(f"view {region}: cuda == cpu ({len(blob)} bytes), {c.get('serve.view.records', 0)} "
+            f"records == the NumPy overlap oracle's; {head} overlapping unmapped records at the "
+            f"file's head lie outside the .bai's chunks")
+        if first is None:
+            first = launches["overlap_mask"]
+    del recs, vstart
+    for region, kw in ((REGIONS[0], {"per_base": True}), (REGIONS[1], {})):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            res[dev], _, launches, c = timed_region(
+                lambda st, tm: depth_stat(path, region, stream=st, timings=tm, **kw),
+                f"depth_stat({dev}, {region}, {kw})", dev)
+            if dev == "cuda" and (launches["overlap_mask"] <= 0 or not c.get("pileup.device_chunks")):
+                raise AssertionError(f"depth {region}: row 6 or the device profile never ran")
+        if res["cuda"] != res["cpu"]:
+            raise AssertionError(f"depth {region}: card and cpu dicts differ")
+        log(f"depth {region}: cuda == cpu: {res['cuda']['n_records']} records, max depth "
+            f"{res['cuda']['max_depth']}, mean {res['cuda']['mean_depth']}, covered "
+            f"{res['cuda']['covered_bases']} of {res['cuda']['total_bases']}")
+    bounded = Configuration({BAM_BOUNDED_TRAVERSAL: "true", BAM_INTERVALS: SORT_INTERVALS,
+                             INFLATE_LANES: "true", DEFLATE_LANES: "false", WRITE_DEVICE: "false"})
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = os.path.join(work, f"bounded.{dev}.bam")
+        st, _, launches = timed_sort(path, outs[dev], f"{dev}, bounded traversal of "
+                                     f"{SORT_INTERVALS}", conf=bounded, device=dev)
+        if st.n_records <= 0 or st.counters.get("bam.records_kept") != st.n_records:
+            raise AssertionError(f"bounded sort ({dev}): {st.n_records} records, {st.counters}")
+    with open(outs["cuda"], "rb") as f:
+        a = f.read()
+    with open(outs["cpu"], "rb") as f:
+        b = f.read()
+    if a != b:
+        raise AssertionError("bounded-traversal sort: card and cpu outputs differ")
+    log(f"bounded-traversal sort: cuda == cpu ({len(a)} bytes, {st.n_records} records)")
+    with open(twin_sorted + ".bai", "wb") as f:
+        indices.build_bai(twin_sorted).save(f)
+    cram_blob, _, launches, _ = timed_region(
+        lambda st, tm: view_blob(cram_path, REGIONS[1], stream=st, timings=tm),
+        f"view_blob(cuda, .cram, {REGIONS[1]})", "cuda")
+    twin_blob, _, _, _ = timed_region(
+        lambda st, tm: view_blob(twin_sorted, REGIONS[1], stream=st, timings=tm),
+        f"view_blob(cuda, BAM twin, {REGIONS[1]})", "cuda")
+    twin_recs, twin_v = file_records(twin_sorted)
+    head = check_view(twin_blob, read_header_of_blob(bgzf_bytes(twin_blob)), twin_recs, twin_v,
+                      indices.Bai.load(twin_sorted + ".bai"), REGIONS[1])
+    ov = overlap_oracle(twin_recs, REGIONS[1])[3]
+    want = np.sort(np.ascontiguousarray(twin_recs[ov]).view(f"V{REC}").ravel())
+    got = blob_records(cram_blob)
+    if launches["overlap_mask"] <= 0 or launches["rans"] <= 0 or not np.array_equal(got, want):
+        raise AssertionError(f"CRAM view: {len(got)} records, the oracle {len(want)}, "
+                             f"launches {launches}")
+    log(f"view of the CRAM ({len(got)} records) == every overlapping record of its BAM twin; "
+        f"the twin's view, the same less the {head} unmapped records at its head")
+    # Row 6's inputs in the chr21 view: every record of the windows it read.
+    bs = [bt for bt, _ in view_records(path, REGIONS[1], device="cpu")[1]]
+    refid = np.concatenate([bt.soa["refid"] for bt in bs]).astype(np.int32)
+    pos = np.concatenate([bt.soa["pos"] for bt in bs]).astype(np.int32)
+    span = np.concatenate([cigar.reference_lengths_np(bt.data, bt.soa) for bt in bs])
+    view_cols = (refid, pos, (pos.astype(np.int64) + np.maximum(span, 1)).astype(np.int32))
+    log(f"region phase: {time.perf_counter() - t_phase:.1f} s before the kernel timings")
+    return time_region_kernels(path, view_cols, checks, first)
+
+
+def read_header_of_blob(content: bytes) -> bytes:
+    """The BAM header bytes (magic through the reference dictionary) at the
+    start of a decompressed BAM."""
+    import struct
+
+    l_text = struct.unpack_from("<i", content, 4)[0]
+    p = 8 + l_text
+    n_ref = struct.unpack_from("<i", content, p)[0]
+    p += 4
+    for _ in range(n_ref):
+        l_name = struct.unpack_from("<i", content, p)[0]
+        p += 4 + l_name + 4
+    return content[:p]
 
 
 def bgzf_bytes(blob: bytes) -> bytes:
@@ -1919,6 +2359,7 @@ def main() -> int:
     big = synth_bcf_rows(contig, pos, args.seed).tobytes()
     checks["bcf_chain"] = check_bcf_chain(args.seed, big)["max_abs_err"]
     rans_row = check_rans(args.seed, container.result())
+    checks.update(check_region(args.seed))
     pool.shutdown()
     torch.cuda.synchronize()
     if args.kernels_only:
@@ -1937,6 +2378,8 @@ def main() -> int:
         rows = time_kernels(res["src"], checks, res["launches"], res["launches_resident"],
                             args.seed)
         os.remove(res["src"])
+        for k in ("lanes", "cpu", "resident", "resident_host"):  # the region phase reads "zlib"
+            os.remove(os.path.join(work, f"sorted.{k}.bam"))
         ing = ingest_phase(work, args.pairs, args.seed)
         rows.append(time_record_scan(ing["r1"], checks, ing["launches"]["record_scan"],
                                      "ingest_fastq(cuda), default gates"))
@@ -1948,6 +2391,8 @@ def main() -> int:
         cr = cram_phase(work, args.cram_records, args.seed)
         rows.append(dict(rans_row, launches=cr["launches"]["rans"],
                          launches_from="sort_bam(cuda, .cram), default gates"))
+        rows += region_phase(work, res["flagstat"], res["sorted"], cr["cram"], cr["twin_sorted"],
+                             checks)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": rows}), flush=True)

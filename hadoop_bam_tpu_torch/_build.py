@@ -57,6 +57,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "rans": {
         "hbt_rans_decode": [_P, _P, _P, _P, _P, _P, _P, _I32, _P],
     },
+    "region": {
+        "hbt_overlap_mask": [_P, _I32, _P, _P, _P, _I64, _P, _P],
+        "hbt_quality_histogram": [_P, _P, _I64, _I32, _P, _P],
+        "hbt_unpack_nibbles_u8": [_P, _I64, _P, _P],
+        "hbt_unpack_nibbles_i32": [_P, _I64, _P, _P],
+    },
 }
 
 _lock = threading.Lock()

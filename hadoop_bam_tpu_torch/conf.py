@@ -1,8 +1,8 @@
 """Configuration: the string property map of the Hadoop ``Configuration``.
 
 Counterpart of ``hadoop_bam_tpu/conf.py`` with only the keys the in-core
-coordinate sort (of BAM and CRAM input), the FASTQ ingest and the BCF
-variant plane read.  The key strings are the
+coordinate sort (of BAM and CRAM input, with interval traversal), the
+FASTQ ingest, the BCF variant plane and the region reads read.  The key strings are the
 reference's, so one dict drives both packages (:func:`from_reference_conf`).
 """
 
@@ -10,7 +10,12 @@ from __future__ import annotations
 
 from typing import Iterator, Mapping, Optional
 
+#: Interval traversal of BAM input: the switch, the intervals
+#: (``chr:start-stop[,...]``) and the extra pass over the unplaced,
+#: unmapped tail.
 BAM_BOUNDED_TRAVERSAL = "hadoopbam.bam.bounded-traversal"
+BAM_INTERVALS = "hadoopbam.bam.intervals"
+BAM_TRAVERSE_UNPLACED_UNMAPPED = "hadoopbam.bam.traverse-unplaced-unmapped"
 BAM_ENABLE_BAI_SPLITTER = "hadoopbam.bam.enable-bai-splitter"
 BAM_WRITE_SPLITTING_BAI = "hadoopbam.bam.write-splitting-bai"
 BAM_MARK_DUPLICATES = "hadoopbam.bam.mark-duplicates"

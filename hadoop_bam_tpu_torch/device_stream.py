@@ -15,6 +15,7 @@ device is explicit; counters go to the stream's
 from __future__ import annotations
 
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional, Tuple
 
@@ -99,6 +100,7 @@ class DeviceStream:
         self.policy = StreamPolicy.resolve(conf, device)
         self.metrics = Metrics()
         self.inflate_stats = flate.CodecTierStats()
+        self._stats_lock = threading.Lock()
 
     def default_device_parse(self) -> bool:
         """The device parse runs by default on a CUDA device."""
@@ -113,12 +115,19 @@ class DeviceStream:
     def decode_members(self, data, coffsets, csizes, usizes):
         """Inflate a batch of members on the stream's device:
         ``(out, out_offsets, window)`` (see
-        :func:`~.ops.flate.inflate_blocks_device`).  Failures raise."""
+        :func:`~.ops.flate.inflate_blocks_device`).  Failures raise.  The
+        call counts into its own tier stats, folded into
+        :attr:`inflate_stats` under a lock: ``read_splits`` decodes
+        ``depth`` splits at once."""
         self.metrics.count("device_stream.decodes")
-        return flate.inflate_blocks_device(
-            data, coffsets, csizes, usizes, self.device, self.metrics,
-            stats=self.inflate_stats,
+        stats = flate.CodecTierStats()
+        res = flate.inflate_blocks_device(
+            data, coffsets, csizes, usizes, self.device, self.metrics, stats=stats,
         )
+        with self._stats_lock:
+            for k in stats.__slots__:
+                setattr(self.inflate_stats, k, getattr(self.inflate_stats, k) + getattr(stats, k))
+        return res
 
     def read_splits(self, fmt, splits, fields=None, with_keys: bool = True) -> Iterator:
         """Yield decoded split batches in order, ``depth`` splits in flight:

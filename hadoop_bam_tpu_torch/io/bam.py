@@ -1,12 +1,14 @@
 """BAM input format: split planning, split reading, part writing.
 
-Counterpart of ``hadoop_bam_tpu/io/bam.py`` for the in-core coordinate sort:
-``BamInputFormat.get_splits`` (``.splitting-bai`` index, else the split
-guesser; the ``.bai`` splitter and interval traversal are later work),
-``read_split`` with the strict path of ``read_virtual_range`` (batched
+Counterpart of ``hadoop_bam_tpu/io/bam.py`` for the in-core coordinate sort
+and the region reads: ``BamInputFormat.get_splits`` (``.splitting-bai``
+index, else the ``.bai`` splitter when enabled, else the split guesser;
+then the interval filter of bounded traversal, with its unplaced-unmapped
+pass), ``read_split`` with the strict path of ``read_virtual_range`` (batched
 member inflate on the device or the host, spill blocks for a tail record,
 the host chain walk, the split's resident window), ``RecordBatch``,
-``ChunkedRecords`` (with the write path's flat resident stream),
+``ChunkedRecords`` (with the write path's flat resident stream), the
+chunk-span cut of interval traversal (``_voffset_mask``),
 ``gather_record_array``, ``patch_flags`` and ``write_part_fast`` (device-
 resident assembly, host gather + deflate lanes, host gather + zlib).
 Only local paths are read.
@@ -21,9 +23,16 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..conf import BAM_BOUNDED_TRAVERSAL, BAM_ENABLE_BAI_SPLITTER, Configuration
+from ..conf import (
+    BAM_BOUNDED_TRAVERSAL,
+    BAM_ENABLE_BAI_SPLITTER,
+    BAM_INTERVALS,
+    BAM_TRAVERSE_UNPLACED_UNMAPPED,
+    Configuration,
+)
 from ..ops import flate
 from ..spec import bam, bgzf, indices
+from ..utils.intervals import Interval, parse_intervals
 from ..utils.tracing import Metrics
 from .guesser import BamSplitGuesser
 from .splits import FileVirtualSplit
@@ -112,6 +121,26 @@ def splitting_bai_path(path: str) -> str:
     return path + SPLITTING_BAI_EXT
 
 
+def _find_bai(path: str) -> Optional[str]:
+    """The companion ``.bai`` (htsjdk's SamFiles.findIndex convention:
+    ``x.bam.bai``, else ``x.bai``), or None."""
+    for cand in (path + ".bai", os.path.splitext(path)[0] + ".bai"):
+        if os.path.exists(cand):
+            return cand
+    return None
+
+
+def _load_bai(path: str) -> indices.Bai:
+    """The companion ``.bai``, else one built from the BAM."""
+    bai_path = _find_bai(path)
+    return indices.build_bai(path) if bai_path is None else indices.Bai.load(bai_path)
+
+
+def _read_all(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
 def _read_range(path: str, start: int, length: int) -> bytearray:
     """``length`` bytes from ``start`` (fewer at EOF), in a writable buffer
     so tensors can be made from it without a copy."""
@@ -157,14 +186,21 @@ class BamInputFormat:
     def get_splits(
         self, paths: Sequence[str], split_size: int = DEFAULT_SPLIT_SIZE
     ) -> List[FileVirtualSplit]:
-        if self.conf.get_boolean(BAM_BOUNDED_TRAVERSAL):
-            raise NotImplementedError(
-                "interval traversal is not ported yet (ROADMAP A.3)"
-            )
         splits: List[FileVirtualSplit] = []
         for path in sorted(paths):
             splits.extend(self._splits_for_file(path, split_size))
+        intervals = self._traversal_intervals()
+        unmapped_only = self.conf.get_boolean(BAM_TRAVERSE_UNPLACED_UNMAPPED)
+        if intervals is not None or (
+            unmapped_only and self.conf.get_boolean(BAM_BOUNDED_TRAVERSAL)
+        ):
+            splits = self.filter_by_interval(splits, intervals, unmapped_only)
         return splits
+
+    def _traversal_intervals(self) -> Optional[List[Interval]]:
+        if not self.conf.get_boolean(BAM_BOUNDED_TRAVERSAL):
+            return None
+        return parse_intervals(self.conf.get(BAM_INTERVALS))
 
     def _splits_for_file(self, path: str, split_size: int) -> List[FileVirtualSplit]:
         size = os.path.getsize(path)
@@ -181,8 +217,63 @@ class BamInputFormat:
             except IOError:
                 pass  # a bad index: plan with the guesser
         if self.conf.get_boolean(BAM_ENABLE_BAI_SPLITTER):
-            raise NotImplementedError(".bai split planning is not ported yet (ROADMAP A.3)")
+            bai_path = _find_bai(path)
+            if bai_path is not None:
+                try:
+                    bai = indices.Bai.load(bai_path)
+                    return self._bai_splits(path, byte_splits, bai)
+                except IOError:
+                    pass  # an unreadable or stale .bai: plan with the guesser
         return self._probabilistic_splits(path, byte_splits)
+
+    def _bai_splits(self, path, byte_splits, bai: indices.Bai) -> List[FileVirtualSplit]:
+        """Splits from the ``.bai``'s linear index (BAMInputFormat.addBAISplits):
+        every linear entry is a record boundary; a split starts at the first
+        boundary at or after its byte start, the first at the first record;
+        a split with no boundary inside it asks the guesser, and on a miss
+        takes the next boundary, so starts stay monotone and every record is
+        read exactly once.  A boundary past the end of the file raises
+        ``IOError`` (a stale index)."""
+        voffs: List[int] = []
+        for rid in range(len(bai.refs)):
+            voffs.extend(v for v in bai.linear_index(rid) if v > 0)
+        first = bai.first_offset()
+        if first is not None:
+            voffs.append(first)
+        if not voffs:
+            raise IOError("empty .bai: no linear index entries")
+        varr = np.unique(np.asarray(voffs, dtype=np.int64))
+        coffs = varr >> 16
+        size = byte_splits[-1][1]
+        if int(coffs[-1]) >= size:
+            raise IOError(".bai does not match file: offset past EOF")
+        end_sentinel = (size << 16) | 0xFFFF
+        guesser: Optional[BamSplitGuesser] = None
+        starts: List[int] = []
+        for j, (start, end) in enumerate(byte_splits):
+            if j == 0:
+                starts.append(read_header_voffset(path)[1])
+                continue
+            k = int(np.searchsorted(coffs, start, side="left"))
+            if k < len(varr) and coffs[k] < end:
+                starts.append(int(varr[k]))
+                continue
+            if guesser is None:
+                data = _read_all(path)
+                guesser = BamSplitGuesser(data, _read_header(data)[0].n_refs)
+            g = guesser.guess_next_record_start(start, end)
+            if g != end:
+                starts.append(g)
+            else:
+                starts.append(int(varr[k]) if k < len(varr) else end_sentinel)
+        out: List[FileVirtualSplit] = []
+        for j, vstart in enumerate(starts):
+            vend = starts[j + 1] if j + 1 < len(starts) else end_sentinel
+            if vstart < vend:
+                out.append(FileVirtualSplit(path, vstart, vend))
+        if not out:
+            raise IOError(f"'{path}': no reads found via .bai splitter")
+        return out
 
     def _indexed_splits(self, path, byte_splits, idx) -> List[FileVirtualSplit]:
         if idx.size() == 1:
@@ -221,6 +312,48 @@ class BamInputFormat:
                 out.append(FileVirtualSplit(path, aligned_beg, aligned_end))
         return out
 
+    def filter_by_interval(
+        self,
+        splits: List[FileVirtualSplit],
+        intervals: Optional[List[Interval]],
+        traverse_unplaced_unmapped: bool = False,
+    ) -> List[FileVirtualSplit]:
+        """Bounded traversal (BAMInputFormat.java:532-634): per file, the
+        ``.bai`` (the companion file, else one built from the BAM) turns the
+        intervals into chunk spans; a split that meets any span is kept with
+        its spans cut to it.  Intervals on contigs the header lacks are
+        skipped.  With ``traverse_unplaced_unmapped`` every split that
+        reaches past the last mapped chunk also yields a split of the
+        unmapped tail, whatever the intervals hit."""
+        out: List[FileVirtualSplit] = []
+        by_path: dict = {}
+        for s in splits:
+            by_path.setdefault(s.path, []).append(s)
+        for path, file_splits in by_path.items():
+            hdr = read_header(path)
+            bai = _load_bai(path)
+            chunks: List[indices.Chunk] = []
+            for iv in intervals or ():
+                try:
+                    rid = hdr.ref_index(iv.contig)
+                except KeyError:
+                    continue
+                chunks.extend(bai.query(rid, iv.start - 1, iv.end))
+            unmapped_start = bai.unmapped_span_start()
+            for s in file_splits:
+                overlapping = [
+                    (max(c.beg, s.vstart), min(c.end, s.vend))
+                    for c in chunks
+                    if c.beg < s.vend and c.end > s.vstart
+                ]
+                if overlapping:
+                    out.append(FileVirtualSplit(s.path, s.vstart, s.vend, overlapping))
+            if traverse_unplaced_unmapped and unmapped_start is not None:
+                for s in file_splits:
+                    if s.vend > unmapped_start:
+                        out.append(FileVirtualSplit(s.path, max(s.vstart, unmapped_start), s.vend))
+        return out
+
     def read_split(
         self,
         split: FileVirtualSplit,
@@ -233,7 +366,9 @@ class BamInputFormat:
         Only the split's byte window (plus a margin for a tail record that
         spills past it) is read; the margin widens until the tail fits.
         With a :class:`~hadoop_bam_tpu_torch.device_stream.DeviceStream`
-        whose policy has inflate on, members inflate on its device."""
+        whose policy has inflate on, members inflate on its device.  A
+        split with ``interval_chunks`` keeps only the records that start
+        inside one of them."""
         size = os.path.getsize(split.path)
         cstart = min(split.vstart >> 16, size)
         cend = min(split.vend >> 16, size)
@@ -243,10 +378,14 @@ class BamInputFormat:
             window = _read_range(split.path, cstart, end_byte - cstart)
             at_eof = end_byte >= size
             shift = cstart << 16
+            chunks = None
+            if split.interval_chunks is not None:
+                chunks = [(max(b - shift, 0), e - shift) for b, e in split.interval_chunks]
             try:
                 return read_virtual_range(
                     window, split.vstart - shift, split.vend - shift,
                     with_keys=with_keys, fields=fields, stream=stream,
+                    interval_chunks=chunks,
                 )
             except (bam.BamError, bgzf.BgzfError):
                 if at_eof:
@@ -268,6 +407,7 @@ def read_virtual_range(
     with_keys: bool = True,
     fields: Optional[Sequence[str]] = None,
     stream=None,
+    interval_chunks: Optional[List[Tuple[int, int]]] = None,
 ) -> RecordBatch:
     """Decode all records whose start voffset lies in ``[vstart, vend)``.
 
@@ -276,7 +416,10 @@ def read_virtual_range(
     records at or past ``vend`` are cut off, and a record spanning past the
     window pulls in spill members, inflated on the host.  The device copy
     of the window is kept as the batch's ``device_data`` only when it is
-    exact: no spill member was needed (tier-downs already drop it)."""
+    exact: no spill member was needed (tier-downs already drop it).  With
+    ``interval_chunks`` (voffset spans relative to ``data``) only the
+    records starting inside a span are kept (``bam.records_kept`` on the
+    stream's metrics); there is no record-level overlap cut here."""
     if fields is not None and with_keys:
         fields = tuple(dict.fromkeys(tuple(fields) + SORT_FIELDS))
     if vstart >= vend:
@@ -367,6 +510,14 @@ def read_virtual_range(
     arr = buf[:plen]
     offsets = np.concatenate(rec_parts) if rec_parts else np.empty(0, dtype=np.int64)
     soa = bam.soa_decode(arr, offsets, fields=fields) if len(offsets) else _empty_soa(fields)
+    if interval_chunks is not None and len(offsets):
+        keep = _voffset_mask(
+            offsets, np.asarray(uoffs_l, dtype=np.int64), np.asarray(voffs_l, dtype=np.int64),
+            usize_l, interval_chunks,
+        )
+        soa = {k: v[keep] for k, v in soa.items()}
+    if interval_chunks is not None and stream is not None:
+        stream.metrics.count("bam.records_kept", len(soa["rec_off"]))
     keys = (
         bam.soa_keys(soa, arr)
         if with_keys and len(soa["rec_off"])
@@ -376,6 +527,23 @@ def read_virtual_range(
     if dev is not None and plen == len(out):
         device_data = stream.attach_window(dev)
     return RecordBatch(soa=soa, data=arr, keys=keys, device_data=device_data)
+
+
+def _voffset_mask(offsets, block_uoffs, block_voffs, us_l, chunks) -> np.ndarray:
+    """Records whose start voffset lies in any chunk span: the coarse
+    chunk-span cut of bounded traversal.  A record starting exactly at a
+    member's end is addressed at the next member's start."""
+    bi = np.searchsorted(block_uoffs, offsets, side="right") - 1
+    in_block = offsets - block_uoffs[bi]
+    us = np.asarray(us_l, dtype=np.int64)
+    over = (bi + 1 < len(us)) & (in_block >= us[np.minimum(bi, len(us) - 1)])
+    bi = np.where(over, bi + 1, bi)
+    in_block = offsets - block_uoffs[bi]
+    voffs = (block_voffs[bi] << 16) | in_block
+    keep = np.zeros(len(offsets), dtype=bool)
+    for beg, end in chunks:
+        keep |= (voffs >= beg) & (voffs < end)
+    return keep
 
 
 def gather_record_array(batch, order: Optional[np.ndarray] = None) -> np.ndarray:

@@ -10,6 +10,7 @@ included; unmapped rows use ``INT_MAX`` and the murmur3 hash.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..spec.bam import FLAG_UNMAPPED, INT_MAX
@@ -34,3 +35,13 @@ def make_keys(
     sel_lo = torch.where(unmapped, hash32.to(torch.int64), pos.to(torch.int64))
     hi = torch.where(sel_lo < 0, -1, sel_hi)
     return hi * (1 << 32) + (sel_lo & 0xFFFFFFFF)
+
+
+def split_keys_np(keys):
+    """Host-side: signed int64 keys → ``(hi int32, lo uint32)`` NumPy
+    columns, the reference's key pair."""
+    keys = np.asarray(keys, dtype=np.int64)
+    return (
+        (keys >> np.int64(32)).astype(np.int32),
+        (keys & np.int64(0xFFFFFFFF)).astype(np.uint32),
+    )

@@ -134,7 +134,7 @@ def sort_bam(
     if (sort_order or "coordinate") != "coordinate":
         raise _not_ported(f"sort_order={sort_order!r}", "A.6")
     if mesh is not None or distributed is not None:
-        raise _not_ported("mesh / distributed sorting", "A.9")
+        raise _not_ported("mesh / distributed sorting", "A.10")
     if (errors or "strict") != "strict":
         raise _not_ported(f"errors={errors!r}", "A.7")
     stream = DeviceStream(dev, conf=conf)
@@ -150,8 +150,10 @@ def sort_bam(
             if env is not None
             else stream.default_device_parse()
         )
-    # CRAM's byte splits have no BGZF window for the chain kernels.
-    device_parse = device_parse and all(isinstance(s, FileVirtualSplit) for s in splits)
+    # CRAM's byte splits have no BGZF window for the chain kernels, and the
+    # records bounded traversal keeps are no contiguous stream.
+    device_parse = device_parse and all(
+        isinstance(s, FileVirtualSplit) and s.interval_chunks is None for s in splits)
 
     t_read = time.perf_counter()
     batches: List[RecordBatch] = []

@@ -1,16 +1,26 @@
-"""The ranged variant query: a region of a BCF call set as a small BCF.
+"""Request endpoints: ranged ``view``, ``flagstat`` and ``depth`` of an
+alignment file, and the ranged variant query of a BCF call set.
 
-Counterpart of the variant half of ``hadoop_bam_tpu/serve/endpoints.py``
-(``_variant_rows``, ``variants_records``, ``variants_blob``), the code the
-reference's ``variants`` CLI one-shot and daemon op run.  The reference's
-``ServeContext`` (conf, resource cache, residency arena, lane batcher, the
-daemon's stream) becomes explicit ``conf``/``device``/``stream`` arguments:
-the cache, arena and batcher come with the serve slice (ROADMAP A.11), so
-every call plans and reads cold, as the reference's one-shot does.
+Counterpart of ``hadoop_bam_tpu/serve/endpoints.py`` (``view_records``,
+``view_blob``, ``flagstat``, ``depth_stat``, ``_variant_rows``,
+``variants_records``, ``variants_blob``), the code the reference's
+``view``, ``flagstat``, ``depth`` and ``variants`` CLI one-shots and daemon
+ops run.  The reference's ``ServeContext`` (conf, resource cache, residency
+arena, lane batcher, the daemon's stream) becomes explicit
+``conf``/``device``/``stream`` arguments: the cache, arena and batcher come
+with the serve slice (ROADMAP A.11), so every call plans and reads cold,
+as the reference's one-shot does.
 
-Per split of the file: the inflate kernel (the stream's inflate gate), the
-BCF record-chain kernel and the ragged interval join on the stream's
-device; the kept rows are decoded and re-encoded on the host.
+``view ref:start-end`` of a BAM is bounded traversal as a request: the
+``.bai`` (the companion file, else one built from the BAM) turns the
+region into chunk spans, each span is read (member inflate on the stream's
+device under its inflate gate, the record walk on the host) and kernel
+row 6 cuts the records that overlap the region on the stream's device.  A
+CRAM has no ``.bai``: every split is read and cut the same way.  The reply
+is a small BAM compressed by host BGZF, the reference's bytes.  Per split
+of a BCF call set: the inflate kernel, the BCF record-chain kernel and the
+ragged interval join on the stream's device; the kept rows are decoded
+and re-encoded on the host.
 """
 
 from __future__ import annotations
@@ -24,10 +34,272 @@ import torch
 
 from ..conf import Configuration
 from ..device_stream import DeviceStream
+from ..io.anysam import AnySamInputFormat, infer_from_file_path
+from ..io.bam import BamInputFormat, _load_bai, gather_record_array, read_header_voffset
 from ..io.bcf import BcfInputFormat, BcfRecordWriter, _read_bcf_header_prefix
+from ..io.cram import read_cram_header
+from ..io.merger import prepare_bam_header_block
+from ..io.splits import FileVirtualSplit
+from ..ops import cigar
 from ..ops.overlap import ragged_overlap_mask
+from ..ops.pileup import depth_profile, depth_summary
+from ..spec import bam, bgzf
 from ..utils.backend import resolve_device
 from ..utils.intervals import MAX_END, FormatError, parse_interval
+
+#: SoA columns the view reads: the overlap inputs (refid, pos and the CIGAR
+#: geometry of the reference spans) and the record extents of the gather.
+VIEW_FIELDS = (
+    "refid", "pos", "flag", "rec_off", "rec_len", "l_read_name", "n_cigar_op",
+)
+FLAGSTAT_FIELDS = ("flag", "rec_off", "rec_len")
+#: samtools-flagstat-class counter names, in report order.
+FLAGSTAT_KEYS = (
+    "total", "secondary", "supplementary", "duplicates", "mapped",
+    "paired", "read1", "read2", "properly_paired",
+    "with_itself_and_mate_mapped", "singletons",
+)
+#: Hard cap on a per-base depth reply (one int per base).
+DEPTH_PER_BASE_MAX = 1 << 20
+
+
+def _stream(stream: Optional[DeviceStream], device, conf) -> DeviceStream:
+    return stream if stream is not None else DeviceStream(resolve_device(device), conf=conf)
+
+
+def _no_deadline(deadline, what: str) -> None:
+    if deadline is not None:
+        raise NotImplementedError(f"{what} deadlines (the serve path) are not ported: ROADMAP A.11")
+
+
+def _header(path: str) -> bam.BamHeader:
+    """The alignment file's header: the CRAM file-header container, else
+    the BAM header."""
+    if infer_from_file_path(path) == "cram":
+        return read_cram_header(path)
+    return read_header_voffset(path)[0]
+
+
+def _endpoint_format(conf: Optional[Configuration], path: str):
+    """``(kind, reader)``: the BAM input format for ``.bam``, the AnySAM
+    dispatcher otherwise."""
+    if infer_from_file_path(path) == "bam":
+        return "bam", BamInputFormat(conf)
+    fmt = AnySamInputFormat(conf)
+    return fmt.get_format(path), fmt
+
+
+def _split_span(s) -> Tuple[int, int]:
+    """A split's span: virtual offsets of a BAM split, bytes of a CRAM one."""
+    if hasattr(s, "vstart"):
+        return s.vstart, s.vend
+    return s.start, s.start + s.length
+
+
+def _overlap_rows(batch, rid: int, beg0: int, end0: int, stream: DeviceStream) -> np.ndarray:
+    """Row indices of the batch's records that overlap ``[beg0, end0)`` on
+    refid ``rid``: :func:`~.ops.cigar.overlap_mask` (kernel row 6) on the
+    stream's device, counted ``serve.view.overlap_device``.  The
+    reference's NumPy fallback behind a catch-all is not ported: a kernel
+    failure raises."""
+    n = batch.n_records
+    if n == 0:
+        return np.empty(0, dtype=np.int64)
+    dev = stream.device
+    cols = [
+        torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+        for a in (batch.soa["refid"], batch.soa["pos"],
+                  cigar.reference_lengths_np(batch.data, batch.soa))
+    ]
+    iv = [torch.tensor([v], dtype=torch.int32, device=dev) for v in (rid, beg0, end0)]
+    rows = torch.nonzero(cigar.overlap_mask(*cols, *iv)).flatten().cpu().numpy()
+    if dev.type == "cuda":
+        stream.metrics.count_h2d(12 * n + 12, "overlap_columns")
+        stream.metrics.count_d2h(8 * len(rows), "overlap_rows")
+    stream.metrics.count("serve.view.overlap_device")
+    return rows.astype(np.int64)
+
+
+def view_records(
+    path: str,
+    region: str,
+    deadline=None,
+    conf: Optional[Configuration] = None,
+    device=None,
+    stream: Optional[DeviceStream] = None,
+    timings: Optional[dict] = None,
+) -> Tuple[bam.BamHeader, List[Tuple[object, np.ndarray]]]:
+    """Resolve a ranged alignment query to ``(header, [(batch, row
+    indices)])``, batches in file order.  BAM: the ``.bai``'s chunk spans
+    of the region, each read as a split; CRAM: every split.  An unknown
+    contig raises ``FormatError``.  ``timings`` receives the seconds of the
+    ``index``, ``read`` and ``overlap`` phases."""
+    _no_deadline(deadline, "view")
+    iv = parse_interval(region)
+    stream = _stream(stream, device, conf)
+    t = {"index": 0.0, "read": 0.0, "overlap": 0.0}
+    t0 = time.perf_counter()
+    hdr = _header(path)
+    try:
+        rid = hdr.ref_index(iv.contig)
+    except KeyError:
+        raise FormatError(f"unknown contig {iv.contig!r} in {path!r}") from None
+    beg0 = iv.start - 1  # 1-based inclusive -> 0-based half-open
+    end0 = min(iv.end, MAX_END)
+    kind, fmt = _endpoint_format(conf, path)
+    if kind == "bam":
+        chunks = _load_bai(path).query(rid, beg0, end0)
+        splits = [FileVirtualSplit(path, c.beg, c.end) for c in chunks]
+    else:
+        splits = fmt.get_splits([path])
+    t["index"] = time.perf_counter() - t0
+    picks: List[Tuple[object, np.ndarray]] = []
+    for s in splits:
+        t1 = time.perf_counter()
+        batch = fmt.read_split(s, with_keys=False, fields=VIEW_FIELDS, stream=stream)
+        t2 = time.perf_counter()
+        rows = _overlap_rows(batch, rid, beg0, end0, stream)
+        t["overlap"] += time.perf_counter() - t2
+        t["read"] += t2 - t1
+        if len(rows):
+            picks.append((batch, rows))
+    if timings is not None:
+        timings.update(t)
+    return hdr, picks
+
+
+def view_blob(
+    path: str,
+    region: str,
+    level: int = 6,
+    deadline=None,
+    conf: Optional[Configuration] = None,
+    device=None,
+    stream: Optional[DeviceStream] = None,
+    timings: Optional[dict] = None,
+) -> bytes:
+    """A complete small BAM (header, the records overlapping ``region`` in
+    file order, terminator), like ``samtools view -b file region``: BGZF at
+    ``level`` on the host, the reference's bytes.  Runs on the card unless
+    ``device="cpu"`` is passed.  ``timings`` also receives the ``encode``
+    phase (record gather and BGZF)."""
+    t = {} if timings is None else timings
+    stream = _stream(stream, device, conf)
+    hdr, picks = view_records(path, region, deadline=deadline, conf=conf, stream=stream,
+                              timings=t)
+    t0 = time.perf_counter()
+    payloads = [gather_record_array(batch, rows) for batch, rows in picks]
+    n_records = sum(len(rows) for _, rows in picks)
+    payload = np.concatenate(payloads) if payloads else np.empty(0, np.uint8)
+    body = bgzf.deflate_blocks(payload, level=level)[0] if len(payload) else b""
+    blob = prepare_bam_header_block(hdr, level=level) + body + bgzf.TERMINATOR
+    t["encode"] = time.perf_counter() - t0
+    stream.metrics.count("serve.view.requests")
+    stream.metrics.count("serve.view.records", n_records)
+    return blob
+
+
+def flagstat(
+    path: str,
+    deadline=None,
+    conf: Optional[Configuration] = None,
+    device=None,
+    stream: Optional[DeviceStream] = None,
+    timings: Optional[dict] = None,
+) -> dict:
+    """Whole-file flag census, samtools-flagstat class (:data:`FLAGSTAT_KEYS`):
+    every split read through the stream (the flag column only), the counts
+    NumPy popcounts.  ``timings`` receives ``index`` (the split plan) and
+    ``read``."""
+    _no_deadline(deadline, "flagstat")
+    stream = _stream(stream, device, conf)
+    t0 = time.perf_counter()
+    _, fmt = _endpoint_format(conf, path)
+    splits = fmt.get_splits([path])
+    t = {"index": time.perf_counter() - t0, "read": 0.0}
+    counts = {k: 0 for k in FLAGSTAT_KEYS}
+    for s in splits:
+        t1 = time.perf_counter()
+        batch = fmt.read_split(s, with_keys=False, fields=FLAGSTAT_FIELDS, stream=stream)
+        t["read"] += time.perf_counter() - t1
+        flag = np.asarray(batch.soa["flag"], dtype=np.int64)
+        mapped = (flag & bam.FLAG_UNMAPPED) == 0
+        paired = (flag & bam.FLAG_PAIRED) != 0
+        mate_mapped = (flag & bam.FLAG_MATE_UNMAPPED) == 0
+        counts["total"] += len(flag)
+        counts["secondary"] += int(((flag & bam.FLAG_SECONDARY) != 0).sum())
+        counts["supplementary"] += int(((flag & bam.FLAG_SUPPLEMENTARY) != 0).sum())
+        counts["duplicates"] += int(((flag & bam.FLAG_DUPLICATE) != 0).sum())
+        counts["mapped"] += int(mapped.sum())
+        counts["paired"] += int(paired.sum())
+        counts["read1"] += int((paired & ((flag & bam.FLAG_FIRST_OF_PAIR) != 0)).sum())
+        counts["read2"] += int((paired & ((flag & bam.FLAG_SECOND_OF_PAIR) != 0)).sum())
+        counts["properly_paired"] += int(
+            (paired & mapped & ((flag & bam.FLAG_PROPER_PAIR) != 0)).sum())
+        counts["with_itself_and_mate_mapped"] += int((paired & mapped & mate_mapped).sum())
+        counts["singletons"] += int((paired & mapped & ~mate_mapped).sum())
+    if timings is not None:
+        timings.update(t)
+    stream.metrics.count("serve.flagstat.requests")
+    return counts
+
+
+def depth_stat(
+    path: str,
+    region: str,
+    bin_size: int = 1 << 12,
+    per_base: bool = False,
+    deadline=None,
+    conf: Optional[Configuration] = None,
+    device=None,
+    stream: Optional[DeviceStream] = None,
+    timings: Optional[dict] = None,
+) -> dict:
+    """Pileup depth over an alignment region, like ``samtools depth -r``:
+    the view's records, their reference spans and the segmented depth
+    profile (:mod:`~.ops.pileup`): binned summaries always, the per-base
+    vector with ``per_base`` up to :data:`DEPTH_PER_BASE_MAX` bases (past
+    it ``FormatError``).  The window is clipped to the contig's length.
+    The profile runs on the stream's device under the reference's gate
+    (the BCF-chain gate), else on the host.  ``timings`` receives the
+    view's phases and ``pileup``."""
+    t = {} if timings is None else timings
+    stream = _stream(stream, device, conf)
+    iv = parse_interval(region)
+    hdr, picks = view_records(path, region, deadline=deadline, conf=conf, stream=stream,
+                              timings=t)
+    rid = hdr.ref_index(iv.contig)
+    beg0 = iv.start - 1
+    end0 = min(iv.end, MAX_END)
+    ref_len = hdr.refs[rid][1]
+    if ref_len > 0:
+        end0 = min(end0, ref_len)
+    if end0 <= beg0:
+        raise FormatError(f"empty depth window {region!r} (contig length {ref_len})")
+    t0 = time.perf_counter()
+    starts_l: List[np.ndarray] = []
+    ends_l: List[np.ndarray] = []
+    for batch, rows in picks:
+        pos = np.asarray(batch.soa["pos"], dtype=np.int64)[rows]
+        rl = cigar.reference_lengths_np(batch.data, batch.soa).astype(np.int64)[rows]
+        starts_l.append(pos)
+        ends_l.append(pos + np.maximum(rl, 1))
+    starts = np.concatenate(starts_l) if starts_l else np.empty(0, np.int64)
+    ends = np.concatenate(ends_l) if ends_l else np.empty(0, np.int64)
+    kw = dict(use_device=stream.policy.use_bcf_chain, device=stream.device,
+              metrics=stream.metrics)
+    out = {"contig": iv.contig, "beg": beg0 + 1, "end": end0, "n_records": int(len(starts))}
+    out.update(depth_summary(starts, ends, beg0, end0, bin_size=bin_size, **kw))
+    if per_base:
+        if end0 - beg0 > DEPTH_PER_BASE_MAX:
+            raise FormatError(
+                f"per-base depth span {end0 - beg0} exceeds cap "
+                f"{DEPTH_PER_BASE_MAX}; use binned summaries"
+            )
+        out["per_base"] = [int(x) for x in depth_profile(starts, ends, beg0, end0, **kw)]
+    t["pileup"] = time.perf_counter() - t0
+    stream.metrics.count("serve.depth.requests")
+    return out
 
 
 def _variant_rows(batch, rid: int, beg0: int, end0: int, use_device: bool,
@@ -91,8 +363,7 @@ def variants_records(
     port does, when none is given) and cut by the join.  An unknown contig
     raises ``FormatError``.  ``timings``, when given, receives the seconds
     of the ``plan``, ``read`` and ``join`` phases."""
-    if deadline is not None:
-        raise NotImplementedError("variants deadlines (the serve path) are not ported: ROADMAP A.11")
+    _no_deadline(deadline, "variants")
     iv = parse_interval(region)
     if stream is None:
         stream = DeviceStream(resolve_device(device), conf=conf)

@@ -64,6 +64,16 @@ class BamHeader:
     def n_refs(self) -> int:
         return len(self.refs)
 
+    def ref_index(self, name: str) -> int:
+        """The reference's index by name; ``*`` is -1; unknown raises
+        ``KeyError``."""
+        if name == "*":
+            return -1
+        for i, (n, _) in enumerate(self.refs):
+            if n == name:
+                return i
+        raise KeyError(name)
+
     def with_sort_order(self, so: str) -> "BamHeader":
         """The header with its @HD SO: field set to ``so`` (a stale GO: is
         dropped; an @HD line is added when missing)."""

@@ -27,7 +27,7 @@ for n in names:
 import chip_smoke
 bad = [m for m in sys.modules if m == "hadoop_bam_tpu" or m.startswith("hadoop_bam_tpu.")]
 assert not bad, bad
-assert len(names) >= 51, names
+assert len(names) >= 57, names
 print("ok", len(names))
 """
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -110,6 +110,58 @@ def test_options_outside_the_slice_raise(tmp_path, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipeline.sort_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"),
                           device="cpu", **kw)
+
+
+@pytest.mark.parametrize(
+    "kwargs,item",
+    [({"memory_budget": 1 << 20}, "A.4"), ({"mark_duplicates": True}, "A.5"),
+     ({"sort_order": "queryname"}, "A.6"), ({"mesh": object()}, "A.10"),
+     ({"distributed": object()}, "A.10"), ({"errors": "salvage"}, "A.7")],
+    ids=["memory_budget", "mark_duplicates", "queryname", "mesh", "distributed", "salvage"],
+)
+def test_options_outside_the_slice_cite_their_roadmap_item(tmp_path, kwargs, item):
+    from hadoop_bam_tpu_torch import pipeline
+
+    with pytest.raises(NotImplementedError, match=rf"\(ROADMAP {re.escape(item)}\)$"):
+        pipeline.sort_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"), device="cpu",
+                          **kwargs)
+
+
+def test_threaded_decodes_count_every_member(tmp_path, monkeypatch):
+    """``read_splits`` decodes two splits at once: the tier stats of the
+    concurrent calls all reach ``DeviceStream.inflate_stats``.  The wrapped
+    inflate makes its stats update the read-modify-write race it is in the
+    real function, with both threads between the read and the write."""
+    import threading
+
+    from hadoop_bam_tpu_torch.conf import INFLATE_LANES, Configuration
+    from hadoop_bam_tpu_torch.device_stream import DeviceStream
+    from hadoop_bam_tpu_torch.ops import flate
+    from hadoop_bam_tpu_torch.spec import bgzf
+
+    real = flate.inflate_blocks_device
+    barrier = threading.Barrier(2, timeout=10)
+
+    def racy(*args, stats=None, **kw):
+        mine = flate.CodecTierStats()
+        res = real(*args, stats=mine, **kw)
+        seen = stats.lanes
+        barrier.wait()
+        stats.lanes = seen + mine.lanes
+        return res
+
+    monkeypatch.setattr(flate, "inflate_blocks_device", racy)
+    data = bgzf.deflate_blocks(bytes(range(256)) * 40, level=1, block_payload=1000)[0]
+    co, cs, us = bgzf.scan_blocks(data)
+    stream = DeviceStream(torch.device("cpu"), Configuration({INFLATE_LANES: "true"}))
+    threads = [threading.Thread(target=stream.decode_members, args=(data, co, cs, us))
+               for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert stream.inflate_stats.lanes == 2 * len(co)
+    assert stream.inflate_stats.host == 0
 
 
 @pytest.mark.parametrize(
@@ -395,6 +447,19 @@ def test_reference_conf_dict_drives_the_cram_keys():
         k = getattr(tconf, key)
         assert k == getattr(jconf, key)
         assert a.get(k) == b.get(k) and a.get_boolean(k, True) == b.get_boolean(k, True)
+
+
+def test_reference_conf_dict_drives_the_interval_keys():
+    from hadoop_bam_tpu import conf as jconf
+    from hadoop_bam_tpu_torch import conf as tconf
+
+    keys = ("BAM_BOUNDED_TRAVERSAL", "BAM_INTERVALS", "BAM_TRAVERSE_UNPLACED_UNMAPPED")
+    d = {getattr(jconf, k): v for k, v in zip(keys, ("true", "chr1:1-5,chr2", "on"))}
+    a, b = jconf.Configuration(d), tconf.from_reference_conf(d)
+    for key in keys:
+        k = getattr(tconf, key)
+        assert k == getattr(jconf, key)
+        assert a.get(k) == b.get(k) and a.get_boolean(k) == b.get_boolean(k)
 
 
 def test_bcf_chain_that_cannot_build_raises(tmp_path, monkeypatch):
