@@ -3,7 +3,7 @@
 Run on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--records N] [--pairs N] [--variants N]
-                          [--cram-records N] [--seed S]
+                          [--cram-records N] [--codec-mib N] [--seed S]
 
 Phases: print the card; build the CUDA kernels from ``csrc/``; hold each
 kernel against its plain PyTorch version on the card (exact equality);
@@ -21,8 +21,12 @@ records on the card (its rANS blocks through the decode kernel) to the
 content of the sort of its BAM twin; read regions of the sorted BAM
 (``build_bai``, ``flagstat``, ``view_blob`` of three regions, ``depth_stat``
 and a bounded-traversal ``sort_bam``, card against CPU, the views against a
-NumPy overlap oracle, and a view of the CRAM against its BAM twin's); time
-every kernel at the paths' shapes.
+NumPy overlap oracle, and a view of the CRAM against its BAM twin's); run the device codec's
+literal-only round trip on 64 MiB of record bytes (``bgzf_compress_device``
+with ``use_lanes=False``, then ``bgzf_decompress_device`` with the inflate
+gate off, every member through kernel row 10, and with the default gates),
+the general inflate programs with the gate off, ``warm_kernels`` twice and
+the walk probe (row 11); time every kernel at the paths' shapes.
 Any failure exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table
 as JSON.  Imports neither JAX nor the JAX package.
@@ -1038,8 +1042,10 @@ def _counters():
     from hadoop_bam_tpu_torch.ops.kernels import crc32 as kcrc
     from hadoop_bam_tpu_torch.ops.kernels import deflate as kd
     from hadoop_bam_tpu_torch.ops.kernels import gather as kg
-    from hadoop_bam_tpu_torch.ops.kernels import inflate as kin
     from hadoop_bam_tpu_torch.ops.kernels import histogram as kh
+    from hadoop_bam_tpu_torch.ops.kernels import inflate as kin
+    from hadoop_bam_tpu_torch.ops.kernels import inflate_fixed as kfix
+    from hadoop_bam_tpu_torch.ops.kernels import inflate_probe as kip
     from hadoop_bam_tpu_torch.ops.kernels import overlap as kov
     from hadoop_bam_tpu_torch.ops.kernels import rans as kr
     from hadoop_bam_tpu_torch.ops.kernels import record_scan as krs
@@ -1047,7 +1053,7 @@ def _counters():
 
     return (kin.LAUNCHES, kch.WALK_LAUNCHES, kch.KEYS_LAUNCHES, kd.LAUNCHES, kg.LAUNCHES,
             kcrc.LAUNCHES, krs.LAUNCHES, kb.LAUNCHES, kr.LAUNCHES, kov.LAUNCHES, kh.LAUNCHES,
-            ku.LAUNCHES)
+            ku.LAUNCHES, kfix.LAUNCHES, kip.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -1244,9 +1250,10 @@ def device_time(trace_path: str) -> dict:
             "by_name": {k: [n, round(us / 1e3, 3)] for k, (n, us) in top}}
 
 
-def log_device_time(prof, trace_path: str, wall: float) -> None:
+def log_device_time(prof, trace_path: str, wall: float) -> bool:
     """Log the card's busy time, idle share and time by kernel from a
-    ``torch.profiler`` run that took ``wall`` seconds."""
+    ``torch.profiler`` run that took ``wall`` seconds; False when the trace
+    holds no device event."""
     prof.export_chrome_trace(trace_path)
     dev = device_time(trace_path)
     os.remove(trace_path)
@@ -1254,8 +1261,9 @@ def log_device_time(prof, trace_path: str, wall: float) -> None:
         log(f"  device (torch.profiler): busy {dev['busy_s']:.6f} s of the wall {wall:.6f} s,"
             f" idle {1 - dev['busy_s'] / wall:.6f}; {dev['events']} device events")
         log("  device time by kernel [count, ms]: " + json.dumps(dev["by_name"]))
-    else:
-        log("  device (torch.profiler): the trace holds no device events; not measured")
+        return True
+    log("  device (torch.profiler): the trace holds no device events; not measured")
+    return False
 
 
 def timed_ingest(paths, out: str, what: str, trace: bool = False, **kw):
@@ -2305,6 +2313,339 @@ def time_kernels(src: str, checks: dict, launches: dict, launches_r: dict, seed:
     return rows + time_write_kernels(inflated, host, up0, checks, launches, launches_r, seed)
 
 
+# ---------------------------------------------------------------------------
+# Codec phase: the literal-only round trip, the general inflate programs and
+# the serve warm-up (kernel rows 10 and 11)
+# ---------------------------------------------------------------------------
+
+CODEC_MIB = 64  # the round trip's input: the sort generator's record bytes
+XLA_MIB = 8  # the general programs' inputs
+INT_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 peak, the CUDA cores' rate
+OPS_PER_SYMBOL = 20  # row 10's integer operations per decoded symbol (csrc/inflate_fixed.cu)
+OPS_PER_WAVE = 80  # row 11's integer operations per lane and wave (csrc/inflate_probe.cu)
+
+
+def fixed_literal_cases(seed: int):
+    """Row 10's check corpus: 296 literal-only members of 0-24,000 bytes
+    plus 0-, 1-, 144- and 24,000-byte ones (``deflate_fixed`` on the card),
+    an LZ77 member, a truncated member followed by a valid one, a
+    ``btype=10`` header and a 57,088-byte member.  Returns ``(comp [B, C],
+    clens, isizes, payloads)``; ``payloads[i]`` is None where the member
+    must come back ``ok = False``."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops import flate
+
+    rng = np.random.default_rng(seed + 10)
+    src = synth_rows(240, seed).reshape(-1)  # 67,200 record bytes
+    sizes = [int(s) for s in rng.integers(0, 24001, 296)] + [0, 1, 144, 24000,
+                                                              flate.DEV_MAX_PAYLOAD]
+    starts = [int(s) for s in rng.integers(0, len(src) - flate.DEV_MAX_PAYLOAD, len(sizes))]
+    payloads = [src[s : s + n].tobytes() for s, n in zip(starts, sizes)]
+    P = max(sizes)
+    mat = np.zeros((len(sizes), P), dtype=np.uint8)
+    for i, p in enumerate(payloads):
+        mat[i, : len(p)] = np.frombuffer(p, np.uint8)
+    comp, cl = flate._deflate_fixed_rows(torch.from_numpy(mat).cuda(),
+                                          torch.tensor(sizes, dtype=torch.int32).cuda())
+    cl = cl.cpu().numpy()
+    comps = [comp[i, : cl[i]].cpu().numpy().tobytes() for i in range(len(sizes))]
+    lz = flate.encode_tokens_fixed([("lit", 65)] * 8 + [("copy", 5, 3)])
+    cut_src = src[:900].tobytes()
+    cut = flate.encode_tokens_fixed([("lit", b) for b in cut_src])
+    comps += [lz, cut[: len(cut) // 2], comps[0], bytes([0b101]) + bytes(7)]
+    payloads += [None, None, payloads[0], None]
+    isz = sizes + [13, 900, sizes[0], 4]
+    C = max(len(c) for c in comps)
+    C += -C % 8
+    rows = np.zeros((len(comps), C), dtype=np.uint8)
+    for i, c in enumerate(comps):
+        rows[i, : len(c)] = np.frombuffer(c, np.uint8)
+    return rows, np.asarray([len(c) for c in comps], np.int32), np.asarray(isz, np.int32), payloads
+
+
+def check_inflate_fixed(seed: int) -> dict:
+    """Row 10 against its plain version, exactly, and against the
+    payloads."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops.kernels import inflate_fixed as kfix
+
+    comp, clens, isz, payloads = fixed_literal_cases(seed)
+    res = []
+    for dev in ("cuda", "cpu"):
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        out, ok = kfix.inflate_fixed_literal(t(comp), t(clens), t(isz))
+        res.append((out.cpu().numpy(), ok.cpu().numpy()))
+    (ko, kk), (po, pk) = res
+    want = np.asarray([p is not None for p in payloads])
+    if not np.array_equal(kk, pk) or not np.array_equal(kk, want):
+        raise AssertionError(f"inflate_fixed_literal ok: kernel {np.nonzero(kk != want)[0]} "
+                             f"plain {np.nonzero(pk != want)[0]} differ from the expected")
+    bad = int(np.count_nonzero(ko != po))
+    if bad or any(p is not None and ko[i, : len(p)].tobytes() != p for i, p in enumerate(payloads)):
+        raise AssertionError(f"inflate_fixed_literal kernel != plain or payload ({bad} bytes)")
+    log(f"inflate_fixed_literal kernel == plain: {len(isz)} members (0-{int(isz.max())} bytes; "
+        f"LZ77, truncated-then-valid, btype=10), {int(kk.sum())} ok, {int((~kk).sum())} rejected, "
+        f"max_abs_err {bad}")
+    return {"max_abs_err": float(bad)}
+
+
+def check_inflate_probe(seed: int) -> dict:
+    """Row 11 against its plain version and the NumPy oracle, exactly: R =
+    256, T = 64 with negative and past-the-end cursors, and R = 4096, T =
+    2048."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops.kernels import inflate_probe as kip
+
+    rng = np.random.default_rng(seed + 11)
+    for R, T, lo, hi in ((256, 64, -4096, 256 * 32 + 4096), (4096, 2048, 0, 4096 * 32)):
+        streams = rng.integers(-(1 << 31), 1 << 31, (R, kip.LANES), dtype=np.int32)
+        cursors = rng.integers(lo, hi, (1, kip.LANES), dtype=np.int32)
+        got = []
+        for dev in ("cuda", "cpu"):
+            cur, acc = kip.make_walk(R, T, dev)(torch.from_numpy(streams).to(dev),
+                                                torch.from_numpy(cursors).to(dev))
+            got.append((cur.cpu().numpy(), acc.cpu().numpy()))
+        c_ref, a_ref = kip.reference_walk(streams, cursors, T)
+        u32 = lambda a: a.astype(np.int64) & 0xFFFFFFFF  # noqa: E731
+        for cur, acc in got:
+            if not (np.array_equal(u32(cur), c_ref & 0xFFFFFFFF) and np.array_equal(u32(acc), a_ref)):
+                raise AssertionError(f"inflate_probe_walk != reference_walk at R={R}, T={T}")
+    log("inflate_probe_walk kernel == plain == reference_walk: R=256 T=64 (negative and "
+        "past-the-end cursors), R=4096 T=2048, max_abs_err 0")
+    return {"max_abs_err": 0.0}
+
+
+def timed_codec(fn, what: str, trace: str = ""):
+    """One codec call with the launch counts zeroed just before and read
+    just after, the peak device memory reset before it; with a ``trace``
+    path, under ``torch.profiler``.  Returns ``(result, wall, launches,
+    traced)``, ``traced`` False when the trace held no device event."""
+    import contextlib
+
+    import torch
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+           if trace else contextlib.nullcontext())
+    with ctx as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    log(f"{what}: wall {wall:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, launches {json.dumps(launches)}")
+    traced = log_device_time(prof, trace, wall) if trace else False
+    return out, wall, launches, traced
+
+
+def traced_again(fn, trace: str, tries: int = 3) -> None:
+    """Trace ``fn`` under ``torch.profiler`` (host and device activity)
+    until the trace holds device events, at most ``tries`` times: a short
+    traced window has come back without them."""
+    import torch
+
+    for k in range(tries):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        log(f"  traced again (try {k + 1}):")
+        if log_device_time(prof, trace, wall):
+            return
+
+
+def codec_rows(blob: bytes):
+    """The members of a BGZF blob as ``bgzf_decompress_device`` hands
+    them to row 10: ``(comps, comp [B, C] uint8 with C a power of two,
+    clens, isizes)``."""
+    from hadoop_bam_tpu_torch.spec import bgzf
+
+    raw = np.frombuffer(blob, np.uint8)
+    co, cs, us = bgzf.scan_blocks(raw)
+    keep = np.nonzero(us > 0)[0]
+    comps = [raw[co[i] + 18 : co[i] + cs[i] - 8].tobytes() for i in keep]
+    clens = np.asarray([len(c) for c in comps], np.int32)
+    C = 512
+    while C < clens.max():
+        C *= 2
+    comp = np.zeros((len(comps), C), np.uint8)
+    for k, c in enumerate(comps):
+        comp[k, : len(c)] = np.frombuffer(c, np.uint8)
+    return comps, comp, clens, us[keep].astype(np.int32)
+
+
+def once_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def codec_phase(work: str, seed: int, checks: dict, mib: int) -> list:
+    """The device codec's literal-only round trip at full width: ``mib`` MiB
+    of the sort generator's record bytes compressed by
+    ``bgzf_compress_device(level=1, use_lanes=False)`` on the card (gzip
+    reads it back; its first 4 MiB equal the CPU run's blob) and
+    decompressed by ``bgzf_decompress_device`` with the inflate gate off
+    (every member through row 10, traced) and with the default gates (row
+    1); the general programs on the card with the gate off (zlib-6 members
+    through ``inflate_dynamic``, deflate-lanes members rejected by row 10
+    and decoded by ``inflate_fixed``); ``warm_kernels`` twice; row 10 and
+    row 1 timed on the round trip's members, row 11 by ``bench_marginal``.
+    Returns the kernel rows 10 and 11."""
+    import gzip
+    import io
+
+    import torch
+
+    from hadoop_bam_tpu_torch.conf import INFLATE_LANES, Configuration
+    from hadoop_bam_tpu_torch.ops import flate
+    from hadoop_bam_tpu_torch.ops.kernels import inflate as kin
+    from hadoop_bam_tpu_torch.ops.kernels import inflate_fixed as kfix
+    from hadoop_bam_tpu_torch.ops.kernels import inflate_probe as kip
+    from hadoop_bam_tpu_torch.serve import warm_kernels
+    from hadoop_bam_tpu_torch.spec import bgzf
+    from hadoop_bam_tpu_torch.utils.tracing import Metrics
+
+    t_phase = time.perf_counter()
+    n = mib << 20
+    data = synth_rows(-(-n // ROW), seed + 2).reshape(-1)[:n].tobytes()
+    off = Configuration({INFLATE_LANES: "false"})
+
+    st = flate.CodecTierStats()
+    blob, wall, _, _ = timed_codec(lambda: flate.bgzf_compress_device(
+        data, level=1, use_lanes=False, device="cuda", stats=st), f"bgzf_compress_device(cuda, "
+        f"level=1, use_lanes=False): {n} bytes")
+    members = -(-n // flate.DEV_DEFAULT_PAYLOAD)
+    log(f"  {len(blob)} bytes, {members} members, stats {json.dumps(st.as_dict())}, "
+        f"{n / wall / 1e6:.1f} MB/s")
+    if st.xla != members or gzip.GzipFile(fileobj=io.BytesIO(blob)).read() != data:
+        raise AssertionError("the literal-only blob does not gzip-decompress to its input")
+    head = data[: 4 << 20]
+    if (flate.bgzf_compress_device(head, level=1, use_lanes=False, device="cpu")
+            != flate.bgzf_compress_device(head, level=1, use_lanes=False, device="cuda")):
+        raise AssertionError("the literal-only blob of the first 4 MiB differs from the CPU run's")
+    log("  gzip reads it back; its first 4 MiB equal the CPU run's blob")
+
+    for what, conf, tier in (("inflate gate off: row 10", off, kfix.LAUNCHES.name),
+                             ("default gates: row 1", None, kin.LAUNCHES.name)):
+        st, m = flate.CodecTierStats(), Metrics()
+        out, wall, launches, traced = timed_codec(
+            lambda: flate.bgzf_decompress_device(blob, conf=conf, device="cuda", stats=st,
+                                                 metrics=m),
+            f"bgzf_decompress_device(cuda, {what})",
+            trace=os.path.join(work, "codec.trace.json") if conf is off else "")
+        log(f"  stats {json.dumps(st.as_dict())}, {n / wall / 1e6:.1f} MB/s, transfers "
+            + json.dumps({k: v for k, v in m.counters().items() if k.startswith("transfers.")}))
+        if out != data or st.lanes != members or st.xla or st.host or launches.get(tier, 0) < 1:
+            raise AssertionError(f"bgzf_decompress_device({what}) missed its tier or its bytes")
+        if conf is off:
+            fixed_launches = launches[tier]
+            if not traced:
+                traced_again(lambda: flate.bgzf_decompress_device(blob, conf=off, device="cuda"),
+                             os.path.join(work, "codec.trace.json"))
+
+    xla_n = XLA_MIB << 20
+    for what, src in (("zlib-6 members: inflate_dynamic", bgzf.deflate_blocks(data[:xla_n], 6)[0]),
+                      ("deflate-lanes members: row 10 rejects, inflate_fixed",
+                       flate.bgzf_compress_device(data[:xla_n], level=1, use_lanes=True,
+                                                  device="cuda", append_terminator=False))):
+        st, m = flate.CodecTierStats(), Metrics()
+        k = len(bgzf.scan_blocks(src)[0])
+        out, wall, _, _ = timed_codec(
+            lambda: flate.bgzf_decompress_device(src + bgzf.TERMINATOR, conf=off, device="cuda",
+                                                 stats=st, metrics=m),
+            f"bgzf_decompress_device(cuda, inflate gate off, {what}): {k} members, {xla_n} bytes")
+        down = m.get("flate.lockstep_tierdown")
+        log(f"  stats {json.dumps(st.as_dict())}, flate.lockstep_tierdown {down}, "
+            f"{xla_n / wall / 1e6:.2f} MB/s")
+        if out != data[:xla_n] or st.xla != k or st.host or st.lanes:
+            raise AssertionError(f"the general programs missed {what}")
+        if "lanes" in what and down != k:
+            raise AssertionError("row 10 took a member with LZ77 copies")
+
+    t0 = time.perf_counter()
+    rep = warm_kernels(device="cuda")
+    rep2 = warm_kernels(device="cuda")
+    log(f"warm_kernels(cuda) twice in {time.perf_counter() - t0:.3f} s: warmed "
+        f"{json.dumps(rep['warmed'])}, compiles {rep['compiles']} then {rep2['compiles']}")
+    if rep["warmed"] != {"overlap": 4, "keys": 4, "codec": 3} or rep2["compiles"] != 0:
+        raise AssertionError("warm_kernels did not warm every family, or a warm call compiled")
+
+    # Row 10 and row 1 on the round trip's members.
+    comps, comp, clens, isz = codec_rows(blob)
+    g = [torch.from_numpy(a).cuda() for a in (comp, clens, isz)]
+    c = [torch.from_numpy(a) for a in (comp, clens, isz)]
+    k_ms = cuda_ms(lambda: kfix.inflate_fixed_literal(*g), iters=20, warmup=3)
+    p_ms = once_ms(lambda: kfix.inflate_fixed_literal(*c))
+    in_args = pack_members(comps, isz, "cuda")
+    r1_ms = cuda_ms(lambda: kin.inflate_members(*in_args), iters=3, warmup=1)
+    nbytes = int(clens.sum()) + 8 * len(isz) + int(isz.size) * int(isz.max()) + len(isz)
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = OPS_PER_SYMBOL * int(isz.sum()) / INT_OPS_PER_S * 1e3
+    log(f"  inflate_fixed_literal: {k_ms:.4f} ms a launch over {len(isz)} members (plain "
+        f"{p_ms:.1f} ms; bound {max(b_bytes, b_ops):.5f} ms: bytes {b_bytes:.5f}, operations "
+        f"{b_ops:.5f}); inflate_members (row 1) on the same members {r1_ms:.3f} ms")
+    rows = [{
+        "name": "inflate_fixed_literal", "route": "cuda",
+        "source": "hadoop_bam_tpu_torch/csrc/inflate_fixed.cu",
+        "replaces": "hadoop_bam_tpu/ops/pallas/inflate_fixed.py:140", "launches": fixed_launches,
+        "launches_from": "bgzf_decompress_device(cuda), inflate gate off",
+        "max_abs_err": checks["inflate_fixed"], "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "library_ms": None, "row1_ms": r1_ms,
+        "shape": f"{len(isz)} members of <= {int(isz.max())} bytes, C = {comp.shape[1]}",
+    }]
+
+    reset_counts()
+    bench = kip.bench_marginal()
+    probe_launches = launch_counts()[kip.LAUNCHES.name]
+    if probe_launches < 1:
+        raise AssertionError("bench_marginal launched no probe walk")
+    log("  inflate_probe bench_marginal (R=4096, T=32768/131072): " + json.dumps(bench))
+    R, T = 4096, 2048
+    rng = np.random.default_rng(seed)
+    streams = rng.integers(0, 1 << 31, (R, kip.LANES), dtype=np.int32)
+    cursors = np.full((1, kip.LANES), 3, np.int32)
+    gs, gc = torch.from_numpy(streams).cuda(), torch.from_numpy(cursors).cuda()
+    walk = kip.make_walk(R, T, "cuda")
+    k_ms = cuda_ms(lambda: walk(gs, gc), iters=20, warmup=3)
+    # A cursor advances 4.5 bits a wave on average, so past ~29,000 waves it
+    # has left the 131,072-bit stream and its words read as 0 without a
+    # load: bench_marginal's T = 32,768..131,072 line measures those waves.
+    # The fit through T = 2,048 and 16,384 keeps every wave in the stream.
+    long_walk = kip.make_walk(R, 16384, "cuda")
+    in_ns = (cuda_ms(lambda: long_walk(gs, gc), iters=10) - k_ms) / (16384 - T) * 1e6
+    plain = kip.make_walk(R, T, "cpu")
+    p_ms = once_ms(lambda: plain(torch.from_numpy(streams), torch.from_numpy(cursors)))
+    b_bytes = (streams.nbytes + 3 * cursors.nbytes) / HBM_BYTES_PER_S * 1e3
+    b_ops = OPS_PER_WAVE * kip.LANES * T / INT_OPS_PER_S * 1e3
+    rows.append({
+        "name": "inflate_probe_walk", "route": "cuda",
+        "source": "hadoop_bam_tpu_torch/csrc/inflate_probe.cu",
+        "replaces": "hadoop_bam_tpu/ops/pallas/inflate_probe.py:119", "launches": probe_launches,
+        "launches_from": "bench_marginal() at the reference's defaults",
+        "max_abs_err": checks["inflate_probe"], "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "library_ms": None, "bound_bytes_ms": b_bytes, "bound_ops_ms": b_ops,
+        "fixed_ms": bench["fixed_ms"], "ns_per_wave": bench["ns_per_wave"],
+        "ns_per_wave_in_stream": in_ns, "shape": f"R = {R}, T = {T}",
+    })
+    log(f"  inflate_probe_walk: {k_ms:.4f} ms at R={R}, T={T} (plain {p_ms:.1f} ms; bound "
+        f"bytes {b_bytes:.6f} ms, operations {b_ops:.6f} ms); {in_ns:.2f} ns a wave with "
+        "every cursor in the stream (T = 2048..16384)")
+    log(f"codec phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2323,6 +2664,8 @@ def main() -> int:
                     help="sites of the variants phase's call set")
     ap.add_argument("--cram-records", type=int, default=300_000,
                     help="records of the CRAM phase's corpus")
+    ap.add_argument("--codec-mib", type=int, default=CODEC_MIB,
+                    help="MiB of record bytes of the codec phase's round trip")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel-vs-plain checks")
     args = ap.parse_args()
@@ -2360,6 +2703,8 @@ def main() -> int:
     checks["bcf_chain"] = check_bcf_chain(args.seed, big)["max_abs_err"]
     rans_row = check_rans(args.seed, container.result())
     checks.update(check_region(args.seed))
+    checks["inflate_fixed"] = check_inflate_fixed(args.seed)["max_abs_err"]
+    checks["inflate_probe"] = check_inflate_probe(args.seed)["max_abs_err"]
     pool.shutdown()
     torch.cuda.synchronize()
     if args.kernels_only:
@@ -2372,6 +2717,8 @@ def main() -> int:
         log(f"variant sites cut from 4500000 to {args.variants}")
     if args.cram_records != 300_000:
         log(f"CRAM records cut from 300000 to {args.cram_records}")
+    if args.codec_mib != CODEC_MIB:
+        log(f"codec round trip cut from {CODEC_MIB} MiB to {args.codec_mib} MiB")
     work = tempfile.mkdtemp(prefix="chip_smoke.", dir=REPO)
     try:
         res = main_path(work, args.records, args.seed)
@@ -2391,6 +2738,7 @@ def main() -> int:
         cr = cram_phase(work, args.cram_records, args.seed)
         rows.append(dict(rans_row, launches=cr["launches"]["rans"],
                          launches_from="sort_bam(cuda, .cram), default gates"))
+        rows += codec_phase(work, args.seed, checks, args.codec_mib)
         rows += region_phase(work, res["flagstat"], res["sorted"], cr["cram"], cr["twin_sorted"],
                              checks)
     finally:

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -57,6 +57,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "rans": {
         "hbt_rans_decode": [_P, _P, _P, _P, _P, _P, _P, _I32, _P],
     },
+    "inflate_fixed": {
+        "hbt_inflate_fixed_literal": [_P, _I64, _P, _P, _I64, _P, _I64, _P, _P],
+    },
+    "inflate_probe": {
+        "hbt_inflate_probe_walk": [_P, _I32, _P, _I32, _P, _P, _P],
+    },
     "region": {
         "hbt_overlap_mask": [_P, _I32, _P, _P, _P, _I64, _P, _P],
         "hbt_quality_histogram": [_P, _P, _I64, _I32, _P, _P],
@@ -67,6 +73,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_load_hooks: List[Callable[[str], None]] = []
+
+
+def add_load_hook(fn: Callable[[str], None]) -> None:
+    """Call ``fn(name)`` whenever a library is built or loaded for the
+    first time in this process: the port's kernel "compile"."""
+    with _lock:
+        _load_hooks.append(fn)
 
 
 def nvcc_path() -> str:
@@ -145,7 +159,10 @@ def load(name: str) -> ctypes.CDLL:
             f.argtypes = argtypes
             f.restype = ctypes.c_int
         _libs[name] = lib
-        return lib
+        hooks = list(_load_hooks)
+    for fn in hooks:
+        fn(name)
+    return lib
 
 
 def check(rc: int, what: str) -> None:

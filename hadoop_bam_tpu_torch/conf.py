@@ -8,6 +8,7 @@ reference's, so one dict drives both packages (:func:`from_reference_conf`).
 
 from __future__ import annotations
 
+import os
 from typing import Iterator, Mapping, Optional
 
 #: Interval traversal of BAM input: the switch, the intervals
@@ -58,6 +59,7 @@ CRAM_RANS_LANES = "hadoopbam.cram.rans-lanes"
 ANYSAM_TRUST_EXTS = "hadoopbam.anysam.trust-exts"
 
 _TRUE_WORDS = frozenset(("yes", "true", "t", "y", "1", "on", "enabled"))
+_FALSE_ENV = ("0", "false", "no", "off", "")
 _FALSE_WORDS = frozenset(("no", "false", "f", "n", "0", "off", "disabled"))
 
 
@@ -107,3 +109,15 @@ def from_reference_conf(d: Mapping[str, str]) -> Configuration:
     ``Configuration`` takes; every key above keeps the reference's string,
     so one dict drives both packages."""
     return Configuration(d)
+
+
+def gate(env_var: str, conf: Optional["Configuration"], key: str, auto: bool) -> bool:
+    """A device tier's switch: the env var (0/1 force) → the conf key →
+    ``auto`` (the reference's local-accelerator rule: on for a CUDA
+    device, off for the CPU)."""
+    env = os.environ.get(env_var)
+    if env is not None:
+        return env.strip().lower() not in _FALSE_ENV
+    if conf is not None and key in conf:
+        return conf.get_boolean(key)
+    return auto

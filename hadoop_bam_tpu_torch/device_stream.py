@@ -29,6 +29,7 @@ from .conf import (
     INFLATE_LANES,
     READ_DEPTH,
     WRITE_DEVICE,
+    gate,
 )
 from .io.bam import ChunkedRecords
 from .ops import decode, flate
@@ -39,7 +40,6 @@ from .spec import bgzf, cram_codecs
 from .utils.tracing import Metrics
 
 DEFAULT_DEPTH = 2
-_FALSE_ENV = ("0", "false", "no", "off", "")
 
 
 def resolve_depth(conf=None) -> int:
@@ -55,16 +55,6 @@ def resolve_depth(conf=None) -> int:
         except ValueError:
             return DEFAULT_DEPTH
     return DEFAULT_DEPTH
-
-
-def _gate(env_var: str, conf, key: str, auto: bool) -> bool:
-    """Env var (0/1 force) → conf key → ``auto``."""
-    env = os.environ.get(env_var)
-    if env is not None:
-        return env.strip().lower() not in _FALSE_ENV
-    if conf is not None and key in conf:
-        return conf.get_boolean(key)
-    return auto
 
 
 class StreamPolicy:
@@ -85,12 +75,12 @@ class StreamPolicy:
     def resolve(cls, conf, device: torch.device) -> "StreamPolicy":
         on_card = device.type == "cuda"
         return cls(
-            inflate_lanes=_gate("HBAM_INFLATE_LANES", conf, INFLATE_LANES, on_card),
-            deflate_lanes=_gate("HBAM_DEFLATE_LANES", conf, DEFLATE_LANES, on_card),
-            device_write=_gate("HBAM_DEVICE_WRITE", conf, WRITE_DEVICE, on_card),
+            inflate_lanes=gate("HBAM_INFLATE_LANES", conf, INFLATE_LANES, on_card),
+            deflate_lanes=gate("HBAM_DEFLATE_LANES", conf, DEFLATE_LANES, on_card),
+            device_write=gate("HBAM_DEVICE_WRITE", conf, WRITE_DEVICE, on_card),
             depth=resolve_depth(conf),
-            use_bcf_chain=_gate("HBAM_BCF_CHAIN", conf, BCF_CHAIN, on_card),
-            use_rans_lanes=_gate("HBAM_RANS_LANES", conf, CRAM_RANS_LANES, on_card),
+            use_bcf_chain=gate("HBAM_BCF_CHAIN", conf, BCF_CHAIN, on_card),
+            use_rans_lanes=gate("HBAM_RANS_LANES", conf, CRAM_RANS_LANES, on_card),
         )
 
 

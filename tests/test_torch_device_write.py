@@ -213,8 +213,12 @@ def test_geometry_tierdown_goes_to_host_zlib_like_the_reference(monkeypatch):
 
 
 def test_literal_only_tier_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tflate.bgzf_compress_device(b"abc", level=1, use_lanes=False, device=CPU)
+    """The literal-only tier (``use_lanes=False`` at a level above 0)
+    writes the reference's blob: deflate_fixed on the device, the default
+    24,000-byte blocking."""
+    data = np.random.default_rng(12).integers(0, 256, 30000, dtype=np.uint8).tobytes()
+    blob = tflate.bgzf_compress_device(data, level=1, use_lanes=False, device=CPU)
+    assert blob == jflate.bgzf_compress_device(data, level=1, use_lanes=False)
     assert tflate.deflate_lanes_accepts(57088) == jflate.deflate_lanes_accepts(57088)
 
 

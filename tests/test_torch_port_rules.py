@@ -66,6 +66,8 @@ def test_constant_tables_equal_the_reference():
         ref = getattr(jflate, py)
         assert np.array_equal(getattr(tflate, py), ref), py
         assert _cu_table(cu, c) == [int(x) for x in ref], c
+    for py in ("LITLEN_TABLE", "DIST_TABLE", "FIXED_LITLEN_LENS", "FIXED_DIST_LENS", "REV8"):
+        assert np.array_equal(getattr(tflate, py), getattr(jflate, py)), py
     assert np.array_equal(tflate.CRC32_TABLE, CRC_TABLES[0])
     assert (tm.C1, tm.C2) == (jm._C1, jm._C2)
 
@@ -474,3 +476,40 @@ def test_bcf_chain_that_cannot_build_raises(tmp_path, monkeypatch):
     assert "hbt_bcf_chain_walk" in _build.SIGNATURES["bcf_chain"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("bcf_chain")
+
+
+@pytest.mark.parametrize("name,entry", [("inflate_fixed", "hbt_inflate_fixed_literal"),
+                                        ("inflate_probe", "hbt_inflate_probe_walk")])
+def test_codec_kernels_that_cannot_build_raise(tmp_path, monkeypatch, name, entry):
+    """Rows 10 and 11 raise when their source cannot build; the literal-only
+    tier of bgzf_decompress_device has no try around row 10."""
+    from hadoop_bam_tpu_torch import _build
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    assert entry in _build.SIGNATURES[name]
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load(name)
+    src = (REPO / "hadoop_bam_tpu_torch" / "ops" / "flate.py").read_text()
+    body = src[src.index("def bgzf_decompress_device("):]
+    assert "except" not in body
+
+
+def test_codec_plain_versions_do_not_count_launches():
+    from hadoop_bam_tpu_torch.ops import flate as tflate
+    from hadoop_bam_tpu_torch.ops.kernels import inflate_fixed as kfix
+    from hadoop_bam_tpu_torch.ops.kernels import inflate_probe as kip
+
+    before = (kfix.LAUNCHES.value, kip.LAUNCHES.value)
+    blob = tflate.bgzf_compress_device(b"literal" * 50, use_lanes=False, device="cpu")
+    assert tflate.bgzf_decompress_device(blob, device="cpu") == b"literal" * 50
+    comp, clens = tflate.deflate_fixed(torch.zeros((2, 8), dtype=torch.uint8),
+                                       torch.tensor([8, 3], dtype=torch.int32), 16)
+    kfix.inflate_fixed_literal(comp, clens, torch.tensor([8, 3], dtype=torch.int32))
+    kip.make_walk(64, 4, "cpu")(torch.zeros((64, kip.LANES), dtype=torch.int32),
+                               torch.zeros((1, kip.LANES), dtype=torch.int32))
+    assert (kfix.LAUNCHES.value, kip.LAUNCHES.value) == before
