@@ -150,9 +150,171 @@ def _oversubscribed() -> bytes:
     return bw.bytes() + b"\0" * 8
 
 
+def _canonical(lens: dict) -> dict:
+    """``{symbol: (code, length)}`` of the canonical Huffman code with the
+    given ``{symbol: length}`` (RFC 1951 3.2.2)."""
+    counts = [0] * 16
+    for n in lens.values():
+        counts[n] += 1
+    code, nxt = 0, [0] * 16
+    for n in range(1, 16):
+        code = (code + counts[n - 1]) << 1
+        nxt[n] = code
+    out = {}
+    for sym in sorted(lens):
+        out[sym] = (nxt[lens[sym]], lens[sym])
+        nxt[lens[sym]] += 1
+    return out
+
+
+def _base_sym(bases, extras, v: int, first: int = 0):
+    """``(symbol, extra value, extra bits)`` of a length or distance."""
+    k = int(np.searchsorted(bases, v, side="right")) - 1
+    return first + k, v - int(bases[k]), int(extras[k])
+
+
+def _dynamic_block(lit_lens: dict, dist_lens: dict, tokens, final: bool = True) -> bytes:
+    """One dynamic-Huffman block with the given ``{symbol: length}`` codes
+    (its code-length code gives symbols 0-15 four bits each).  Tokens:
+    ``("lit", byte)``, ``("copy", length, dist)`` (dist None writes the
+    length alone) and ``("bits", value, n)`` for raw bits."""
+    from hadoop_bam_tpu_torch.ops.flate import (CLC_ORDER, DIST_BASE, DIST_EXTRA, LEN_BASE,
+                                                LEN_EXTRA)
+
+    bw = _BitWriter()
+    nlen = max(257, max(lit_lens) + 1)
+    ndist = max(1, max(dist_lens, default=0) + 1)
+    bw.w(int(final), 1)
+    bw.w(2, 2)
+    bw.w(nlen - 257, 5)
+    bw.w(ndist - 1, 5)
+    bw.w(19 - 4, 4)
+    for k in range(19):
+        bw.w(4 if CLC_ORDER[k] < 16 else 0, 3)
+    for n in [lit_lens.get(s, 0) for s in range(nlen)] + [dist_lens.get(s, 0) for s in range(ndist)]:
+        bw.code(n, 4)
+    lit, dst = _canonical(lit_lens), _canonical(dist_lens)
+    for t in tokens:
+        if t[0] == "lit":
+            bw.code(*lit[t[1]])
+        elif t[0] == "bits":
+            bw.w(t[1], t[2])
+        else:
+            sym, x, n = _base_sym(LEN_BASE, LEN_EXTRA, t[1], 257)
+            bw.code(*lit[sym])
+            bw.w(x, n)
+            if t[2] is not None:
+                sym, x, n = _base_sym(DIST_BASE, DIST_EXTRA, t[2])
+                bw.code(*dst[sym])
+                bw.w(x, n)
+    bw.code(*lit[256])
+    return bw.bytes()
+
+
+def _replay(tokens) -> bytes:
+    out = bytearray()
+    for t in tokens:
+        if t[0] == "lit":
+            out.append(t[1])
+        else:
+            for _ in range(t[1]):
+                out.append(out[-t[2]])
+    return bytes(out)
+
+
+def _zlib_payload(comp: bytes, isize: int):
+    """zlib's verdict on a raw DEFLATE member: its payload, or None."""
+    d = zlib.decompressobj(-15)
+    try:
+        got = d.decompress(comp, isize + 1)
+    except zlib.error:
+        return None
+    return got if d.eof and len(got) == isize else None
+
+
+def inflate_edge_cases(seed: int) -> list:
+    """``[(name, comp, isize, payload or None)]``: codes longer than the
+    inflate kernel's root tables (hand-made and zlib's), lone length-1
+    codes and the unused half of one, incomplete sets zlib refuses, far (dist 32,768) and overlapping
+    (len 258, dist 1) copies, a copy from before the member start, a
+    65,535-byte stored block, copies out of a stored block's payload, isize
+    65,536 and above, and wrong-isize twins."""
+    import struct
+
+    from hadoop_bam_tpu_torch.ops.flate import DIST_BASE, DIST_EXTRA, encode_tokens_fixed
+
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def add(name, comp, payload, isize=None):
+        cases.append((name, comp, len(payload) if isize is None else isize, payload))
+
+    # Literal codes of 1..13 bits and four of 15 (one literal, the EOB and two
+    # length symbols); distance codes of 1..14 bits and two of 15.
+    lits = list(range(65, 78))
+    lit_lens = {s: k + 1 for k, s in enumerate(lits)}
+    lit_lens.update({90: 15, 256: 15, 257: 15, 265: 15})
+    dist_lens = {s: s + 1 for s in range(14)}
+    dist_lens.update({14: 15, 15: 15})
+    toks, n_out = [], 0
+    for k in range(3000):
+        r = rng.random()
+        if k < 40 or r < 0.5:
+            toks.append(("lit", int(rng.choice(lits + [90]))))
+            n_out += 1
+            continue
+        length = 3 if r < 0.75 else int(rng.integers(11, 13))
+        ds = int(rng.integers(0, 16))
+        dist = int(DIST_BASE[ds]) + int(rng.integers(0, 1 << int(DIST_EXTRA[ds])))
+        if dist > n_out:
+            dist = int(rng.integers(1, n_out + 1))
+        toks.append(("copy", length, dist))
+        n_out += length
+    add("long_codes", _dynamic_block(lit_lens, dist_lens, toks), _replay(toks))
+    fib = [1, 2]
+    while len(fib) < 20:
+        fib.append(fib[-1] + fib[-2])
+    sk = np.repeat(np.arange(20, dtype=np.uint8) * 7 + 33, fib)
+    sk = bytes(rng.permutation(sk))
+    add("fibonacci_zlib9", _raw_deflate(sk, 9), sk)
+    lone = [("lit", 97), ("copy", 3, 1), ("copy", 3, 1)]
+    add("lone_dist_code", _dynamic_block({97: 1, 256: 2, 257: 2}, {0: 1}, lone), b"a" * 7)
+    add("lone_dist_unused", _dynamic_block(
+        {97: 1, 256: 2, 257: 2}, {0: 1}, [("lit", 97), ("copy", 3, None), ("bits", 1, 1)]),
+        None, 4)
+    add("lone_eob_code", _dynamic_block({256: 1}, {0: 1}, []), b"")
+    # Incomplete sets zlib refuses: a lone code of length 2, two codes of three.
+    add("lone_dist_len2", _dynamic_block({97: 1, 256: 2, 257: 2}, {0: 2}, lone), None, 7)
+    add("incomplete_lit", _dynamic_block({97: 1, 256: 2}, {0: 1}, [("lit", 97)]), None, 1)
+    far = [("lit", int(x)) for x in rng.integers(0, 256, 32768)]
+    far += [("copy", 258, 32768), ("copy", 3, 32768)]
+    add("dist_32768", encode_tokens_fixed(far), _replay(far))
+    before = [("lit", int(x)) for x in rng.integers(0, 256, 100)] + [("copy", 5, 101)]
+    add("dist_before_start", encode_tokens_fixed(before), None, 105)
+    run = [("lit", 97)] + [("copy", 258, 1)] * 200
+    add("len258_dist1", encode_tokens_fixed(run), _replay(run))
+    add("len258_dist1_zlib6", _raw_deflate(b"a" * 65280, 6), b"a" * 65280)
+    stored = bytes(rng.integers(0, 256, 65535, dtype=np.uint8))
+    add("stored_65535", bytes([1]) + struct.pack("<HH", 65535, 0) + stored, stored)
+    # Copies that read a stored block's payload, near and far back.
+    head = stored[:20000]
+    tail = [("copy", 50, 10000), ("copy", 20, 19000), ("copy", 9, 3)]
+    add("stored_then_copies", bytes([0]) + struct.pack("<HH", len(head), len(head) ^ 0xFFFF)
+        + head + encode_tokens_fixed(tail), _replay([("lit", x) for x in head] + tail))
+    bases = bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), 100_000))
+    for size in (65536, 100_000):
+        p = bases[:size]
+        comp = _raw_deflate(p, 6)
+        add(f"isize_{size}", comp, p)
+        add(f"isize_{size}_wrong", comp, None, size + 1 if size == 65536 else size - 1)
+    return cases
+
+
 def inflate_corpus(seed: int):
     """``(comps, isizes, payloads)``: zlib levels 0/1/6/9, a flush chain,
-    RLE codes, full-size members and four corrupt members (payload None)."""
+    RLE codes, full-size members, four corrupt members (payload None),
+    :func:`inflate_edge_cases` and 200 bit-flipped members (payload: zlib's
+    verdict)."""
     rng = np.random.default_rng(seed)
     comps, isizes, payloads = [], [], []
 
@@ -187,6 +349,16 @@ def inflate_corpus(seed: int):
     add(cut[: len(cut) // 2], None, 570)
     add(_raw_deflate(b"x" * 50, 6), None, 49)  # wrong isize
     add(_oversubscribed(), None, 1)
+    for _, comp, isize, payload in inflate_edge_cases(seed):
+        add(comp, payload, isize)
+    small = [(c, n) for c, n, p in zip(comps, isizes, payloads) if p is not None and len(c) < 4096]
+    for k in range(200):
+        comp, isize = small[k % len(small)]
+        flipped = bytearray(comp)
+        for _ in range(1 + k % 3):
+            bit = int(rng.integers(0, 8 * len(flipped)))
+            flipped[bit >> 3] ^= 1 << (bit & 7)
+        add(bytes(flipped), _zlib_payload(bytes(flipped), isize), isize)
     return comps, isizes, payloads
 
 
@@ -2264,8 +2436,13 @@ def time_kernels(src: str, checks: dict, launches: dict, launches_r: dict, seed:
     rows = []
     k_ms = cuda_ms(lambda: kin.inflate_members(*ga), iters=5, warmup=1)
     p_ms = host_ms(lambda: kin.inflate_members_plain(*ca[:6]), iters=1)
+    # One full member alone: the shape of a region read's chunk span.
+    one = (ga[0], *(t[:1] for t in ga[1:5]), ga[5], int(clens[0]))
+    one_ms = cuda_ms(lambda: kin.inflate_members(*one), iters=20, warmup=3)
     inflated = ga[5]
     n_in = int(clens.astype(np.int64).sum())
+    log(f"  inflate_members: one member ({int(clens[0])} compressed -> {int(us[0])} bytes) "
+        f"{one_ms:.4f} ms a launch")
     rows.append({
         "name": "inflate_members", "route": "cuda",
         "source": "hadoop_bam_tpu_torch/csrc/inflate.cu",
@@ -2273,7 +2450,7 @@ def time_kernels(src: str, checks: dict, launches: dict, launches_r: dict, seed:
         "launches": launches["inflate_members"], "max_abs_err": checks["inflate"],
         "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": (n_in + total) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": None,
+        "library_ms": None, "one_member_ms": one_ms,
         "shape": f"{len(co)} members, {n_in} compressed -> {total} bytes",
     })
     # The chain kernels over the split's record stream.

@@ -109,18 +109,20 @@ def build(
     """Compile the named sources (default: all), one ``nvcc`` per source,
     all started together.  Returns ``{name: {"seconds", "log"}}`` for each
     source built (``log`` holds ptxas's register and shared-memory report).
-    Sources whose library is newer than the source are skipped unless
-    ``force``."""
+    Sources whose library is newer than the source and every ``csrc/*.cuh``
+    are skipped unless ``force``."""
     import time
 
     names = list(SIGNATURES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
+    headers = [h.stat().st_mtime for h in SRC_DIR.glob("*.cuh")]
     for name in names:
         lib = _lib_path(name)
         src = SRC_DIR / f"{name}.cu"
-        if not force and lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+        newest = max([src.stat().st_mtime, *headers])
+        if not force and lib.exists() and lib.stat().st_mtime >= newest:
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (

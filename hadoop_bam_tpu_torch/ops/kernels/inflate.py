@@ -19,13 +19,13 @@ from . import LaunchCounter, check_tensor, stream_handle, use_plain
 LAUNCHES = LaunchCounter("inflate_members")
 
 #: Bytes the compressed buffer must hold past its last member: the kernel
-#: stages members with 16-byte aligned loads.
-COMP_PAD = 16
+#: reads each member in place with aligned 8-byte loads.
+COMP_PAD = 8
 
-
-def smem_bytes(max_clen: int) -> int:
-    """Dynamic shared memory of one CTA: the member's staged stream."""
-    return 16 * (-(-(15 + max(int(max_clen), 0)) // 16))
+#: Dynamic shared memory of one CTA (``csrc/inflate.cu``): 8,448 bytes of
+#: tables, tokens and state, then the 16 KiB output ring and 16 bytes to
+#: align it with the member's place in ``out``.  Nine CTAs fit an SM.
+SMEM_BYTES = 8448 + 16384 + 16
 
 
 def inflate_members(
@@ -42,7 +42,8 @@ def inflate_members(
     Member i's stream is ``comp[comp_off[i] : +clens[i]]``; its payload goes
     to ``out[out_off[i] : +isizes[i]]``.  ``comp`` must hold
     :data:`COMP_PAD` bytes past the end of its last member; ``max_clen`` is
-    ``clens.max()`` (known on the host, so no sync is needed).  Returns
+    ``clens.max()``, which the kernel no longer needs (it reads each member
+    in place), kept so the callers' signature stands.  Returns
     int32 ``[n, 2]`` meta: bytes produced and ok.  Dtypes: ``comp``/``out``
     uint8, ``comp_off``/``out_off`` int64, ``clens``/``isizes`` int32."""
     for t, name, dt in (
@@ -63,7 +64,7 @@ def inflate_members(
     rc = lib.hbt_inflate_members(
         comp.data_ptr(), comp_off.data_ptr(), clens.data_ptr(),
         out_off.data_ptr(), isizes.data_ptr(), out.data_ptr(),
-        meta.data_ptr(), n, smem_bytes(max_clen), stream_handle(comp),
+        meta.data_ptr(), n, SMEM_BYTES, stream_handle(comp),
     )
     _build.check(rc, "inflate_members")
     LAUNCHES.add()

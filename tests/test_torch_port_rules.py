@@ -47,11 +47,6 @@ def test_sort_bam_without_device_raises_when_no_card(tmp_path, monkeypatch):
         pipeline.sort_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"), device="cuda")
 
 
-def _cu_table(src: str, name: str) -> list:
-    m = re.search(name + r"\[\d+\] = \{([^}]*)\}", src)
-    return [int(x) for x in m.group(1).replace("\n", " ").split(",") if x.strip()]
-
-
 def test_constant_tables_equal_the_reference():
     from hadoop_bam_tpu.ops import flate as jflate
     from hadoop_bam_tpu.ops.pallas.crc32 import CRC_TABLES
@@ -59,13 +54,10 @@ def test_constant_tables_equal_the_reference():
     from hadoop_bam_tpu_torch.ops import flate as tflate
     from hadoop_bam_tpu_torch.utils import murmur3 as tm
 
-    cu = (REPO / "hadoop_bam_tpu_torch" / "csrc" / "inflate.cu").read_text()
-    for py, c in (("LEN_BASE", "kLenBase"), ("LEN_EXTRA", "kLenExtra"),
-                  ("DIST_BASE", "kDistBase"), ("DIST_EXTRA", "kDistExtra"),
-                  ("CLC_ORDER", "kClcOrder")):
-        ref = getattr(jflate, py)
-        assert np.array_equal(getattr(tflate, py), ref), py
-        assert _cu_table(cu, c) == [int(x) for x in ref], c
+    # The inflate kernel computes these by formula; the compiled core is held
+    # to the same tables in test_torch_inflate_core.py.
+    for py in ("LEN_BASE", "LEN_EXTRA", "DIST_BASE", "DIST_EXTRA", "CLC_ORDER"):
+        assert np.array_equal(getattr(tflate, py), getattr(jflate, py)), py
     for py in ("LITLEN_TABLE", "DIST_TABLE", "FIXED_LITLEN_LENS", "FIXED_DIST_LENS", "REV8"):
         assert np.array_equal(getattr(tflate, py), getattr(jflate, py)), py
     assert np.array_equal(tflate.CRC32_TABLE, CRC_TABLES[0])
