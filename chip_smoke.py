@@ -39,6 +39,7 @@ import hashlib
 import json
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1741,11 +1742,55 @@ def rans_cases(seed: int, container: bytes) -> dict:
     return cases
 
 
+#: Initial states at the edges of the 32-bit state arithmetic: 0, the
+#: values below which a renorm fails (2^7), reads two bytes (2^15) or one
+#: (2^23), and the top of the u32 range.
+RANS_STATE_EXTREMES = (0, 2**7 - 1, 2**15 - 1, 2**23 - 1, 2**31, 2**32 - 1)
+
+
+def _with_states(enc: bytes, states) -> bytes:
+    """``enc`` with its four initial states replaced."""
+    from hadoop_bam_tpu_torch.spec import cram_codecs as cc
+
+    at = len(enc) - len(cc.parse_rans_plan(enc).payload) - 16
+    return enc[:at] + struct.pack("<4I", *states) + enc[at + 16:]
+
+
+def rans_state_cases(seed: int) -> dict:
+    """``{what: stream}``: streams of both orders (and a single-symbol one)
+    whose initial states sit at :data:`RANS_STATE_EXTREMES`, all four alike
+    and mixed."""
+    from hadoop_bam_tpu_torch.spec import cram_codecs as cc
+
+    rng = np.random.default_rng(seed)
+    raw = rng.choice(np.frombuffer(b"ACGTN", np.uint8), 3001, p=[.3, .2, .2, .29, .01]).tobytes()
+    bases = {"order 0": cc.rans_encode(raw, 0), "order 1": cc.rans_encode(raw, 1),
+             "single symbol": cc.rans_encode(b"G" * 1001, 0)}
+    cases = {}
+    for what, enc in bases.items():
+        for v in RANS_STATE_EXTREMES:
+            cases[f"{what}, states {v:#x}"] = _with_states(enc, (v,) * 4)
+        mixed = rng.permutation(np.asarray(RANS_STATE_EXTREMES[2:], np.uint64)).tolist()
+        cases[f"{what}, states mixed"] = _with_states(enc, mixed)
+    return cases
+
+
+def rans_host_tensors(h: dict) -> list:
+    """The CPU tensors of a packed rANS batch (:func:`kr.pack`), in the
+    order ``rans_decode_device`` takes them."""
+    import torch
+
+    host = [torch.from_numpy(np.ascontiguousarray(h[k])) for k in ("payload", "meta", "lookup")]
+    return host + [torch.from_numpy(h["fc"].view(np.int32)), torch.from_numpy(h["cmap"])]
+
+
 def check_rans(seed: int, container: bytes) -> dict:
     """The rANS kernel against its plain version (outputs and verdicts,
-    exactly) on every case of :func:`rans_cases`, one launch for all; then
-    its time at one container's blocks (the launch a sort makes per
-    container) beside the plain version and the bound."""
+    exactly) on every case of :func:`rans_cases`, one launch for all, and
+    on :func:`rans_state_cases`; then its time at one container's blocks
+    (the launch a sort makes per container) beside the plain version and
+    the bound, and the time of the container's largest order-0 and order-1
+    streams alone."""
     import torch
 
     from hadoop_bam_tpu_torch.ops.kernels import rans as kr
@@ -1773,9 +1818,18 @@ def check_rans(seed: int, container: bytes) -> dict:
     log(f"rans kernel == plain: {len(cases)} streams ({len(blocks)} blocks of one "
         f"{CRAM_PER_CONTAINER}-record container, the largest {big} bytes out; edge and corrupt "
         f"streams), tiers {json.dumps(st_k.as_dict())}, max_abs_err 0; plain {p_all:.1f} s")
+    states = rans_state_cases(seed)
+    outs_k, st_k = kr.rans_lanes(list(states.values()), torch.device("cuda"))
+    outs_p, st_p = kr.rans_lanes(list(states.values()), torch.device("cpu"))
+    bad = [w for w, a, b in zip(states, outs_k, outs_p) if a != b]
+    if bad or st_k.as_dict() != st_p.as_dict():
+        raise AssertionError(f"rans kernel differs from plain at extreme states: {bad}, "
+                             f"{st_k.as_dict()} vs {st_p.as_dict()}")
+    log(f"rans kernel == plain: {len(states)} streams with initial states at "
+        f"{[hex(v) for v in RANS_STATE_EXTREMES]} and mixed, "
+        f"{sum(o is not None for o in outs_k)} decode, tiers {json.dumps(st_k.as_dict())}")
     h = kr.pack(plans)
-    host = [torch.from_numpy(np.ascontiguousarray(h[k])) for k in ("payload", "meta", "lookup")]
-    host += [torch.from_numpy(h["fc"].view(np.int32)), torch.from_numpy(h["cmap"])]
+    host = rans_host_tensors(h)
     dev = [t.cuda() for t in host]
     k_ms = cuda_ms(lambda: kr.rans_decode_device(*dev, h["out_total"]), iters=5, warmup=1)
     p_ms = host_ms(lambda: kr.rans_decode_plain(*host, h["out_total"]), iters=1)
@@ -1793,6 +1847,18 @@ def check_rans(seed: int, container: bytes) -> dict:
     }
     log(f"  rans: {k_ms:.4f} ms (plain {p_ms:.3f} ms, bound {row['bound_ms']:.4f} ms) at "
         f"{row['shape']}")
+    for order in (0, 1):
+        pl = max((p for p in plans if p.order == order),
+                 key=lambda p: (p.n_out, len(p.payload)))
+        h1 = kr.pack([pl])
+        dev1 = [t.cuda() for t in rans_host_tensors(h1)]
+        ms = cuda_ms(lambda: kr.rans_decode_device(*dev1, h1["out_total"]), iters=5, warmup=1)
+        groups = (pl.n_out + 3) // 4
+        row[f"order{order}_ms"] = ms
+        row[f"order{order}_ns_per_group"] = ms * 1e6 / groups
+        log(f"  rans: the container's largest order-{order} stream alone ({len(pl.payload)} -> "
+            f"{pl.n_out} bytes, {len(pl.tables)} tables, {groups} groups): {ms:.4f} ms, "
+            f"{ms * 1e6 / groups:.1f} ns a group")
     return row
 
 

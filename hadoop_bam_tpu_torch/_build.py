@@ -55,7 +55,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "hbt_bcf_chain_walk": [_P, _I64, _I64, _I64, _P, _I64, _P, _P],
     },
     "rans": {
-        "hbt_rans_decode": [_P, _P, _P, _P, _P, _P, _P, _I32, _P],
+        "hbt_rans_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _P],
     },
     "inflate_fixed": {
         "hbt_inflate_fixed_literal": [_P, _I64, _P, _P, _I64, _P, _I64, _P, _P],

@@ -7,7 +7,9 @@ decoded in one launch, straight into output order, beside a per-stream
 ``ok`` verdict.
 
 The batch goes up as flat tensors (:func:`pack`): the streams' renorm
-payloads back to back, int64 ``meta`` rows (payload offset, clen, output
+payloads, each at a 16-byte boundary and the last followed by
+:data:`PAY_SLACK` zero bytes (the kernel copies them in 16-byte units and
+reads ahead of its cursor), int64 ``meta`` rows (payload offset, clen, output
 offset, n_out, order, the four initial states), the dense per-context
 tables (a 4,096-byte slot -> symbol ``lookup`` row and a ``fc`` row of
 ``C << 16 | F`` per symbol, one slab per context) and an int32 ``cmap``
@@ -49,8 +51,16 @@ _META_ROWS = 8
 #: The output domain of one stream: n_out past it tiers down as ``size``.
 MAX_OUT = 2**31 - 1
 META_COLS = 9  # pay_off, clen, out_off, n_out, order, R0..R3
-_ALIGN = 16  # each stream's output region starts 16-aligned
-_PAD = 16  # zero bytes past the last payload: the kernel reads 16 from an 8-aligned cursor
+_ALIGN = 16  # each stream's output region and payload start 16-aligned
+#: Zero bytes past the last payload: what the kernel may read past a
+#: stream's payload, rounded up to 16 (``kSlack`` in ``csrc/rans_core.cuh``).
+PAY_SLACK = 256
+#: Tables a block of the kernel keeps in shared memory, at most
+#: (``kMaxStage``); an order-1 stream's further contexts spill to global memory.
+MAX_STAGE = 9
+#: 32-bit words of one table in the kernel's layout (``kTabWords``): a
+#: 16-bit F, bias and symbol a slot.
+TABLE_WORDS = _TOTFREQ * 6 // 4
 
 
 def _round_up(x: int, m: int) -> int:
@@ -90,9 +100,8 @@ def accepts(clen: int, osize: int, n_ctx: int,
 
 
 def pack(plans: Sequence["cc._RansPlan"]) -> dict:
-    """The flat host arrays of one launch (see the module docstring; the
-    payloads end in :data:`_PAD` zero bytes), plus ``out_total`` (bytes of
-    the output buffer).  Every plan has n_out > 0,
+    """The flat host arrays of one launch (see the module docstring), plus
+    ``out_total`` (bytes of the output buffer).  Every plan has n_out > 0,
     n_out <= :data:`MAX_OUT` and tables whose frequencies sum to at most
     4,096."""
     b = len(plans)
@@ -103,8 +112,8 @@ def pack(plans: Sequence["cc._RansPlan"]) -> dict:
     for i, pl in enumerate(plans):
         meta[i, :5] = (pay_off, len(pl.payload), out_off, pl.n_out, pl.order)
         meta[i, 5:] = pl.states
-        pays.append(pl.payload)
-        pay_off += len(pl.payload)
+        pays.append(pl.payload + bytes(_round_up(len(pl.payload), _ALIGN) - len(pl.payload)))
+        pay_off += len(pays[-1])
         out_off += _round_up(pl.n_out, _ALIGN)
         for ctx, (F, C, lk) in sorted(pl.tables.items()):
             if pl.order == 1:
@@ -115,7 +124,7 @@ def pack(plans: Sequence["cc._RansPlan"]) -> dict:
             fcs.append((np.asarray(C[:256], np.uint32) << 16) | np.asarray(F, np.uint32))
             slabs += 1
     return {
-        "payload": np.frombuffer(bytearray(b"".join(pays) + bytes(_PAD)), dtype=np.uint8),
+        "payload": np.frombuffer(bytearray(b"".join(pays) + bytes(PAY_SLACK)), dtype=np.uint8),
         "meta": meta,
         "lookup": np.frombuffer(bytearray(b"".join(lookups)), dtype=np.uint8).reshape(
             slabs, _TOTFREQ),
@@ -143,12 +152,19 @@ def rans_decode_device(payload: torch.Tensor, meta: torch.Tensor, lookup: torch.
         raise ValueError("lookup must be [slabs, 4096] and fc [slabs, 256]")
     if use_plain(payload, meta, lookup, fc, cmap):
         return rans_decode_plain(payload, meta, lookup, fc, cmap, out_total)
+    if payload.data_ptr() % _ALIGN:
+        raise ValueError("payload must be 16-byte aligned (the kernel copies it in bulk)")
+    # Shared memory for as many tables as a block can need: a launch has
+    # far fewer streams than the card has SMs, so a block an SM costs nothing.
+    stage = min(lookup.shape[0], MAX_STAGE)
     out = torch.empty(out_total, dtype=torch.uint8, device=payload.device)
     ok = torch.empty(n, dtype=torch.int32, device=payload.device)
+    spill = torch.empty(lookup.shape[0] * TABLE_WORDS, dtype=torch.int32, device=payload.device)
     lib = _build.load("rans")
     rc = lib.hbt_rans_decode(
         payload.data_ptr(), meta.data_ptr(), lookup.data_ptr(), fc.data_ptr(),
-        cmap.data_ptr(), out.data_ptr(), ok.data_ptr(), n, stream_handle(payload),
+        cmap.data_ptr(), spill.data_ptr(), out.data_ptr(), ok.data_ptr(), n, stage,
+        stream_handle(payload),
     )
     _build.check(rc, "rans")
     LAUNCHES.add()

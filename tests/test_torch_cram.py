@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from hadoop_bam_tpu import conf as jconf
 from hadoop_bam_tpu import pipeline as jpipeline
 from hadoop_bam_tpu.io import anysam as janysam
@@ -211,6 +212,34 @@ def test_packed_missing_context_gives_ok0():
     args += [torch.from_numpy(h["fc"].view(np.int32)), torch.from_numpy(h["cmap"])]
     _, ok = kr.rans_decode_device(*args, h["out_total"])
     assert ok.tolist() == [0]
+
+
+def test_pack_aligns_and_pads_payloads():
+    """Each payload starts 16-aligned and is padded with zeros to 16; the
+    last is followed by ``PAY_SLACK`` zeros (what the kernel may read past a
+    payload between two looks at its verdicts); the plain decode of the
+    packed batch gives every stream's bytes."""
+    streams = _streams()
+    plans = [tcc.parse_rans_plan(enc) for _, enc in streams]
+    keep = [i for i, p in enumerate(plans) if p.n_out]
+    h = kr.pack([plans[i] for i in keep])
+    meta, pay = h["meta"], h["payload"]
+    assert kr.PAY_SLACK >= 8 * 16 + 12  # 16 groups of at most 8 bytes, and the 12-byte window
+    ends = []
+    for k, i in enumerate(keep):
+        po, clen = int(meta[k, 0]), int(meta[k, 1])
+        assert po % 16 == 0 and clen == len(plans[i].payload)
+        assert pay[po : po + clen].tobytes() == plans[i].payload
+        end = -(-clen // 16) * 16
+        assert not pay[po + clen : po + end].any()
+        ends.append(po + end)
+    assert meta[1:, 0].tolist() == ends[:-1]
+    assert len(pay) == ends[-1] + kr.PAY_SLACK and not pay[ends[-1]:].any()
+    out, ok = kr.rans_decode_device(*chip_smoke.rans_host_tensors(h), h["out_total"])
+    assert ok.tolist() == [1] * len(keep)
+    for k, i in enumerate(keep):
+        o, n = int(meta[k, 2]), int(meta[k, 3])
+        assert out[o : o + n].numpy().tobytes() == streams[i][0]
 
 
 @pytest.mark.parametrize("lanes", ["true", "false"])
@@ -546,11 +575,11 @@ def test_rans_kernel_matches_plain_on_card(declined):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the rANS kernel runs only on the card")
     datas = [enc for _, enc in _streams() + declined] + list(_corrupt_streams().values())
+    datas += list(chip_smoke.rans_state_cases(0).values())
     plans = [tcc.parse_rans_plan(d) for d in datas if d[0] in (0, 1) and len(d) > 12]
     plans = [p for p in plans if p.n_out]
     h = kr.pack(plans)
-    host = [torch.from_numpy(np.ascontiguousarray(h[k])) for k in ("payload", "meta", "lookup")]
-    host += [torch.from_numpy(h["fc"].view(np.int32)), torch.from_numpy(h["cmap"])]
+    host = chip_smoke.rans_host_tensors(h)
     out_k, ok_k = kr.rans_decode_device(*[t.cuda() for t in host], h["out_total"])
     out_p, ok_p = kr.rans_decode_device(*host, h["out_total"])
     assert ok_k.cpu().tolist() == ok_p.tolist()
