@@ -576,9 +576,45 @@ def check_gather(seed: int) -> dict:
     return {"max_abs_err": float(np.count_nonzero(k != p.numpy()))}
 
 
+def _far_repeat(rng, at: int) -> bytes:
+    """40 nonzero random bytes at 0 and again at ``at``, zeros between and
+    after: the zero run enters the hash heads at one slot only, so the
+    second copy finds the first at distance ``at`` (a copy at 32,768, a
+    literal run at 32,769)."""
+    x = bytes(rng.integers(1, 256, 40, dtype=np.uint8))
+    return x + bytes(at - len(x)) + x + bytes(100)
+
+
+def deflate_trouble_cases(seed: int) -> dict:
+    """Where a 32-position scan window can go wrong: in-window hash
+    collisions (small alphabets; the narrowest heads take ``hb`` = 8),
+    periods shorter than a window (every lane matches), the last three
+    bytes of a member inside a window, distances of exactly 32,768 and
+    32,769, copies that reach ``plen`` or 258 bytes, members of 0-3
+    bytes."""
+    rng = np.random.default_rng(seed + 11)
+    motif = b"GATTACA-"
+    cases = {
+        "empty": b"", "one_byte": b"A", "three_bytes": b"ACG",
+        "collide_3_symbols": bytes(rng.integers(0, 3, 3000, dtype=np.uint8)),
+        "collide_random": bytes(rng.integers(0, 256, 3000, dtype=np.uint8)),
+        "period_1": b"\0" * 1000, "period_2": b"ab" * 200, "period_3": b"abc" * 300,
+        "period_31": bytes(rng.integers(0, 256, 31, dtype=np.uint8)) * 40,
+        "period_33": bytes(rng.integers(0, 256, 33, dtype=np.uint8)) * 40,
+        "copy_258": b"Q" + b"xyz" * 300,
+        "copy_to_plen": bytes(rng.integers(0, 256, 300, dtype=np.uint8)) * 2,
+        "dist_32768": _far_repeat(rng, 1 << 15),
+        "dist_32769": _far_repeat(rng, (1 << 15) + 1),
+    }
+    for n in (33, 34, 35, 66, 67, 129):  # the last 1-3 bytes inside a window
+        cases[f"tail_{n}"] = (motif * 20)[:n]
+    return cases
+
+
 def deflate_corpus(seed: int) -> list:
     """The reference's edge cases: empty, 3 bytes, zero runs, random bytes,
-    BAM records, a member exactly at a chunk multiple, full-size members."""
+    BAM records, a member exactly at a chunk multiple, full-size members;
+    then :func:`deflate_trouble_cases`."""
     rng = np.random.default_rng(seed)
     s = chain_stream(seed).tobytes()
     synth = synth_records(0, 210, rng).reshape(-1).tobytes()
@@ -588,7 +624,7 @@ def deflate_corpus(seed: int) -> list:
         bytes(rng.integers(0, 4, 3000, dtype=np.uint8)),
         s[:500], s[1000:9192], (b"part-write-cap!!" * 1024)[:8192],
         synth[:0xDF00], synth[5:5 + 0xDF00], bytes(rng.integers(0, 256, 0xDF00, dtype=np.uint8)),
-    ]
+    ] + list(deflate_trouble_cases(seed).values())
 
 
 def _deflate_both(payloads, **kw):
@@ -643,7 +679,9 @@ def check_deflate(seed: int) -> dict:
         if not kw and not ko.all():
             raise AssertionError(f"deflate declined accepted members: {ko}")
         check_deflate_rows(payloads, kc, kl, ko, f"deflate {kw}")
-    small = [p for p in payloads if len(p) <= 9000]
+    trouble = deflate_trouble_cases(seed)
+    small = [p for p in payloads if len(p) <= 9000] + [
+        p for p in trouble.values() if len(p) > 9000]
     (kc, kl, ko), (pc, pl, po) = _deflate_both(small, chunk_bytes=512)
     if not (np.array_equal(kl, pl) and np.array_equal(ko, po) and np.array_equal(kc, pc)):
         raise AssertionError("deflate kernel differs from plain (chunk_bytes=512)")
@@ -651,7 +689,63 @@ def check_deflate(seed: int) -> dict:
     log(f"deflate kernel == plain: {len(payloads)} members (+{len(small)} at chunk 512), "
         f"clens {clens.tolist()}; every row inflates through zlib and the inflate kernel, "
         "max_abs_err 0")
+    check_deflate_widths(list(trouble.values()))
     return {"max_abs_err": float(bad)}
+
+
+def _member_tensors(payloads, device):
+    """Payloads in one stream at offsets that put every lead (offset mod
+    16) in play: ``(stream, offs, lens, max_plen)``."""
+    import torch
+
+    parts, offs, pos = [], [], 0
+    for i, p in enumerate(payloads):
+        gap = (5 * i) % 16
+        parts.append(bytes(gap))
+        offs.append(pos + gap)
+        parts.append(p)
+        pos += gap + len(p)
+    stream = np.frombuffer(b"".join(parts) + bytes(16), dtype=np.uint8).copy()
+    lens = np.array([len(p) for p in payloads], dtype=np.int32)
+    t = lambda a: torch.from_numpy(a).to(device)
+    return t(stream), t(np.array(offs, dtype=np.int64)), t(lens), int(lens.max(initial=0))
+
+
+def token_counts(stream, offs, lens, hb: int) -> np.ndarray:
+    """``[n, 2]`` literals and copies of the plain version's token rows."""
+    from hadoop_bam_tpu_torch.ops.kernels import deflate as kd
+
+    tok, ntok, _ = kd._match_waves(stream.numpy(), offs.numpy().astype(np.int64),
+                                   lens.numpy().astype(np.int64), hb)
+    live = np.arange(tok.shape[1])[None, :] < ntok[:, None]
+    cpy = (((tok >> 30) & 1) == 1) & live
+    return np.stack([ntok - cpy.sum(axis=1), cpy.sum(axis=1)], axis=1)
+
+
+def check_deflate_widths(payloads) -> None:
+    """``deflate_members`` straight, at every hash width (8..11), on the
+    trouble cases at assorted leads: rows, clens and ok equal the plain
+    version's, and the kernel's literal and copy counts equal the plain
+    version's tokens."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops.kernels import deflate as kd
+
+    cpu = _member_tensors(payloads, "cpu")
+    dev = _member_tensors(payloads, "cuda")
+    row = kd.out_bytes(max(cpu[3], 1)) + 3
+    n = len(payloads)
+    for hb in (8, 9, 10, 11):
+        counts = torch.zeros((n, 3), dtype=torch.int32, device="cuda")
+        kc, kl, ko = [t.cpu().numpy() for t in kd.deflate_members(*dev, hb, row, counts=counts)]
+        pc, pl, po = [t.numpy() for t in kd.deflate_members(*cpu, hb, row)]
+        if not (np.array_equal(kl, pl) and np.array_equal(ko, po) and np.array_equal(kc, pc)):
+            raise AssertionError(f"deflate kernel differs from plain at hb {hb}")
+        want = token_counts(*cpu[:3], hb)
+        if not np.array_equal(counts.cpu().numpy()[:, :2], want):
+            raise AssertionError(f"deflate kernel's token counts differ from plain at hb {hb}")
+    log(f"deflate kernel == plain at hb 8..11: {n} trouble cases (0-32,909 bytes), "
+        "token counts equal")
 
 
 # ---------------------------------------------------------------------------
@@ -2420,18 +2514,30 @@ def time_write_kernels(inflated, host, up0, checks: dict, launches: dict,
                        "deflate, gathered part")
     k_ms = cuda_ms(lambda: kd.deflate_lanes_stream(g, lens, offs=offs), iters=3, warmup=1)
     out_b = int(kl.astype(np.int64).sum())
+    mx = int(lens.max())
+    counts = torch.zeros((len(lens), 3), dtype=torch.int32, device="cuda")
+    P = kd.round_up(mx, kd.DEFAULT_CHUNK)
+    kd.deflate_members(g, torch.from_numpy(offs).cuda(),
+                       torch.from_numpy(lens.astype(np.int32)).cuda(), mx, kd.hash_bits(P),
+                       kd.out_bytes(P), counts=counts)
+    lit, cpy, win = counts.cpu().numpy().astype(np.int64).sum(axis=0).tolist()
     rows.append({
         "name": "deflate_members", "route": "cuda",
-        "source": "hadoop_bam_tpu_torch/csrc/deflate.cu",
+        "source": "hadoop_bam_tpu_torch/csrc/deflate.cu + hadoop_bam_tpu_torch/csrc/deflate_core.cuh",
         "replaces": "hadoop_bam_tpu/ops/pallas/deflate_lanes.py:328",
         "launches": launches["deflate_members"], "launches_from": "sort_bam(cuda), default gates",
         "max_abs_err": float(np.count_nonzero(kc != pc)), "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": (total + out_b + 20 * len(lens)) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": None,
         "shape": f"{len(lens)} members, {total} -> {out_b} bytes",
+        "literals": lit, "copies": cpy, "windows": win,
     })
     log(f"deflate kernel == plain on the gathered part: {len(lens)} full-size members, every "
         "row inflates through zlib and the inflate kernel")
+    log(f"  row 3 (deflate_members) at the part's shape: {k_ms:.4f} ms, "
+        f"{launches['deflate_members']} launches a sort, bound {rows[-1]['bound_ms']:.4f} ms; "
+        f"kernel counts: {lit} literals, {cpy} copies, {win} windows "
+        f"({win / len(lens):.1f} a member); {sm_clocks()}")
     kcr = kcrc.crc32_device(g, offs, lens).cpu()
     pcr = kcrc.crc32_device(gh, offs, lens)
     want = np.array([zlib.crc32(ghn[o : o + n]) for o, n in zip(offs, lens)], dtype=np.int64)
@@ -2887,6 +2993,15 @@ def codec_phase(work: str, seed: int, checks: dict, mib: int) -> list:
         "every cursor in the stream (T = 2048..16384)")
     log(f"codec phase: {time.perf_counter() - t_phase:.1f} s")
     return rows
+
+
+def sm_clocks() -> str:
+    """The SM clock now and its maximum, as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return f"SM clock, max: {out[0]}" if out else "SM clock not read"
 
 
 def card_line() -> str:

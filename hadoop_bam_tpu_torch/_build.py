@@ -42,7 +42,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "hbt_stream_keys": [_P, _I64, _P, _P, _I64, _P, _P, _P],
     },
     "deflate": {
-        "hbt_deflate_members": [_P, _I64, _P, _P, _I64, _I32, _I32, _I64, _P, _P, _P, _P],
+        "hbt_deflate_members": [_P, _I64, _P, _P, _I64, _I32, _I32, _I64, _P, _P, _P, _P, _P],
     },
     "write": {
         "hbt_gather_stream": [_P, _P, _P, _P, _P, _I64, _I32, _P, _P],

@@ -1,5 +1,5 @@
 // Greedy LZ77 + fixed-Huffman DEFLATE of BGZF member payloads for Hopper
-// (sm_90a): one CTA per member.
+// (sm_90a): one CTA per member, one warp walks it.
 //
 // Replaces the TPU kernel hadoop_bam_tpu/ops/pallas/deflate_lanes.py
 // (_kernel_factory and _launch, pl.pallas_call at :328) together with the
@@ -8,148 +8,82 @@
 // (_emit_tokens_fixed, :412).  The TPU kernel walks 128 members in
 // lockstep, one per vector lane, reads "4 bytes at my cursor" as one-hot
 // row selects over a transposed word layout, streams int32 tokens to HBM
-// chunk by chunk and packs the bits afterwards with a per-output-bit
-// searchsorted.  None of that carries over: here each member gets its own
-// CTA, and one thread walks it and writes the DEFLATE bits as it decides
-// each token, so no token array exists.
-//
-// Per member (the sequential function the lockstep waves compute):
-//   1. the CTA stages the payload into shared memory with 16-byte loads and
-//      zeroes the two hash-head generations h1/h2 (2^hb int32 slots each);
-//   2. thread 0 walks the payload.  Scan step at cur (not in a match):
-//      wa = LE word at cur; if cur + 4 <= plen, h = (wa * 0x9E3779B1) >>
-//      (32 - hb), candidates c1 = h1[h] - 1 and c2 = h2[h] - 1, then
-//      h2[h] = h1[h], h1[h] = cur + 1; a candidate matches when it is >= 0,
-//      at most 32 KiB back and its word equals wa (c1 first).  A match
-//      extends 0-4 bytes per step (leading equal bytes of the next words,
-//      capped by plen and 258) until a step adds fewer than 4; then the copy
-//      (mlen, cur - mpos) is emitted and cur jumps past it.  No position
-//      inside a match enters the hash heads.  Otherwise the literal byte is
-//      emitted.
-//   3. bits: BFINAL=1, BTYPE=01, RFC 1951 fixed codes (literal 8/9 bits,
-//      length 7/8 bits + extra, 5-bit distance + extra), EOB; meta
-//      clens[i] = ceil(bits / 8), ok[i] = (cur == plen).
-// Bytes at or past plen read as 0; they never change a decision (every
-// comparison is capped at plen).
+// chunk by chunk and packs the bits afterwards.  None of that carries
+// over: no token array exists here, and the bits of each window of
+// decisions go out as soon as they are known.
 //
 // Bound on this card: bytes (payload in, compressed bytes out) over
-// 3.35 TB/s.  This first design is far from it: the walk is one dependent
-// chain of shared-memory loads per input byte on one thread per member, and
-// latency is hidden only by the members in flight (about 74 KiB of shared
-// memory per full-size member, so three CTAs per SM).  Splitting a member's
-// match search across a warp is later work.
+// 3.35 TB/s.  The kernel is far from it, because a member is one chain of
+// decisions: where the next token starts depends on the last one, and
+// every scan step reads the hash heads the steps before it wrote.  What
+// the design does about it (the walk is deflate_core.cuh; a host build of
+// it is held to the plain version by the CPU tests):
+//
+//   1. A window of 32 positions a step.  Lane L of the member's warp takes
+//      position cur + L: its word, its hash, its two candidates (earlier
+//      lanes of its hash group, else the heads as they stood) and its match
+//      test run at once, and one ballot finds the first lane F that
+//      matches.  The lanes before F are literals and are exact; F starts
+//      the copy; the rest are dropped.  A run of literals advances 32 bytes
+//      for one chain of dependent loads, where the earlier design (one
+//      thread a member) paid that chain for every byte.
+//   2. Hash groups through shared memory: each lane ORs its bit into its
+//      hash's slot of a second 2^hb-word table and reads it back.
+//      __match_any_sync computes the same and was the largest single cost
+//      of the first version on an H100; eleven ballots (one a hash bit)
+//      cost more than the table too.
+//   3. The extension compares 32 words at a time: a copy of 258 bytes is
+//      at most three steps of one ballot each.
+//   4. Bits.  Literal codes are 8 or 9 bits, so a popcount of a ballot
+//      places them; two shuffles gather four codes on one lane, and at most
+//      nine lanes OR them (and the copy's code) into a 256-byte ring in
+//      shared memory with predicated reductions.  A window's bits go into
+//      the ring while the next window's loads are in flight.  Each 128-byte
+//      stretch behind them goes to the row, four bytes a lane (the rows
+//      are not 4-byte aligned: out_stride is odd).
+//   5. Staged payload.  The member's warp copies it into shared memory with
+//      16-byte asynchronous copies; candidates and extensions then read
+//      shared memory, never device memory.
+//
+// What sets the members an SM: shared memory.  A full-size member (57,088
+// bytes) stages ≈ 56 KiB, the heads and the group slots take 2^hb 32-bit
+// words each (h1 and h2 as 16-bit halves of a head: positions + 1 <=
+// 65,533 fit), 16 KiB at hb = 11, and the ring 256 bytes: ≈ 72 KiB a CTA,
+// three CTAs an SM, 396 members at once on 132 SMs.  A part's 920 members
+// take three rounds, the last a third full.  A CTA is the member's one
+// warp (four warps a CTA, three of them idle after the staging, ran a
+// little slower).
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "deflate_core.cuh"
+
 namespace {
 
-constexpr int kMinMatch = 4;
-constexpr int kMaxMatch = 258;
-constexpr int kMaxDist = 1 << 15;
-constexpr int kThreads = 128;
+using namespace hbt_deflate;
 
-__constant__ uint16_t kLenBase[29] = {
-    3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27,
-    31, 35, 43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258};
-__constant__ uint8_t kLenExtra[29] = {
-    0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2,
-    2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 0};
-__constant__ uint16_t kDistBase[30] = {
-    1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129,
-    193, 257, 385, 513, 769, 1025, 1537, 2049, 3073, 4097, 6145, 8193,
-    12289, 16385, 24577};
-__constant__ uint8_t kDistExtra[30] = {
-    0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6,
-    6, 7, 7, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12, 13, 13};
-
-// LSB-first bit writer straight into the member's output row.
-struct BitSink {
-  uint8_t* out;
-  int32_t pos;  // bytes written
-  uint64_t acc;
-  int n;  // bits pending in acc, < 32 between calls
-
-  // k <= 31.
-  __device__ void put(uint32_t bits, int k) {
-    acc |= static_cast<uint64_t>(bits) << n;
-    n += k;
-    if (n >= 32) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) out[pos + j] = static_cast<uint8_t>(acc >> (8 * j));
-      pos += 4;
-      acc >>= 32;
-      n -= 32;
-    }
-  }
-  __device__ int32_t finish() {
-    while (n > 0) {
-      out[pos++] = static_cast<uint8_t>(acc);
-      acc >>= 8;
-      n -= 8;
-    }
-    return pos;
-  }
-};
-
-// Little-endian 32 bits at staged byte p (any alignment).
-__device__ __forceinline__ uint32_t word_at(const uint32_t* s32, int p) {
-  const int w = p >> 2;
-  return __funnelshift_r(s32[w], s32[w + 1], (p & 3) * 8);
-}
-
-// MSB-first Huffman code of n bits as the LSB-first stream pattern.
-__device__ __forceinline__ uint32_t rev(uint32_t code, int n) {
-  return __brev(code) >> (32 - n);
-}
-
-__device__ __forceinline__ void put_literal(BitSink& bs, uint32_t v) {
-  if (v < 144) bs.put(rev(0x30 + v, 8), 8);
-  else bs.put(rev(0x190 + (v - 144), 9), 9);
-}
-
-// Length 4..258, distance 1..32768: one pattern of at most 31 bits.
-__device__ __forceinline__ void put_copy(BitSink& bs, int len, int dist) {
-  int li;
-  if (len == kMaxMatch) {
-    li = 28;
-  } else {
-    const int l = len - 3;
-    const int nb = 31 - __clz(l);
-    li = l < 8 ? l : 4 * (nb - 1) + ((l >> (nb - 2)) & 3);
-  }
-  const int ln = li <= 22 ? 7 : 8;
-  const uint32_t lcode = li <= 22 ? static_cast<uint32_t>(li + 1)
-                                  : static_cast<uint32_t>(0xC0 + (li - 23));
-  const int e1 = kLenExtra[li];
-  const int d = dist - 1;
-  const int db = 31 - __clz(d | 1);
-  const int di = d < 4 ? d : 2 * db + ((d >> (db - 1)) & 1);
-  const int e2 = kDistExtra[di];
-  const uint32_t bits = rev(lcode, ln)
-                        | (static_cast<uint32_t>(len - kLenBase[li]) << ln)
-                        | (rev(static_cast<uint32_t>(di), 5) << (ln + e1))
-                        | (static_cast<uint32_t>(dist - kDistBase[di]) << (ln + e1 + 5));
-  bs.put(bits, ln + e1 + 5 + e2);
-}
+constexpr int kThreads = kLanes;  // the member's warp
 
 __global__ void __launch_bounds__(kThreads)
 deflate_members_kernel(const uint8_t* __restrict__ stream, int64_t n_stream,
                        const int64_t* __restrict__ offs,
                        const int32_t* __restrict__ lens, int hb,
                        int64_t out_stride, uint8_t* __restrict__ comp,
-                       int32_t* __restrict__ clens, int32_t* __restrict__ ok) {
+                       int32_t* __restrict__ clens, int32_t* __restrict__ ok,
+                       int32_t* __restrict__ counts) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int H = 1 << hb;
-  int32_t* h1 = reinterpret_cast<int32_t*>(smem);
-  int32_t* h2 = h1 + H;
-  uint8_t* staged = smem + 8 * H;  // 16-byte aligned: H >= 256
+  uint32_t* heads = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* groups = heads + H;
+  uint32_t* ring = groups + H;
+  uint8_t* staged = reinterpret_cast<uint8_t*>(ring + kRingWords);  // 16-aligned
 
   const int64_t i = blockIdx.x;
   const int32_t plen = lens[i];
 
-  // 1. Stage [offs, offs + plen) with 16-byte loads from the aligned base;
+  // 1. Stage [offs, offs + plen) from the 16-byte aligned base below it;
   //    vectors that reach outside the stream fall back to byte loads.
   const uintptr_t lo = reinterpret_cast<uintptr_t>(stream);
   const uintptr_t hi = lo + static_cast<uintptr_t>(n_stream);
@@ -157,15 +91,14 @@ deflate_members_kernel(const uint8_t* __restrict__ stream, int64_t n_stream,
   const uintptr_t base = src & ~uintptr_t(15);
   const int lead = static_cast<int>(src - base);
   const int nvec = plen > 0 ? (lead + plen + 15) / 16 : 0;
-  for (int k = threadIdx.x; k < H; k += blockDim.x) {
-    h1[k] = 0;
-    h2[k] = 0;
-  }
-  uint4* vdst = reinterpret_cast<uint4*>(staged);
-  for (int k = threadIdx.x; k < nvec; k += blockDim.x) {
+  for (int k = threadIdx.x; k < 2 * H + kRingWords; k += kThreads) heads[k] = 0;
+  for (int k = threadIdx.x; k < nvec; k += kThreads) {
     const uintptr_t a = base + 16 * static_cast<uintptr_t>(k);
     if (a >= lo && a + 16 <= hi) {
-      vdst[k] = *reinterpret_cast<const uint4*>(a);
+      const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(staged + 16 * k));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+                   "l"(reinterpret_cast<const void*>(a))
+                   : "memory");
     } else {
       for (int j = 0; j < 16; ++j) {
         const uintptr_t b = a + j;
@@ -173,55 +106,27 @@ deflate_members_kernel(const uint8_t* __restrict__ stream, int64_t n_stream,
       }
     }
   }
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  for (int j = 0; j < 8; ++j) staged[lead + plen + j] = 0;
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncwarp();
 
   // 2. Walk and emit.
-  const uint32_t* s32 = reinterpret_cast<const uint32_t*>(staged);
-  BitSink bs{comp + i * out_stride, 0, 0ull, 0};
-  bs.put(3, 3);  // BFINAL = 1, BTYPE = 01 (fixed Huffman)
-  const int shift = 32 - hb;
-  int32_t cur = 0;
-  while (cur < plen) {
-    const int p = lead + cur;
-    const uint32_t wa = word_at(s32, p);
-    if (cur + kMinMatch <= plen) {
-      const uint32_t h = (wa * 0x9E3779B1u) >> shift;
-      const int32_t s1 = h1[h];
-      const int32_t s2 = h2[h];
-      h2[h] = s1;
-      h1[h] = cur + 1;
-      const int32_t c1 = s1 - 1;
-      const int32_t c2 = s2 - 1;
-      int32_t mpos = -1;
-      if (c1 >= 0 && cur - c1 <= kMaxDist && word_at(s32, lead + c1) == wa) {
-        mpos = c1;
-      } else if (c2 >= 0 && cur - c2 <= kMaxDist && word_at(s32, lead + c2) == wa) {
-        mpos = c2;
-      }
-      if (mpos >= 0) {
-        int32_t mlen = kMinMatch;
-        for (;;) {
-          const uint32_t x = word_at(s32, p + mlen) ^ word_at(s32, lead + mpos + mlen);
-          const int nm = x == 0 ? 4 : (__ffs(static_cast<int>(x)) - 1) >> 3;
-          const int add = max(min(nm, min(plen - (cur + mlen), kMaxMatch - mlen)), 0);
-          mlen += add;
-          if (add < 4) break;
-        }
-        put_copy(bs, mlen, cur - mpos);
-        cur += mlen;
-        continue;
-      }
-    }
-    put_literal(bs, wa & 0xFFu);
-    cur += 1;
-  }
-  bs.put(0, 7);  // end of block: code 256 is seven zero bits
+  Warp q;
+  init_lanes(q, threadIdx.x);
+  const Member m{reinterpret_cast<const uint32_t*>(staged), lead, plen, hb, heads, groups,
+                 ring, comp + i * out_stride};
+  Counts c;
+  const int32_t clen = deflate_member(q, m, &c);
 
   // 3. Meta.
-  clens[i] = bs.finish();
-  ok[i] = cur == plen ? 1 : 0;
+  if (threadIdx.x == 0) {
+    clens[i] = clen;
+    ok[i] = 1;  // the walk always ends at plen
+    if (counts != nullptr) {
+      counts[3 * i] = c.literals;
+      counts[3 * i + 1] = c.copies;
+      counts[3 * i + 2] = c.windows;
+    }
+  }
 }
 
 }  // namespace
@@ -231,14 +136,16 @@ extern "C" {
 // Compress n members.  Member i's payload is stream[offs[i] .. + lens[i])
 // of a stream of n_stream bytes; its DEFLATE member goes to
 // comp[i * out_stride ..], which the caller zeroes, and meta to clens[i],
-// ok[i].  stage_bytes >= 16 * ceil((15 + max lens + 16) / 16); hb is the
-// hash-head width (8..11).  Returns the CUDA error code of the launch.
+// ok[i]; counts (int32 [n][3], or null) gets each member's literals, copies
+// and windows.  stage_bytes >= 16 * ceil((15 + max lens + 16) / 16); hb is
+// the hash-head width (8..11).  Returns the CUDA error code of the launch.
 int hbt_deflate_members(const void* stream, long long n_stream,
                         const void* offs, const void* lens, long long n,
                         int hb, int stage_bytes, long long out_stride,
-                        void* comp, void* clens, void* ok, void* cuda_stream) {
+                        void* comp, void* clens, void* ok, void* counts,
+                        void* cuda_stream) {
   if (n <= 0) return 0;
-  const int smem = 8 * (1 << hb) + stage_bytes;
+  const int smem = 4 * (2 * (1 << hb) + kRingWords) + stage_bytes;
   cudaError_t e = cudaFuncSetAttribute(
       deflate_members_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -247,7 +154,8 @@ int hbt_deflate_members(const void* stream, long long n_stream,
       static_cast<const uint8_t*>(stream), static_cast<int64_t>(n_stream),
       static_cast<const int64_t*>(offs), static_cast<const int32_t*>(lens), hb,
       static_cast<int64_t>(out_stride), static_cast<uint8_t*>(comp),
-      static_cast<int32_t*>(clens), static_cast<int32_t*>(ok));
+      static_cast<int32_t*>(clens), static_cast<int32_t*>(ok),
+      static_cast<int32_t*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,7 +8,8 @@ bytes are its own, not zlib's, and the part files pin them, so both
 versions here make the reference's token decisions: 4-byte hash heads in
 two generations of ``H`` slots, candidates at most 32 KiB back, matches
 of 4..258 bytes extended at most 4 bytes per step, and RFC 1951 fixed
-codes (see the note at the top of ``csrc/deflate.cu``).
+codes (see the notes at the top of ``csrc/deflate.cu`` and
+``csrc/deflate_core.cuh``).
 
 The reference's lockstep waves, input chunks and token tiles are TPU
 geometry; the function they compute is sequential per member, and only
@@ -45,7 +46,7 @@ MIN_CHUNK = 256
 _ST_ROWS = 8
 
 # RFC 1951 fixed-code tables (the same values as ``ops/flate.py`` and the
-# constants in ``csrc/deflate.cu``).
+# constants in ``csrc/deflate_core.cuh``).
 _LEN_BASE = np.array([3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35,
                       43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258], dtype=np.int64)
 _LEN_EXTRA = np.array([0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3,
@@ -106,7 +107,7 @@ def out_bytes(P: int) -> int:
 
 def stage_bytes(max_plen: int) -> int:
     """Shared memory that stages one member: its bytes from the 16-byte
-    aligned base, plus zeroed slack that word reads past the end see."""
+    aligned base, plus slack that word reads past the end touch."""
     return 16 * (-(-(15 + max(int(max_plen), 0) + 16) // 16))
 
 
@@ -117,13 +118,16 @@ def deflate_members(
     max_plen: int,
     hb: int,
     row_bytes: int,
+    counts: Optional[torch.Tensor] = None,
 ):
     """Compress member i = ``stream[offs[i] : + lens[i]]`` into row i of a
     zeroed uint8 ``[n, row_bytes]`` tensor, one final fixed-Huffman DEFLATE
     block each.  ``max_plen`` is ``lens.max()`` (known on the host, so no
     sync); ``hb`` is the hash width (:func:`hash_bits`).  Returns ``(comp,
     clens int32, ok int32)``.  Dtypes: ``stream`` uint8, ``offs`` int64,
-    ``lens`` int32."""
+    ``lens`` int32.  ``counts``, an int32 ``[n, 3]`` tensor on the card,
+    gets each member's literals, copies and 32-position scan windows from
+    the kernel (the plain version has no windows, so the CPU refuses it)."""
     check_tensor(stream, "stream", torch.uint8)
     check_tensor(offs, "offs", torch.int64)
     check_tensor(lens, "lens", torch.int32)
@@ -134,7 +138,13 @@ def deflate_members(
         raise ValueError(f"hash width {hb} outside 8..11")
     if max_plen > MAX_MEMBER or row_bytes < out_bytes(max(max_plen, 1)):
         raise ValueError("member geometry outside the kernel's range")
-    if use_plain(stream, offs, lens):
+    if counts is not None:
+        check_tensor(counts, "counts", torch.int32)
+        if tuple(counts.shape) != (n, 3):
+            raise ValueError(f"counts must be [{n}, 3]")
+    if use_plain(stream, offs, lens, *([] if counts is None else [counts])):
+        if counts is not None:
+            raise ValueError("counts are the kernel's; the plain version has none")
         return deflate_members_plain(stream, offs, lens, hb, row_bytes)
     dev = stream.device
     comp = torch.zeros((n, row_bytes), dtype=torch.uint8, device=dev)
@@ -146,7 +156,7 @@ def deflate_members(
     rc = lib.hbt_deflate_members(
         stream.data_ptr(), stream.numel(), offs.data_ptr(), lens.data_ptr(), n, hb,
         stage_bytes(max_plen), row_bytes, comp.data_ptr(), clens.data_ptr(), ok.data_ptr(),
-        stream_handle(stream),
+        None if counts is None else counts.data_ptr(), stream_handle(stream),
     )
     _build.check(rc, "deflate_members")
     LAUNCHES.add()

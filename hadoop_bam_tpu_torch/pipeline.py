@@ -93,6 +93,10 @@ def sort_bam(
     mesh=None,
     distributed=None,
     errors: Optional[str] = None,
+    backend: str = "device",
+    max_attempts: int = 3,
+    resource_cache=None,
+    deadline=None,
 ) -> SortStats:
     """Coordinate-sort BAM or CRAM file(s) into one BAM, byte for byte what
     the reference's ``sort_bam`` writes for the same input and options.
@@ -116,26 +120,49 @@ def sort_bam(
     the host (the device parse applies only to BGZF splits);
     reference-based CRAM needs ``hadoopbam.cram.reference-source-path``.
 
-    Not ported yet (each raises ``NotImplementedError``): ``memory_budget``,
-    ``mark_duplicates``, ``sort_order="queryname"``, ``mesh`` /
-    ``distributed`` and ``errors="salvage"``."""
+    ``backend`` is "device" (keys sorted on ``device``, built there by the
+    chain kernels when ``device_parse``) or "host" (keys built and sorted
+    on the host, a stable NumPy argsort: the reference's oracle; the reads
+    and part writes still follow the gates); the output bytes are the same.
+    ``max_attempts`` is taken for the reference's signature and is inert:
+    parts are written once, with no retry executor yet (ROADMAP A.2).
+
+    ``errors`` (default ``hadoopbam.errors``, else "strict") and
+    ``sort_order`` (default ``hadoopbam.bam.sort-order``, else
+    "coordinate") are checked first, with the reference's ``ValueError``
+    outside their domains.  Not ported yet (each raises
+    ``NotImplementedError``): ``memory_budget``, ``mark_duplicates``,
+    ``sort_order="queryname"``, ``mesh`` / ``distributed``,
+    ``errors="salvage"`` and the serve job's ``resource_cache`` /
+    ``deadline``."""
+    if backend not in ("device", "host"):
+        raise ValueError(f"backend must be 'device' or 'host', got {backend!r}")
+    if errors is None:
+        errors = (conf.get(ERRORS_MODE, "strict") if conf is not None else "strict") or "strict"
+    if errors not in ("strict", "salvage"):
+        raise ValueError(f"errors must be strict|salvage, got {errors!r}")
+    if sort_order is None:
+        sort_order = (conf.get(BAM_SORT_ORDER, "coordinate") if conf is not None
+                      else "coordinate") or "coordinate"
+    if sort_order not in ("coordinate", "queryname"):
+        raise ValueError(f"sort_order must be coordinate|queryname, got {sort_order!r}")
     dev = resolve_device(device)
     if isinstance(in_paths, str):
         in_paths = [in_paths]
     if conf is not None:
         write_splitting_bai = write_splitting_bai or conf.get_boolean(BAM_WRITE_SPLITTING_BAI)
         mark_duplicates = mark_duplicates or conf.get_boolean(BAM_MARK_DUPLICATES)
-        sort_order = sort_order or conf.get(BAM_SORT_ORDER)
-        errors = errors or conf.get(ERRORS_MODE)
+    if resource_cache is not None or deadline is not None:
+        raise _not_ported("deadline / resource_cache (the serve sort job)", "A.11")
     if memory_budget is not None:
         raise _not_ported("memory_budget (the out-of-core sort)", "A.4")
     if mark_duplicates:
         raise _not_ported("mark_duplicates", "A.5")
-    if (sort_order or "coordinate") != "coordinate":
+    if sort_order != "coordinate":
         raise _not_ported(f"sort_order={sort_order!r}", "A.6")
     if mesh is not None or distributed is not None:
         raise _not_ported("mesh / distributed sorting", "A.10")
-    if (errors or "strict") != "strict":
+    if errors != "strict":
         raise _not_ported(f"errors={errors!r}", "A.7")
     stream = DeviceStream(dev, conf=conf)
     use_device_write = stream.policy.device_write
@@ -143,7 +170,9 @@ def sort_bam(
     fmt = _input_format(conf, in_paths)
     header = _read_any_header(fmt, in_paths[0]).with_sort_order("coordinate")
     splits = fmt.get_splits(in_paths, split_size=split_size)
-    if device_parse is None:
+    if backend == "host":
+        device_parse = False
+    elif device_parse is None:
         env = os.environ.get("HBAM_DEVICE_PARSE")
         device_parse = (
             env.strip().lower() not in ("0", "false", "no", "off", "")
@@ -172,6 +201,8 @@ def sort_bam(
     if n and device_parse:
         backend = "device-parse"
         perm = _finish_device_parse(batches, parsed, dev, stream.metrics)
+    elif n and backend == "host":
+        perm = np.argsort(np.concatenate([b.keys for b in batches]), kind="stable")
     elif n:
         backend = "single-device"
         keys = torch.from_numpy(np.concatenate([b.keys for b in batches])).to(dev)

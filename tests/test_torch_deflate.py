@@ -191,7 +191,9 @@ def _cu_table(src: str, name: str) -> list:
 
 
 def test_kernel_constants_equal_the_reference():
-    cu = (REPO / "hadoop_bam_tpu_torch" / "csrc" / "deflate.cu").read_text()
+    # The kernel's walk and its tables live in deflate_core.cuh, whose
+    # static_assert holds the formulas the walk uses to these tables.
+    cu = (REPO / "hadoop_bam_tpu_torch" / "csrc" / "deflate_core.cuh").read_text()
     for py, c in (("LEN_BASE", "kLenBase"), ("LEN_EXTRA", "kLenExtra"),
                   ("DIST_BASE", "kDistBase"), ("DIST_EXTRA", "kDistExtra")):
         ref = [int(x) for x in getattr(jflate, py)]

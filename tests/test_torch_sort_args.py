@@ -1,0 +1,102 @@
+"""``sort_bam``'s arguments against the reference's: the domains of
+``errors``, ``sort_order`` and ``backend`` raise the reference's
+``ValueError`` (class and message) before anything else, also when the
+value comes through the configuration; ``backend="host"`` and
+``max_attempts`` are taken and write the reference's bytes; the serve job's
+``resource_cache`` and ``deadline`` are not ported yet and say so."""
+
+import os
+
+import pytest
+import torch
+
+from hadoop_bam_tpu import pipeline as jpipeline
+from hadoop_bam_tpu.conf import Configuration as JConf
+from hadoop_bam_tpu_torch import pipeline as tpipeline
+from hadoop_bam_tpu_torch.conf import from_reference_conf
+from test_torch_sort_bam import HOST, LANES, _read, _write_bam
+
+
+@pytest.fixture(scope="module")
+def src(tmp_path_factory):
+    p = str(tmp_path_factory.mktemp("sort_args") / "in.bam")
+    _write_bam(p, n=60, seed=3)
+    return p
+
+
+def _raised(fn):
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - the class is what is compared
+        return type(e), str(e)
+    return None
+
+
+BAD = [
+    ({"errors": "bogus"}, {}),
+    ({"sort_order": "bogus"}, {}),
+    ({"errors": ""}, {}),
+    ({}, {"hadoopbam.errors": "bogus"}),
+    ({}, {"hadoopbam.bam.sort-order": "bogus"}),
+    ({"backend": "tpu"}, {}),
+    ({"backend": "host", "errors": "lenient"}, {}),
+]
+
+
+@pytest.mark.parametrize("kwargs,conf", BAD, ids=[
+    "errors", "sort_order", "errors_empty", "conf_errors", "conf_sort_order", "backend",
+    "host_backend_errors"])
+def test_bad_values_raise_the_reference_error(src, tmp_path, kwargs, conf):
+    want = _raised(lambda: jpipeline.sort_bam(src, str(tmp_path / "ref.bam"), conf=JConf(conf),
+                                              **kwargs))
+    got = _raised(lambda: tpipeline.sort_bam(src, str(tmp_path / "port.bam"),
+                                             conf=from_reference_conf(conf), device="cpu",
+                                             **kwargs))
+    assert want is not None and want[0] is ValueError
+    assert got == want
+    assert not os.path.exists(tmp_path / "port.bam")
+
+
+@pytest.mark.parametrize("kwargs", [{"errors": "bogus"}, {"sort_order": "bogus"},
+                                    {"backend": "bogus"}], ids=["errors", "sort_order", "backend"])
+def test_domain_is_checked_before_the_device(tmp_path, monkeypatch, kwargs):
+    """With no card and no ``device``, a bad value still raises its
+    ``ValueError``, not the missing card's ``RuntimeError``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="must be"):
+        tpipeline.sort_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"), **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [{"resource_cache": object()}, {"deadline": object()}],
+                         ids=["resource_cache", "deadline"])
+def test_serve_job_arguments_cite_a11(tmp_path, kwargs):
+    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A\.11\)$"):
+        tpipeline.sort_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"), device="cpu",
+                           **kwargs)
+
+
+@pytest.mark.parametrize("gates,device_parse", [(HOST, None), (LANES, True)],
+                         ids=["host_gates", "lanes_device_parse"])
+def test_host_backend_writes_the_reference_bytes(src, tmp_path, gates, device_parse):
+    """``backend="host"``: keys built and sorted on the host (an explicit
+    ``device_parse`` is overridden, as in the reference), the reference's
+    bytes, and the same bytes as the device backend."""
+    t_out, j_out, d_out = (str(tmp_path / f) for f in ("port.bam", "ref.bam", "dev.bam"))
+    st = tpipeline.sort_bam(src, t_out, conf=from_reference_conf(gates), device="cpu",
+                            device_parse=device_parse, level=1, split_size=1024, backend="host")
+    jst = jpipeline.sort_bam(src, j_out, conf=JConf(gates), device_parse=device_parse, level=1,
+                             split_size=1024, backend="host")
+    tpipeline.sort_bam(src, d_out, conf=from_reference_conf(gates), device="cpu", level=1,
+                       split_size=1024)
+    assert st.backend == jst.backend == "host"
+    assert st.n_records == jst.n_records == 60
+    assert _read(t_out) == _read(j_out) == _read(d_out)
+
+
+def test_max_attempts_is_taken(src, tmp_path):
+    """``max_attempts`` is inert until the retry executor (A.2): the bytes
+    are those of the default."""
+    a, b = str(tmp_path / "a.bam"), str(tmp_path / "b.bam")
+    for out, kw in ((a, {"max_attempts": 1}), (b, {})):
+        tpipeline.sort_bam(src, out, conf=from_reference_conf(HOST), device="cpu", level=1, **kw)
+    assert _read(a) == _read(b)
