@@ -1083,19 +1083,119 @@ def varied_bcf_payload(seed: int, n: int = 3000) -> bytes:
     return b"".join(out)
 
 
-def bcf_walk_cases(seed: int, big: bytes) -> dict:
+def bcf_records(rng, lengths) -> bytes:
+    """Records of the given lengths (8 + l_shared + l_indiv each, at least
+    32): l_shared drawn from 24 .. min(length - 8, 4096), random fixed
+    fields and blocks (so some positions inside a record frame plausibly)."""
+    out = []
+    for ln in lengths:
+        ls = int(rng.integers(24, min(ln - 8, 4096) + 1))
+        out.append(struct.pack("<II", ls, ln - 8 - ls)
+                   + rng.integers(0, 256, ln - 8, dtype=np.uint8).tobytes())
+    return b"".join(out)
+
+
+def bcf_record_starts(payload: bytes, start: int = 0) -> list:
+    """The chain positions of a clean payload from ``start``, its end included."""
+    offs = [start]
+    while offs[-1] + 8 <= len(payload):
+        ls, li = struct.unpack_from("<II", payload, offs[-1])
+        offs.append(offs[-1] + 8 + ls + li)
+    return offs
+
+
+def bcf_trouble_cases(seed: int, seg: int, slab: int, big: bool = False) -> dict:
+    """``(payload, start, limit, ok)`` of the chain walk's trouble cases for
+    the card's walk in segments of ``seg`` bytes anchored at ``start`` and
+    slabs of ``slab``: records longer than a segment and than a slab,
+    records on segment boundaries and in a segment's last 1-31 bytes, a
+    plausible false chain inside a long record, framing errors in the
+    first, a middle and the last segment, the length words' edges, a
+    truncated record, limits at p + 7, p + 8 and past the payload, empty
+    windows, unaligned starts, minimal records, starts past the payload and
+    an empty payload.  ``ok`` is the walk's verdict.  ``big`` adds a valid
+    record with l_indiv = 2^28 - 1 (a 268 MB payload)."""
+    rng = np.random.default_rng(seed)
+    S = seg
+
+    def fill(nbytes: int) -> list:
+        out = []
+        while sum(out) < nbytes:
+            out.append(int(rng.integers(32, 400)))
+        return out
+
+    def rec(ls: int, li: int, body: int = -1) -> bytes:
+        body = ls + li if body < 0 else body
+        return struct.pack("<II", ls, li) + rng.integers(0, 256, body, dtype=np.uint8).tobytes()
+
+    def around(middle: bytes) -> bytes:
+        return bcf_records(rng, fill(2 * S)) + middle + bcf_records(rng, fill(S))
+
+    cases = {}
+    varied = bcf_records(rng, fill(S) + [S + 1] + fill(S) + [5 * S // 2] + fill(S)
+                         + [3 * S + 17] + fill(S))
+    cases["varied lengths, records past a segment"] = (varied, 0, len(varied), 1)
+    over = bcf_records(rng, fill(S) + [slab + S + 123] + fill(S))
+    cases["a record past a slab"] = (over, 0, len(over), 1)
+    edge = bcf_records(rng, [max(32, S // 4)] * 24)
+    cases["records on segment boundaries"] = (edge, 0, len(edge), 1)
+    tail = bcf_records(rng, [S - 1] * 33)
+    cases["records in a segment's last 1-31 bytes"] = (tail, 0, len(tail), 1)
+    # A long record whose genotype block holds a chain of plausible 40-byte
+    # records, 4 bytes off, across three segments and past the record's end.
+    fakes = b"".join(struct.pack("<II", 24, 8) + rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+                     for _ in range(3 * S // 40 + 4))
+    li = 3 * S + 11
+    host = struct.pack("<II", 24, li) + rng.integers(0, 256, 24, dtype=np.uint8).tobytes()
+    false = around(host + (bytes(4) + fakes)[:li])
+    cases["a false chain inside a genotype block"] = (false, 0, len(false), 1)
+    errs = bcf_records(rng, fill(4 * S + 100))
+    offs = bcf_record_starts(errs)[:-1]
+    mid = min(o for o in offs if o >= 2 * S)
+    for where, at in (("the first segment", [o for o in offs if o < S][-1]),
+                      ("a middle segment", mid), ("the last record", offs[-1])):
+        bad = bytearray(errs)
+        struct.pack_into("<I", bad, at, 7)
+        cases[f"l_shared 7 in {where}"] = (bytes(bad), 0, len(bad), 0)
+    for ls, ok in ((23, 0), (24, 1), ((1 << 24) - 1, 1), (1 << 24, 0)):
+        p = around(rec(ls, 5, ls + 5 if ok else 60))
+        cases[f"l_shared {ls}"] = (p, 0, len(p), ok)
+    for li in ((1 << 28) - 1, 1 << 28, 0x90000000):
+        p = around(rec(30, li, 60))
+        cases[f"l_indiv {li:#x} in a short payload"] = (p, 0, len(p), 0)
+    cut = bcf_records(rng, fill(3 * S))
+    cut = cut[: bcf_record_starts(cut)[-2] + 20]
+    cases["a truncated last record"] = (cut, 0, len(cut), 0)
+    p = bcf_record_starts(varied)[len(bcf_record_starts(varied)) // 2]
+    cases["limit at p + 7"] = (varied, 0, p + 7, 1)
+    cases["limit at p + 8"] = (varied, 0, p + 8, 1)
+    cases["limit past the payload"] = (varied, 0, len(varied) + 100, 0)
+    cases["start == limit"] = (varied, p, p, 1)
+    odd = bytes(5) + varied
+    cases["start 5, not on 16 bytes"] = (odd, 5, len(odd), 1)
+    cases["start and limit mid-payload, unaligned"] = (odd, p + 5, len(odd) - 1001, 1)
+    tiny = bcf_records(rng, [32] * (4 * S // 32 + 7))
+    cases["minimal 32-byte records"] = (tiny, 0, len(tiny), 1)
+    cases["start past the payload"] = (edge, len(edge) + 3, len(edge) + 20, 0)
+    cases["start past the payload, window ends"] = (edge, len(edge) + 3, len(edge) + 10, 1)
+    cases["empty payload, empty window"] = (b"", 0, 0, 1)
+    cases["empty payload"] = (b"", 0, 8, 0)
+    if big:
+        p = bcf_records(rng, fill(S)) + rec(24, (1 << 28) - 1, 60)
+        p += bytes((1 << 28) - 1 + 24 - 60) + bcf_records(rng, fill(S))
+        cases["l_indiv 0xfffffff, valid"] = (p, 0, len(p), 1)
+    return cases
+
+
+def bcf_walk_cases(seed: int, big: bytes, trouble: dict) -> dict:
     """``(payload, start, limit)`` of the chain-walk check: the generated
     call set at a split's size and the varied records, each clean, as a
     window with a straddling tail, with a corrupt l_shared, with a corrupt
-    l_indiv, truncated, and an empty window."""
-    import struct
-
+    l_indiv, truncated, and an empty window; then the ``trouble`` cases
+    (:func:`bcf_trouble_cases`)."""
     cases = {}
     for tag, payload in (("call set", big), ("varied", varied_bcf_payload(seed))):
-        offs = [0]
-        while offs[-1] + 8 <= len(payload):
-            ls, li = struct.unpack_from("<II", payload, offs[-1])
-            offs.append(offs[-1] + 8 + ls + li)
+        offs = bcf_record_starts(payload)
         k = len(offs) // 2
         bad_s = bytearray(payload)
         struct.pack_into("<I", bad_s, offs[k], 7)
@@ -1110,42 +1210,68 @@ def bcf_walk_cases(seed: int, big: bytes) -> dict:
             f"{tag}: truncated": (cut, 0, len(cut)),
             f"{tag}: empty window": (payload, offs[k], offs[k]),
         })
+    for what, c in trouble.items():
+        cases[f"trouble: {what}"] = c[:3]
     return cases
 
 
-def check_bcf_chain(seed: int, big: bytes) -> dict:
-    """The BCF chain kernel against its plain version (columns, count and
-    ok, exactly) on every case of :func:`bcf_walk_cases`; the tiered walk
-    answers clean windows on the card and re-walks corrupt ones on the
-    host."""
+def check_bcf_walk(cases: dict, seg: int, slab: int) -> dict:
+    """The chain kernel at segments of ``seg`` bytes and slabs of ``slab``
+    against its plain version (columns, count and ok, exactly) on each case,
+    from an aligned tensor and from a view 1-15 bytes past one; the tiered
+    walk answers ok windows on the card and re-walks the others on the
+    host.  Returns ``{what: [count, ok, tier]}``."""
     import torch
 
     from hadoop_bam_tpu_torch.ops.kernels import bcf_chain as kb
 
-    bad = 0
     verdicts = {}
-    for what, (buf, start, limit) in bcf_walk_cases(seed, big).items():
+    for j, (what, (buf, start, limit)) in enumerate(cases.items()):
         t = torch.from_numpy(np.frombuffer(buf, np.uint8).copy())
-        cols_k, meta_k = kb.walk_chain_device(t.cuda(), start, limit)
         cols_p, meta_p = kb.walk_chain_device(t, start, limit)
         count = int(meta_p[0])
-        if meta_k.cpu().tolist() != meta_p.tolist():
-            raise AssertionError(f"bcf_chain [count, ok] differs from plain ({what}): "
-                                 f"{meta_k.cpu().tolist()} vs {meta_p.tolist()}")
-        diff = int((cols_k[:, :count].cpu() != cols_p[:, :count]).sum())
-        if diff:
-            raise AssertionError(f"bcf_chain columns differ from plain ({what}): {diff} values")
+        shift = 1 + j % 15
+        g = torch.zeros(len(buf) + shift, dtype=torch.uint8, device="cuda")
+        g[shift:] = t.cuda()
+        for view in (t.cuda(), g[shift:]):
+            cols_k, meta_k = kb._launch(view, start, limit, seg, slab)[:2]
+            if meta_k.cpu().tolist() != meta_p.tolist():
+                raise AssertionError(f"bcf_chain [count, ok] differs from plain ({what}, seg {seg}"
+                                     f"): {meta_k.cpu().tolist()} vs {meta_p.tolist()}")
+            diff = int((cols_k[:, :count].cpu() != cols_p[:, :count]).sum())
+            if diff:
+                raise AssertionError(f"bcf_chain columns differ from plain ({what}, seg {seg}): "
+                                     f"{diff} values")
         _, _, ok, tier = kb.walk_chain(t.cuda(), start, limit, host=buf)
         verdicts[what] = [count, int(meta_p[1]), tier]
         if tier != ("device" if meta_p[1] else "host") or ok != bool(meta_p[1]):
             raise AssertionError(f"walk_chain tier {tier} for {what}")
-        bad += diff
+        del t, g
+    return verdicts
+
+
+def check_bcf_chain(seed: int, big: bytes) -> dict:
+    """The BCF chain kernel against its plain version on every case of
+    :func:`bcf_walk_cases` at the wrapper's geometry, and on the trouble
+    cases built for segments of 512 bytes and slabs of 2,048 at that
+    geometry (many boundaries, slab carries); each verdict is the one
+    expected."""
+    from hadoop_bam_tpu_torch.ops.kernels import bcf_chain as kb
+
+    trouble = bcf_trouble_cases(seed, kb.SEG, kb.SLAB, big=True)
+    verdicts = check_bcf_walk(bcf_walk_cases(seed, big, trouble), kb.SEG, kb.SLAB)
     oks = [v[1] for v in verdicts.values()]
-    if oks != [1, 1, 0, 0, 0, 1] * 2:
+    if oks != [1, 1, 0, 0, 0, 1] * 2 + [c[3] for c in trouble.values()]:
         raise AssertionError(f"bcf_chain verdicts {verdicts}")
+    small = bcf_trouble_cases(seed + 1, 512, 2048)
+    tiny = check_bcf_walk({k: c[:3] for k, c in small.items()}, 512, 2048)
+    if [v[1] for v in tiny.values()] != [c[3] for c in small.values()]:
+        raise AssertionError(f"bcf_chain verdicts at seg 512 {tiny}")
     log(f"bcf_chain kernel == plain: {len(verdicts)} windows [count, ok, tier] "
         f"{json.dumps(verdicts)}, max_abs_err 0")
-    return {"max_abs_err": float(bad)}
+    log(f"bcf_chain kernel == plain at seg 512, slab 2048: {len(tiny)} windows "
+        f"{json.dumps(tiny)}")
+    return {"max_abs_err": 0.0}
 
 
 def time_bcf_chain(path: str, checks: dict, launches: int, launches_from: str) -> dict:
@@ -1164,6 +1290,8 @@ def time_bcf_chain(path: str, checks: dict, launches: int, launches_from: str) -
     p_ms = host_ms(lambda: kb.walk_chain_device(c, p, end), iters=1)
     _, meta = kb.walk_chain_device(g, p, end)
     n_rec = int(meta[0])
+    runs = [kb.walk_chain_phases(g, p, end)[2] for _ in range(5)]
+    phase_us = {k: 1e3 * sum(r[f"{k}_ms"] for r in runs) / len(runs) for k in kb.PHASES}
     row = {
         "name": "bcf_chain", "route": "cuda",
         "source": "hadoop_bam_tpu_torch/csrc/bcf_chain.cu",
@@ -1174,9 +1302,14 @@ def time_bcf_chain(path: str, checks: dict, launches: int, launches_from: str) -
         "bound_ms": (8 + 24 + 28) * n_rec / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": None,
         "shape": f"one split: {n_rec} records, {end - p} bytes",
+        **{f"{k}_us": v for k, v in phase_us.items()},
+        "hops": runs[0]["hops"],
     }
     log(f"  bcf_chain: {k_ms:.4f} ms (plain {p_ms:.3f} ms, bound {row['bound_ms']:.4f} ms) "
         f"at {row['shape']}")
+    log("  bcf_chain phases (CUDA events, mean of 5, us): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in phase_us.items())
+        + f"; {runs[0]['segments']} segments of {kb.SEG} bytes, {row['hops']} hops")
     return row
 
 

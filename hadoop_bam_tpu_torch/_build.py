@@ -52,7 +52,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "hbt_record_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P],
     },
     "bcf_chain": {
-        "hbt_bcf_chain_walk": [_P, _I64, _I64, _I64, _P, _I64, _P, _P],
+        "hbt_bcf_chain_plan": [_I64, _I64, _I64, _I64, _I64, _P],
+        "hbt_bcf_chain_walk": [_P, _I64, _I64, _I64, _P, _I64, _P, _P, _I64, _I64, _P, _P],
     },
     "rans": {
         "hbt_rans_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _P],

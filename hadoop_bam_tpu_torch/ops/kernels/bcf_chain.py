@@ -6,10 +6,17 @@ emits, per record, its start offset and the six fixed shared words as
 int32 columns (:data:`COLUMNS`), plus ``[count, ok]``; validity is framing
 only (CHROM range, dictionaries and typed values stay with the host
 decoder, ``spec/bcf.py``).
+
+On the card one walk is a map over segments of :data:`SEG` bytes (each
+position's segment exit), a compose (exits over groups of segments), a
+hop through them from ``start``, a fill and an emit
+(``csrc/bcf_chain_core.cuh``): :data:`PHASES`, five CUDA launches a slab
+of :data:`SLAB` bytes; :data:`LAUNCHES` counts the walk once.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 
 import numpy as np
@@ -30,6 +37,13 @@ MIN_RECORD = 8 + MIN_SHARED
 #: ``cur + 8 + l_shared + l_indiv`` stay inside int32 below it.  A larger
 #: payload goes to the host walk before any launch.
 MAX_PAYLOAD = 2**31 - (1 << 29)
+#: Bytes a segment of the card's walk.
+SEG = 16384
+#: Bytes a slab (a multiple of :data:`SEG`): the workspace holds ~6 bytes a
+#: position of one slab; a longer window goes slab by slab.
+SLAB = 16 << 20
+#: The card's phases, in launch order.
+PHASES = ("map", "compose", "hop", "fill", "emit")
 
 
 def capacity(start: int, limit: int) -> int:
@@ -38,12 +52,7 @@ def capacity(start: int, limit: int) -> int:
     return max(0, int(limit) - int(start)) // MIN_RECORD + 1
 
 
-def walk_chain_device(payload: torch.Tensor, start: int, limit: int):
-    """Walk the chain over a uint8 payload tensor: ``(cols, meta)``.
-
-    ``cols`` is int32 ``[7, capacity]`` (rows ``[:count]`` live: start
-    offset, then :data:`COLUMNS`), ``meta`` int64 ``[count, ok]``.  A CUDA
-    tensor launches the kernel; a CPU tensor takes the plain version."""
+def _check_args(payload: torch.Tensor, start: int) -> None:
     check_tensor(payload, "payload", torch.uint8)
     if payload.dim() != 1:
         raise ValueError("payload must be one-dimensional")
@@ -52,19 +61,57 @@ def walk_chain_device(payload: torch.Tensor, start: int, limit: int):
     n = payload.numel()
     if n > MAX_PAYLOAD:
         raise ValueError(f"payload of {n} bytes is past the int32 column domain")
-    if use_plain(payload):
-        return walk_chain_plain(payload, start, limit)
+
+
+def _launch(payload: torch.Tensor, start: int, limit: int, seg: int = SEG, slab: int = SLAB,
+            phase_ms=None):
+    """One walk on the card in segments of ``seg`` bytes and slabs of
+    ``slab``: ``(cols, meta, work, segments)``."""
+    n, start, limit = payload.numel(), int(start), int(limit)
+    lib = _build.load("bcf_chain")
+    plan = (ctypes.c_longlong * 2)()  # workspace bytes, segments
+    _build.check(lib.hbt_bcf_chain_plan(n, start, limit, seg, slab, plan), "bcf_chain")
     cap = capacity(start, limit)
     cols = torch.empty((7, cap), dtype=torch.int32, device=payload.device)
     meta = torch.empty(2, dtype=torch.int64, device=payload.device)
-    lib = _build.load("bcf_chain")
+    work = torch.empty(plan[0], dtype=torch.uint8, device=payload.device)
     rc = lib.hbt_bcf_chain_walk(
-        payload.data_ptr(), n, int(start), int(limit), cols.data_ptr(), cap,
-        meta.data_ptr(), stream_handle(payload),
+        payload.data_ptr(), n, start, limit, cols.data_ptr(), cap, meta.data_ptr(),
+        work.data_ptr(), seg, slab, phase_ms, stream_handle(payload),
     )
     _build.check(rc, "bcf_chain")
     LAUNCHES.add()
+    return cols, meta, work, plan[1]
+
+
+def walk_chain_device(payload: torch.Tensor, start: int, limit: int):
+    """Walk the chain over a uint8 payload tensor: ``(cols, meta)``.
+
+    ``cols`` is int32 ``[7, capacity]`` (rows ``[:count]`` live: start
+    offset, then :data:`COLUMNS`), ``meta`` int64 ``[count, ok]``.  A CUDA
+    tensor launches the kernel; a CPU tensor takes the plain version."""
+    _check_args(payload, start)
+    if use_plain(payload):
+        return walk_chain_plain(payload, start, limit)
+    cols, meta, _, _ = _launch(payload, start, limit)
     return cols, meta
+
+
+def walk_chain_phases(payload: torch.Tensor, start: int, limit: int):
+    """One walk on the card with each phase timed by CUDA events: ``(cols,
+    meta, info)``, ``info`` holding :data:`PHASES` as ``<phase>_ms`` (summed
+    over the slabs), ``segments`` (the window's, from the kernel's plan) and
+    ``hops`` (the hop's exit reads, from the device's carry).  It waits for
+    the walk.  Counts as a launch."""
+    _check_args(payload, start)
+    if use_plain(payload):
+        raise ValueError("the phases are timed on a CUDA tensor only")
+    ms = (ctypes.c_float * len(PHASES))()
+    cols, meta, work, segments = _launch(payload, start, limit, phase_ms=ms)
+    info = {f"{k}_ms": v for k, v in zip(PHASES, ms)}
+    info["segments"] = segments
+    info["hops"] = int(work[:32].view(torch.int64)[3])  # Carry{cur, rows, status, hops}
+    return cols, meta, info
 
 
 def walk_chain_host(buf, start: int, limit: int):
