@@ -468,6 +468,133 @@ def check_inflate(seed: int) -> dict:
     return {"members": len(comps), "max_abs_err": float(bad_bytes)}
 
 
+def bam_records(rng, lengths) -> bytes:
+    """BAM-framed records of the given lengths (4 + block_size each, at
+    least 36) whose bodies are half zero bytes and half random ones, so that
+    many positions inside a record read a plausible size word."""
+    out = []
+    for ln in lengths:
+        body = rng.integers(0, 256, ln - 4, dtype=np.uint8)
+        body[rng.random(ln - 4) < 0.5] = 0
+        out.append(struct.pack("<I", ln - 4) + body.tobytes())
+    return b"".join(out)
+
+
+def chain_starts(stream: bytes) -> list:
+    """The chain positions of a clean record stream, its end included."""
+    offs = [0]
+    while offs[-1] < len(stream):
+        offs.append(offs[-1] + 4 + struct.unpack_from("<I", stream, offs[-1])[0])
+    return offs
+
+
+def chain_trouble_cases(seed: int, seg: int, slab: int, big: bool = False) -> dict:
+    """``(stream, n_bytes, ok)`` of the record-chain walk's trouble cases for
+    the card's walk in segments of ``seg`` bytes and slabs of ``slab``
+    (``stream`` a uint8 array of at least ``n_bytes``): records straddling
+    segments and slabs, a record past 64 KiB, records on segment boundaries and in a segment's
+    last 1-36 bytes, a false chain of plausible size words inside a long
+    read, size words 31 and 2^28 + 1 in the first, a middle and the last
+    segment and at 0, the 2^28 edge, overruns and 1-3 trailing bytes, views
+    whose bytes past ``n_bytes`` are set, minimal records and the empty
+    stream.  ``ok`` is the walk's verdict.  ``big`` adds a valid 2^28-byte
+    record (a 268 MB stream) and nine of them (2.4 GB, offsets past 2^31)."""
+    rng = np.random.default_rng(seed)
+    S = seg
+    cases = {}
+
+    def fill(nbytes: int) -> list:
+        out = []
+        while sum(out) < nbytes:
+            out.append(int(rng.integers(36, 400)))
+        return out
+
+    def add(what: str, stream: bytes, ok: int, n: int = -1) -> None:
+        cases[what] = (np.frombuffer(stream, np.uint8).copy(), len(stream) if n < 0 else n, ok)
+
+    varied = bam_records(rng, fill(S) + [S + 1] + fill(S) + [5 * S // 2] + fill(S)
+                         + [3 * S + 17] + fill(S))
+    add("varied lengths, records past a segment", varied, 1)
+    add("a record past a slab", bam_records(rng, fill(S) + [slab + S + 123] + fill(S)), 1)
+    add("a 100,000-byte record", bam_records(rng, fill(S) + [100_000] + fill(S)), 1)
+    quarter = S // 4 if S // 4 >= 36 else S
+    add("records on segment boundaries", bam_records(rng, [quarter] * 24), 1)
+    add("records filling two slabs exactly", bam_records(rng, [quarter] * (2 * slab // quarter)), 1)
+    add("records in a segment's last 1-36 bytes", bam_records(rng, [S - 1] * 37), 1)
+    # A long read whose bases and qualities hold a chain of plausible 40-byte
+    # records, 4 bytes off, across three segments and past the read's end.
+    fakes = b"".join(struct.pack("<I", 36) + rng.integers(0, 256, 36, dtype=np.uint8).tobytes()
+                     for _ in range(3 * S // 40 + 4))
+    body = 3 * S + 11
+    read = struct.pack("<I", body) + (bytes(4) + fakes)[:body]
+    add("a false chain inside a long read",
+        bam_records(rng, fill(2 * S)) + read + bam_records(rng, fill(S)), 1)
+    errs = bam_records(rng, fill(4 * S + 100))
+    offs = chain_starts(errs)[:-1]
+    places = (("at 0", 0), ("in the first segment", [o for o in offs if o < S][-1]),
+              ("in a middle segment", min(o for o in offs if o >= 2 * S)),
+              ("in the last record", offs[-1]))
+    for where, at in places:
+        for word in (31, (1 << 28) + 1):
+            bad = bytearray(errs)
+            struct.pack_into("<I", bad, at, word)
+            add(f"block_size {word} {where}", bytes(bad), 0)
+    for word, ok in ((32, 1), (1 << 28, 0), ((1 << 28) + 1, 0)):
+        rec = struct.pack("<I", word) + rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+        add(f"block_size {word} in a short stream",
+            bam_records(rng, fill(2 * S)) + rec + bam_records(rng, fill(S)), ok)
+    cut = bam_records(rng, fill(3 * S))
+    add("a truncated last record", cut[: chain_starts(cut)[-2] + 20], 0)
+    for tail, what in ((b"\x28", "1 trailing byte reading 40"), (b"\x05\x00", "2 trailing bytes"),
+                       (b"\x20\x00\x00", "3 trailing bytes reading 32"),
+                       (b"\x1f\x00\x00", "3 trailing bytes reading 31")):
+        add(what, varied + tail, 0)
+    add("bytes past n_bytes set", varied + b"\xff" * 77, 1, len(varied))
+    add("n_bytes inside the last record", varied + b"\xff" * 77, 0, len(varied) - 10)
+    add("minimal 36-byte records", bam_records(rng, [36] * (4 * S // 36 + 7)), 1)
+    add("an empty stream", b"", 1)
+    if big:
+        add("a 2^28-byte record", bam_records(rng, fill(S)) + struct.pack("<I", 1 << 28)
+            + bytes(1 << 28) + bam_records(rng, fill(S)), 1)
+        step = 4 + (1 << 28)
+        nine = np.zeros(9 * step, np.uint8)
+        for k in range(9):
+            nine[k * step : k * step + 4] = np.frombuffer(struct.pack("<I", 1 << 28), np.uint8)
+        cases["nine 2^28-byte records, offsets past 2^31"] = (nine, len(nine), 1)
+    return cases
+
+
+def check_chain_walk(cases: dict, seg: int, slab: int) -> dict:
+    """The record-chain walk at segments of ``seg`` bytes and slabs of
+    ``slab`` against its plain version (offsets, count and ok, exactly) on
+    each ``(stream, n_bytes, ok)`` case, from an aligned tensor and from a
+    view 1-15 bytes past one.  Returns ``{what: [count, ok]}``."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops.kernels import chain as kch
+
+    verdicts = {}
+    for j, (what, (stream, n, ok)) in enumerate(cases.items()):
+        t = torch.from_numpy(stream)
+        offs_p, meta_p = kch.record_chain_plain(t, n)
+        count = int(meta_p[0])
+        shift = 1 + j % 15
+        g = torch.zeros(len(stream) + shift, dtype=torch.uint8, device="cuda")
+        g[shift:] = t.cuda()
+        for view in (g[shift:], g[shift:].clone()):
+            offs_k, meta_k = kch._launch(view, n, seg, slab)[:2]
+            if meta_k.cpu().tolist() != meta_p.tolist():
+                raise AssertionError(f"record_chain [count, ok] differs from plain ({what}, seg "
+                                     f"{seg}): {meta_k.cpu().tolist()} vs {meta_p.tolist()}")
+            if not torch.equal(offs_k[:count].cpu(), offs_p[:count]):
+                raise AssertionError(f"record_chain offsets differ from plain ({what}, seg {seg})")
+        if int(meta_p[1]) != ok:
+            raise AssertionError(f"record_chain verdict {meta_p.tolist()} for {what}")
+        verdicts[what] = meta_p.tolist()
+        del t, g, offs_k, offs_p
+    return verdicts
+
+
 def check_chain(seed: int) -> dict:
     """Phase 4: walk + key gather against their plain versions, exactly,
     on a clean stream and on one with a corrupt size word."""
@@ -522,6 +649,15 @@ def check_chain(seed: int) -> dict:
         elif mk[1] != 0:
             raise AssertionError("corrupt size word not rejected")
     log(f"chain + keys kernels == plain: {n_rows} records, corrupt stream rejected")
+    verdicts = check_chain_walk(chain_trouble_cases(seed, kch.SEG, kch.SLAB, big=True),
+                                kch.SEG, kch.SLAB)
+    log(f"record_chain == plain at seg {kch.SEG}, slab {kch.SLAB}: {len(verdicts)} streams "
+        f"[count, ok] {json.dumps(verdicts)}")
+    tiny = chain_trouble_cases(seed + 1, 512, 2048)
+    tiny["the key corpus"] = (s, len(s), 1)
+    verdicts = check_chain_walk(tiny, 512, 2048)
+    log(f"record_chain == plain at seg 512, slab 2048: {len(verdicts)} streams "
+        f"[count, ok] {json.dumps(verdicts)}")
     return {"max_abs_err": 0.0}
 
 
@@ -2766,8 +2902,10 @@ def time_kernels(src: str, checks: dict, launches: dict, launches_r: dict, seed:
     n_rec = len(offs_h)
     g_stream = inflated[s0:s1]
     c_stream = torch.from_numpy(host[s0:s1].copy())
-    k_ms = cuda_ms(lambda: kch.record_chain(g_stream, s1 - s0), iters=5, warmup=1)
+    k_ms = cuda_ms(lambda: kch.record_chain(g_stream, s1 - s0), iters=20, warmup=3)
     p_ms = host_ms(lambda: kch.record_chain_plain(c_stream, s1 - s0), iters=1)
+    runs = [kch.record_chain_phases(g_stream, s1 - s0)[2] for _ in range(5)]
+    phase_us = {k: 1e3 * sum(r[f"{k}_ms"] for r in runs) / len(runs) for k in kch.PHASES}
     rows.append({
         "name": "record_chain", "route": "cuda",
         "source": "hadoop_bam_tpu_torch/csrc/chain.cu",
@@ -2776,7 +2914,11 @@ def time_kernels(src: str, checks: dict, launches: dict, launches_r: dict, seed:
         "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": n_rec * (4 + 8) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None, "shape": f"{n_rec} records, {s1 - s0} bytes",
+        **{f"{k}_us": v for k, v in phase_us.items()}, "hops": runs[0]["hops"],
     })
+    log("  record_chain phases (CUDA events, mean of 5, us): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in phase_us.items())
+        + f"; {runs[0]['segments']} segments of {kch.SEG} bytes, {runs[0]['hops']} hops")
     offs, meta = kch.record_chain(g_stream, s1 - s0)
     k_ms = cuda_ms(lambda: kch.stream_keys(g_stream, s1 - s0, offs, meta, n_rec), iters=20)
     p_ms = cuda_ms(lambda: kch.stream_keys_plain(g_stream, s1 - s0, offs, meta, n_rec), iters=5)

@@ -38,7 +38,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "hbt_inflate_members": [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _P],
     },
     "chain": {
-        "hbt_chain_walk": [_P, _I64, _P, _P, _P],
+        "hbt_chain_plan": [_I64, _I64, _I64, _P],
+        "hbt_chain_walk": [_P, _I64, _P, _P, _P, _I64, _I64, _P, _P],
         "hbt_stream_keys": [_P, _I64, _P, _P, _I64, _P, _P, _P],
     },
     "deflate": {

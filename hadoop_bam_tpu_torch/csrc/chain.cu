@@ -2,18 +2,44 @@
 // sort-key gather over one split's inflated record stream.
 //
 // Replaces the TPU kernel hadoop_bam_tpu/ops/pallas/chain.py (_chain_kernel,
-// _chain_chunk and _chain_all) and the XLA key gather it feeds,
-// hadoop_bam_tpu/ops/decode.py _stream_keys with ops/keys.py make_keys and
-// unmapped_mask.  The TPU walk ran over 4 MiB chunks with the cursor carried
-// between sequential grid steps, in int32; here one block walks the whole
-// stream with int64 offsets, so the 2 GiB domain and the per-chunk record
-// cap fall away.
+// _chain_chunk and _chain_all, reached through record_chain_device) and the
+// XLA key gather it feeds, hadoop_bam_tpu/ops/decode.py _stream_keys with
+// ops/keys.py make_keys and unmapped_mask.  The TPU walk ran over 4 MiB
+// chunks with the cursor carried between sequential grid steps, in int32;
+// here offsets are int64, so the 2 GiB domain and the per-chunk record cap
+// fall away.
 //
-// chain_walk_kernel (one block, one walking lane): pos += 4 + u32(pos)
-// from 0 while pos < n_bytes.  A size word below 32 (the fixed fields) or
-// above 2^28 is an error and stops the walk; bytes at or past n_bytes read
-// as 0, as the TPU kernel's zero padding did.  meta = {count, ok} with ok =
-// no error and the cursor landing exactly on n_bytes.
+// The walk: pos += 4 + u32(pos) from 0 while pos < n_bytes.  A size word
+// below 32 (the fixed fields) or above 2^28 is an error and stops the walk
+// without a record; bytes at or past n_bytes read as 0, as the TPU kernel's
+// zero padding did; a record running past n_bytes is counted and fails the
+// walk.  meta = {count, ok} with ok = no error and the cursor landing
+// exactly on n_bytes.
+//
+// Design (chain_core.cuh): the walk is serial from 0, so one block walking
+// it used one SM of 132 (12.4 ms a 52.5 MB split).  Here the stream is cut
+// into segments of `seg` bytes and each is tabulated alone: map, one block
+// of 512 threads a segment, every position's segment exit and count;
+// compose, one block a segment, the exits over the next kGroup segments of
+// its first kHead positions; hop, one warp, from 0 through the group exits,
+// one read for kGroup segments; fill, one thread a group step, the entries
+// of the segments it crossed; emit, one block a segment, the re-walk from
+// its true entry, writing the int64 offsets.  A walk is therefore several
+// CUDA launches (five a slab of `slab` bytes); the wrapper counts it as one.
+// The workspace (8 bytes a position of a slab, 4 of them written, and 8 a
+// head position, from PyTorch's caching allocator) holds the exits, the
+// entries and the carry between slabs; nothing goes back to the host
+// between slabs.
+//
+// Geometry, tuned on the sort's 280-byte records (a 52.5 MB split, 3,204
+// segments): 16 KiB segments, two 82 KB map blocks an SM; the wrapper's
+// 64 MiB slab walks a split in five launches (16 MiB slabs took 0.386 ms
+// for the old 6-byte table, 64 MiB 0.320).  kHead = 320 positions outlast
+// a 280-byte record, so the chain enters every segment in its head and the
+// hop reads one group exit a step (a 128-position head read 426 exits, 320
+// reads 201); kGroup = 32 halves that again (101 reads) for a compose of
+// twice the steps; 8 KiB segments doubled the hop, 32 KiB ones held one map
+// block an SM; a 512-position head composed more than it saved.
 //
 // stream_keys_kernel (one thread per record): refid, pos and flag at
 // offs[i] + 4 → the packed int64 sort key (Java's (long)refIdx << 32 | pos0,
@@ -23,20 +49,22 @@
 //
 // Bound on this card: (4 B size word read + 8 B offset written) per record
 // for the walk and (8 B offset + 10 B of fields read, 8 B key + 1 B mask
-// written) per record for the gather, over 3.35 TB/s.  The walk is
-// latency-bound: each record is one dependent load.  It reads its size
-// words from shared-memory tiles the block stages with coalesced loads,
-// so the dependent load is a shared-memory one, not a device-memory miss.
+// written) per record for the gather, over 3.35 TB/s.  The map reads each
+// byte once and writes a 4-byte table word a position (the design's, not
+// the work's); the dependent shared-memory steps of its strips and its 13
+// waves of blocks set its time (7 of 10 parts of the walk).  The hop,
+// compose and fill are chains of dependent device-memory reads; the emit's
+// walk is one serial chain of records a segment, all segments at once.
 
 #include <cstdint>
-#include <cstring>
 
 #include <cuda_runtime.h>
 
+#include "chain_core.cuh"
+
 namespace {
 
-constexpr uint32_t kMinBody = 32;
-constexpr uint32_t kMaxBody = 1u << 28;
+using namespace hbt_chain;
 
 __device__ __forceinline__ uint32_t le_at(const uint8_t* s, int64_t at,
                                           int64_t n, int nbytes) {
@@ -49,75 +77,57 @@ __device__ __forceinline__ uint32_t le_at(const uint8_t* s, int64_t at,
   return v;
 }
 
-// The walk stages the stream through shared memory: the block loads a
-// kTile-byte tile at the cursor with coalesced 16-byte loads, then lane 0
-// walks every size word that lies whole in the tile, then the block loads
-// the tile at the new cursor.  A size word costs a shared-memory load
-// instead of a device-memory round trip.
-constexpr int kWalkThreads = 256;
-constexpr int64_t kTile = 32768;
-constexpr int kVecsPerThread = kTile / (16 * kWalkThreads);
+constexpr int kMapThreads = 512;  // 16 warps: the map's sub-segments
+constexpr int kSub = kMapThreads / 32;
+constexpr int kEmitThreads = 128;
+constexpr int kFillThreads = 128;
 
-__global__ void __launch_bounds__(kWalkThreads)
-chain_walk_kernel(const uint8_t* __restrict__ s, int64_t n_bytes,
-                  int64_t* __restrict__ offs, int64_t* __restrict__ meta) {
-  __shared__ __align__(16) uint8_t tile[kTile];
-  __shared__ int64_t sh_cur, sh_count;
-  __shared__ int sh_err;
-  if (threadIdx.x == 0) {
-    sh_cur = 0;
-    sh_count = 0;
-    sh_err = 0;
-  }
+__global__ void __launch_bounds__(kMapThreads, 2)
+map_kernel(Walk w, int64_t slab0, Work t) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* lk = reinterpret_cast<uint32_t*>(smem);
+  uint8_t* buf = smem + 4 * w.seg;
+  const int64_t k = blockIdx.x, seg0 = slab0 + (k << w.shift);
+  const int tid = threadIdx.x;
+  const int lead = stage(w, seg0, buf, tid, kMapThreads);
   __syncthreads();
-  const uintptr_t s_addr = reinterpret_cast<uintptr_t>(s);
-  for (;;) {
-    const int64_t cur = sh_cur;
-    if (sh_err || cur >= n_bytes) break;
-    // Tile start, as a stream offset: the cursor rounded down to a 16-byte
-    // address (at most 15 bytes before it, inside the same allocation).
-    const int64_t tb =
-        static_cast<int64_t>(((s_addr + cur) & ~uintptr_t(15)) - s_addr);
-    // All of a thread's loads are issued before any is stored, so the
-    // whole tile is one device-memory round trip.
-    uint4 v[kVecsPerThread];
-#pragma unroll
-    for (int j = 0; j < kVecsPerThread; ++j) {
-      const int64_t p = tb + 16 * (threadIdx.x + j * kWalkThreads);
-      if (p + 16 <= n_bytes) {
-        v[j] = *reinterpret_cast<const uint4*>(s + p);
-      } else {
-        uint8_t b[16];
-        for (int q = 0; q < 16; ++q) b[q] = p + q < n_bytes ? s[p + q] : 0;
-        memcpy(&v[j], b, 16);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kVecsPerThread; ++j)
-      reinterpret_cast<uint4*>(tile)[threadIdx.x + j * kWalkThreads] = v[j];
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int64_t c = cur, count = sh_count;
-      while (c < n_bytes && c - tb + 4 <= kTile) {
-        const uint8_t* w = tile + (c - tb);
-        const uint32_t bs = w[0] | (w[1] << 8) | (w[2] << 16) |
-                            (static_cast<uint32_t>(w[3]) << 24);
-        if (bs < kMinBody || bs > kMaxBody) {
-          sh_err = 1;
-          break;
-        }
-        offs[count++] = c;
-        c += 4 + static_cast<int64_t>(bs);
-      }
-      sh_cur = c;
-      sh_count = count;
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    meta[0] = sh_count;
-    meta[1] = (!sh_err && sh_cur == n_bytes) ? 1 : 0;
-  }
+  map_strips(w, seg0, static_cast<int32_t>(k << w.shift), buf, lead, lk, t.far + (k << w.shift),
+             tid >> 5, tid & 31, 32);
+  __syncthreads();
+  map_join(w, lk, tid, kMapThreads);
+  map_store(w, lk, t.exits + (k << w.shift), tid, kMapThreads);
+}
+
+__global__ void __launch_bounds__(kHead)
+compose_kernel(Walk w, int64_t nseg, Work t) {
+  compose(w, nseg, t, blockIdx.x, threadIdx.x, kHead);
+}
+
+__global__ void __launch_bounds__(32)
+hop_kernel(Walk w, int64_t slab0, int64_t nseg, bool first, Work t, int64_t* __restrict__ meta) {
+  hop(w, slab0, nseg, first, t, meta, threadIdx.x, 32);
+}
+
+__global__ void __launch_bounds__(kFillThreads)
+fill_kernel(Walk w, int64_t nseg, Work t) {
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * kFillThreads + threadIdx.x;
+  if (k < nseg) fill(w, t, k);
+}
+
+__global__ void __launch_bounds__(kEmitThreads)
+emit_kernel(Walk w, int64_t slab0, Work t, int64_t* __restrict__ offs) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  if (t.entry[blockIdx.x] < 0) return;
+  const int64_t seg0 = slab0 + (static_cast<int64_t>(blockIdx.x) << w.shift);
+  const int lead = stage(w, seg0, smem, threadIdx.x, kEmitThreads);
+  __syncthreads();
+  if (threadIdx.x == 0) emit_walk(w, slab0, t, blockIdx.x, smem, lead, offs);
+}
+
+// seg: a power of two from 512 to 65,536; slab: a multiple of seg up to 2^30.
+bool bad_geometry(long long seg, long long slab) {
+  return seg < 32 * kSub || seg > kMaxSeg || seg_shift(seg) < 0 || slab < seg ||
+         slab > kMaxSlab || slab % seg != 0;
 }
 
 __global__ void stream_keys_kernel(const uint8_t* __restrict__ s,
@@ -151,14 +161,74 @@ __global__ void stream_keys_kernel(const uint8_t* __restrict__ s,
 
 extern "C" {
 
+// The walk's plan for a stream of n bytes: out[0] the bytes of the
+// workspace that hbt_chain_walk takes (hbt_chain::work_bytes), out[1] the
+// segments the stream is cut into.  Returns cudaErrorInvalidValue for a
+// geometry the walk refuses, else 0.
+int hbt_chain_plan(long long n, long long seg, long long slab, long long* out) {
+  if (bad_geometry(seg, slab)) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan pl = make_plan(n, seg, slab);
+  out[0] = work_bytes(pl, seg);
+  out[1] = pl.segs;
+  return 0;
+}
+
 // offs holds >= n_bytes / 36 + 1 entries (a record takes >= 36 bytes);
-// meta is int64[2].  Returns the CUDA error code of the launch.
-int hbt_chain_walk(const void* stream_bytes, long long n_bytes, void* offs,
-                   void* meta, void* stream) {
-  chain_walk_kernel<<<1, kWalkThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(stream_bytes), n_bytes,
-      static_cast<int64_t*>(offs), static_cast<int64_t*>(meta));
-  return static_cast<int>(cudaGetLastError());
+// meta is int64[2]; work (16-aligned) holds the bytes hbt_chain_plan gives
+// for the same arguments.  With phase_ms (host floats, or null) the call
+// records events around each phase, waits for them, and adds each phase's
+// milliseconds (map, compose, hop, fill, emit) over the slabs.  Returns the
+// CUDA error code of the launches.
+int hbt_chain_walk(const void* stream_bytes, long long n_bytes, void* offs, void* meta,
+                   void* work, long long seg, long long slab, float* phase_ms, void* stream) {
+  if (bad_geometry(seg, slab)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Plan pl = make_plan(n_bytes, seg, slab);
+  const Walk w{static_cast<const uint8_t*>(stream_bytes), n_bytes, seg, kSub, seg_shift(seg)};
+  const Work t = carve(work, pl, seg);
+  const int msm = static_cast<int>(map_smem(seg)), esm = static_cast<int>(stage_bytes(seg));
+  cudaError_t e = cudaFuncSetAttribute(map_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, msm);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaFuncSetAttribute(emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, esm);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  constexpr int kPhases = 5;
+  cudaEvent_t ev[kPhases + 1] = {};
+  if (phase_ms) {
+    for (auto& x : ev) cudaEventCreate(&x);
+    for (int k = 0; k < kPhases; ++k) phase_ms[k] = 0.f;
+  }
+  const int64_t spl = slab / seg;
+  for (int64_t j = 0; j < pl.slabs; ++j) {
+    const int64_t slab0 = j * slab;
+    const int64_t left = pl.segs - j * spl;
+    const int64_t segs = left < 0 ? 0 : left < spl ? left : spl;
+    const unsigned grid = static_cast<unsigned>(segs);
+    if (phase_ms) cudaEventRecord(ev[0], st);
+    if (segs) map_kernel<<<grid, kMapThreads, msm, st>>>(w, slab0, t);
+    if (phase_ms) cudaEventRecord(ev[1], st);
+    if (segs) compose_kernel<<<grid, kHead, 0, st>>>(w, segs, t);
+    if (phase_ms) cudaEventRecord(ev[2], st);
+    hop_kernel<<<1, 32, 0, st>>>(w, slab0, segs, j == 0, t, static_cast<int64_t*>(meta));
+    if (phase_ms) cudaEventRecord(ev[3], st);
+    if (segs)
+      fill_kernel<<<(grid + kFillThreads - 1) / kFillThreads, kFillThreads, 0, st>>>(w, segs, t);
+    if (phase_ms) cudaEventRecord(ev[4], st);
+    if (segs)
+      emit_kernel<<<grid, kEmitThreads, esm, st>>>(w, slab0, t, static_cast<int64_t*>(offs));
+    if (phase_ms) {
+      cudaEventRecord(ev[5], st);
+      cudaEventSynchronize(ev[5]);
+      for (int k = 0; k < kPhases; ++k) {
+        float ms = 0.f;
+        cudaEventElapsedTime(&ms, ev[k], ev[k + 1]);
+        phase_ms[k] += ms;
+      }
+    }
+  }
+  e = cudaGetLastError();
+  if (phase_ms)
+    for (auto& x : ev) cudaEventDestroy(x);
+  return static_cast<int>(e);
 }
 
 // Keys of rows [0, n_rows); rows at or past meta[0] get key 0, unmapped 0.

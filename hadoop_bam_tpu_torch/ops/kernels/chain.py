@@ -4,10 +4,17 @@ Counterpart of ``hadoop_bam_tpu/ops/pallas/chain.py`` (the record-boundary
 walk) and of the key gather ``hadoop_bam_tpu/ops/decode.py _stream_keys``
 with ``ops/keys.py make_keys``/``unmapped_mask``.  Offsets are int64, so a
 stream is not limited to the reference's 2 GiB int32 domain.
+
+On the card one walk is a map over segments of :data:`SEG` bytes (each
+position's segment exit), a compose (exits over groups of segments), a hop
+through them from 0, a fill and an emit (``csrc/chain_core.cuh``):
+:data:`PHASES`, five CUDA launches a slab of :data:`SLAB` bytes;
+:data:`WALK_LAUNCHES` counts the walk once.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 
 import numpy as np
@@ -22,11 +29,44 @@ KEYS_LAUNCHES = LaunchCounter("stream_keys")
 
 MIN_BODY = 32  # BAM fixed fields; a smaller size word is corruption
 MAX_BODY = 1 << 28
+#: Bytes a segment of the card's walk.
+SEG = 16384
+#: Bytes a slab (a multiple of :data:`SEG`): the workspace holds 8 bytes a
+#: position of one slab; a longer stream goes slab by slab.
+SLAB = 64 << 20
+#: The card's phases, in launch order.
+PHASES = ("map", "compose", "hop", "fill", "emit")
 
 
 def offsets_capacity(n_bytes: int) -> int:
     """Records a stream of ``n_bytes`` can start: each takes >= 36 bytes."""
     return int(n_bytes) // (4 + MIN_BODY) + 1
+
+
+def _check_args(stream: torch.Tensor, n_bytes: int) -> None:
+    check_tensor(stream, "stream", torch.uint8)
+    if stream.numel() < n_bytes:
+        raise ValueError("stream shorter than n_bytes")
+
+
+def _launch(stream: torch.Tensor, n_bytes: int, seg: int = SEG, slab: int = SLAB,
+            phase_ms=None):
+    """One walk on the card in segments of ``seg`` bytes and slabs of
+    ``slab``: ``(offs, meta, work, segments)``."""
+    n = int(n_bytes)
+    lib = _build.load("chain")
+    plan = (ctypes.c_longlong * 2)()  # workspace bytes, segments
+    _build.check(lib.hbt_chain_plan(n, seg, slab, plan), "record_chain")
+    offs = torch.empty(offsets_capacity(n), dtype=torch.int64, device=stream.device)
+    meta = torch.empty(2, dtype=torch.int64, device=stream.device)
+    work = torch.empty(plan[0], dtype=torch.uint8, device=stream.device)
+    rc = lib.hbt_chain_walk(
+        stream.data_ptr(), n, offs.data_ptr(), meta.data_ptr(), work.data_ptr(), seg, slab,
+        phase_ms, stream_handle(stream),
+    )
+    _build.check(rc, "record_chain")
+    WALK_LAUNCHES.add()
+    return offs, meta, work, plan[1]
 
 
 def record_chain(stream: torch.Tensor, n_bytes: int):
@@ -36,22 +76,30 @@ def record_chain(stream: torch.Tensor, n_bytes: int):
     and int64 ``[count, ok]``.  ``ok`` is 1 when no size word was below 32
     or above 2^28 and the walk ended exactly on ``n_bytes``; bytes at or
     past ``n_bytes`` read as 0.  ``stream`` may be longer than
-    ``n_bytes`` (a view into a resident window)."""
-    check_tensor(stream, "stream", torch.uint8)
-    if stream.numel() < n_bytes:
-        raise ValueError("stream shorter than n_bytes")
+    ``n_bytes`` (a view into a resident window).  A CUDA tensor launches
+    the kernel; a CPU tensor takes the plain version."""
+    _check_args(stream, n_bytes)
     if use_plain(stream):
         return record_chain_plain(stream, n_bytes)
-    offs = torch.empty(offsets_capacity(n_bytes), dtype=torch.int64, device=stream.device)
-    meta = torch.empty(2, dtype=torch.int64, device=stream.device)
-    lib = _build.load("chain")
-    rc = lib.hbt_chain_walk(
-        stream.data_ptr(), int(n_bytes), offs.data_ptr(), meta.data_ptr(),
-        stream_handle(stream),
-    )
-    _build.check(rc, "record_chain")
-    WALK_LAUNCHES.add()
+    offs, meta, _, _ = _launch(stream, n_bytes)
     return offs, meta
+
+
+def record_chain_phases(stream: torch.Tensor, n_bytes: int):
+    """One walk on the card with each phase timed by CUDA events: ``(offs,
+    meta, info)``, ``info`` holding :data:`PHASES` as ``<phase>_ms`` (summed
+    over the slabs), ``segments`` (the stream's, from the kernel's plan) and
+    ``hops`` (the hop's exit reads, from the device's carry).  It waits for
+    the walk.  Counts as a launch."""
+    _check_args(stream, n_bytes)
+    if use_plain(stream):
+        raise ValueError("the phases are timed on a CUDA tensor only")
+    ms = (ctypes.c_float * len(PHASES))()
+    offs, meta, work, segments = _launch(stream, n_bytes, phase_ms=ms)
+    info = {f"{k}_ms": v for k, v in zip(PHASES, ms)}
+    info["segments"] = segments
+    info["hops"] = int(work[:32].view(torch.int64)[3])  # Carry{cur, rows, status, hops}
+    return offs, meta, info
 
 
 def record_chain_plain(stream: torch.Tensor, n_bytes: int):
