@@ -929,6 +929,158 @@ def scan_chunks_of(run: bytes):
             offs + lens >= len(run))
 
 
+def _fq_lines(rng, n_seq: int, eol: bytes = b"\n", q0: bytes = b"", name: int = 10) -> list:
+    """The four lines of one FASTQ record, each with its end of line: an id
+    of ``name`` bytes after '@', ``n_seq`` bases, '+', and ``n_seq``
+    qualities starting with ``q0``."""
+    ident = b"@" + rng.integers(0x30, 0x5B, name, dtype=np.uint8).tobytes()
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n_seq)].tobytes()
+    qual = (q0 + rng.integers(0x21, 0x4B, n_seq, dtype=np.uint8).tobytes())[:n_seq]
+    return [ident + eol, seq + eol, b"+" + eol, qual + eol]
+
+
+def _fq(rng, count: int, eol: bytes = b"\n", q0: bytes = b"", lo: int = 1,
+        hi: int = 40) -> bytes:
+    """``count`` FASTQ records of ``lo`` to ``hi`` - 1 bases."""
+    return b"".join(b"".join(_fq_lines(rng, int(rng.integers(lo, hi)), eol, q0))
+                    for _ in range(count))
+
+
+def _record_starts(text: bytes) -> list:
+    """The record starts of clean FASTQ text (every fourth line)."""
+    nl = np.flatnonzero(np.frombuffer(text, np.uint8) == 0x0A).tolist()
+    return [0] + [nl[k] + 1 for k in range(3, len(nl) - 1, 4)]
+
+
+def _placed(rng, targets, eol: bytes, which=None) -> bytes:
+    """Records each with one line whose newline lies at a target window
+    offset (line ``which`` of the record, else one at random; the id grows
+    to put it there; a target too close to the previous one is skipped),
+    then three more records."""
+    out = bytearray()
+    for x in targets:
+        parts = _fq_lines(rng, int(rng.integers(0, 24)), eol, name=0)
+        j = int(rng.integers(0, 4)) if which is None else which
+        grow = x - len(out) - sum(len(p) for p in parts[: j + 1]) + 1
+        if grow < 0:
+            continue
+        parts[0] = b"@" + b"N" * grow + parts[0][1:]
+        out += b"".join(parts)
+    return bytes(out) + _fq(rng, 3, eol)
+
+
+def record_scan_trouble_cases(seed: int, tile: int) -> dict:
+    """``{what: [(window, chunk_len, aligned, final, cap), ...]}``: the
+    record scan's trouble cases for a kernel that reads a window in tiles of
+    ``tile`` bytes from a 16-byte boundary.  Tile seams: a newline in a
+    tile's first byte, a CR in a tile's last byte with its LF in the next, a
+    line from one tile to two tiles later, a record whose four lines span
+    three tiles.  The line count's extremes: 59,136 newlines, and no newline
+    at all, final and not.  Claims at the edge: records starting at
+    chunk_len - 1, at chunk_len and past it, a sync line at chunk_len - 1
+    and at chunk_len.  The cap: n == cap, the cap hit mid-tile, an unaligned
+    cap of 1 whose sync claims two records, cap 0.  False frames: qualities
+    starting with '@' or '+', CRLF text, a lone frame before the records.
+    Windows of 0-15 bytes, unterminated final text, a torn frame, a partial
+    claimed frame, dangling claimed text, empty lines and lone-CR lines."""
+    from hadoop_bam_tpu_torch.ops.kernels import record_scan as krs
+
+    rng = np.random.default_rng(seed)
+    cases: dict = {}
+
+    def add(what, win, chunk_len=None, aligned=True, final=True, cap=None):
+        chunk_len = len(win) if chunk_len is None else chunk_len
+        cap = krs.default_rec_cap(len(win)) if cap is None else cap
+        cases.setdefault(what, []).append((bytes(win), int(chunk_len), bool(aligned),
+                                           bool(final), int(cap)))
+
+    def four(what, win, chunk_len=None):
+        for aligned in (True, False):
+            for final in (True, False):
+                add(what, win, chunk_len, aligned, final)
+
+    seams = [k * tile for k in range(1, 7)]
+    four("LF in a tile's first byte", _placed(rng, seams, b"\n"), 4 * tile)
+    four("CR in a tile's last byte, its LF in the next", _placed(rng, seams, b"\r\n"), 4 * tile)
+    for eol in (b"\n", b"\r\n"):
+        head = _placed(rng, [tile - 8], eol, which=0)[: tile - 7]  # an id line ending at tile - 8
+        long = b"".join(_fq_lines(rng, 2 * tile + 5, eol)[1:])  # its seq and qual: 3 tiles each
+        four(f"a line over three tiles ({eol!r})", head + long + _fq(rng, 4, eol))
+        head = _placed(rng, [tile - 4], eol, which=0)[: tile - 3]
+        mid = b"".join(_fq_lines(rng, int(0.6 * tile) + 1, eol)[1:])
+        four(f"a record over three tiles ({eol!r})", head + mid + _fq(rng, 4, eol))
+    big = SCAN_CHUNK + SCAN_OVERLAP
+    four("every byte a newline", b"\n" * big, SCAN_CHUNK)
+    four("no newline", b"A" * big, SCAN_CHUNK)
+    four("no newline, 40 bytes", b"ACGT" * 10, 20)
+    clean = _fq(rng, 24, lo=20, hi=3 * tile // 8 + 21)
+    st = _record_starts(clean)
+    for what, cl in (("a record starting at chunk_len - 1", st[9] + 1),
+                     ("a record starting at chunk_len", st[9]),
+                     ("a record starting past chunk_len", st[9] - 1)):
+        add(what, clean, cl, final=False)
+    torn = clean[st[3] - 7:]  # the tail of record 2's qualities, then record 3 on
+    s0, s1 = 7, st[4] - st[3] + 7
+    for what, cl in (("a sync line at chunk_len - 1", s0 + 1), ("a sync line at chunk_len", s0),
+                     ("the second sync record at chunk_len", s1),
+                     ("the second sync record at chunk_len - 1", s1 + 1)):
+        add(what, torn, cl, aligned=False, final=False)
+    add("n == cap", clean, st[9], final=False, cap=9)
+    add("the cap one short", clean, st[9], final=False, cap=8)
+    add("the cap hit mid-tile", clean, cap=13)
+    add("cap 0", clean, cap=0)
+    add("cap 0, unaligned", torn, aligned=False, cap=0)
+    add("cap 1, unaligned, the sync claims two", torn, aligned=False, cap=1)
+    add("cap 1, unaligned, the sync claims one", torn, s1, aligned=False, final=False, cap=1)
+    add("cap 2, unaligned", torn, aligned=False, cap=2)
+    for q0, what in ((b"@", "qualities starting with '@'"), (b"+", "qualities starting with '+'")):
+        for eol in (b"\n", b"\r\n"):
+            text = _fq(rng, 30, eol, q0, lo=2, hi=tile // 4 + 3)
+            four(f"{what} ({eol!r})", text, len(text) // 2)
+            for cut in (1, 3, 7, 12, 25, 40):  # windows starting inside the first records
+                add(f"{what} ({eol!r}), unaligned cuts", text[cut:], len(text) // 2 - cut,
+                    aligned=False, final=bool(cut & 1))
+    lone = b"xx\n" * 5 + b"@a\nAC\n+\nII\n" + b"zz\n" * 4 + _fq(rng, 6)
+    for final in (True, False):
+        for cut in (0, 3):
+            add("a lone frame before the records", lone[cut:], aligned=False, final=final)
+    for k in range(16):
+        for aligned in (True, False):
+            for final in (True, False):
+                add("windows of 0-15 bytes", clean[:k], k, aligned, final)
+    for eol in (b"\n", b"\r\n"):
+        text = _fq(rng, 7, eol)
+        for cut in sorted({1, 2, len(eol) + 1}):  # no end of line; a last byte that is the CR
+            four(f"unterminated text ({eol!r}, {cut} bytes cut)", text[:-cut])
+    bad = bytearray(clean)
+    del bad[st[7] - 2]  # record 6's qualities one byte short
+    add("a torn frame", bytes(bad), final=False)
+    partial = clean[: clean.index(b"\n", st[12]) + 1]  # record 12's id line alone
+    add("a partial claimed frame", partial, final=False)
+    add("a partial frame, not claimed", partial, st[12], final=False)
+    add("dangling claimed text", clean[: st[12] + 9], final=False)
+    lines = b"\n\r\n\n" + b"@e\r\n\r\n+\r\n\r\n" * 3 + b"\r\n" * 2 + _fq(rng, 5, b"\r\n")
+    four("empty lines and lone-CR lines", lines)
+    four("empty lines and lone-CR lines", b"@e\n\r\n+\n\r\n" * 9)
+    return cases
+
+
+def scan_blob(chunks, shift: int = 0):
+    """Chunks packed into one byte string for one launch, each window from a
+    16-byte boundary (then ``shift`` bytes past it): ``(blob, starts, lens,
+    chunk_lens, aligned, final, caps)``."""
+    parts, starts, pos = [], [], 0
+    for win, *_ in chunks:
+        pad = (-pos) % 16 + shift
+        parts.append(b"\x00" * pad + win)
+        starts.append(pos + pad)
+        pos += pad + len(win)
+    cols = [np.array([c[i] for c in chunks], dt) for i, dt in
+            ((1, np.int64), (2, bool), (3, bool), (4, np.int64))]
+    return (b"".join(parts), np.array(starts, np.int64),
+            np.array([len(c[0]) for c in chunks], np.int64), *cols)
+
+
 def _scan_both(blob: bytes, cols, caps):
     """The record-scan kernel and its plain version on the same windows:
     ``(meta, rows)`` per side, rows cut to each chunk's ``n``."""
@@ -1004,7 +1156,46 @@ def check_record_scan(seed: int) -> dict:
     log(f"record_scan kernel == plain: {sum(v[1] for v in verdicts.values())} chunks "
         f"({n_main} at full geometry), ok/total {json.dumps(verdicts)}, every ok chunk == "
         "host scan, max_abs_err 0")
+    check_scan_trouble(seed, krs.TILE, krs.THREADS)
+    check_scan_trouble(seed + 1, 64, 128)
     return {"max_abs_err": float(bad), "corpus": r1}
+
+
+def check_scan_trouble(seed: int, tile: int, threads: int) -> None:
+    """The record scan at tiles of ``tile`` bytes and ``threads`` a block
+    against its plain version (meta of every chunk, rows ``[:n]``, exactly)
+    on ``record_scan_trouble_cases(seed, tile)``, from an aligned tensor and
+    from a view 1-15 bytes past one."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops.kernels import record_scan as krs
+
+    cases = record_scan_trouble_cases(seed, tile)
+    verdicts = {}
+    for j, (what, chunks) in enumerate(cases.items()):
+        blob, *cols = scan_blob(chunks)
+        t = torch.from_numpy(np.frombuffer(blob, np.uint8).copy())
+        rows_p, meta_p, base = krs.scan_windows(t, *cols)
+        meta_p, rows_p = meta_p.numpy(), rows_p.numpy()
+        shift = 1 + j % 15
+        g = torch.zeros(len(blob) + shift, dtype=torch.uint8, device="cuda")
+        g[shift:] = t.cuda()
+        for view in (g[shift:].clone(), g[shift:]):
+            kcols, rows_k, meta_k = krs._columns(view, *cols)
+            krs._launch(view, kcols, rows_k, meta_k, tile, threads)
+            meta_k, rows_k = meta_k.cpu().numpy(), rows_k.cpu().numpy()
+            if not np.array_equal(meta_k, meta_p):
+                k = int(np.flatnonzero((meta_k != meta_p).any(1))[0])
+                raise AssertionError(f"record_scan [n, ok] differs from plain ({what}, chunk {k}, "
+                                     f"tile {tile}): {meta_k[k].tolist()} vs {meta_p[k].tolist()}")
+            for k, (b, n) in enumerate(zip(base.tolist(), meta_p[:, 0].tolist())):
+                if not np.array_equal(rows_k[b : b + n], rows_p[b : b + n]):
+                    raise AssertionError(f"record_scan rows differ from plain ({what}, chunk {k}, "
+                                         f"tile {tile})")
+        verdicts[what] = [int(meta_p[:, 1].sum()), len(chunks)]
+    log(f"record_scan == plain at tile {tile}, {threads} threads: {len(cases)} trouble cases, "
+        f"{sum(v[1] for v in verdicts.values())} chunks, aligned and 1-15 bytes off; ok/total "
+        f"{json.dumps(verdicts)}")
 
 
 def time_record_scan(run: bytes, checks: dict, launches: int, launches_from: str) -> dict:
@@ -1023,6 +1214,16 @@ def time_record_scan(run: bytes, checks: dict, launches: int, launches_from: str
     p_ms = host_ms(lambda: krs.scan_windows(c, *cols, caps), iters=1)
     _, meta, _ = krs.scan_windows(g, *cols, caps)
     n_rec = int(meta[:, 0].sum())
+    # The bare launch on columns already on the card, and its phases' shares
+    # of the blocks' clock cycles (one timed launch).
+    kcols, rows_k, meta_k = krs._columns(g, *cols, caps)
+    bare_ms = cuda_ms(lambda: krs._launch(g, kcols, rows_k, meta_k), iters=10)
+    cyc = torch.zeros(len(krs.PHASES), dtype=torch.int64, device="cuda")
+    krs._launch(g, kcols, rows_k, meta_k, cycles=cyc)
+    cyc = cyc.cpu().numpy().astype(np.float64)
+    shares = {k: round(float(v / cyc.sum()), 4) for k, v in zip(krs.PHASES, cyc)}
+    if not torch.equal(meta_k, meta):
+        raise AssertionError("record_scan: the bare launch's meta differs from scan_windows'")
     # The windows cover the run; each byte is read once, whatever the overlap.
     # Per chunk: six columns in (32 bytes) and [n, ok] out (8); 32 bytes a row.
     moved = len(run) + (32 + 8) * len(caps) + 32 * n_rec
@@ -1035,9 +1236,11 @@ def time_record_scan(run: bytes, checks: dict, launches: int, launches_from: str
         "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": None,
         "shape": f"{len(caps)} chunks, {len(run)} bytes, {n_rec} records",
+        "kernel_ms": bare_ms, "phase_shares": shares,
     }
     log(f"  record_scan: {k_ms:.4f} ms (plain {p_ms:.3f} ms, bound {row['bound_ms']:.4f} ms) "
-        f"at {row['shape']}")
+        f"at {row['shape']}; kernel_ms {bare_ms:.4f} (the bare launch); phase shares of the "
+        f"blocks' cycles {json.dumps(shares)}")
     return row
 
 
@@ -2487,6 +2690,61 @@ def timed_region(fn, what: str, device: str, trace: str = "", conf=None):
     return out, wall, launch_counts(), c
 
 
+def kernel_device_ms(trace_path: str, name: str):
+    """``(launches, ms)`` of the kernels whose name starts with ``name`` in
+    a ``torch.profiler`` chrome trace."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    n, us = 0, 0.0
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel" and e["name"].replace(
+                "(anonymous namespace)::", "").startswith(name):
+            n += 1
+            us += float(e.get("dur", 0.0))
+    return n, us / 1e3
+
+
+def overlap_device_time(path: str, view_cols, events_ms: float) -> dict:
+    """Row 6 in the chr21 view: its device time a launch, from
+    ``torch.profiler`` over the view's launches, beside the wrapper's host
+    time a call (``overlap_mask`` on one chunk span's records, enqueued
+    200 times without a sync) and ``events_ms`` (CUDA events around 50
+    calls on all the view's records)."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops.kernels import overlap as kov
+    from hadoop_bam_tpu_torch.serve.endpoints import view_blob
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        view_blob(path, REGIONS[1], device="cuda")
+        torch.cuda.synchronize()
+    trace = path + ".row6.trace.json"
+    prof.export_chrome_trace(trace)
+    n6, ms6 = kernel_device_ms(trace, "overlap_kernel")
+    os.remove(trace)
+    if n6 <= 0:
+        raise AssertionError("the traced chr21 view holds no overlap_kernel launch")
+    per = max(1, len(view_cols[0]) // n6)  # the records of one launch, on average
+    iv = torch.tensor([[20, 0, 46709983]], dtype=torch.int32, device="cuda")
+    span = [torch.from_numpy(np.ascontiguousarray(a[:per])).cuda() for a in view_cols]
+    for _ in range(3):
+        kov.overlap_mask(iv, *span)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        kov.overlap_mask(iv, *span)
+    host = (time.perf_counter() - t0) * 1e3 / 200
+    torch.cuda.synchronize()
+    out = {"device_ms_per_launch": ms6 / n6, "traced_launches": n6,
+           "host_ms_per_call": host, "records_per_launch": per}
+    log(f"  overlap_mask in the chr21 view: {n6} launches, device {ms6 / n6:.5f} ms a launch "
+        f"(torch.profiler), wrapper host {host:.5f} ms a call at {per} records, CUDA events "
+        f"{events_ms:.4f} ms a call; x 800 launches: device {800 * ms6 / n6:.3f} ms, host "
+        f"{800 * host:.3f} ms")
+    return out
+
+
 def time_region_kernels(path: str, view_cols, checks: dict, launches: int) -> list:
     """Rows 6, 8 and 9 at the region path's shapes: row 6 over the chr21
     view's records (K = 1) and over the sorted file's first 32 MiB split
@@ -2526,6 +2784,7 @@ def time_region_kernels(path: str, view_cols, checks: dict, launches: int) -> li
         log(f"  overlap_mask at {what} ({nr} records): {times[what][0]:.4f} ms (plain "
             f"{times[what][1]:.3f} ms, bound {times[what][2]:.5f} ms)")
     k_ms, p_ms, bound, nv = times["chr21 view, K=1"]
+    row6 = overlap_device_time(path, view_cols, k_ms)
     rows = [{
         "name": "overlap_mask", "route": "cuda", "source": "hadoop_bam_tpu_torch/csrc/region.cu",
         "replaces": "hadoop_bam_tpu/ops/pallas/overlap.py:46", "launches": launches,
@@ -2533,7 +2792,7 @@ def time_region_kernels(path: str, view_cols, checks: dict, launches: int) -> li
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
         "shape": f"the chr21 view's {nv} records, K = 1",
         "ms_split_k1": times["one split, K=1"][0], "ms_split_k8": times["one split, K=8"][0],
-        "split_records": n,
+        "split_records": n, **row6,
     }]
     # The split's quality and packed-sequence columns (every record 150 bp).
     l_seq = soa["l_seq"].astype(np.int64)

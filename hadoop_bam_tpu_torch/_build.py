@@ -50,7 +50,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "hbt_crc32_members": [_P, _P, _P, _I64, _P, _P],
     },
     "record_scan": {
-        "hbt_record_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P],
+        "hbt_record_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P, _P],
     },
     "bcf_chain": {
         "hbt_bcf_chain_plan": [_I64, _I64, _I64, _I64, _I64, _P],

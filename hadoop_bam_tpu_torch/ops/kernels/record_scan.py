@@ -119,15 +119,24 @@ def default_rec_cap(max_window: int) -> int:
 # The kernel and its plain version
 
 
-def scan_windows(data: torch.Tensor, win_off, win_len, chunk_len, aligned, final, caps,
-                 metrics: Optional[Metrics] = None):
-    """Scan windows ``data[win_off[k] : + win_len[k]]`` of a flat uint8
-    tensor, each under its own cap, in one launch.
+#: The card's geometry: bytes a shared-memory tile and threads a block
+#: (``csrc/record_scan.cu``; tuned at the ingest's R1 windows on an H100,
+#: PERF.md).
+TILE = 6144
+THREADS = 128
 
-    Columns are host arrays.  Returns ``(rows, meta, row_base)`` on
-    ``data``'s device: ``rows`` int32 ``[sum(caps), 8]`` (chunk k's records
-    from row ``row_base[k]``; rows past its ``n`` are undefined), ``meta``
-    int32 ``[n_chunks, 2]`` = ``[n, ok]`` and ``row_base`` int64."""
+#: The kernel's phases, in the order of its cycle counts (``_launch``'s
+#: ``cycles``): the tile loads' wait, the newline count and block scan, the
+#: line table, the decisions and emit, the synthetic final line and verdicts.
+PHASES = ("wait", "count", "lines", "decide", "tail")
+
+
+def _columns(data: torch.Tensor, win_off, win_len, chunk_len, aligned, final, caps,
+             metrics: Optional[Metrics] = None):
+    """The launch's columns on ``data``'s device (win_off, win_len,
+    chunk_len, flags, caps, row_base: the rows of one int64 ``[6, n]``
+    tensor, one upload) and its outputs ``rows`` and ``meta``,
+    uninitialised."""
     check_tensor(data, "data", torch.uint8)
     off = np.asarray(win_off, np.int64)
     wl = np.asarray(win_len, np.int64)
@@ -139,25 +148,55 @@ def scan_windows(data: torch.Tensor, win_off, win_len, chunk_len, aligned, final
     base = np.zeros(n, np.int64)
     if n:
         np.cumsum(cap[:-1], out=base[1:])
-    flags = np.asarray(aligned, np.int32) | (np.asarray(final, np.int32) << 1)
-    bank = [off, wl.astype(np.int32), np.asarray(chunk_len, np.int32), flags.astype(np.int32),
-            cap.astype(np.int32), base]
+    flags = np.asarray(aligned, np.int64) | (np.asarray(final, np.int64) << 1)
+    bank = np.stack([off, wl, np.asarray(chunk_len, np.int64), flags, cap, base])
     dev = data.device
-    cols = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in bank]
+    cols = list(torch.from_numpy(bank).to(dev))
     if dev.type == "cuda" and metrics is not None:
-        metrics.count_h2d(sum(a.nbytes for a in bank), "scan_cols")
+        metrics.count_h2d(bank.nbytes, "scan_cols")
     rows = torch.empty((int(cap.sum()), _REC_W), dtype=torch.int32, device=dev)
     meta = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    return cols, rows, meta
+
+
+def _launch(data: torch.Tensor, cols, rows: torch.Tensor, meta: torch.Tensor,
+            tile: int = TILE, threads: int = THREADS,
+            cycles: Optional[torch.Tensor] = None) -> None:
+    """The kernel over ``_columns``' outputs, on the card: ``tile`` bytes a
+    tile (a multiple of 16), ``threads`` (128 or 256) a block; with
+    ``cycles`` (int64 ``[len(PHASES)]`` on the card), each phase's clock
+    cycles summed over the blocks are added to it.  Raises on a launch
+    error."""
+    n = meta.shape[0]
+    if n == 0:
+        return
+    if cycles is not None and (cycles.dtype != torch.int64 or cycles.numel() != len(PHASES)):
+        raise ValueError("cycles must be int64 with one entry a phase")
+    lib = _build.load("record_scan")
+    rc = lib.hbt_record_scan(
+        data.data_ptr(), *(c.data_ptr() for c in cols), rows.data_ptr(), meta.data_ptr(),
+        n, tile, threads, cycles.data_ptr() if cycles is not None else None,
+        stream_handle(data),
+    )
+    _build.check(rc, "record_scan")
+    LAUNCHES.add()
+
+
+def scan_windows(data: torch.Tensor, win_off, win_len, chunk_len, aligned, final, caps,
+                 metrics: Optional[Metrics] = None):
+    """Scan windows ``data[win_off[k] : + win_len[k]]`` of a flat uint8
+    tensor, each under its own cap, in one launch.
+
+    Columns are host arrays.  Returns ``(rows, meta, row_base)`` on
+    ``data``'s device: ``rows`` int32 ``[sum(caps), 8]`` (chunk k's records
+    from row ``row_base[k]``; rows past its ``n`` are undefined), ``meta``
+    int32 ``[n_chunks, 2]`` = ``[n, ok]`` and ``row_base`` int64."""
+    cols, rows, meta = _columns(data, win_off, win_len, chunk_len, aligned, final, caps,
+                                metrics)
     if use_plain(data, *cols):
         record_scan_plain(data, *cols, rows, meta)
-    elif n:
-        lib = _build.load("record_scan")
-        rc = lib.hbt_record_scan(
-            data.data_ptr(), *(c.data_ptr() for c in cols), rows.data_ptr(), meta.data_ptr(),
-            n, stream_handle(data),
-        )
-        _build.check(rc, "record_scan")
-        LAUNCHES.add()
+    else:
+        _launch(data, cols, rows, meta)
     return rows, meta, cols[5]
 
 
