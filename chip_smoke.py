@@ -3204,7 +3204,7 @@ def time_kernels(src: str, checks: dict, launches: dict, launches_r: dict, seed:
 CODEC_MIB = 64  # the round trip's input: the sort generator's record bytes
 XLA_MIB = 8  # the general programs' inputs
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 peak, the CUDA cores' rate
-OPS_PER_SYMBOL = 20  # row 10's integer operations per decoded symbol (csrc/inflate_fixed.cu)
+OPS_PER_SYMBOL = 20  # integer operations to decode one fixed-Huffman symbol (row 10's function)
 OPS_PER_WAVE = 80  # row 11's integer operations per lane and wave (csrc/inflate_probe.cu)
 
 
@@ -3247,6 +3247,120 @@ def fixed_literal_cases(seed: int):
     return rows, np.asarray([len(c) for c in comps], np.int32), np.asarray(isz, np.int32), payloads
 
 
+def _bits_to(q: int) -> list:
+    """Literal bytes whose fixed codes, from bit 3, end exactly at bit q:
+    'A' (8 bits) and 200 (9 bits); any q >= 59 is reached."""
+    n = q - 3
+    for nine in range(n // 9 + 1):
+        if (n - 9 * nine) % 8 == 0:
+            return [200] * nine + [65] * ((n - 9 * nine) // 8)
+    raise ValueError(f"no literal run ends at bit {q}")
+
+
+def _fixed_batch(members, C: int = 0, fill=None):
+    """Rows ``(comp [B, C] uint8, clens, isizes)`` of ``(stream, clen,
+    isize)`` members; C defaults to the longest stream rounded up to 16
+    bytes; bytes past each stream are zeros, or ``fill``'s."""
+    C = C or -(-max([len(s) for s, _, _ in members] + [1]) // 16) * 16
+    comp = np.zeros((len(members), C), np.uint8) if fill is None else fill[: len(members), :C].copy()
+    for i, (s, _, _) in enumerate(members):
+        s = s[:C]
+        comp[i, : len(s)] = np.frombuffer(s, np.uint8)
+    return (comp, np.asarray([c for _, c, _ in members], np.int32),
+            np.asarray([z for _, _, z in members], np.int32))
+
+
+def fixed_literal_trouble_cases(seed: int) -> dict:
+    """Row 10's trouble cases, each a batch ``(comp [B, C] uint8, clens,
+    isizes)`` for the kernel and its plain version: symbols that end, start
+    or straddle segment and round seams (a 9-bit literal ending at each bit
+    of a sweep, an EOB and a length code starting there, around the seams of
+    256- and 512-bit segments and of 32,768- and 65,536-bit rounds), runs
+    whose 9 entries
+    never meet, ISIZE that lies (by one either way on the largest and on a
+    smaller member; far below the literals), the ends of the stream (clens
+    cut mid-symbol, garbage past clens, clens past C, no EOB before C),
+    small members (ISIZE 0, 1, 15, 16, 17; bad headers), an empty batch, the
+    57,088-byte member and random streams."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops import flate
+
+    rng = np.random.default_rng(seed + 15)
+    enc = flate.encode_tokens_fixed
+
+    def lits(payloads, isizes=None):
+        """``(stream, clen, isize)`` of literal-only members, by
+        ``deflate_fixed`` on the CPU."""
+        payloads = [bytes(p) for p in payloads]
+        mat = np.zeros((len(payloads), max(len(p) for p in payloads) or 1), np.uint8)
+        for i, p in enumerate(payloads):
+            mat[i, : len(p)] = np.frombuffer(p, np.uint8)
+        comp, cl = flate._deflate_fixed_rows(
+            torch.from_numpy(mat), torch.tensor([len(p) for p in payloads], dtype=torch.int32))
+        comp, cl = comp.numpy(), cl.numpy()
+        isizes = [len(p) for p in payloads] if isizes is None else isizes
+        return [(comp[i, : cl[i]].tobytes(), int(cl[i]), int(z)) for i, z in enumerate(isizes)]
+
+    def lit(payload, isize=None):
+        return lits([payload], None if isize is None else [isize])[0]
+
+    def rand(n, lo=0, hi=256):
+        return bytes(rng.integers(lo, hi, n, dtype=np.uint8))
+
+    sweep = list(range(68, 68 + 144)) + [p + d for p in (256, 512, 4096, 32768, 65536)
+                                         for d in range(-9, 10)]
+    cases = {
+        "a 9-bit literal ends at each bit of the sweep": _fixed_batch(
+            lits([_bits_to(q - 9) + [255, 66, 201] for q in sweep])),
+        "an EOB starts at each bit of the sweep": _fixed_batch(lits([_bits_to(q) for q in sweep])),
+        "a length code starts at each bit of the sweep": _fixed_batch(
+            [(s, len(s), len(_bits_to(q)) + 4) for q in sweep[:40] + sweep[144::4]
+             for s in [enc([("lit", b) for b in _bits_to(q)] + [("copy", 3, 1), ("lit", 7)])]]),
+        "runs whose entries never meet": _fixed_batch(
+            lits([bytes([37]) * n for n in (1, 31, 32, 33, 255, 256, 257, 4095, 4096, 4097)]
+                 + [bytes([37, 122]) * 300 + rand(40)])),
+    }
+    big, small = rand(3000), rand(100)
+    for what, dbig, dsmall in (("largest one below", -1, 0), ("largest one above", 1, 0),
+                               ("smaller one below", 0, -1), ("smaller one above", 0, 1)):
+        cases[f"ISIZE lies: {what}"] = _fixed_batch(
+            [lit(big, isize=len(big) + dbig), lit(small, isize=len(small) + dsmall)])
+    cases["ISIZE lies: far below, beside a short member"] = _fixed_batch(
+        [lit(rand(2000), isize=40), lit(rand(60)), lit(rand(6000), isize=17)])
+    cases["ISIZE lies: far above"] = _fixed_batch([lit(rand(100), isize=5000), lit(rand(40))])
+    full = lit(rand(500))
+    cases["clens cut mid-symbol, the rest of the stream after it"] = _fixed_batch(
+        [(full[0], full[1] - k, full[2]) for k in (1, 2, 3, 60, len(full[0]) - 1)] + [full])
+    garbage = rng.integers(0, 256, (8, 2048), dtype=np.uint8)
+    cases["garbage bytes past clens"] = _fixed_batch(
+        lits([rand(n) for n in (0, 1, 17, 500, 1500)]) + [(full[0], full[1] - 2, full[2])],
+        C=2048, fill=garbage)
+    edge = lit(_bits_to(8 * 64))[0][:64]  # literals to bit 512, no EOB
+    cases["clens past C: the EOB comes from the zeros past C"] = _fixed_batch(
+        [(edge, c, len(_bits_to(512))) for c in (64, 65, 70, 1 << 27, -1, 0)], C=64)
+    cases["no EOB before C"] = _fixed_batch([(lit(rand(300))[0][:80], 80, 300),
+                                             (lit(rand(300))[0][:80], 1000, 300)], C=80)
+    smalls = lits([rand(n) for n in (0, 1, 15, 16, 17)])
+    bad = []
+    for hdr in (0b010, 0b101, 0b111, 0b001, 0b000):
+        s = bytearray(lit(rand(20))[0])
+        s[0] = (s[0] & ~7) | hdr
+        bad.append((bytes(s), len(s), 20))
+    cases["small members and bad headers"] = _fixed_batch(smalls + bad)
+    cases["an empty batch"] = (np.zeros((0, 16), np.uint8), np.zeros(0, np.int32),
+                               np.zeros(0, np.int32))
+    cases["the 57,088-byte member and two of 24,000 bytes"] = _fixed_batch(
+        lits([rand(flate.DEV_MAX_PAYLOAD), rand(24000, 0, 144), rand(24000, 144, 256)]))
+    streams = []
+    for n in (16, 64, 300, 1000):
+        s = bytearray(rand(n))
+        s[0] = (s[0] & ~7) | 3
+        streams.append((bytes(s), n, int(rng.integers(0, 8 * n))))
+    cases["random streams"] = _fixed_batch(streams)
+    return cases
+
+
 def check_inflate_fixed(seed: int) -> dict:
     """Row 10 against its plain version, exactly, and against the
     payloads."""
@@ -3271,7 +3385,48 @@ def check_inflate_fixed(seed: int) -> dict:
     log(f"inflate_fixed_literal kernel == plain: {len(isz)} members (0-{int(isz.max())} bytes; "
         f"LZ77, truncated-then-valid, btype=10), {int(kk.sum())} ok, {int((~kk).sum())} rejected, "
         f"max_abs_err {bad}")
+    check_fixed_trouble(seed)
     return {"max_abs_err": float(bad)}
+
+
+#: Row 10's geometries checked on the card, (seg bits, threads): the
+#: default, 256-bit segments, tiny ones whose short members cross many
+#: segments and rounds, and the largest (shared memory past 48 KB).
+FIXED_GEOMETRIES = ((512, 128), (256, 128), (32, 32), (64, 64), (1024, 256))
+
+
+def check_fixed_trouble(seed: int) -> None:
+    """Row 10 on ``fixed_literal_trouble_cases`` against its plain version,
+    exactly (ok and every byte of every row), at each of
+    ``FIXED_GEOMETRIES``: the default through ``inflate_fixed_literal``,
+    the others through ``_launch``."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops.kernels import inflate_fixed as kfix
+
+    t0 = time.perf_counter()
+    cases = fixed_literal_trouble_cases(seed)
+    members = rejected = 0
+    for what, (comp, clens, isz) in cases.items():
+        c = [torch.from_numpy(a) for a in (comp, clens, isz)]
+        po, pk = (a.numpy() for a in kfix.inflate_fixed_literal(*c))
+        g = [a.cuda() for a in c]
+        for seg, threads in FIXED_GEOMETRIES:
+            if (seg, threads) == (kfix.SEG, kfix.THREADS):
+                ko, kk = kfix.inflate_fixed_literal(*g)
+            else:
+                gc, out, kk, max_out = kfix._prepare(g[0], g[2])
+                kfix._launch(gc, g[1], g[2], out, kk, seg, threads)
+                ko = out[:, :max_out]
+            ko, kk = ko.cpu().numpy(), kk.cpu().numpy()
+            if not (np.array_equal(kk, pk) and np.array_equal(ko, po)):
+                raise AssertionError(f"inflate_fixed_literal at seg {seg}, {threads} threads != "
+                                     f"plain on {what}")
+        members += len(isz)
+        rejected += int((~pk).sum())
+    log(f"inflate_fixed_literal kernel == plain on {len(cases)} trouble cases ({members} members, "
+        f"{rejected} rejected) at (seg, threads) {list(FIXED_GEOMETRIES)}, max_abs_err 0 "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def check_inflate_probe(seed: int) -> dict:
@@ -3299,6 +3454,19 @@ def check_inflate_probe(seed: int) -> dict:
     log("inflate_probe_walk kernel == plain == reference_walk: R=256 T=64 (negative and "
         "past-the-end cursors), R=4096 T=2048, max_abs_err 0")
     return {"max_abs_err": 0.0}
+
+
+def fixed_phase_shares(args) -> dict:
+    """Row 10's phases' shares of its blocks' clock cycles (thread 0's
+    stamps summed over blocks) in one launch of ``kfix._launch(*args)``."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops.kernels import inflate_fixed as kfix
+
+    cyc = torch.zeros(len(kfix.PHASES), dtype=torch.int64, device="cuda")
+    kfix._launch(*args, cycles=cyc)
+    cyc = cyc.cpu().numpy().astype(np.float64)
+    return {k: round(float(v / cyc.sum()), 4) for k, v in zip(kfix.PHASES, cyc)}
 
 
 def timed_codec(fn, what: str, trace: str = ""):
@@ -3468,6 +3636,10 @@ def codec_phase(work: str, seed: int, checks: dict, mib: int) -> list:
     g = [torch.from_numpy(a).cuda() for a in (comp, clens, isz)]
     c = [torch.from_numpy(a) for a in (comp, clens, isz)]
     k_ms = cuda_ms(lambda: kfix.inflate_fixed_literal(*g), iters=20, warmup=3)
+    prep = kfix._prepare(g[0], g[2])
+    bare = (prep[0], g[1], g[2], prep[1], prep[2])
+    bare_ms = cuda_ms(lambda: kfix._launch(*bare), iters=20, warmup=3)
+    shares = fixed_phase_shares(bare)
     p_ms = once_ms(lambda: kfix.inflate_fixed_literal(*c))
     in_args = pack_members(comps, isz, "cuda")
     r1_ms = cuda_ms(lambda: kin.inflate_members(*in_args), iters=3, warmup=1)
@@ -3477,6 +3649,8 @@ def codec_phase(work: str, seed: int, checks: dict, mib: int) -> list:
     log(f"  inflate_fixed_literal: {k_ms:.4f} ms a launch over {len(isz)} members (plain "
         f"{p_ms:.1f} ms; bound {max(b_bytes, b_ops):.5f} ms: bytes {b_bytes:.5f}, operations "
         f"{b_ops:.5f}); inflate_members (row 1) on the same members {r1_ms:.3f} ms")
+    log(f"  inflate_fixed_literal: kernel_ms {bare_ms:.4f} (the bare launch), phase shares of "
+        f"the blocks' cycles {json.dumps(shares)}")
     rows = [{
         "name": "inflate_fixed_literal", "route": "cuda",
         "source": "hadoop_bam_tpu_torch/csrc/inflate_fixed.cu",
@@ -3484,7 +3658,7 @@ def codec_phase(work: str, seed: int, checks: dict, mib: int) -> list:
         "launches_from": "bgzf_decompress_device(cuda), inflate gate off",
         "max_abs_err": checks["inflate_fixed"], "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-        "library_ms": None, "row1_ms": r1_ms,
+        "library_ms": None, "row1_ms": r1_ms, "kernel_ms": bare_ms, "phase_shares": shares,
         "shape": f"{len(isz)} members of <= {int(isz.max())} bytes, C = {comp.shape[1]}",
     }]
 

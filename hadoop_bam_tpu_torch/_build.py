@@ -60,7 +60,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "hbt_rans_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _P],
     },
     "inflate_fixed": {
-        "hbt_inflate_fixed_literal": [_P, _I64, _P, _P, _I64, _P, _I64, _P, _P],
+        "hbt_inflate_fixed_literal": [_P, _I64, _P, _P, _I64, _P, _I64, _P, _I32, _I32,
+                                      _P, _P],
     },
     "inflate_probe": {
         "hbt_inflate_probe_walk": [_P, _I32, _P, _I32, _P, _P, _P],

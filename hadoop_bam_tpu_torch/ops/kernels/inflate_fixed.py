@@ -1,5 +1,5 @@
 """Inflate of literal-only fixed-Huffman members: ``csrc/inflate_fixed.cu``
-and its plain version.
+(+ ``csrc/inflate_fixed_core.cuh``) and its plain version.
 
 Counterpart of ``hadoop_bam_tpu/ops/pallas/inflate_fixed.py``
 (``inflate_fixed_literal``): single-block ``btype=01`` members whose
@@ -9,14 +9,14 @@ other than ``011``, any length code, an EOB ending past ``clens * 8``, or
 a byte count other than its ISIZE; bits past a row's ``C`` bytes read as
 zero, as in the reference.  The reference's walk is bounded by ``T`` waves
 (a power of two at least ``max_isize + 4``); here a member stops at the
-emit that would pass its ISIZE, which decides the same verdict earlier.
-The reference declines launches past its 10 MiB VMEM budget; the card has
-no such limit, so every member is decoded.
+round where its literals pass its ISIZE, which decides the same verdict
+earlier.  The reference declines launches past its 10 MiB VMEM budget; the
+card has no such limit, so every member is decoded.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,10 +26,19 @@ from . import LaunchCounter, check_tensor, stream_handle, use_plain
 
 LAUNCHES = LaunchCounter("inflate_fixed_literal")
 
-#: Output rows are this many bytes apart on the card: the kernel stores 16
-#: bytes at a time.
+#: Output rows are this many bytes apart on the card, and input rows are
+#: padded to it: the kernel moves 16 bytes at a time.
 ROW_ALIGN = 16
 
+#: The card's geometry: bits a segment and threads a block (a member's block
+#: reads SEG * THREADS bits a round; ``csrc/inflate_fixed.cu``).
+SEG = 512
+THREADS = 128
+
+#: The kernel's phases, in the order of its cycle counts (``_launch``'s
+#: ``cycles``): the round loads' wait, the segment maps, the two block scans,
+#: the emit and its stores, the row's zero tail and verdict.
+PHASES = ("wait", "map", "compose", "emit", "finish")
 
 
 def _symbol_table() -> np.ndarray:
@@ -73,31 +82,54 @@ def inflate_fixed_literal(
     ``clens``/``isizes`` int32 ``[B]``.  Returns ``(out uint8 [B,
     max_isize], ok bool [B])``: row i holds member i's payload when
     ``ok[i]``, zeros otherwise.  A CUDA tensor launches the kernel (one
-    thread per member), a CPU tensor takes the plain version."""
+    block per member), a CPU tensor takes the plain version."""
     _check(comp, clens, isizes)
     if use_plain(comp, clens, isizes):
         return inflate_fixed_literal_plain(comp, clens, isizes)
+    comp, out, ok, max_out = _prepare(comp, isizes)
+    _launch(comp, clens, isizes, out, ok)
+    return out[:, :max_out], ok
+
+
+def _prepare(comp: torch.Tensor, isizes: torch.Tensor):
+    """The launch's input rows (zero-padded to a multiple of ``ROW_ALIGN``
+    bytes, 16-byte aligned) and its outputs, uninitialised: ``(comp, out
+    [B, stride], ok [B], max_isize)``."""
     B, C = comp.shape
     max_out = int(isizes.max()) if B else 0
     stride_out = max(ROW_ALIGN, -(-max_out // ROW_ALIGN) * ROW_ALIGN)
     out = torch.empty((B, stride_out), dtype=torch.uint8, device=comp.device)
     ok = torch.empty(B, dtype=torch.bool, device=comp.device)
-    if B == 0:
-        return out[:, :max_out], ok
-    if C % 8:  # the kernel reads aligned 8-byte words: pad the rows with zeros
-        comp = torch.nn.functional.pad(comp, (0, 8 - C % 8))
-    elif comp.data_ptr() % 8:
+    if C % ROW_ALIGN:
+        comp = torch.nn.functional.pad(comp, (0, ROW_ALIGN - C % ROW_ALIGN))
+    elif comp.data_ptr() % ROW_ALIGN:
         comp = comp.clone()
-    if comp.shape[1] * 8 >= 1 << 31:
+    if comp.shape[1] >= 1 << 28:
         raise ValueError("comp rows past 2**28 bytes")
+    return comp, out, ok, max_out
+
+
+def _launch(comp: torch.Tensor, clens: torch.Tensor, isizes: torch.Tensor, out: torch.Tensor,
+            ok: torch.Tensor, seg: int = SEG, threads: int = THREADS,
+            cycles: Optional[torch.Tensor] = None) -> None:
+    """The kernel over ``_prepare``'s rows and outputs, on the card: ``seg``
+    bits a segment (a power of two, 32-1024), ``threads`` (32, 64, 128 or
+    256) a block; with ``cycles`` (int64 ``[len(PHASES)]`` on the card), each
+    phase's clock cycles summed over the blocks are added to it.  Raises on
+    a launch error."""
+    B = comp.shape[0]
+    if B == 0:
+        return
+    if cycles is not None and (cycles.dtype != torch.int64 or cycles.numel() != len(PHASES)):
+        raise ValueError("cycles must be int64 with one entry a phase")
     lib = _build.load("inflate_fixed")
     rc = lib.hbt_inflate_fixed_literal(
         comp.data_ptr(), comp.shape[1], clens.data_ptr(), isizes.data_ptr(), B,
-        out.data_ptr(), stride_out, ok.data_ptr(), stream_handle(comp),
+        out.data_ptr(), out.shape[1], ok.data_ptr(), seg, threads,
+        cycles.data_ptr() if cycles is not None else None, stream_handle(comp),
     )
     _build.check(rc, "inflate_fixed_literal")
     LAUNCHES.add()
-    return out[:, :max_out], ok
 
 
 def inflate_fixed_literal_plain(
