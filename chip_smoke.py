@@ -661,9 +661,120 @@ def check_chain(seed: int) -> dict:
     return {"max_abs_err": 0.0}
 
 
+def write_view(rng, numel: int, at: int) -> np.ndarray:
+    """``numel`` random bytes starting ``at`` bytes past a 16-byte boundary
+    of a larger random buffer (a stream that is a view)."""
+    buf = rng.integers(0, 256, 16 + at + numel + 64, dtype=np.uint8)
+    start = (-buf.ctypes.data) % 16 + at
+    return buf[start : start + numel]
+
+
+def on_card_at(view: np.ndarray):
+    """``view`` on the card at the same residue mod 16 (a view of a larger
+    card buffer)."""
+    import torch
+
+    at = view.ctypes.data % 16
+    buf = torch.empty(at + view.size + 16, dtype=torch.uint8, device="cuda")
+    t = buf[at : at + view.size]
+    t.copy_(torch.from_numpy(np.ascontiguousarray(view)))
+    return t
+
+
+#: Member lengths of the CRC trouble cases, each at every residue mod 16.
+CRC_LENGTHS = (0, 1, 3, 15, 16, 17, 4095, 57088, 65536)
+
+
+def crc_trouble_cases(seed: int) -> dict:
+    """Row 3c's trouble cases, ``name -> (stream, offs, lens)``: every
+    length of ``CRC_LENGTHS`` at every residue mod 16; members ending at the
+    stream's last byte, the stream a view at odd offsets; members inside a
+    short view (empty ones included)."""
+    rng = np.random.default_rng(seed + 16)
+    cases = {}
+    offs, lens, at = [], [], 0
+    for n in CRC_LENGTHS:
+        for r in range(16):
+            offs.append(at + r)
+            lens.append(n)
+            at += 16 * (1 + n // 64)
+    s = write_view(rng, max(o + n for o, n in zip(offs, lens)), 0)
+    cases["every length at every residue"] = (s, offs, lens)
+    for at in (1, 7, 13):
+        numel = 70000 + at
+        s = write_view(rng, numel, at)
+        ln = [1, 2, 3, 4, 5, 15, 16, 17, 31, 33, 4095, 57088, numel]
+        cases[f"members ending at the last byte, a view at +{at}"] = (
+            s, [numel - n for n in ln], ln)
+    s = write_view(rng, 300, 5)
+    cases["members inside a short view"] = (s, [0, 0, 1, 2, 3, 150, 299, 300, 17],
+                                            [300, 1, 299, 4, 0, 150, 1, 0, 283])
+    return cases
+
+
+def gather_trouble_cases(seed: int) -> dict:
+    """Row 3b's trouble cases, ``name -> (stream, src, lens, dup, bits)``:
+    every (src, dst) residue pair mod 16; records of 0, 1, 2, 36 bytes and
+    64 KiB, one ending at the stream's last byte; duplicate flags whose
+    bytes 18 and 19 straddle a 16-byte chunk (and, at small tiles, a tile);
+    a part of records of 36-600 bytes; no mark column; one 1-byte record."""
+    from hadoop_bam_tpu_torch.ops.kernels.gather import FLAG_DUPLICATE
+
+    rng = np.random.default_rng(seed + 17)
+    cases = {}
+    # Record k starts at dst residue k % 16 (lengths 1 mod 16) and src
+    # residue k // 16.
+    k = np.arange(256)
+    ln = 17 + 16 * rng.integers(0, 4, 256)
+    src = 16 * rng.integers(0, 300, 256) + k // 16
+    s = write_view(rng, int((src + ln).max()) + 3, 3)
+    cases["every src / dst residue pair"] = (s, src, ln, rng.random(256) < 0.5, FLAG_DUPLICATE)
+    ln = np.array([0, 1, 2, 36, 65536, 0, 0, 36, 1, 2, 0, 19, 20, 18, 65536, 37, 0], np.int64)
+    s = write_view(rng, 140000, 9)
+    src = rng.integers(0, s.size - ln + 1)
+    src[-2] = s.size - ln[-2]
+    cases["records of 0-36 bytes and 64 KiB"] = (s, src, ln, np.ones(len(ln), bool), 0xA55A)
+    ln = np.array([13] + [48] * 12, np.int64)  # the second record starts at 13 mod 16
+    s = write_view(rng, 4000, 1)
+    src = rng.integers(0, s.size - 48, len(ln))
+    cases["flags straddling a chunk and a tile"] = (s, src, ln, np.ones(len(ln), bool), 0x0401)
+    s = write_view(rng, 300000, 0)
+    ln = rng.integers(36, 600, 900)
+    src = rng.integers(0, s.size - ln)
+    cases["a part of records"] = (s, src, ln, rng.random(900) < 0.1, FLAG_DUPLICATE)
+    cases["no mark column"] = (s, src[:100], ln[:100], None, FLAG_DUPLICATE)
+    cases["one record of one byte"] = (s[:1], np.array([0]), np.array([1]), np.array([1]), 0xFFFF)
+    return cases
+
+
+def host_gather(stream, src, lens, dup, bits) -> np.ndarray:
+    """The records joined, then the flag bytes ORed in, as ``io/bam.py``'s
+    ``patch_flags`` does."""
+    out = np.frombuffer(b"".join(stream[s : s + n].tobytes() for s, n in zip(src, lens)),
+                        np.uint8).copy()
+    if dup is not None:
+        starts = np.cumsum(lens) - lens
+        for d, n, m in zip(starts, lens, dup):
+            if m and n > 18:
+                out[d + 18] |= bits & 0xFF
+            if m and n > 19:
+                out[d + 19] |= (bits >> 8) & 0xFF
+    return out
+
+
+#: Row 3c's geometries checked on the card, (threads, bytes a thread a
+#: round): the default first, one warp of 16-byte pieces, the largest.
+CRC_GEOMETRIES = ((128, 32), (32, 16), (256, 64), (256, 256))
+#: Row 3b's, (tile bytes, threads): the default first, one chunk a thread
+#: of tiny tiles, longer runs of chunks a thread.
+GATHER_GEOMETRIES = ((2048, 64), (64, 32), (4096, 256), (16384, 128))
+
+
 def check_crc32(seed: int) -> dict:
     """The CRC32 kernel against its plain version and zlib: empty, 1-byte,
-    word-boundary, unaligned, multi-member and full-size windows."""
+    word-boundary, unaligned, multi-member and full-size windows, then
+    ``crc_trouble_cases`` (from card views at the same residues) at each of
+    ``CRC_GEOMETRIES``."""
     import torch
 
     from hadoop_bam_tpu_torch.ops.kernels import crc32 as kcrc
@@ -680,12 +791,34 @@ def check_crc32(seed: int) -> dict:
     if not (np.array_equal(k, p) and np.array_equal(k, want)):
         raise AssertionError(f"crc32 kernel {k} plain {p} zlib {want}")
     log(f"crc32 kernel == plain == zlib: {len(offs)} windows, max_abs_err 0")
+    members = 0
+    for what, (s, o, n) in crc_trouble_cases(seed).items():
+        plain = kcrc.crc32_device(torch.from_numpy(s), o, n).view(torch.int32).numpy()
+        want = np.array([zlib.crc32(s[a : a + b]) for a, b in zip(o, n)], np.uint32)
+        if not np.array_equal(plain.view(np.uint32), want):
+            raise AssertionError(f"crc32 plain != zlib on {what}")
+        g = on_card_at(s)
+        ot, lt = kcrc._columns(np.asarray(o, np.int64), np.asarray(n, np.int64), g.device)
+        for threads, w in CRC_GEOMETRIES:
+            if (threads, w) == (kcrc.THREADS, kcrc.W):
+                got = kcrc.crc32_device(g, o, n).view(torch.int32)
+            else:
+                got = torch.empty(len(o), dtype=torch.int32, device="cuda")
+                kcrc._launch(g, ot, lt, got, threads, w)
+            if not np.array_equal(got.cpu().numpy(), plain):
+                raise AssertionError(f"crc32 kernel at {threads} threads, w {w} != plain on "
+                                     f"{what}")
+        members += len(o)
+    log(f"crc32 kernel == plain == zlib on the trouble cases ({members} members, views at "
+        f"every residue) at (threads, w) {list(CRC_GEOMETRIES)}, max_abs_err 0")
     return {"max_abs_err": float(np.abs(k - p).max())}
 
 
 def check_gather(seed: int) -> dict:
     """The gather kernel against its plain version and the host gather +
-    ``patch_flags``, on a permuted record stream with a duplicate mask."""
+    ``patch_flags``, on a permuted record stream with a duplicate mask, then
+    ``gather_trouble_cases`` (from card views at the same residues) at each
+    of ``GATHER_GEOMETRIES``."""
     import torch
 
     from hadoop_bam_tpu_torch.io.bam import RecordBatch, gather_record_array, patch_flags
@@ -709,6 +842,42 @@ def check_gather(seed: int) -> dict:
         raise AssertionError("gather kernel differs from plain / host gather")
     log(f"gather kernel == plain == host gather + patch_flags: {len(offs)} records, "
         f"{int(dup.sum())} marked, max_abs_err 0")
+    records = 0
+    for what, (st, sr, n, d, bits) in gather_trouble_cases(seed).items():
+        plain, _ = kg.gather_stream_device(torch.from_numpy(st), sr, n, dup_mask=d, bits=bits)
+        plain = plain.numpy()
+        if not np.array_equal(plain, host_gather(st, sr, n, d, bits)):
+            raise AssertionError(f"gather plain != host gather on {what}")
+        g = on_card_at(st)
+        cols = kg._columns(np.asarray(sr, np.int64), np.asarray(n, np.int64),
+                           None if d is None else np.asarray(d, np.uint8), g.device)
+        for tile, threads in GATHER_GEOMETRIES:
+            if (tile, threads) == (kg.TILE, kg.THREADS):
+                got, _ = kg.gather_stream_device(g, sr, n, dup_mask=d, bits=bits)
+            else:
+                got = torch.full((len(plain),), 0xA5, dtype=torch.uint8, device="cuda")
+                tf = torch.empty(-(-len(plain) // tile), dtype=torch.int32, device="cuda")
+                kg._launch(g, *cols, bits, got, tf, tile, threads)
+            if not np.array_equal(got.cpu().numpy(), plain):
+                raise AssertionError(f"gather kernel at tile {tile}, {threads} threads != plain "
+                                     f"on {what}")
+        records += len(sr)
+    log(f"gather kernel == plain == host gather on the trouble cases ({records} records, views "
+        f"at every residue) at (tile, threads) {list(GATHER_GEOMETRIES)}, max_abs_err 0")
+    # The wrapper's checks (on the card there) refuse what the plain path does.
+    st = np.zeros(1000, np.uint8)
+    for src_b, ln_b in (([0, 990], [5, 20]), ([-1, 0], [3, 3]), ([0, 0], [4, -1]),
+                        ([2**31 - 2, 0], [4, 1]), ([0], [2**31])):
+        raised = []
+        for t in (torch.from_numpy(st), torch.from_numpy(st).cuda()):
+            try:
+                kg.gather_stream_device(t, src_b, ln_b)
+                raised.append(None)
+            except (IndexError, ValueError) as e:
+                raised.append(type(e).__name__)
+        if raised[0] is None or raised[0] != raised[1]:
+            raise AssertionError(f"gather checks differ on src {src_b}, lens {ln_b}: {raised}")
+    log("gather wrapper on the card raises as the plain path on 5 bad geometries")
     return {"max_abs_err": float(np.count_nonzero(k != p.numpy()))}
 
 
@@ -3016,15 +3185,23 @@ def time_write_kernels(inflated, host, up0, checks: dict, launches: dict,
     rows = []
     n_rec = len(src)
     k_ms = cuda_ms(lambda: kg.gather_stream_device(inflated, src, ln), iters=10)
+    cols = kg._columns(src, ln, None, inflated.device)
+    out = torch.empty(total, dtype=torch.uint8, device="cuda")
+    tf = torch.empty(-(-total // kg.TILE), dtype=torch.int32, device="cuda")
+    bare_ms = cuda_ms(lambda: kg._launch(inflated, *cols, kg.FLAG_DUPLICATE, out, tf))
+    if not torch.equal(out, g):
+        raise AssertionError("gather kernel's bare launch differs from its wrapper's")
+    del out, tf, cols
     p_ms = host_ms(lambda: kg.gather_stream_device(host_t, src, ln), iters=1)
     rows.append({
         "name": "gather_stream", "route": "cuda",
-        "source": "hadoop_bam_tpu_torch/csrc/write.cu",
+        "source": "hadoop_bam_tpu_torch/csrc/write.cu + hadoop_bam_tpu_torch/csrc/write_core.cuh",
         "replaces": "hadoop_bam_tpu/ops/pallas/gather_stream.py:93",
         "launches": launches_r["gather_stream"], "launches_from": "sort_bam(cuda), one split",
-        "max_abs_err": checks["gather"], "ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": (2 * total + 20 * n_rec) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "max_abs_err": checks["gather"], "ms": k_ms, "kernel_ms": bare_ms, "plain_ms": p_ms,
+        "bound_ms": (2 * total + 12 * n_rec) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None, "shape": f"{n_rec} records, {total} bytes",
+        "geometry": f"tile {kg.TILE} bytes, {kg.THREADS} threads",
     })
     lens = flate._block_lens(total, flate.DEV_LZ_PAYLOAD)
     offs = np.arange(len(lens), dtype=np.int64) * flate.DEV_LZ_PAYLOAD
@@ -3073,19 +3250,36 @@ def time_write_kernels(inflated, host, up0, checks: dict, launches: dict,
     if not (torch.equal(kcr.view(torch.int32), pcr.view(torch.int32)) and np.array_equal(got, want)):
         raise AssertionError("crc32 kernel differs from plain / zlib on the gathered part")
     k_ms = cuda_ms(lambda: kcrc.crc32_device(g, offs, lens), iters=10)
+    ot, lt = kcrc._columns(offs, lens, g.device)
+    cout = torch.empty(len(lens), dtype=torch.int32, device="cuda")
+    bare_ms = cuda_ms(lambda: kcrc._launch(g, ot, lt, cout))
+    if not torch.equal(cout, kcr.view(torch.int32).cuda()):
+        raise AssertionError("crc32 kernel's bare launch differs from its wrapper's")
     p_ms = host_ms(lambda: kcrc.crc32_device(gh, offs, lens), iters=1)
     rows.append({
         "name": "crc32", "route": "cuda",
-        "source": "hadoop_bam_tpu_torch/csrc/write.cu",
+        "source": "hadoop_bam_tpu_torch/csrc/write.cu + hadoop_bam_tpu_torch/csrc/write_core.cuh",
         "replaces": "hadoop_bam_tpu/ops/pallas/crc32.py:131",
         "launches": launches_r["crc32"], "launches_from": "sort_bam(cuda), one split",
-        "max_abs_err": checks["crc32"], "ms": k_ms, "plain_ms": p_ms,
+        "max_abs_err": checks["crc32"], "ms": k_ms, "kernel_ms": bare_ms, "plain_ms": p_ms,
         "bound_ms": (total + 16 * len(lens)) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None, "shape": f"{len(lens)} members, {total} bytes",
+        "geometry": f"{kcrc.THREADS} threads, {kcrc.W} bytes a thread a round",
     })
     for r in rows:
-        log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.4f} ms) at {r['shape']}")
+        if "kernel_ms" in r:
+            log(f"  {r['name']}: {r['ms']:.4f} ms with its wrapper, {r['kernel_ms']:.4f} ms bare "
+                f"(plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms) at {r['shape']}, "
+                f"{r['geometry']}")
+        else:
+            log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.4f} ms) at {r['shape']}")
+    copy = torch.empty_like(g)
+    copy_ms = cuda_ms(lambda: copy.copy_(g))
+    sum_ms = cuda_ms(lambda: torch.sum(g))
+    del copy
+    log(f"  yardsticks at the part's {total} bytes: device copy_ {copy_ms:.4f} ms, torch.sum "
+        f"{sum_ms:.4f} ms")
     return rows
 
 
@@ -3276,11 +3470,10 @@ def fixed_literal_trouble_cases(seed: int) -> dict:
     or straddle segment and round seams (a 9-bit literal ending at each bit
     of a sweep, an EOB and a length code starting there, around the seams of
     256- and 512-bit segments and of 32,768- and 65,536-bit rounds), runs
-    whose 9 entries
-    never meet, ISIZE that lies (by one either way on the largest and on a
-    smaller member; far below the literals), the ends of the stream (clens
-    cut mid-symbol, garbage past clens, clens past C, no EOB before C),
-    small members (ISIZE 0, 1, 15, 16, 17; bad headers), an empty batch, the
+    whose 9 entries never meet, ISIZE that lies (by one either way on the
+    largest and on a smaller member; far below the literals; below 0 beside
+    valid members), the ends of the stream (clens cut mid-symbol, garbage
+    past clens, clens past C, no EOB before C), small members (ISIZE 0, 1, 15, 16, 17; bad headers), an empty batch, the
     57,088-byte member and random streams."""
     import torch
 
@@ -3329,6 +3522,8 @@ def fixed_literal_trouble_cases(seed: int) -> dict:
     cases["ISIZE lies: far below, beside a short member"] = _fixed_batch(
         [lit(rand(2000), isize=40), lit(rand(60)), lit(rand(6000), isize=17)])
     cases["ISIZE lies: far above"] = _fixed_batch([lit(rand(100), isize=5000), lit(rand(40))])
+    cases["ISIZE below 0 beside valid members"] = _fixed_batch(
+        [lit(rand(5)), (bytes([0x03, 0x00]), 2, -1), lit(rand(40), isize=-1), lit(b"")])
     full = lit(rand(500))
     cases["clens cut mid-symbol, the rest of the stream after it"] = _fixed_batch(
         [(full[0], full[1] - k, full[2]) for k in (1, 2, 3, 60, len(full[0]) - 1)] + [full])

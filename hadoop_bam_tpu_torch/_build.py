@@ -46,8 +46,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "hbt_deflate_members": [_P, _I64, _P, _P, _I64, _I32, _I32, _I64, _P, _P, _P, _P, _P],
     },
     "write": {
-        "hbt_gather_stream": [_P, _P, _P, _P, _P, _I64, _I32, _P, _P],
-        "hbt_crc32_members": [_P, _P, _P, _I64, _P, _P],
+        "hbt_gather_stream": [_P, _I64, _P, _P, _P, _P, _I64, _I32, _P, _I64, _P, _I32, _I32,
+                              _P],
+        "hbt_gather_check": [_P, _P, _I64, _P, _P, _P],
+        "hbt_crc32_members": [_P, _I64, _P, _P, _I64, _P, _P, _I32, _I32, _P],
     },
     "record_scan": {
         "hbt_record_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P, _P],

@@ -1,148 +1,208 @@
 // The part writer's two device passes for Hopper (sm_90a): the sorted
 // record gather (with the duplicate-flag patch) and the per-member CRC32.
+// The work of both is in write_core.cuh; this file holds the launches.
 //
 // gather_stream_kernel replaces hadoop_bam_tpu/ops/pallas/gather_stream.py
 // (gather_stream_device, :93), an XLA program with no pallas_call: there,
 // every output byte finds its record with a batched searchsorted over the
-// sorted destination offsets and then gathers one byte.  Here each warp
-// owns whole records (grid-stride over records), so no search exists: lane
-// k copies bytes k, k + 32, ... of its record from stream[src] to
-// out[dst].  When dup[r] is set the low and high bytes of `bits` are ORed
-// into record bytes 18 and 19 (the BAM flag, body offset 14), the device
-// form of io/bam.py patch_flags.  Bound: bytes (each record read once and
-// written once, plus its columns) over 3.35 TB/s; the byte-wide copy keeps
-// it from that bound (one byte per lane per instruction), and wider copies
-// need source and destination to share an alignment, which records do not.
+// sorted destination offsets and then gathers one byte.  Here the output is
+// cut into tiles of T bytes (default 2048) and a block owns a tile: a first
+// pass, one thread a record, writes each tile's first record; then each
+// thread of the tile's block builds a run of whole 16-byte output chunks,
+// finds its first chunk's record by a binary search of the destination ends
+// between its tile's first record and the next tile's (the reference's
+// searchsorted, once a run and not once a byte; the chunks after it go on
+// from the record the one before ended in), reads the source bytes as
+// aligned 16-byte loads re-aligned by funnel shifts, ORs the duplicate flag
+// into bytes 18 and 19 in registers and stores the chunk as one aligned
+// 16-byte store.  Bound:
+// bytes (each record read once and written once, plus its columns) over
+// 3.35 TB/s.  The design before this one gave each record a warp that
+// copied one byte a lane an instruction.
 //
 // crc32_members_kernel replaces hadoop_bam_tpu/ops/pallas/crc32.py
 // (crc32_device, :131), also plain XLA, which advances every member one
-// 32-bit word per fori_loop step in lockstep.  Here one thread owns one
-// member and runs the same slicing-by-4 recurrence
-//     c ^= word;  c = T3[c & ff] ^ T2[(c >> 8) & ff] ^ T1[(c >> 16) & ff] ^ T0[c >> 24]
-// over 16-byte loads, with bytewise steps for the unaligned head and the
-// tail; the four 256-entry tables are built in shared memory by each block.
-// Bound: the member bytes read once over 3.35 TB/s; one serial chain per
-// member keeps it far from that (a part has about 900 members, so about 900
-// threads on a card of 132 SMs).  Splitting members and combining partial
-// CRCs is later work.
+// 32-bit word per fori_loop step in lockstep.  Here a block takes a member
+// (the grid is as many blocks as fit the card at once, each looping over
+// members): it stages the member in rounds of threads * w bytes (default 128
+// threads, w = 32) through two shared-memory buffers by 16-byte cp.async,
+// each thread folds its own w bytes of a round with slicing-by-4 tables and
+// shifts its register by the round between pieces, and a tree of constant
+// shifts, across warp shuffles and then across the warps, combines the
+// threads' registers into the member's CRC.  Bound: the member bytes read
+// once over 3.35 TB/s.  The design before this one gave each member one
+// thread (eight blocks for a part's ~920 members).
+//
+// Plain C entry points (ctypes): device pointers and the stream as
+// integers; each returns cudaGetLastError() of its launches.
 
+#include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "write_core.cuh"
+
 namespace {
 
-constexpr int kGatherThreads = 256;
-constexpr int kCrcThreads = 128;
+using namespace hbt_write;
 
-__global__ void __launch_bounds__(kGatherThreads)
-gather_stream_kernel(const uint8_t* __restrict__ stream,
-                     const int64_t* __restrict__ src,
-                     const int64_t* __restrict__ dst,
-                     const int32_t* __restrict__ lens,
-                     const uint8_t* __restrict__ dup, int64_t n_rec, int bits,
-                     uint8_t* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x / 32);
-  const uint8_t lo = static_cast<uint8_t>(bits & 0xFF);
-  const uint8_t hi = static_cast<uint8_t>((bits >> 8) & 0xFF);
-  for (int64_t r = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
-       r < n_rec; r += warps) {
-    const uint8_t* s = stream + src[r];
-    uint8_t* d = out + dst[r];
-    const int32_t n = lens[r];
-    const bool mark = dup != nullptr && dup[r] != 0;
-    for (int32_t k = lane; k < n; k += 32) {
-      uint8_t v = s[k];
-      if (mark) {
-        if (k == 18) v |= lo;
-        if (k == 19) v |= hi;
-      }
-      d[k] = v;
-    }
+constexpr int kMaxThreads = 256;
+constexpr int kMaxSmem = 232448;  // a block's shared memory on sm_90
+constexpr int kTileThreads = 256;  // the tile-map pass
+
+__global__ void __launch_bounds__(kTileThreads) gather_tiles_kernel(GatherArgs a, int32_t* tf) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r < a.n) tile_first_of(a, tf, r);
+}
+
+// The wrapper's checks over the host columns as uploaded (int64): the sum
+// of lens, the largest src + lens and the smallest src or lens, reduced a
+// warp at a time into stats (initialised to 0, INT64_MIN, INT64_MAX); lens
+// also go out as int32 for the gather.
+__global__ void __launch_bounds__(kTileThreads)
+gather_check_kernel(const int64_t* __restrict__ src, const int64_t* __restrict__ lens,
+                    long long n, int32_t* __restrict__ lens32, long long* __restrict__ stats) {
+  long long sum = 0, hi = LLONG_MIN, lo = LLONG_MAX;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long s = src[i], l = lens[i];
+    sum += l;
+    hi = max(hi, s + l);
+    lo = min(lo, min(s, l));
+    lens32[i] = static_cast<int32_t>(l);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    sum += __shfl_down_sync(0xFFFFFFFFu, sum, o);
+    hi = max(hi, __shfl_down_sync(0xFFFFFFFFu, hi, o));
+    lo = min(lo, __shfl_down_sync(0xFFFFFFFFu, lo, o));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(stats), static_cast<unsigned long long>(sum));
+    atomicMax(stats + 1, hi);
+    atomicMin(stats + 2, lo);
   }
 }
 
-__device__ __forceinline__ uint32_t crc_byte(const uint32_t* t0, uint32_t c, uint32_t b) {
-  return (c >> 8) ^ t0[(c ^ b) & 0xFFu];
+__global__ void __launch_bounds__(kMaxThreads) gather_stream_kernel(GatherArgs a) {
+  gather_tile(a, blockIdx.x, threadIdx.x, blockDim.x);
 }
 
-__device__ __forceinline__ uint32_t crc_word(const uint32_t* t, uint32_t c, uint32_t w) {
-  c ^= w;
-  return t[768 + (c & 0xFFu)] ^ t[512 + ((c >> 8) & 0xFFu)] ^
-         t[256 + ((c >> 16) & 0xFFu)] ^ t[c >> 24];
-}
-
-__global__ void __launch_bounds__(kCrcThreads)
-crc32_members_kernel(const uint8_t* __restrict__ stream,
-                     const int64_t* __restrict__ offs,
-                     const int32_t* __restrict__ lens, int64_t n,
-                     uint32_t* __restrict__ out) {
-  __shared__ uint32_t t[4 * 256];  // T0 | T1 | T2 | T3
-  for (int k = threadIdx.x; k < 256; k += blockDim.x) {
-    uint32_t c = static_cast<uint32_t>(k);
-    for (int j = 0; j < 8; ++j) c = (c >> 1) ^ ((c & 1u) ? 0xEDB88320u : 0u);
-    t[k] = c;
-  }
+__global__ void __launch_bounds__(kMaxThreads)
+crc32_members_kernel(const uint8_t* __restrict__ stream, long long numel,
+                     const int64_t* __restrict__ offs, const int32_t* __restrict__ lens,
+                     long long n, uint32_t* __restrict__ out,
+                     const uint32_t* __restrict__ consts, int w) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const CrcGeometry g = crc_geometry(blockDim.x, w);
+  const CrcLayout L = crc_carve(smem, g);
+  load_consts(L, consts, consts_words(g.nth), threadIdx.x, g.nth);
   __syncthreads();
-  for (int s = 1; s < 4; ++s) {
-    for (int k = threadIdx.x; k < 256; k += blockDim.x) {
-      const uint32_t prev = t[256 * (s - 1) + k];
-      t[256 * s + k] = (prev >> 8) ^ t[prev & 0xFFu];
-    }
-    __syncthreads();
+  for (int64_t i = blockIdx.x; i < n; i += gridDim.x) {
+    const CrcMember m{stream, numel, offs[i], lens[i], out + i};
+    crc_member(m, g, L, nullptr);
   }
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint8_t* p = stream + offs[i];
-  const uint8_t* end = p + lens[i];
-  uint32_t c = 0xFFFFFFFFu;
-  while (p < end && (reinterpret_cast<uintptr_t>(p) & 15) != 0) c = crc_byte(t, c, *p++);
-#pragma unroll 2
-  for (; p + 16 <= end; p += 16) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    c = crc_word(t, c, v.x);
-    c = crc_word(t, c, v.y);
-    c = crc_word(t, c, v.z);
-    c = crc_word(t, c, v.w);
-  }
-  while (p < end) c = crc_byte(t, c, *p++);
-  out[i] = c ^ 0xFFFFFFFFu;
+}
+
+bool valid_threads(int threads) {
+  return threads == 32 || threads == 64 || threads == 128 || threads == 256;
 }
 
 }  // namespace
 
 extern "C" {
 
-// out[dst[r] .. + lens[r]) = stream[src[r] .. + lens[r]) for r < n_rec, with
-// `bits` ORed into bytes 18/19 of records whose dup[r] is set (dup may be
-// null).  Returns the CUDA error code of the launch.
-int hbt_gather_stream(const void* stream, const void* src, const void* dst,
-                      const void* lens, const void* dup, long long n_rec,
-                      int bits, void* out, void* cuda_stream) {
-  if (n_rec <= 0) return 0;
-  const long long per_block = kGatherThreads / 32;
-  const long long blocks = (n_rec + per_block - 1) / per_block;
-  const unsigned grid = static_cast<unsigned>(blocks < 1048576 ? blocks : 1048576);
-  gather_stream_kernel<<<grid, kGatherThreads, 0,
-                         static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<const uint8_t*>(stream), static_cast<const int64_t*>(src),
-      static_cast<const int64_t*>(dst), static_cast<const int32_t*>(lens),
-      static_cast<const uint8_t*>(dup), static_cast<int64_t>(n_rec), bits,
-      static_cast<uint8_t*>(out));
+// out[dst_end[r] - lens[r] .. dst_end[r]) = stream[src[r] .. + lens[r]) for
+// r < n_rec, with the low and high bytes of `bits` ORed into bytes 18 and 19
+// of records whose dup[r] is set (dup may be null).  stream holds numel
+// bytes (any alignment); src int64, lens int32 (>= 0), dst_end int32 (the
+// inclusive prefix sum of lens, total at the end); out 16-byte aligned, of
+// total bytes.  tile_first: int32 scratch of ceil(total / tile) entries;
+// tile: bytes a block (a multiple of 16); threads: 32, 64, 128 or 256 a
+// block.  Returns the CUDA error code of the launches.
+int hbt_gather_stream(const void* stream, long long numel, const void* src, const void* lens,
+                      const void* dst_end, const void* dup, long long n_rec, int bits, void* out,
+                      long long total, void* tile_first, int tile, int threads,
+                      void* cuda_stream) {
+  if (n_rec <= 0 || total <= 0) return 0;
+  if (tile < 16 || tile % 16 != 0 || !valid_threads(threads) ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (total + tile - 1) / tile;
+  if (tiles > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  GatherArgs a;
+  a.stream = static_cast<const uint8_t*>(stream);
+  a.numel = numel;
+  a.src = static_cast<const int64_t*>(src);
+  a.lens = static_cast<const int32_t*>(lens);
+  a.dst_end = static_cast<const int32_t*>(dst_end);
+  a.dup = static_cast<const uint8_t*>(dup);
+  a.n = n_rec;
+  a.lo = static_cast<uint32_t>(bits) & 0xFFu;
+  a.hi = (static_cast<uint32_t>(bits) >> 8) & 0xFFu;
+  a.out = static_cast<uint8_t*>(out);
+  a.total = total;
+  a.tile_first = static_cast<const int32_t*>(tile_first);
+  a.tile = tile;
+  a.tiles = tiles;
+  const cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  const long long blocks = (n_rec + kTileThreads - 1) / kTileThreads;
+  gather_tiles_kernel<<<static_cast<unsigned>(blocks), kTileThreads, 0, s>>>(
+      a, static_cast<int32_t*>(tile_first));
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  gather_stream_kernel<<<static_cast<unsigned>(tiles), threads, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gather's checks on the card: stats (int64 [3], set to 0, INT64_MIN,
+// INT64_MAX) gets the sum of lens, the largest src[r] + lens[r] and the
+// smallest of every src and lens; lens32 gets lens as int32.  src and lens
+// int64 [n].  Returns the CUDA error code of the launch.
+int hbt_gather_check(const void* src, const void* lens, long long n, void* lens32, void* stats,
+                     void* cuda_stream) {
+  if (n <= 0) return 0;
+  const long long want = (n + kTileThreads - 1) / kTileThreads;
+  const unsigned grid = static_cast<unsigned>(want < 1056 ? want : 1056);
+  gather_check_kernel<<<grid, kTileThreads, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<const int64_t*>(src), static_cast<const int64_t*>(lens), n,
+      static_cast<int32_t*>(lens32), static_cast<long long*>(stats));
   return static_cast<int>(cudaGetLastError());
 }
 
 // out[i] = CRC32 of stream[offs[i] .. + lens[i]) (zlib's polynomial; 0 for an
-// empty member).  Returns the CUDA error code of the launch.
-int hbt_crc32_members(const void* stream, const void* offs, const void* lens,
-                      long long n, void* out, void* cuda_stream) {
+// empty member) for i < n.  stream holds numel bytes (any alignment; no
+// byte outside it is read); offs int64, lens int32; consts: the
+// kernel's constants for (threads, w) as ops/kernels/crc32.py builds them
+// (device memory); threads: 32, 64, 128 or 256 a block; w: bytes a thread a
+// round (16, 32, 64, 128 or 256).  Returns the CUDA error code of the launch.
+int hbt_crc32_members(const void* stream, long long numel, const void* offs, const void* lens,
+                      long long n, void* out, const void* consts, int threads, int w,
+                      void* cuda_stream) {
   if (n <= 0) return 0;
-  const unsigned grid = static_cast<unsigned>((n + kCrcThreads - 1) / kCrcThreads);
-  crc32_members_kernel<<<grid, kCrcThreads, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<const uint8_t*>(stream), static_cast<const int64_t*>(offs),
-      static_cast<const int32_t*>(lens), static_cast<int64_t>(n),
-      static_cast<uint32_t*>(out));
+  if (!valid_threads(threads) || w < 16 || w > 256 || (w & (w - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t smem = crc_smem_bytes(threads, w);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        crc32_members_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, crc32_members_kernel, threads,
+                                                      static_cast<size_t>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long fit = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid = static_cast<unsigned>(n < fit ? n : fit);
+  crc32_members_kernel<<<grid, threads, static_cast<size_t>(smem),
+                         static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<const uint8_t*>(stream), numel, static_cast<const int64_t*>(offs),
+      static_cast<const int32_t*>(lens), n, static_cast<uint32_t*>(out),
+      static_cast<const uint32_t*>(consts), w);
   return static_cast<int>(cudaGetLastError());
 }
 

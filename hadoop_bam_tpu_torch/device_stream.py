@@ -217,7 +217,7 @@ class DeviceStream:
             self.metrics.count("bam.device_write_tierdown.size")
             return None
         if self.device.type == "cuda":
-            self.metrics.count_h2d(len(src) * 20 + (0 if dm is None else len(dm)), "write_cols")
+            self.metrics.count_h2d(len(src) * 16 + (0 if dm is None else len(dm)), "write_cols")
         res = flate.deflate_blocks_device(
             None, level=level, block_payload=flate.DEV_LZ_PAYLOAD, device_input=gathered,
             metrics=self.metrics,

@@ -1,5 +1,6 @@
 """Sorted record gather with the duplicate-flag patch: ``csrc/write.cu``
-(``gather_stream_kernel``) and its plain version.
+(``gather_stream_kernel``, the core in ``csrc/write_core.cuh``) and its
+plain version.
 
 Counterpart of ``hadoop_bam_tpu/ops/pallas/gather_stream.py``
 (``gather_stream_device``): a part's records, in sorted order, are copied
@@ -21,6 +22,11 @@ LAUNCHES = LaunchCounter("gather_stream")
 
 #: SAM FLAG_DUPLICATE, the patch the duplicate-marking write applies.
 FLAG_DUPLICATE = 0x400
+
+#: The card's geometry: output bytes a block (a tile, a multiple of 16) and
+#: threads a block (``csrc/write.cu``).
+TILE = 2048
+THREADS = 64
 
 
 def gather_stream_device(
@@ -48,35 +54,83 @@ def gather_stream_device(
         raise ValueError("src_starts and lens differ in length")
     if r == 0:
         return torch.empty(0, dtype=torch.uint8, device=stream.device), 0
-    dst_end = np.cumsum(ln)
-    total = int(dst_end[-1])
-    if total >= 2**31 or int((src + ln).max()) >= 2**31:
-        raise OutsideInt32Domain("gather geometry outside the int32 domain")
-    if int(src.min()) < 0 or int(ln.min()) < 0 or int((src + ln).max()) > stream.numel():
-        raise IndexError("gather_stream_device: a record lies outside the stream")
+    if use_plain(stream):
+        total = _check(stream, src, ln)
+        dm = _marks(dup_mask, r)
+        t = torch.from_numpy
+        dst = np.cumsum(ln) - ln
+        return gather_stream_plain(stream, t(src), t(dst), t(ln.astype(np.int32)),
+                                   None if dm is None else t(dm), bits), total
     dev = stream.device
-    cols = [
-        torch.from_numpy(src).to(dev),
-        torch.from_numpy(dst_end - ln).to(dev),
-        torch.from_numpy(ln.astype(np.int32)).to(dev),
-    ]
-    dup = None
-    if dup_mask is not None:
-        dup = torch.from_numpy(np.asarray(dup_mask, dtype=np.uint8)).to(dev)
-        if dup.numel() != r:
-            raise ValueError("dup_mask differs in length from src_starts")
-    if use_plain(stream, *cols):
-        return gather_stream_plain(stream, *cols, dup, bits), total
-    out = torch.empty(total, dtype=torch.uint8, device=dev)
+    src_t, ln_t = torch.from_numpy(src).to(dev), torch.from_numpy(ln).to(dev)
+    # The checks on the card, one kernel and one read-back: the host never
+    # passes over the columns (on a loaded host each pass costs more than
+    # the gather).
+    lens_t = torch.empty(r, dtype=torch.int32, device=dev)
+    stats = torch.tensor([0, -(2**63), 2**63 - 1], dtype=torch.int64).to(dev)
     lib = _build.load("write")
-    rc = lib.hbt_gather_stream(
-        stream.data_ptr(), cols[0].data_ptr(), cols[1].data_ptr(), cols[2].data_ptr(),
-        None if dup is None else dup.data_ptr(), r, int(bits), out.data_ptr(),
-        stream_handle(stream),
-    )
-    _build.check(rc, "gather_stream")
+    _build.check(lib.hbt_gather_check(src_t.data_ptr(), ln_t.data_ptr(), r, lens_t.data_ptr(),
+                                      stats.data_ptr(), stream_handle(stream)), "gather_check")
+    total, end, low = stats.tolist()
+    if total >= 2**31 or end >= 2**31:
+        raise OutsideInt32Domain("gather geometry outside the int32 domain")
+    if low < 0 or end > stream.numel():
+        raise IndexError("gather_stream_device: a record lies outside the stream")
+    dm = _marks(dup_mask, r)
+    if total == 0:
+        return torch.empty(0, dtype=torch.uint8, device=dev), 0
+    dst_end = torch.cumsum(lens_t, 0, dtype=torch.int32)
+    dup_t = None if dm is None else torch.from_numpy(dm.view(np.uint8)).to(dev)
+    out = torch.empty(total, dtype=torch.uint8, device=dev)
+    tile_first = torch.empty(-(-total // TILE), dtype=torch.int32, device=dev)
+    _launch(stream, src_t, lens_t, dst_end, dup_t, bits, out, tile_first)
     LAUNCHES.add()
     return out, total
+
+
+def _check(stream: torch.Tensor, src: np.ndarray, ln: np.ndarray) -> int:
+    """The output's bytes, after the reference's int32-domain gate and the
+    bounds check, on host columns."""
+    total = int(ln.sum())
+    end = int((src + ln).max())
+    if total >= 2**31 or end >= 2**31:
+        raise OutsideInt32Domain("gather geometry outside the int32 domain")
+    if int(src.min()) < 0 or int(ln.min()) < 0 or end > stream.numel():
+        raise IndexError("gather_stream_device: a record lies outside the stream")
+    return total
+
+
+def _marks(dup_mask, r: int) -> Optional[np.ndarray]:
+    if dup_mask is None:
+        return None
+    dm = np.asarray(dup_mask, dtype=np.uint8).reshape(-1)
+    if dm.size != r:
+        raise ValueError("dup_mask differs in length from src_starts")
+    return dm != 0
+
+
+def _columns(src: np.ndarray, ln: np.ndarray, dm: Optional[np.ndarray], device: torch.device):
+    """The kernel's columns for host columns, without the wrapper's checks
+    (for timing the bare launch): ``(src, lens, dst_end, marks or None)``."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    lens_t = t(np.asarray(ln, np.int64)).to(torch.int32)
+    return (t(np.asarray(src, np.int64)), lens_t, torch.cumsum(lens_t, 0, dtype=torch.int32),
+            None if dm is None else t((np.asarray(dm).reshape(-1) != 0).view(np.uint8)))
+
+
+def _launch(stream: torch.Tensor, src: torch.Tensor, lens: torch.Tensor, dst_end: torch.Tensor,
+            dup: Optional[torch.Tensor], bits: int, out: torch.Tensor, tile_first: torch.Tensor,
+            tile: int = TILE, threads: int = THREADS) -> None:
+    """The two passes over columns already on the card: the tile map (int32
+    ``tile_first``, one entry a ``tile`` bytes of ``out``), then the gather,
+    ``threads`` (32, 64, 128 or 256) a block.  Raises on a launch error."""
+    lib = _build.load("write")
+    rc = lib.hbt_gather_stream(
+        stream.data_ptr(), stream.numel(), src.data_ptr(), lens.data_ptr(), dst_end.data_ptr(),
+        None if dup is None else dup.data_ptr(), src.numel(), int(bits), out.data_ptr(),
+        out.numel(), tile_first.data_ptr(), tile, threads, stream_handle(stream),
+    )
+    _build.check(rc, "gather_stream")
 
 
 def gather_stream_plain(stream, src, dst, lens, dup, bits: int) -> torch.Tensor:

@@ -71,6 +71,10 @@ def _check(comp: torch.Tensor, clens: torch.Tensor, isizes: torch.Tensor) -> Non
         check_tensor(t, name, torch.int32)
         if t.dim() != 1 or t.numel() != comp.shape[0]:
             raise ValueError(f"{name} must be one-dimensional with {comp.shape[0]} entries")
+    # The output is [B, max ISIZE]: the reference refuses a negative width,
+    # so a batch whose every ISIZE is below 0 raises here, on either route.
+    if comp.shape[0] and int(isizes.max()) < 0:
+        raise ValueError("inflate_fixed_literal: every ISIZE is below 0 (a negative row width)")
 
 
 def inflate_fixed_literal(

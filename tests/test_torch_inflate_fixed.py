@@ -146,6 +146,51 @@ def test_unaligned_width_and_empty_batch():
     assert out.shape == (0, 0) and ok.shape == (0,)
 
 
+def _negative_isize_batches():
+    """The batch that once failed the fuzz (one empty-payload member,
+    ``03 00``, clen 2, ISIZE -1) and a mixed batch (ISIZE 5 and -1)."""
+    empty = bytes([0x03, 0x00])
+    five = tflate.encode_tokens_fixed([("lit", b) for b in b"hello"])
+    lone = (_rows([empty]), np.array([2], np.int32), np.array([-1], np.int32))
+    mixed = (_rows([five, empty]), np.array([len(five), 2], np.int32),
+             np.array([5, -1], np.int32))
+    return lone, mixed
+
+
+def test_every_isize_below_zero_raises_as_the_reference():
+    """A batch whose every ISIZE is below 0: the reference's output would
+    have a negative width and numpy refuses it with ``ValueError``; the
+    port's wrapper raises the same before either route runs."""
+    (comp, clens, isz), _ = _negative_isize_batches()
+    with pytest.raises(ValueError):
+        jlit(comp, clens, isz, interpret=True)
+    with pytest.raises(ValueError):
+        _port(comp, clens, isz)
+
+
+def test_a_negative_isize_beside_a_valid_member_equals_the_reference():
+    """ISIZE 5 and -1 in one batch: the bytes and the verdicts are the
+    reference's (the -1 member is rejected with a zero row)."""
+    _, mixed = _negative_isize_batches()
+    out, ok = _check_both(*mixed)
+    assert ok.tolist() == [True, False]
+    assert out[0].tobytes() == b"hello" and not out[1].any()
+
+
+def test_the_codec_refuses_an_isize_past_the_bgzf_bound_as_the_reference():
+    """A member trailer's ISIZE of 2**32 - 1 never reaches row 10 as a
+    negative int32: both codecs refuse the block while scanning, with the
+    same exception class."""
+    from hadoop_bam_tpu.spec.bgzf import BgzfError as JBgzfError
+
+    blob = bytearray(tbgzf.deflate_blocks(b"hello")[0])
+    blob[-4:] = (2**32 - 1).to_bytes(4, "little")
+    with pytest.raises(tbgzf.BgzfError):
+        tflate.bgzf_decompress_device(bytes(blob), device="cpu")
+    with pytest.raises(JBgzfError):
+        jflate.bgzf_decompress_device(bytes(blob))
+
+
 def test_plain_version_does_not_count_launches():
     before = kfix.LAUNCHES.value
     _port(*_lit([b"abc"]))
