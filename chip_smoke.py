@@ -493,7 +493,8 @@ def chain_trouble_cases(seed: int, seg: int, slab: int, big: bool = False) -> di
     the card's walk in segments of ``seg`` bytes and slabs of ``slab``
     (``stream`` a uint8 array of at least ``n_bytes``): records straddling
     segments and slabs, a record past 64 KiB, records on segment boundaries and in a segment's
-    last 1-36 bytes, a false chain of plausible size words inside a long
+    last 1-36 bytes (the key fields of a record starting in the last 20 past
+    the segment), n_bytes inside a last record's key fields, a false chain of plausible size words inside a long
     read, size words 31 and 2^28 + 1 in the first, a middle and the last
     segment and at 0, the 2^28 edge, overruns and 1-3 trailing bytes, views
     whose bytes past ``n_bytes`` are set, minimal records and the empty
@@ -545,6 +546,9 @@ def chain_trouble_cases(seed: int, seg: int, slab: int, big: bool = False) -> di
             bam_records(rng, fill(2 * S)) + rec + bam_records(rng, fill(S)), ok)
     cut = bam_records(rng, fill(3 * S))
     add("a truncated last record", cut[: chain_starts(cut)[-2] + 20], 0)
+    for c in (2, 6, 10, 14, 19):  # the key fields end 20 bytes into a record
+        add(f"n_bytes {c} bytes into the last record", cut + bam_records(rng, [40]), 0,
+            len(cut) + c)
     for tail, what in ((b"\x28", "1 trailing byte reading 40"), (b"\x05\x00", "2 trailing bytes"),
                        (b"\x20\x00\x00", "3 trailing bytes reading 32"),
                        (b"\x1f\x00\x00", "3 trailing bytes reading 31")):
@@ -567,8 +571,10 @@ def chain_trouble_cases(seed: int, seg: int, slab: int, big: bool = False) -> di
 def check_chain_walk(cases: dict, seg: int, slab: int) -> dict:
     """The record-chain walk at segments of ``seg`` bytes and slabs of
     ``slab`` against its plain version (offsets, count and ok, exactly) on
-    each ``(stream, n_bytes, ok)`` case, from an aligned tensor and from a
-    view 1-15 bytes past one.  Returns ``{what: [count, ok]}``."""
+    each ``(stream, n_bytes, ok)`` case, from a view 1-15 bytes past an
+    aligned tensor with the emit's keys of three rows more than the walk
+    finds (against ``stream_keys_plain``), and from an aligned copy without.
+    Returns ``{what: [count, ok]}``."""
     import torch
 
     from hadoop_bam_tpu_torch.ops.kernels import chain as kch
@@ -578,26 +584,31 @@ def check_chain_walk(cases: dict, seg: int, slab: int) -> dict:
         t = torch.from_numpy(stream)
         offs_p, meta_p = kch.record_chain_plain(t, n)
         count = int(meta_p[0])
+        keys_p, unm_p = kch.stream_keys_plain(t, n, offs_p, meta_p, count + 3)
         shift = 1 + j % 15
         g = torch.zeros(len(stream) + shift, dtype=torch.uint8, device="cuda")
         g[shift:] = t.cuda()
-        for view in (g[shift:], g[shift:].clone()):
-            offs_k, meta_k = kch._launch(view, n, seg, slab)[:2]
+        for view, n_rows in ((g[shift:], count + 3), (g[shift:].clone(), None)):
+            offs_k, meta_k, _, _, keys_k, unm_k = kch._launch(view, n, seg, slab, n_rows=n_rows)
             if meta_k.cpu().tolist() != meta_p.tolist():
                 raise AssertionError(f"record_chain [count, ok] differs from plain ({what}, seg "
                                      f"{seg}): {meta_k.cpu().tolist()} vs {meta_p.tolist()}")
             if not torch.equal(offs_k[:count].cpu(), offs_p[:count]):
                 raise AssertionError(f"record_chain offsets differ from plain ({what}, seg {seg})")
+            if n_rows is not None and not (torch.equal(keys_k.cpu(), keys_p)
+                                           and torch.equal(unm_k.cpu(), unm_p)):
+                raise AssertionError(f"record_chain keys differ from plain ({what}, seg {seg})")
         if int(meta_p[1]) != ok:
             raise AssertionError(f"record_chain verdict {meta_p.tolist()} for {what}")
         verdicts[what] = meta_p.tolist()
-        del t, g, offs_k, offs_p
+        del t, g, offs_k, offs_p, keys_k, unm_k
     return verdicts
 
 
 def check_chain(seed: int) -> dict:
-    """Phase 4: walk + key gather against their plain versions, exactly,
-    on a clean stream and on one with a corrupt size word."""
+    """Phase 4: the walk with its fused keys, and the standalone key gather,
+    against their plain versions, exactly, on a clean stream and on one with
+    a corrupt size word; then the walk and its keys on the trouble cases."""
     import torch
 
     from hadoop_bam_tpu_torch.ops import decode
@@ -614,14 +625,17 @@ def check_chain(seed: int) -> dict:
         res = {}
         for dev in ("cuda", "cpu"):
             t = torch.from_numpy(arr).to(dev)
-            offs, meta = kch.record_chain(t, len(arr))
-            keys, unm = kch.stream_keys(t, len(arr), offs, meta, n_rows)
-            res[dev] = [x.cpu().numpy() for x in (offs, meta, keys, unm)]
+            res[dev] = [x.cpu().numpy() for x in kch.record_chain_keys(t, len(arr), n_rows)]
+            if dev == "cuda":  # the standalone gather at the walk's offsets
+                res["alone"] = [x.cpu().numpy() for x in kch.stream_keys(
+                    t, len(arr), *[torch.from_numpy(x).cuda() for x in res[dev][:2]], n_rows)]
         (ok_, mk, kk, uk), (op, mp, kp, up) = res["cuda"], res["cpu"]
         cnt = int(mk[0])
         if not (np.array_equal(mk, mp) and np.array_equal(ok_[:cnt], op[:cnt])
                 and np.array_equal(kk, kp) and np.array_equal(uk, up)):
-            raise AssertionError(f"chain kernel differs from plain ({case})")
+            raise AssertionError(f"chain kernel (walk + fused keys) differs from plain ({case})")
+        if not (np.array_equal(res["alone"][0], kp) and np.array_equal(res["alone"][1], up)):
+            raise AssertionError(f"stream_keys kernel differs from plain ({case})")
         if case == "clean":
             if not (mk[1] == 1 and np.array_equal(ok_[:cnt], offs_h)):
                 raise AssertionError("chain walk differs from the host walk")
@@ -648,7 +662,8 @@ def check_chain(seed: int) -> dict:
                 raise AssertionError("corpus lacks negative keys or unmapped rows")
         elif mk[1] != 0:
             raise AssertionError("corrupt size word not rejected")
-    log(f"chain + keys kernels == plain: {n_rows} records, corrupt stream rejected")
+    log(f"chain walk with fused keys and stream_keys == plain: {n_rows} records, corrupt "
+        "stream rejected")
     verdicts = check_chain_walk(chain_trouble_cases(seed, kch.SEG, kch.SLAB, big=True),
                                 kch.SEG, kch.SLAB)
     log(f"record_chain == plain at seg {kch.SEG}, slab {kch.SLAB}: {len(verdicts)} streams "
@@ -1960,7 +1975,8 @@ def _counters():
     from hadoop_bam_tpu_torch.ops.kernels import unpack as ku
 
     return (kin.LAUNCHES, kch.WALK_LAUNCHES, kch.KEYS_LAUNCHES, kd.LAUNCHES, kg.LAUNCHES,
-            kcrc.LAUNCHES, krs.LAUNCHES, kb.LAUNCHES, kr.LAUNCHES, kov.LAUNCHES, kh.LAUNCHES,
+            kcrc.LAUNCHES, krs.LAUNCHES, kb.LAUNCHES, kr.LAUNCHES, kov.LAUNCHES,
+            kov.ROWS_LAUNCHES, kh.LAUNCHES,
             ku.LAUNCHES, kfix.LAUNCHES, kip.LAUNCHES)
 
 
@@ -2041,10 +2057,12 @@ def main_path(work: str, n: int, seed: int) -> dict:
     # (1) The main path: sort_bam as a user calls it on the card.
     st, wall, launches = timed_sort(src, out["lanes"], "cuda, default gates", device="cuda")
     c = st.counters
-    missing = [k for k in ("inflate_members", "record_chain", "stream_keys", "deflate_members")
+    missing = [k for k in ("inflate_members", "record_chain", "deflate_members")
                if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels of the main path never launched: {missing}")
+    if launches["stream_keys"]:  # the keys ride the walk's emit
+        raise AssertionError(f"the sort launched stream_keys {launches['stream_keys']} times")
     if c.get("flate.lanes_tierdown", 0) or c.get("flate.deflate_lanes_tierdown", 0):
         raise AssertionError("members tiered down on clean input")
     if c.get("flate.deflate.lanes", 0) <= 0 or st.n_records != n:
@@ -2682,8 +2700,9 @@ def _overlap_case(n: int, k: int, rng):
 
 def check_region(seed: int) -> dict:
     """Rows 6, 8 and 9 against their plain versions, exactly: the overlap
-    cut with K = 0, 1, 5, 8 and 1,500 (past one shared-memory chunk), no
-    record and one record; the histogram with out-of-range values, no
+    cut's mask form and its view cut (count and rows, at three block sizes)
+    with K = 0, 1, 5, 8 and 1,500 (past one shared-memory chunk), no record
+    and one record, unplaced starts and wrapped ends; the histogram with out-of-range values, no
     valid position, 128, 256 and 12,288 bins; the unpack with W = 0, no
     row, an odd B and int32 input."""
     import torch
@@ -2707,6 +2726,27 @@ def check_region(seed: int) -> dict:
     hits = sum(int(both(kov.overlap_mask, _overlap_case(n, k, rng)).sum()) for n, k in cases)
     log(f"overlap_mask kernel == plain: {len(cases)} cases (N up to 100000, K 0-1500), "
         f"{hits} hits, max_abs_err 0")
+    hits = 0
+    for n, k in cases + [(5000, 2), (33, 1)]:
+        iv, refid, start, end = _overlap_case(n, k, rng)
+        ln = (end.astype(np.int64) - start).astype(np.int32)  # the wrap rows' lengths wrap too
+        if n >= 6:  # unplaced starts on a matching refid, a length that wraps past 2**31 - 1
+            refid[3:6], start[3:6], ln[3:6] = 0, [-1, -5, 2**31 - 20], [50, 5, 40]
+        for threads in (kov.THREADS, 32, 1024):
+            arrays = [torch.from_numpy(np.ascontiguousarray(a)) for a in (iv, refid, start, ln)]
+            out = torch.full((n + 1,), -7, dtype=torch.int32, device="cuda")
+            kov._launch(*[a.cuda() for a in arrays], out, threads)
+            torch.cuda.synchronize()
+            got = out.cpu()
+            rows, count = kov.overlap_rows_plain(*arrays)
+            c = int(count[0])
+            if int(got[0]) != c or not torch.equal(got[1 : 1 + c], rows[:c]):
+                raise AssertionError(f"overlap_rows kernel != plain at N {n}, K {k}, {threads} "
+                                     f"threads: count {int(got[0])} vs {c}")
+        hits += c
+    log(f"overlap_rows kernel == plain: {len(cases) + 2} cases (N up to 100000, K 0-1500, "
+        f"unplaced starts, wrapped ends) at 256, 32 and 1024 threads a block, {hits} rows, "
+        "max_abs_err 0")
     hcases = [(1, 1, 128, 1.0), (1000, 150, 128, 0.9), (777, 33, 256, 0.5), (300, 20, 12288, 0.7),
               (50, 7, 128, 0.0)]
     for b, length, nbins, p in hcases:
@@ -2873,16 +2913,29 @@ def kernel_device_ms(trace_path: str, name: str):
     return n, us / 1e3
 
 
-def overlap_device_time(path: str, view_cols, events_ms: float) -> dict:
-    """Row 6 in the chr21 view: its device time a launch, from
-    ``torch.profiler`` over the view's launches, beside the wrapper's host
-    time a call (``overlap_mask`` on one chunk span's records, enqueued
-    200 times without a sync) and ``events_ms`` (CUDA events around 50
-    calls on all the view's records)."""
+CHR21 = [[20, 0, 46709983]]  # the chr21 view's interval (refid, beg, end)
+CUT_KERNELS = ("cut_count_kernel", "cut_scan_kernel", "cut_scatter_kernel")
+
+
+def wrapped_end(pos: np.ndarray, ref_len: np.ndarray) -> np.ndarray:
+    """The view's record end: ``pos + max(ref_len, 1)`` wrapping in int32."""
+    return ((pos.astype(np.int64) + np.maximum(ref_len, 1) + 2**31) % 2**32 - 2**31).astype(
+        np.int32)
+
+
+def overlap_device_time(path: str, view_cols) -> dict:
+    """Row 6 in the chr21 view: the one cut's device time (its three
+    launches, from ``torch.profiler`` over a whole ``view_blob``), the
+    wrapper's host time a call (``overlap_rows`` on the view's records,
+    enqueued 200 times without a sync), the view's whole cut
+    (``serve.endpoints._cut_view``: packing, upload, cut, read-back, the
+    split per batch; host clock) and, as a yardstick, the mask form and
+    ``torch.nonzero`` on the same columns (CUDA events)."""
     import torch
 
+    from hadoop_bam_tpu_torch.device_stream import DeviceStream
     from hadoop_bam_tpu_torch.ops.kernels import overlap as kov
-    from hadoop_bam_tpu_torch.serve.endpoints import view_blob
+    from hadoop_bam_tpu_torch.serve.endpoints import _cut_view, view_blob, view_records
 
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2890,36 +2943,50 @@ def overlap_device_time(path: str, view_cols, events_ms: float) -> dict:
         torch.cuda.synchronize()
     trace = path + ".row6.trace.json"
     prof.export_chrome_trace(trace)
-    n6, ms6 = kernel_device_ms(trace, "overlap_kernel")
+    per_kernel = {name: kernel_device_ms(trace, name) for name in CUT_KERNELS}
     os.remove(trace)
-    if n6 <= 0:
-        raise AssertionError("the traced chr21 view holds no overlap_kernel launch")
-    per = max(1, len(view_cols[0]) // n6)  # the records of one launch, on average
-    iv = torch.tensor([[20, 0, 46709983]], dtype=torch.int32, device="cuda")
-    span = [torch.from_numpy(np.ascontiguousarray(a[:per])).cuda() for a in view_cols]
+    if any(n != 1 for n, _ in per_kernel.values()):
+        raise AssertionError(f"the traced chr21 view's cut: {per_kernel}")
+    device = sum(ms for _, ms in per_kernel.values())
+    iv = torch.tensor(CHR21, dtype=torch.int32, device="cuda")
+    cols = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in view_cols]
     for _ in range(3):
-        kov.overlap_mask(iv, *span)
+        kov.overlap_rows(iv, *cols)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(200):
-        kov.overlap_mask(iv, *span)
+        kov.overlap_rows(iv, *cols)
     host = (time.perf_counter() - t0) * 1e3 / 200
     torch.cuda.synchronize()
-    out = {"device_ms_per_launch": ms6 / n6, "traced_launches": n6,
-           "host_ms_per_call": host, "records_per_launch": per}
-    log(f"  overlap_mask in the chr21 view: {n6} launches, device {ms6 / n6:.5f} ms a launch "
-        f"(torch.profiler), wrapper host {host:.5f} ms a call at {per} records, CUDA events "
-        f"{events_ms:.4f} ms a call; x 800 launches: device {800 * ms6 / n6:.3f} ms, host "
-        f"{800 * host:.3f} ms")
+    end = torch.from_numpy(wrapped_end(view_cols[1], view_cols[2])).cuda()
+    yard = cuda_ms(lambda: torch.nonzero(kov.overlap_mask(iv, cols[0], cols[1], end)), iters=50)
+    batches = [bt for bt, _ in view_records(path, REGIONS[1], device="cpu")[1]]
+    stream = DeviceStream(torch.device("cuda"))
+    _cut_view(batches, *CHR21[0], stream)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        _cut_view(batches, *CHR21[0], stream)
+    cut_view = (time.perf_counter() - t0) * 1e3 / 20
+    out = {"device_ms_per_view": device,
+           **{f"device_ms_{k.split('_')[1]}": ms for k, (_, ms) in per_kernel.items()},
+           "host_ms_per_call": host, "cut_view_ms": cut_view, "batches": len(batches),
+           "mask_nonzero_ms": yard}
+    log(f"  overlap_rows in the chr21 view: one cut, device {device:.5f} ms (count "
+        f"{per_kernel[CUT_KERNELS[0]][1]:.5f}, scan {per_kernel[CUT_KERNELS[1]][1]:.5f}, scatter "
+        f"{per_kernel[CUT_KERNELS[2]][1]:.5f}; torch.profiler), wrapper host {host:.5f} ms a call "
+        f"at {len(view_cols[0])} records; the view's whole cut of {len(batches)} batches "
+        f"(_cut_view, host clock) {cut_view:.4f} ms; yardstick overlap_mask + torch.nonzero "
+        f"{yard:.4f} ms (CUDA events)")
     return out
 
 
 def time_region_kernels(path: str, view_cols, checks: dict, launches: int) -> list:
-    """Rows 6, 8 and 9 at the region path's shapes: row 6 over the chr21
-    view's records (K = 1) and over the sorted file's first 32 MiB split
-    (K = 1 and 8); rows 8 and 9 over that split's quality and packed
-    sequence columns.  Beside each: the plain version (host), the bound and,
-    for row 8, ``torch.bincount`` of the masked in-range values."""
+    """Rows 6, 8 and 9 at the region path's shapes: row 6's view cut over the
+    chr21 view's records (K = 1) and over the sorted file's first 32 MiB
+    split (K = 1 and 8), its mask form at the same shapes; rows 8 and 9 over
+    that split's quality and packed sequence columns.  Beside each: the
+    plain version (host), the bound and, for row 8, ``torch.bincount`` of
+    the masked in-range values."""
     import torch
 
     from hadoop_bam_tpu_torch.io.bam import BamInputFormat
@@ -2933,36 +3000,52 @@ def time_region_kernels(path: str, view_cols, checks: dict, launches: int) -> li
     soa, n = b.soa, b.n_records
     refid = soa["refid"].astype(np.int32)
     pos = soa["pos"].astype(np.int32)
-    end = (pos.astype(np.int64) + np.maximum(cigar.reference_lengths_np(b.data, soa), 1)).astype(
-        np.int32)
-    chr21 = np.asarray([[20, 0, 46709983]], dtype=np.int32)
-    k8 = np.asarray([[20, 0, 46709983], [19, 10_000_000, 11_000_000], [0, 0, 1_000_000],
+    ln = cigar.reference_lengths_np(b.data, soa).astype(np.int32)
+    chr21 = np.asarray(CHR21, dtype=np.int32)
+    k8 = np.asarray([CHR21[0], [19, 10_000_000, 11_000_000], [0, 0, 1_000_000],
                      [1, 5_000_000, 6_000_000], [5, 0, 170_000_000], [22, 100, 200],
                      [24, 0, 16569], [23, 1_000_000, 2_000_000]], dtype=np.int32)
     t = lambda a, dev: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     times = {}
-    for what, arrays in (("chr21 view, K=1", (chr21, *view_cols)),
-                         ("one split, K=1", (chr21, refid, pos, end)),
-                         ("one split, K=8", (k8, refid, pos, end))):
-        g = [t(a, "cuda") for a in arrays]
-        c = [t(a, "cpu") for a in arrays]
-        nr, k = len(arrays[1]), len(arrays[0])
-        times[what] = (cuda_ms(lambda: kov.overlap_mask(*g), iters=50),
-                       host_ms(lambda: kov.overlap_mask(*c), iters=3),
-                       (13 * nr + 12 * k) / HBM_BYTES_PER_S * 1e3, nr)
-        log(f"  overlap_mask at {what} ({nr} records): {times[what][0]:.4f} ms (plain "
-            f"{times[what][1]:.3f} ms, bound {times[what][2]:.5f} ms)")
-    k_ms, p_ms, bound, nv = times["chr21 view, K=1"]
-    row6 = overlap_device_time(path, view_cols, k_ms)
+    for what, (iv, r, p, l) in (("chr21 view, K=1", (chr21, *view_cols)),
+                                ("one split, K=1", (chr21, refid, pos, ln)),
+                                ("one split, K=8", (k8, refid, pos, ln))):
+        nr, k = len(r), len(iv)
+        hits = int(kov.overlap_rows_plain(*[t(a, "cpu") for a in (iv, r, p, l)])[1][0])
+        for fn, args in ((kov.overlap_rows, (iv, r, p, l)),
+                         (kov.overlap_mask, (iv, r, p, wrapped_end(p, l)))):
+            g = [t(a, "cuda") for a in args]
+            c = [t(a, "cpu") for a in args]
+            out_bytes = 4 * (hits + 1) if fn is kov.overlap_rows else nr
+            times[fn.__name__, what] = (cuda_ms(lambda: fn(*g), iters=50),
+                                        host_ms(lambda: fn(*c), iters=3),
+                                        (12 * nr + 12 * k + out_bytes) / HBM_BYTES_PER_S * 1e3,
+                                        nr, hits)
+            log(f"  {fn.__name__} at {what} ({nr} records, {hits} hits): "
+                f"{times[fn.__name__, what][0]:.4f} ms (plain {times[fn.__name__, what][1]:.3f} "
+                f"ms, bound {times[fn.__name__, what][2]:.5f} ms)")
+    row6 = overlap_device_time(path, view_cols)
+    k_ms, p_ms, bound, nv, hits = times["overlap_rows", "chr21 view, K=1"]
     rows = [{
-        "name": "overlap_mask", "route": "cuda", "source": "hadoop_bam_tpu_torch/csrc/region.cu",
+        "name": "overlap_rows", "route": "cuda", "source": "hadoop_bam_tpu_torch/csrc/region.cu",
         "replaces": "hadoop_bam_tpu/ops/pallas/overlap.py:46", "launches": launches,
         "launches_from": f"view_blob(cuda), {REGIONS[0]}", "max_abs_err": checks["overlap"],
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
-        "shape": f"the chr21 view's {nv} records, K = 1",
-        "ms_split_k1": times["one split, K=1"][0], "ms_split_k8": times["one split, K=8"][0],
-        "split_records": n, **row6,
+        "shape": f"the chr21 view's {nv} records, K = 1, {hits} rows",
+        "ms_split_k1": times["overlap_rows", "one split, K=1"][0],
+        "ms_split_k8": times["overlap_rows", "one split, K=8"][0], "split_records": n, **row6,
     }]
+    k_ms, p_ms, bound, nv, _ = times["overlap_mask", "chr21 view, K=1"]
+    rows.append({
+        "name": "overlap_mask", "route": "cuda", "source": "hadoop_bam_tpu_torch/csrc/region.cu",
+        "replaces": "hadoop_bam_tpu/ops/pallas/overlap.py:46", "launches": 0,
+        "launches_from": "no path calls it: the views cut with overlap_rows",
+        "max_abs_err": checks["overlap"], "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+        "bound_by": "bytes", "library_ms": None,
+        "shape": f"the chr21 view's {nv} records, K = 1 (the mask form)",
+        "ms_split_k1": times["overlap_mask", "one split, K=1"][0],
+        "ms_split_k8": times["overlap_mask", "one split, K=8"][0],
+    })
     # The split's quality and packed-sequence columns (every record 150 bp).
     l_seq = soa["l_seq"].astype(np.int64)
     if not np.all(l_seq == 150):
@@ -2997,7 +3080,7 @@ def time_region_kernels(path: str, view_cols, checks: dict, launches: int) -> li
         "bound_ms": (seq.size + 8 * seq.size) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None, "shape": f"one split's packed sequence: {n} x 75 bytes",
     })
-    for r in rows[1:]:
+    for r in rows[2:]:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms, library {r['library_ms']}) at {r['shape']}")
     return rows
@@ -3021,6 +3104,7 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
     from hadoop_bam_tpu_torch.ops import cigar
     from hadoop_bam_tpu_torch.serve.endpoints import depth_stat, flagstat, view_blob, view_records
     from hadoop_bam_tpu_torch.spec import indices
+    from hadoop_bam_tpu_torch.utils.intervals import MAX_END, parse_interval
 
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
@@ -3046,23 +3130,29 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
             lambda st, tm: view_blob(path, region, stream=st, timings=tm),
             f"view_blob(cuda, {region})", "cuda",
             trace=os.path.join(work, "region.trace.json") if k == 0 else "")
-        # Every cut of a record batch launches row 6; the empty window's
-        # .bai query yields no chunk, so no batch and no launch.
-        if launches["overlap_mask"] != c.get("serve.view.overlap_device", 0) or (
-                launches["overlap_mask"] <= 0 and region != REGIONS[2]):
-            raise AssertionError(f"view {region}: {launches['overlap_mask']} row 6 launches for "
-                                 f"{c.get('serve.view.overlap_device', 0)} cuts")
-        blob_cpu, _, _, _ = timed_region(
+        blob_cpu, _, _, c_cpu = timed_region(
             lambda st, tm: view_blob(path, region, stream=st, timings=tm),
             f"view_blob(cpu, {region})", "cpu")
         if blob != blob_cpu:
             raise AssertionError(f"view {region}: card and cpu blobs differ")
+        # Row 6 cuts a view once; each of its .bai chunk spans is one batch
+        # cut (serve.view.overlap_device, as the reference counts windows).
+        # The empty window's query yields no chunk: no batch, no launch.
+        iv = parse_interval(region)
+        spans = len(bai.query([c for c, _ in GRCH38].index(iv.contig), iv.start - 1,
+                              min(iv.end, MAX_END)))
+        cuts = (c.get("serve.view.overlap_device", 0), c_cpu.get("serve.view.overlap_device", 0))
+        if launches["overlap_rows"] != (1 if spans else 0) or cuts != (spans, spans) or (
+                launches["overlap_mask"] != 0) or (not spans and region != REGIONS[2]):
+            raise AssertionError(f"view {region}: {launches['overlap_rows']} row 6 launches, cuts "
+                                 f"(cuda, cpu) {cuts} for {spans} chunk spans")
         head = check_view(blob, header, recs, vstart, bai, region)
         log(f"view {region}: cuda == cpu ({len(blob)} bytes), {c.get('serve.view.records', 0)} "
             f"records == the NumPy overlap oracle's; {head} overlapping unmapped records at the "
-            f"file's head lie outside the .bai's chunks")
+            f"file's head lie outside the .bai's chunks; row 6 launched "
+            f"{launches['overlap_rows']} time(s) for {spans} chunk spans")
         if first is None:
-            first = launches["overlap_mask"]
+            first = launches["overlap_rows"]
     del recs, vstart
     for region, kw in ((REGIONS[0], {"per_base": True}), (REGIONS[1], {})):
         res = {}
@@ -3070,7 +3160,7 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
             res[dev], _, launches, c = timed_region(
                 lambda st, tm: depth_stat(path, region, stream=st, timings=tm, **kw),
                 f"depth_stat({dev}, {region}, {kw})", dev)
-            if dev == "cuda" and (launches["overlap_mask"] <= 0 or not c.get("pileup.device_chunks")):
+            if dev == "cuda" and (launches["overlap_rows"] != 1 or not c.get("pileup.device_chunks")):
                 raise AssertionError(f"depth {region}: row 6 or the device profile never ran")
         if res["cuda"] != res["cpu"]:
             raise AssertionError(f"depth {region}: card and cpu dicts differ")
@@ -3107,7 +3197,7 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
     ov = overlap_oracle(twin_recs, REGIONS[1])[3]
     want = np.sort(np.ascontiguousarray(twin_recs[ov]).view(f"V{REC}").ravel())
     got = blob_records(cram_blob)
-    if launches["overlap_mask"] <= 0 or launches["rans"] <= 0 or not np.array_equal(got, want):
+    if launches["overlap_rows"] != 1 or launches["rans"] <= 0 or not np.array_equal(got, want):
         raise AssertionError(f"CRAM view: {len(got)} records, the oracle {len(want)}, "
                              f"launches {launches}")
     log(f"view of the CRAM ({len(got)} records) == every overlapping record of its BAM twin; "
@@ -3117,7 +3207,7 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
     refid = np.concatenate([bt.soa["refid"] for bt in bs]).astype(np.int32)
     pos = np.concatenate([bt.soa["pos"] for bt in bs]).astype(np.int32)
     span = np.concatenate([cigar.reference_lengths_np(bt.data, bt.soa) for bt in bs])
-    view_cols = (refid, pos, (pos.astype(np.int64) + np.maximum(span, 1)).astype(np.int32))
+    view_cols = (refid, pos, span.astype(np.int32))
     log(f"region phase: {time.perf_counter() - t_phase:.1f} s before the kernel timings")
     return time_region_kernels(path, view_cols, checks, first)
 
@@ -3355,32 +3445,42 @@ def time_kernels(src: str, checks: dict, launches: dict, launches_r: dict, seed:
     n_rec = len(offs_h)
     g_stream = inflated[s0:s1]
     c_stream = torch.from_numpy(host[s0:s1].copy())
-    k_ms = cuda_ms(lambda: kch.record_chain(g_stream, s1 - s0), iters=20, warmup=3)
-    p_ms = host_ms(lambda: kch.record_chain_plain(c_stream, s1 - s0), iters=1)
-    runs = [kch.record_chain_phases(g_stream, s1 - s0)[2] for _ in range(5)]
-    phase_us = {k: 1e3 * sum(r[f"{k}_ms"] for r in runs) / len(runs) for k in kch.PHASES}
+    # The sort runs the walk with its fused keys; the walk alone beside it.
+    n_b = s1 - s0
+    k_ms = cuda_ms(lambda: kch.record_chain_keys(g_stream, n_b, n_rec), iters=20, warmup=3)
+    alone_ms = cuda_ms(lambda: kch.record_chain(g_stream, n_b), iters=20, warmup=3)
+    p_ms = host_ms(lambda: kch.record_chain_keys(c_stream, n_b, n_rec), iters=1)
+    phase_us = {}
+    for label, n_rows in (("", n_rec), ("alone_", None)):
+        runs = [kch.record_chain_phases(g_stream, n_b, n_rows=n_rows)[2] for _ in range(5)]
+        phase_us.update({f"{label}{k}_us": 1e3 * sum(r[f"{k}_ms"] for r in runs) / len(runs)
+                         for k in kch.PHASES})
+        log(f"  record_chain {'walk alone' if label else 'with keys'} phases (CUDA events, mean "
+            "of 5, us): " + ", ".join(f"{k} {phase_us[label + k + '_us']:.1f}" for k in kch.PHASES)
+            + f"; {runs[0]['segments']} segments of {kch.SEG} bytes, {runs[0]['hops']} hops")
     rows.append({
         "name": "record_chain", "route": "cuda",
         "source": "hadoop_bam_tpu_torch/csrc/chain.cu",
-        "replaces": "hadoop_bam_tpu/ops/pallas/chain.py:113",
+        "replaces": "hadoop_bam_tpu/ops/pallas/chain.py:113 and hadoop_bam_tpu/ops/decode.py:88",
         "launches": launches["record_chain"], "max_abs_err": checks["chain"],
         "ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": n_rec * (4 + 8) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": None, "shape": f"{n_rec} records, {s1 - s0} bytes",
-        **{f"{k}_us": v for k, v in phase_us.items()}, "hops": runs[0]["hops"],
+        "bound_ms": n_rec * (4 + 8 + 10 + 9) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None, "shape": f"{n_rec} records, {n_b} bytes, with the keys",
+        "ms_walk_alone": alone_ms,
+        "bound_ms_walk_alone": n_rec * (4 + 8) / HBM_BYTES_PER_S * 1e3,
+        **phase_us, "hops": runs[0]["hops"],
     })
-    log("  record_chain phases (CUDA events, mean of 5, us): "
-        + ", ".join(f"{k} {v:.1f}" for k, v in phase_us.items())
-        + f"; {runs[0]['segments']} segments of {kch.SEG} bytes, {runs[0]['hops']} hops")
-    offs, meta = kch.record_chain(g_stream, s1 - s0)
-    k_ms = cuda_ms(lambda: kch.stream_keys(g_stream, s1 - s0, offs, meta, n_rec), iters=20)
-    p_ms = cuda_ms(lambda: kch.stream_keys_plain(g_stream, s1 - s0, offs, meta, n_rec), iters=5)
+    offs, meta = kch.record_chain(g_stream, n_b)
+    k_ms = cuda_ms(lambda: kch.stream_keys(g_stream, n_b, offs, meta, n_rec), iters=20)
+    p_ms = cuda_ms(lambda: kch.stream_keys_plain(g_stream, n_b, offs, meta, n_rec), iters=5)
     rows.append({
         "name": "stream_keys", "route": "cuda",
         "source": "hadoop_bam_tpu_torch/csrc/chain.cu",
         "replaces": "hadoop_bam_tpu/ops/decode.py:88",
-        "launches": launches["stream_keys"], "max_abs_err": checks["chain"],
-        "ms": k_ms, "plain_ms": p_ms,
+        "launches": launches["stream_keys"],
+        "launches_from": "the sort's keys ride record_chain's emit; the standalone gather is "
+                         "the yardstick",
+        "max_abs_err": checks["chain"], "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": n_rec * (8 + 10 + 8 + 1) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None, "shape": f"{n_rec} records",
     })

@@ -39,7 +39,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "chain": {
         "hbt_chain_plan": [_I64, _I64, _I64, _P],
-        "hbt_chain_walk": [_P, _I64, _P, _P, _P, _I64, _I64, _P, _P],
+        "hbt_chain_walk": [_P, _I64, _P, _P, _P, _I64, _I64, _P, _P, _I64, _P, _P],
         "hbt_stream_keys": [_P, _I64, _P, _P, _I64, _P, _P, _P],
     },
     "deflate": {
@@ -70,6 +70,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "region": {
         "hbt_overlap_mask": [_P, _I32, _P, _P, _P, _I64, _P, _P],
+        "hbt_overlap_rows": [_P, _I32, _P, _P, _P, _I64, _P, _P, _I32, _P],
         "hbt_quality_histogram": [_P, _P, _I64, _I32, _P, _P],
         "hbt_unpack_nibbles_u8": [_P, _I64, _P, _P],
         "hbt_unpack_nibbles_i32": [_P, _I64, _P, _P],

@@ -23,8 +23,9 @@
 // compose, one block a segment, the exits over the next kGroup segments of
 // its first kHead positions; hop, one warp, from 0 through the group exits,
 // one read for kGroup segments; fill, one thread a group step, the entries
-// of the segments it crossed; emit, one block a segment, the re-walk from
-// its true entry, writing the int64 offsets.  A walk is therefore several
+// of the segments it crossed; emit, one block a segment, thread 0's re-walk
+// from its true entry into a list, then the block writes the int64 offsets
+// and, on the sort's path, the keys.  A walk is therefore several
 // CUDA launches (five a slab of `slab` bytes); the wrapper counts it as one.
 // The workspace (8 bytes a position of a slab, 4 of them written, and 8 a
 // head position, from PyTorch's caching allocator) holds the exits, the
@@ -41,15 +42,21 @@
 // twice the steps; 8 KiB segments doubled the hop, 32 KiB ones held one map
 // block an SM; a 512-position head composed more than it saved.
 //
-// stream_keys_kernel (one thread per record): refid, pos and flag at
-// offs[i] + 4 → the packed int64 sort key (Java's (long)refIdx << 32 | pos0,
-// sign extension of a negative low word included) and the unmapped mask
-// (flag 0x4, refid < 0, or pos + 1 < 0 in int32 arithmetic).  Unmapped rows
-// carry key INT_MAX << 32 until the host murmur3 hash is patched in.
+// The key gather rides the emit: the emit stages its segment with a
+// 24-byte halo (the map's stays 8 bytes, so its two blocks an SM keep their
+// shared memory), and reads each record's refid, pos and flag from those
+// staged bytes instead of from device memory again.  stream_keys_kernel is
+// the same gather standalone, for offsets from elsewhere (one thread per
+// record): refid, pos and flag at offs[i] + 4 → the packed int64 sort key
+// (Java's (long)refIdx << 32 | pos0, sign extension of a negative low word
+// included) and the unmapped mask (flag 0x4, refid < 0, or pos + 1 < 0 in
+// int32 arithmetic).  Unmapped rows carry key INT_MAX << 32 until the host
+// murmur3 hash is patched in.
 //
 // Bound on this card: (4 B size word read + 8 B offset written) per record
-// for the walk and (8 B offset + 10 B of fields read, 8 B key + 1 B mask
-// written) per record for the gather, over 3.35 TB/s.  The map reads each
+// for the walk, 10 B of fields read and 9 B written more with the keys;
+// (8 B offset + 10 B of fields read, 8 B key + 1 B mask written) per record
+// for the standalone gather, over 3.35 TB/s.  The map reads each
 // byte once and writes a 4-byte table word a position (the design's, not
 // the work's); the dependent shared-memory steps of its strips and its 13
 // waves of blocks set its time (7 of 10 parts of the walk).  The hop,
@@ -115,13 +122,20 @@ fill_kernel(Walk w, int64_t nseg, Work t) {
 }
 
 __global__ void __launch_bounds__(kEmitThreads)
-emit_kernel(Walk w, int64_t slab0, Work t, int64_t* __restrict__ offs) {
+emit_kernel(Walk w, int64_t slab0, int64_t nseg, Work t, int64_t* __restrict__ offs, Keys kk,
+            const int64_t* __restrict__ meta, bool last) {
   extern __shared__ __align__(16) uint8_t smem[];
-  if (t.entry[blockIdx.x] < 0) return;
-  const int64_t seg0 = slab0 + (static_cast<int64_t>(blockIdx.x) << w.shift);
-  const int lead = stage(w, seg0, smem, threadIdx.x, kEmitThreads);
+  if (last && kk.keys != nullptr)
+    emit_rest(kk, meta[0], blockIdx.x, gridDim.x, threadIdx.x, kEmitThreads);
+  if (blockIdx.x >= nseg || t.entry[blockIdx.x] < 0) return;
+  const int lead = emit_stage(w, slab0 + (static_cast<int64_t>(blockIdx.x) << w.shift), smem,
+                              threadIdx.x, kEmitThreads);
   __syncthreads();
-  if (threadIdx.x == 0) emit_walk(w, slab0, t, blockIdx.x, smem, lead, offs);
+  int32_t* at = emit_list(smem, w.seg);
+  if (threadIdx.x == 0) at[0] = emit_walk(w, slab0, t, blockIdx.x, smem, lead, at + 1);
+  __syncthreads();
+  emit_rows(w, slab0, t, blockIdx.x, smem, lead, at + 1, at[0], offs, kk, threadIdx.x,
+            kEmitThreads);
 }
 
 // seg: a power of two from 512 to 65,536; slab: a multiple of seg up to 2^30.
@@ -175,18 +189,23 @@ int hbt_chain_plan(long long n, long long seg, long long slab, long long* out) {
 
 // offs holds >= n_bytes / 36 + 1 entries (a record takes >= 36 bytes);
 // meta is int64[2]; work (16-aligned) holds the bytes hbt_chain_plan gives
-// for the same arguments.  With phase_ms (host floats, or null) the call
+// for the same arguments.  With keys (int64[n_rows]) and unmapped
+// (uint8[n_rows]) non-null, the emit also writes each record's sort key and
+// unmapped byte below n_rows, and rows from the count up get 0 (the rule of
+// hbt_stream_keys).  With phase_ms (host floats, or null) the call
 // records events around each phase, waits for them, and adds each phase's
 // milliseconds (map, compose, hop, fill, emit) over the slabs.  Returns the
 // CUDA error code of the launches.
 int hbt_chain_walk(const void* stream_bytes, long long n_bytes, void* offs, void* meta,
-                   void* work, long long seg, long long slab, float* phase_ms, void* stream) {
+                   void* work, long long seg, long long slab, void* keys, void* unmapped,
+                   long long n_rows, float* phase_ms, void* stream) {
   if (bad_geometry(seg, slab)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Plan pl = make_plan(n_bytes, seg, slab);
   const Walk w{static_cast<const uint8_t*>(stream_bytes), n_bytes, seg, kSub, seg_shift(seg)};
   const Work t = carve(work, pl, seg);
-  const int msm = static_cast<int>(map_smem(seg)), esm = static_cast<int>(stage_bytes(seg));
+  const Keys kk{static_cast<int64_t*>(keys), static_cast<uint8_t*>(unmapped), n_rows};
+  const int msm = static_cast<int>(map_smem(seg)), esm = static_cast<int>(emit_smem(seg));
   cudaError_t e = cudaFuncSetAttribute(map_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, msm);
   if (e != cudaSuccess) return static_cast<int>(e);
   e = cudaFuncSetAttribute(emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, esm);
@@ -213,8 +232,11 @@ int hbt_chain_walk(const void* stream_bytes, long long n_bytes, void* offs, void
     if (segs)
       fill_kernel<<<(grid + kFillThreads - 1) / kFillThreads, kFillThreads, 0, st>>>(w, segs, t);
     if (phase_ms) cudaEventRecord(ev[4], st);
-    if (segs)
-      emit_kernel<<<grid, kEmitThreads, esm, st>>>(w, slab0, t, static_cast<int64_t*>(offs));
+    const bool last = j + 1 == pl.slabs;
+    if (segs || (last && keys != nullptr))
+      emit_kernel<<<grid ? grid : 1, kEmitThreads, esm, st>>>(
+          w, slab0, segs, t, static_cast<int64_t*>(offs), kk, static_cast<const int64_t*>(meta),
+          last);
     if (phase_ms) {
       cudaEventRecord(ev[5], st);
       cudaEventSynchronize(ev[5]);

@@ -40,8 +40,11 @@
 //      crossed, from the segment exits.  Segments the chain jumps over keep
 //      entry -1.
 //   3. Emit, one block a segment with entry >= 0.  Thread 0 re-walks the
-//      segment from its entry (stopping at its end or at a sink) and writes
-//      the int64 offsets into rows base[k] + j.
+//      segment from its entry (stopping at its end or at a sink) into a
+//      list in shared memory, then the block writes the int64 offsets into
+//      rows base[k] + j and, when asked, each record's packed sort key and
+//      unmapped byte from the same staged bytes (the key gather of
+//      hadoop_bam_tpu/ops/decode.py _stream_keys, folded in).
 //
 // A stream longer than a slab goes slab by slab; the cursor, the row count
 // and the verdict ride in device memory (Carry) from one hop to the next.
@@ -80,6 +83,8 @@ constexpr uint32_t kMaxBody = 1u << 28;
 constexpr int32_t kErr = -1;          // exits: a bad size word, or a position past n
 constexpr int32_t kEnd = -2;          //        position n: the walk ends ok
 constexpr int kHalo = 8;              // bytes staged past a segment: a size word's read
+constexpr int kEmitHalo = 24;         // the emit's: a record's key fields end 20 bytes past
+                                      // its start, and word_at reads the word after
 constexpr int64_t kMaxSeg = 1 << 16;  // a position's index in a segment fits 16 bits
 constexpr int64_t kMaxSlab = 1 << 30; // a position's offset in a slab, plus a step, fits int32
 constexpr uint32_t kOne = 1u << 16;   // one record, in a table word
@@ -220,6 +225,12 @@ HBT_CHAIN_HD HBT_CHAIN_INLINE Exit exit_at(const Work& t, uint32_t rel, int shif
 HBT_CHAIN_HD constexpr int64_t stage_bytes(int64_t seg) { return seg + 32; }
 // The map: a table word a position, then the staged bytes.
 HBT_CHAIN_HD constexpr int64_t map_smem(int64_t seg) { return 4 * seg + stage_bytes(seg); }
+// The emit: the staged bytes with kEmitHalo, then its list (a count and an
+// offset a record; a record takes >= 36 bytes).
+HBT_CHAIN_HD constexpr int64_t emit_stage_bytes(int64_t seg) { return seg + 48; }
+HBT_CHAIN_HD constexpr int64_t emit_smem(int64_t seg) {
+  return emit_stage_bytes(seg) + 4 * (seg / 36 + 3);
+}
 
 // ---------------------------------------------------------------------------
 // Primitives, plain on the host.
@@ -254,14 +265,15 @@ HBT_CHAIN_HD HBT_CHAIN_INLINE void wait_copies() {
 #endif
 }
 
-// Stage s[from - lead .. from + seg + kHalo) into buf with 16-byte copies
+// Stage s[from - lead .. from + seg + halo) into buf with 16-byte copies
 // from the 16-aligned address at or below s + from, all in flight at once;
 // returns lead once this thread's copies landed (the block syncs next).
 // Bytes outside [0, n) read 0.
-HBT_CHAIN_HD inline int stage(const Walk& w, int64_t from, uint8_t* buf, int tid, int nthreads) {
+HBT_CHAIN_HD inline int stage(const Walk& w, int64_t from, uint8_t* buf, int tid, int nthreads,
+                              int halo = kHalo) {
   const int lead = static_cast<int>((reinterpret_cast<uintptr_t>(w.s) + from) & 15);
   const int64_t base = from - lead;
-  const int nvec = static_cast<int>((lead + w.seg + kHalo + 15) / 16);
+  const int nvec = static_cast<int>((lead + w.seg + halo + 15) / 16);
   for (int v = tid; v < nvec; v += nthreads) {
     const int64_t p = base + 16 * v;
     if (p >= 0 && p + 16 <= w.n) {
@@ -461,19 +473,83 @@ HBT_CHAIN_HD inline void fill(const Walk& w, const Work& t, int64_t k) {
 // ---------------------------------------------------------------------------
 // 3. Emit.
 
-// The records of segment k of the slab at slab0 from its entry: offsets
-// seg0 + i into offs[base + j], j = 0, 1, ...  One thread.
-HBT_CHAIN_HD inline void emit_walk(const Walk& w, int64_t slab0, const Work& t, int64_t k,
-                                   const uint8_t* buf, int lead, int64_t* offs) {
-  const int64_t seg0 = slab0 + (k << w.shift);
-  const int32_t n = frame(w, seg0);
+// The sort keys the emit writes beside the offsets: rows [0, n_rows) of
+// keys and unmapped, or none when keys is null.
+struct Keys {
+  int64_t* keys;
+  uint8_t* unmapped;
+  int64_t n_rows;
+};
+
+// The emit's stage of the segment at seg0: wide enough for the key fields
+// of a record starting at its last byte.
+HBT_CHAIN_HD inline int emit_stage(const Walk& w, int64_t seg0, uint8_t* buf, int tid,
+                                   int nthreads) {
+  return stage(w, seg0, buf, tid, nthreads, kEmitHalo);
+}
+
+// The emit's list in its shared memory: [0] the count, then the records'
+// offsets in the segment.
+HBT_CHAIN_HD HBT_CHAIN_INLINE int32_t* emit_list(uint8_t* smem, int64_t seg) {
+  return reinterpret_cast<int32_t*>(smem + emit_stage_bytes(seg));
+}
+
+// The records of segment k of the slab at slab0 from its entry, their
+// offsets in the segment into at[0, 1, ...]; returns how many.  One thread.
+HBT_CHAIN_HD inline int32_t emit_walk(const Walk& w, int64_t slab0, const Work& t, int64_t k,
+                                      const uint8_t* buf, int lead, int32_t* at) {
+  const int32_t n = frame(w, slab0 + (k << w.shift));
   const int32_t seg = static_cast<int32_t>(w.seg);
-  int64_t* out = offs + t.base[k];
+  int32_t m = 0;
   for (int32_t i = t.entry[k] - static_cast<int32_t>(k << w.shift); i < seg;) {
     const int32_t q = succ(n, buf, lead, i);
     if (q < 0) break;
-    *out++ = seg0 + i;
+    at[m++] = i;
     i = q;
+  }
+  return m;
+}
+
+// The packed sort key and the unmapped byte of the record whose size word
+// is at byte off of the staged buffer: Java's (long)refid << 32 | pos, the
+// sign of a negative low word flooding the high word; unmapped when flag &
+// 4, refid < 0 or pos + 1 < 0 in int32, and then INT_MAX << 32 until the
+// host's murmur3 hash is patched in.
+HBT_CHAIN_HD HBT_CHAIN_INLINE void key_at(const uint8_t* buf, int off, int64_t* key,
+                                          uint8_t* unmapped) {
+  const int32_t refid = static_cast<int32_t>(word_at(buf, off + 4));
+  const int32_t pos = static_cast<int32_t>(word_at(buf, off + 8));
+  const uint32_t flag = word_at(buf, off + 16) >> 16;
+  const int32_t pos1 = static_cast<int32_t>(static_cast<uint32_t>(pos) + 1u);
+  const bool unm = (flag & 0x4u) != 0 || refid < 0 || pos1 < 0;
+  const int32_t lo = unm ? 0 : pos;
+  const int32_t hi = lo < 0 ? -1 : unm ? 0x7fffffff : refid;
+  *key = static_cast<int64_t>((static_cast<uint64_t>(static_cast<uint32_t>(hi)) << 32) |
+                              static_cast<uint32_t>(lo));
+  *unmapped = unm ? 1 : 0;
+}
+
+// The m listed records of segment k, threads tid, tid + nthreads, ...: the
+// offset seg0 + at[j] into offs[base + j] and, with keys, the key and the
+// unmapped byte into rows base + j below n_rows.
+HBT_CHAIN_HD inline void emit_rows(const Walk& w, int64_t slab0, const Work& t, int64_t k,
+                                   const uint8_t* buf, int lead, const int32_t* at, int32_t m,
+                                   int64_t* offs, const Keys& kk, int tid, int nthreads) {
+  const int64_t seg0 = slab0 + (k << w.shift), base = t.base[k];
+  for (int32_t j = tid; j < m; j += nthreads) {
+    offs[base + j] = seg0 + at[j];
+    if (kk.keys != nullptr && base + j < kk.n_rows)
+      key_at(buf, lead + at[j], kk.keys + base + j, kk.unmapped + base + j);
+  }
+}
+
+// Rows [count, n_rows) of the keys get key 0 and unmapped 0: blocks b of
+// nb, threads tid of nthreads each (the last slab's emit, after its hop).
+HBT_CHAIN_HD inline void emit_rest(const Keys& kk, int64_t count, int64_t b, int64_t nb, int tid,
+                                   int nthreads) {
+  for (int64_t r = count + b * nthreads + tid; r < kk.n_rows; r += nb * nthreads) {
+    kk.keys[r] = 0;
+    kk.unmapped[r] = 0;
   }
 }
 

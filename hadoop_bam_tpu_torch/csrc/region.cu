@@ -1,13 +1,20 @@
 // Region-plane kernels for Hopper (sm_90a): the record/interval overlap
 // cut, the masked quality histogram and the BAM nibble unpack.
 //
-// overlap_kernel replaces hadoop_bam_tpu/ops/pallas/overlap.py
-// (_overlap_call / overlap_mask): out[i] = 1 when record i's [start, end)
-// on refid overlaps any of the K query intervals (refid, beg, end).  The
-// TPU kernel tiles the records [8, 128] and unrolls K from SMEM; here one
-// thread takes one record and the block stages the intervals into shared
-// memory, kOverlapChunk at a time, so K is unbounded.  Bound: bytes (12
-// read and 1 written per record, a few operations per interval).
+// The overlap cut replaces hadoop_bam_tpu/ops/pallas/overlap.py
+// (_overlap_call / overlap_mask) and the caller's np.nonzero of its mask.
+// The TPU kernel tiles the records [8, 128], unrolls K from SMEM and hands
+// back a mask, one launch a chunk span of the view.  Here the view is cut
+// once: the count, scan and scatter launches of region_core.cuh read the
+// view's raw columns (refid, pos, ref_len), apply the span rule inside the
+// kernel and write the hit rows compacted and in order, with their count
+// (hbt_overlap_rows).  Bound: bytes (12 read a record, 4 written a hit);
+// at a view's tens of thousands of records that is well under a launch,
+// so the design spends launches and host work, not bandwidth: one upload
+// of the view's packed columns, three launches, one read-back.
+// overlap_kernel keeps the mask form (out[i] = 1 when record i's [start,
+// end) on refid overlaps an interval), one thread a record over the same
+// staged intervals.
 //
 // histogram_kernel replaces hadoop_bam_tpu/ops/pallas/histogram.py
 // (quality_histogram): int32 counts of values in [0, nbins) where valid
@@ -30,10 +37,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "region_core.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kOverlapChunk = 1024;  // intervals staged per pass: 12 KiB
+using namespace hbt_region;
 
 __global__ void overlap_kernel(const int* __restrict__ iv, int k,
                                const int* __restrict__ refid,
@@ -43,28 +51,34 @@ __global__ void overlap_kernel(const int* __restrict__ iv, int k,
   __shared__ int s_iv[3 * kOverlapChunk];
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n;
-  int r = 0, s = 0, e = 0;
-  if (live) {
-    r = refid[i];
-    s = start[i];
-    e = end[i];
-  }
-  uint8_t hit = 0;
+  const Span x = live ? Span{refid[i], start[i], end[i], true} : Span{0, 0, 0, false};
+  bool hit = false;
   for (int c0 = 0; c0 < k; c0 += kOverlapChunk) {
     const int m = min(kOverlapChunk, k - c0);
     __syncthreads();
-    for (int j = threadIdx.x; j < 3 * m; j += blockDim.x) s_iv[j] = iv[3 * c0 + j];
+    stage_intervals(iv, c0, m, s_iv, threadIdx.x, blockDim.x);
     __syncthreads();
-    if (live && !hit) {
-      for (int j = 0; j < m; ++j) {
-        if (r == s_iv[3 * j] && s < s_iv[3 * j + 2] && e > s_iv[3 * j + 1]) {
-          hit = 1;
-          break;
-        }
-      }
-    }
+    if (!hit) hit = hits(x, s_iv, m);
   }
   if (live) out[i] = hit;
+}
+
+__global__ void __launch_bounds__(1024) cut_count_kernel(Cut c) {
+  __shared__ int32_t s_iv[3 * kOverlapChunk];
+  __shared__ int32_t wc[kMaxWarps];
+  count_block(c, blockIdx.x, s_iv, wc, nullptr);
+}
+
+__global__ void __launch_bounds__(kScanThreads) cut_scan_kernel(int32_t* blk, long long nb,
+                                                                int32_t* out) {
+  __shared__ int32_t part[kScanThreads], tmp[kScanThreads];
+  scan_blocks(blk, nb, out, part, tmp, kScanThreads);
+}
+
+__global__ void __launch_bounds__(1024) cut_scatter_kernel(Cut c) {
+  __shared__ uint32_t word[kMaxWarps];
+  __shared__ int32_t woff[kMaxWarps];
+  scatter_block(c, blockIdx.x, word, woff);
 }
 
 __global__ void histogram_kernel(const int* __restrict__ values,
@@ -106,6 +120,39 @@ extern "C" int hbt_overlap_mask(const void* iv, int k, const void* refid,
   overlap_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)iv, k, (const int*)refid, (const int*)start, (const int*)end, n,
       (uint8_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// The overlap cut of a view: the rows (int32) of the n records whose span
+// [pos, pos + max(len, 1)) on refid (pos >= 0) overlaps one of the k
+// intervals, in order, to out[1 ..], and their count to out[0].  work
+// holds (n + 31) / 32 + blocks int32 (blocks = ceil(n / threads)); threads
+// is 32 to 1,024, a multiple of 32.  Three launches: count, scan, scatter.
+extern "C" int hbt_overlap_rows(const void* iv, int k, const void* refid, const void* pos,
+                                const void* len, long long n, void* out, void* work,
+                                int threads, void* stream) {
+  if (threads < 32 || threads > 32 * kMaxWarps || threads % 32 != 0 || n < 0 || n > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (n == 0) {
+    cudaMemsetAsync(out, 0, sizeof(int32_t), st);
+    return (int)cudaGetLastError();
+  }
+  Cut c;
+  c.iv = (const int32_t*)iv;
+  c.k = k;
+  c.refid = (const int32_t*)refid;
+  c.pos = (const int32_t*)pos;
+  c.len = (const int32_t*)len;
+  c.n = n;
+  c.nth = threads;
+  c.bits = (uint32_t*)work;
+  c.blk = (int32_t*)work + words(n);
+  c.out = (int32_t*)out;
+  const long long nb = blocks(c);
+  cut_count_kernel<<<(unsigned)nb, threads, 0, st>>>(c);
+  cut_scan_kernel<<<1, kScanThreads, 0, st>>>(c.blk, nb, c.out);
+  cut_scatter_kernel<<<(unsigned)nb, threads, 0, st>>>(c);
   return (int)cudaGetLastError();
 }
 

@@ -2,9 +2,10 @@
 
 Counterpart of ``hadoop_bam_tpu/ops/decode.py``
 (``keys_from_stream_device``, ``_stream_keys``, ``patch_unmapped_keys``):
-the chain kernel finds the record boundaries, the key kernel gathers
-refid/pos/flag and packs the key, and the host's murmur3 hashes are patched
-into the unmapped rows.
+the chain kernel finds the record boundaries and its emit gathers
+refid/pos/flag and packs the key from the bytes it staged (the reference's
+separate key gather, folded into the walk), and the host's murmur3 hashes
+are patched into the unmapped rows.
 """
 
 from __future__ import annotations
@@ -20,8 +21,7 @@ def keys_from_stream_device(stream: torch.Tensor, n_bytes: int, n_rows: int):
     int64 keys and the unmapped mask of rows ``[0, n_rows)`` and int64
     ``[count, ok]`` from the walk.  Nothing is synchronised: the caller
     reads ``meta`` when it validates the count against the host walk."""
-    offs, meta = chain.record_chain(stream, n_bytes)
-    keys, unm = chain.stream_keys(stream, n_bytes, offs, meta, n_rows)
+    _, meta, keys, unm = chain.record_chain_keys(stream, n_bytes, n_rows)
     return keys, unm, meta
 
 

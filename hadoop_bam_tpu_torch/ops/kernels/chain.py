@@ -9,7 +9,9 @@ On the card one walk is a map over segments of :data:`SEG` bytes (each
 position's segment exit), a compose (exits over groups of segments), a hop
 through them from 0, a fill and an emit (``csrc/chain_core.cuh``):
 :data:`PHASES`, five CUDA launches a slab of :data:`SLAB` bytes;
-:data:`WALK_LAUNCHES` counts the walk once.
+:data:`WALK_LAUNCHES` counts the walk once.  :func:`record_chain_keys` has
+the emit write the sort keys too, from the bytes it staged for the walk;
+:func:`stream_keys` is the same gather standalone.
 """
 
 from __future__ import annotations
@@ -50,23 +52,31 @@ def _check_args(stream: torch.Tensor, n_bytes: int) -> None:
 
 
 def _launch(stream: torch.Tensor, n_bytes: int, seg: int = SEG, slab: int = SLAB,
-            phase_ms=None):
+            phase_ms=None, n_rows=None):
     """One walk on the card in segments of ``seg`` bytes and slabs of
-    ``slab``: ``(offs, meta, work, segments)``."""
+    ``slab``: ``(offs, meta, work, segments, keys, unmapped)``; with
+    ``n_rows``, the emit writes the keys and the unmapped mask of rows
+    ``[0, n_rows)`` (else both are None)."""
     n = int(n_bytes)
     lib = _build.load("chain")
     plan = (ctypes.c_longlong * 2)()  # workspace bytes, segments
     _build.check(lib.hbt_chain_plan(n, seg, slab, plan), "record_chain")
-    offs = torch.empty(offsets_capacity(n), dtype=torch.int64, device=stream.device)
-    meta = torch.empty(2, dtype=torch.int64, device=stream.device)
-    work = torch.empty(plan[0], dtype=torch.uint8, device=stream.device)
+    dev = stream.device
+    offs = torch.empty(offsets_capacity(n), dtype=torch.int64, device=dev)
+    meta = torch.empty(2, dtype=torch.int64, device=dev)
+    work = torch.empty(plan[0], dtype=torch.uint8, device=dev)
+    keys = unm = None
+    if n_rows is not None:
+        keys = torch.empty(int(n_rows), dtype=torch.int64, device=dev)
+        unm = torch.empty(int(n_rows), dtype=torch.bool, device=dev)
+    ptrs = (keys.data_ptr(), unm.data_ptr()) if n_rows else (None, None)
     rc = lib.hbt_chain_walk(
         stream.data_ptr(), n, offs.data_ptr(), meta.data_ptr(), work.data_ptr(), seg, slab,
-        phase_ms, stream_handle(stream),
+        *ptrs, int(n_rows or 0), phase_ms, stream_handle(stream),
     )
     _build.check(rc, "record_chain")
     WALK_LAUNCHES.add()
-    return offs, meta, work, plan[1]
+    return offs, meta, work, plan[1], keys, unm
 
 
 def record_chain(stream: torch.Tensor, n_bytes: int):
@@ -81,21 +91,37 @@ def record_chain(stream: torch.Tensor, n_bytes: int):
     _check_args(stream, n_bytes)
     if use_plain(stream):
         return record_chain_plain(stream, n_bytes)
-    offs, meta, _, _ = _launch(stream, n_bytes)
+    offs, meta = _launch(stream, n_bytes)[:2]
     return offs, meta
 
 
-def record_chain_phases(stream: torch.Tensor, n_bytes: int):
+def record_chain_keys(stream: torch.Tensor, n_bytes: int, n_rows: int):
+    """The walk of :func:`record_chain` with the sort keys of
+    :func:`stream_keys`: ``(offs, meta, keys, unmapped)``, the keys and the
+    unmapped mask of rows ``[0, n_rows)`` (rows the walk did not reach get
+    key 0 and False).  On the card the walk's emit writes them from the
+    bytes it staged, in the same launch; a CPU tensor takes the plain
+    versions."""
+    _check_args(stream, n_bytes)
+    if use_plain(stream):
+        offs, meta = record_chain_plain(stream, n_bytes)
+        return (offs, meta, *stream_keys_plain(stream, n_bytes, offs, meta, n_rows))
+    offs, meta, _, _, keys, unm = _launch(stream, n_bytes, n_rows=n_rows)
+    return offs, meta, keys, unm
+
+
+def record_chain_phases(stream: torch.Tensor, n_bytes: int, n_rows=None):
     """One walk on the card with each phase timed by CUDA events: ``(offs,
     meta, info)``, ``info`` holding :data:`PHASES` as ``<phase>_ms`` (summed
     over the slabs), ``segments`` (the stream's, from the kernel's plan) and
-    ``hops`` (the hop's exit reads, from the device's carry).  It waits for
-    the walk.  Counts as a launch."""
+    ``hops`` (the hop's exit reads, from the device's carry).  With
+    ``n_rows`` the emit writes the keys too.  It waits for the walk.
+    Counts as a launch."""
     _check_args(stream, n_bytes)
     if use_plain(stream):
         raise ValueError("the phases are timed on a CUDA tensor only")
     ms = (ctypes.c_float * len(PHASES))()
-    offs, meta, work, segments = _launch(stream, n_bytes, phase_ms=ms)
+    offs, meta, work, segments = _launch(stream, n_bytes, phase_ms=ms, n_rows=n_rows)[:4]
     info = {f"{k}_ms": v for k, v in zip(PHASES, ms)}
     info["segments"] = segments
     info["hops"] = int(work[:32].view(torch.int64)[3])  # Carry{cur, rows, status, hops}

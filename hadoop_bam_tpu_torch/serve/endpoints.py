@@ -14,9 +14,10 @@ as the reference's one-shot does.
 ``view ref:start-end`` of a BAM is bounded traversal as a request: the
 ``.bai`` (the companion file, else one built from the BAM) turns the
 region into chunk spans, each span is read (member inflate on the stream's
-device under its inflate gate, the record walk on the host) and kernel
-row 6 cuts the records that overlap the region on the stream's device.  A
-CRAM has no ``.bai``: every split is read and cut the same way.  The reply
+device under its inflate gate, the record walk on the host), and kernel
+row 6 cuts the records of all of them that overlap the region in one
+launch on the stream's device.  A CRAM has no ``.bai``: every split is
+read and cut the same way.  The reply
 is a small BAM compressed by host BGZF, the reference's bytes.  Per split
 of a BCF call set: the inflate kernel, the BCF record-chain kernel and the
 ragged interval join on the stream's device; the kept rows are decoded
@@ -41,6 +42,7 @@ from ..io.cram import read_cram_header
 from ..io.merger import prepare_bam_header_block
 from ..io.splits import FileVirtualSplit
 from ..ops import cigar
+from ..ops.kernels import overlap as koverlap
 from ..ops.overlap import ragged_overlap_mask
 from ..ops.pileup import depth_profile, depth_summary
 from ..spec import bam, bgzf
@@ -96,28 +98,52 @@ def _split_span(s) -> Tuple[int, int]:
     return s.start, s.start + s.length
 
 
-def _overlap_rows(batch, rid: int, beg0: int, end0: int, stream: DeviceStream) -> np.ndarray:
-    """Row indices of the batch's records that overlap ``[beg0, end0)`` on
-    refid ``rid``: :func:`~.ops.cigar.overlap_mask` (kernel row 6) on the
-    stream's device, counted ``serve.view.overlap_device``.  The
-    reference's NumPy fallback behind a catch-all is not ported: a kernel
-    failure raises."""
-    n = batch.n_records
+def _cut_view(batches, rid: int, beg0: int, end0: int, stream: DeviceStream) -> List[np.ndarray]:
+    """Row indices of each batch's records that overlap ``[beg0, end0)`` on
+    refid ``rid``, in file order: one cut of the whole view on the stream's
+    device (kernel row 6, :func:`~.ops.kernels.overlap.overlap_rows`).  The
+    host packs every batch's refid, pos and reference length (the CIGAR
+    walk, :func:`~.ops.cigar.reference_lengths_np`) and the interval into
+    one int32 buffer (pinned for the card): one upload, one cut, one
+    read-back of the count and the rows, which ``np.searchsorted`` on the
+    batch offsets splits again.  Each non-empty batch counts
+    ``serve.view.overlap_device``, as the reference counts each window it
+    cuts.  The reference's NumPy fallback behind a catch-all is not ported:
+    a kernel failure raises."""
+    sizes = np.asarray([b.n_records for b in batches], dtype=np.int64)
+    n = int(sizes.sum())
     if n == 0:
-        return np.empty(0, dtype=np.int64)
+        return [np.empty(0, dtype=np.int64) for _ in batches]
     dev = stream.device
-    cols = [
-        torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
-        for a in (batch.soa["refid"], batch.soa["pos"],
-                  cigar.reference_lengths_np(batch.data, batch.soa))
-    ]
-    iv = [torch.tensor([v], dtype=torch.int32, device=dev) for v in (rid, beg0, end0)]
-    rows = torch.nonzero(cigar.overlap_mask(*cols, *iv)).flatten().cpu().numpy()
-    if dev.type == "cuda":
-        stream.metrics.count_h2d(12 * n + 12, "overlap_columns")
-        stream.metrics.count_d2h(8 * len(rows), "overlap_rows")
-    stream.metrics.count("serve.view.overlap_device")
-    return rows.astype(np.int64)
+    on_card = dev.type == "cuda"
+    host = torch.empty(3 * n + 3, dtype=torch.int32, pin_memory=on_card)
+    h = host.numpy()
+    at = 0
+    for b in batches:
+        k = b.n_records
+        if k:
+            h[at : at + k] = b.soa["refid"]
+            h[n + at : n + at + k] = b.soa["pos"]
+            h[2 * n + at : 2 * n + at + k] = cigar.reference_lengths_np(b.data, b.soa)
+            at += k
+    h[3 * n :] = (rid, beg0, end0)
+    cols = host.to(dev, non_blocking=True)
+    out = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    koverlap.overlap_rows(cols[3 * n :].view(1, 3), cols[:n], cols[n : 2 * n],
+                          cols[2 * n : 3 * n], out=out)
+    if on_card:
+        back = torch.empty(n + 1, dtype=torch.int32, pin_memory=True)
+        back.copy_(out, non_blocking=True)
+        torch.cuda.current_stream(dev).synchronize()
+        stream.metrics.count_h2d(4 * (3 * n + 3), "overlap_columns")
+        stream.metrics.count_d2h(4 * (n + 1), "overlap_rows")
+    else:
+        back = out
+    rows = back[1 : 1 + int(back[0])].numpy().astype(np.int64)
+    stream.metrics.count("serve.view.overlap_device", int(np.count_nonzero(sizes)))
+    ends = np.cumsum(sizes)
+    cuts = np.searchsorted(rows, ends)
+    return [rows[lo:hi] - (e - k) for lo, hi, e, k in zip(np.r_[0, cuts[:-1]], cuts, ends, sizes)]
 
 
 def view_records(
@@ -130,9 +156,10 @@ def view_records(
     timings: Optional[dict] = None,
 ) -> Tuple[bam.BamHeader, List[Tuple[object, np.ndarray]]]:
     """Resolve a ranged alignment query to ``(header, [(batch, row
-    indices)])``, batches in file order.  BAM: the ``.bai``'s chunk spans
-    of the region, each read as a split; CRAM: every split.  An unknown
-    contig raises ``FormatError``.  ``timings`` receives the seconds of the
+    indices)])``, batches with a hit in file order.  BAM: the ``.bai``'s
+    chunk spans of the region, each read as a split; CRAM: every split.
+    Then one cut of all of them (:func:`_cut_view`).  An unknown contig
+    raises ``FormatError``.  ``timings`` receives the seconds of the
     ``index``, ``read`` and ``overlap`` phases."""
     _no_deadline(deadline, "view")
     iv = parse_interval(region)
@@ -152,17 +179,15 @@ def view_records(
         splits = [FileVirtualSplit(path, c.beg, c.end) for c in chunks]
     else:
         splits = fmt.get_splits([path])
-    t["index"] = time.perf_counter() - t0
-    picks: List[Tuple[object, np.ndarray]] = []
-    for s in splits:
-        t1 = time.perf_counter()
-        batch = fmt.read_split(s, with_keys=False, fields=VIEW_FIELDS, stream=stream)
-        t2 = time.perf_counter()
-        rows = _overlap_rows(batch, rid, beg0, end0, stream)
-        t["overlap"] += time.perf_counter() - t2
-        t["read"] += t2 - t1
-        if len(rows):
-            picks.append((batch, rows))
+    t1 = time.perf_counter()
+    t["index"] = t1 - t0
+    batches = [fmt.read_split(s, with_keys=False, fields=VIEW_FIELDS, stream=stream)
+               for s in splits]
+    t2 = time.perf_counter()
+    t["read"] = t2 - t1
+    picks = [(b, rows) for b, rows in zip(batches, _cut_view(batches, rid, beg0, end0, stream))
+             if len(rows)]
+    t["overlap"] = time.perf_counter() - t2
     if timings is not None:
         timings.update(t)
     return hdr, picks

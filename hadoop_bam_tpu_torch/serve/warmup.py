@@ -1,8 +1,8 @@
 """Startup warm-up: bring up the kernel working set, count kernel compiles.
 
 Counterpart of ``hadoop_bam_tpu/serve/warmup.py``.  ``warm_kernels``
-drives the real wrappers (the ``ops.flate`` codec tiers, kernel row 6
-through ``ops.cigar.overlap_mask``, the key sort) at the pow2 bucket sizes
+drives the real wrappers (the ``ops.flate`` codec tiers, kernel row 6's
+view cut ``ops.kernels.overlap.overlap_rows``, the key sort) at the pow2 bucket sizes
 requests produce, so a daemon's first request finds every kernel it will
 launch already built and loaded.
 
@@ -93,14 +93,14 @@ def _sync(dev: torch.device) -> None:
 
 
 def _warm_overlap(row_buckets: Sequence[int], dev: torch.device) -> int:
-    """Kernel row 6 at every request pad shape, one interval (a view
-    queries one region at a time)."""
-    from ..ops.cigar import overlap_mask
+    """Kernel row 6, the view's cut, at every request pad shape, one
+    interval (a view queries one region at a time)."""
+    from ..ops.kernels.overlap import overlap_rows
 
-    iv0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    iv = torch.tensor([[0, 0, 1]], dtype=torch.int32, device=dev)
     for n in row_buckets:
         z = torch.zeros(n, dtype=torch.int32, device=dev)
-        overlap_mask(z - 1, z, z, iv0, iv0, iv0 + 1)  # refid -1: padding rows
+        overlap_rows(iv, z - 1, z, z)  # refid -1: padding rows
     _sync(dev)
     return len(row_buckets)
 

@@ -17,9 +17,10 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, ``chip_smoke.py`` and ``tools/write_pair.py``
-    (and the run it hands each tree) load with ``jax`` blocked and pull in no
-    module of the JAX package."""
+    """Every module of the port, ``chip_smoke.py`` and ``tools/write_pair.py``,
+    ``tools/chain_pair.py`` and ``tools/region_pair.py`` (and the run each
+    hands a tree) load with ``jax`` blocked and pull in no module of the JAX
+    package."""
     code = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any import of jax now fails
@@ -29,10 +30,11 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 import importlib.util
-spec = importlib.util.spec_from_file_location("write_pair", "tools/write_pair.py")
-pair = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(pair)
-assert "jax" not in pair.ONE_RUN and "hadoop_bam_tpu." not in pair.ONE_RUN
+for tool in ("write_pair", "chain_pair", "region_pair"):
+    spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
+    pair = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pair)
+    assert "jax" not in pair.ONE_RUN and "hadoop_bam_tpu." not in pair.ONE_RUN, tool
 bad = [m for m in sys.modules if m == "hadoop_bam_tpu" or m.startswith("hadoop_bam_tpu.")]
 assert not bad, bad
 assert len(names) >= 57, names

@@ -422,6 +422,41 @@ def test_view_blob_writes_the_reference_bytes(corpus, which):
             tend.view_blob(path, bad, device="cpu")
 
 
+@pytest.mark.parametrize("region", ["chr1:1000000-1100000", "chr2", "chr1"])
+def test_a_view_across_many_chunk_spans_is_one_cut(corpus, region):
+    """A view whose ``.bai`` query crosses at least four chunk spans (members
+    of at most 2,500 payload bytes): every span is read first and the view is
+    cut once, and ``view_blob`` and ``depth_stat`` still give the
+    reference's bytes and dict with its ``serve.view.*`` counters, one
+    ``overlap_device`` a non-empty span as the reference counts them."""
+    path = corpus["bai"]
+    iv = tiv.parse_interval(region)
+    rid = tio.read_header_voffset(path)[0].ref_index(iv.contig)
+    chunks = tidx.Bai.load(path + ".bai").query(rid, iv.start - 1, min(iv.end, tiv.MAX_END))
+    assert len(chunks) >= 4
+    stream = DeviceStream(CPU)
+    t = {}
+    got = tend.view_blob(path, region, level=1, stream=stream, timings=t)
+    before = snapshot()
+    want = jend.view_blob(_jctx(), path, region, level=1)
+    d = delta(before)["counters"]
+    assert got == want
+    c = stream.metrics.counters()
+    for k in ("serve.view.requests", "serve.view.records", "serve.view.overlap_device"):
+        assert c.get(k, 0) == d.get(k, 0), k
+    assert c["serve.view.overlap_device"] >= 4
+    assert set(t) == {"index", "read", "overlap", "encode"}
+    stream = DeviceStream(CPU)
+    got = tend.depth_stat(path, region, bin_size=1000, stream=stream)
+    before = snapshot()
+    want = jend.depth_stat(_jctx(), path, region, bin_size=1000)
+    d = delta(before)["counters"]
+    assert got == want and got["n_records"] > 0
+    c = stream.metrics.counters()
+    for k in ("serve.view.overlap_device", "serve.depth.requests"):
+        assert c.get(k, 0) == d.get(k, 0), k
+
+
 def test_view_blob_through_the_inflate_gate(corpus):
     conf = Configuration(LANES)
     for region in VIEW_REGIONS[:3]:

@@ -142,8 +142,8 @@ def test_region_kernels_that_cannot_build_raise(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
     assert set(_build.SIGNATURES["region"]) == {
-        "hbt_overlap_mask", "hbt_quality_histogram", "hbt_unpack_nibbles_u8",
-        "hbt_unpack_nibbles_i32"}
+        "hbt_overlap_mask", "hbt_overlap_rows", "hbt_quality_histogram",
+        "hbt_unpack_nibbles_u8", "hbt_unpack_nibbles_i32"}
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("region")
 

@@ -13,15 +13,18 @@ turns other, this, this, other, one process per run in the tree's own
 root: the tree builds its kernels, times ``record_chain`` over the record
 stream of the input's first 32 MiB split (a view into the inflated split
 at the split's first record, as ``parse_split`` passes it; CUDA events, the
-mean of 20 after 3 warm-ups), and, where the tree has the segmented walk
+mean of 20 after 3 warm-ups) and the walk with the sort keys (the fused
+``record_chain_keys`` where the tree has it, else ``record_chain`` then
+``stream_keys``), and, where the tree has the segmented walk
 (its private ``_launch``), adds the walk's phases and hops (mean of 5) and
 times each ``--geometry`` (segments of SEG bytes in slabs of SLAB, each
 checked against the default walk), then sorts the file with
 ``sort_bam(device="cuda")`` twice (a warm-up, then the measured sort with
 the launch counts zeroed just before it; ``--no-sort`` skips it).  Each run
-prints one JSON line: the kernel's ms, the sort's wall and phases, its
-``record_chain`` launches and a digest of its output; the card's name and
-power limit come first.  Imports neither JAX nor the JAX package.
+prints one JSON line: the kernel's ms with and without the keys, the
+sort's wall and phases, its ``record_chain`` and ``stream_keys`` launches
+and a digest of its output; the card's name and power limit come first.
+Imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -90,7 +93,7 @@ def phases(seg, slab):
     runs = []
     for _ in range(5):
         ms = (ctypes.c_float * len(kch.PHASES))()
-        o, m, work, segments = kch._launch(g, s1 - s0, seg, slab, phase_ms=ms)
+        o, m, work, segments = kch._launch(g, s1 - s0, seg, slab, phase_ms=ms)[:4]
         if not torch.equal(o[: len(offs_h)], offs[: len(offs_h)]) or not torch.equal(m, meta):
             sys.exit(f"record_chain at seg {seg}, slab {slab} differs from the default")
         runs.append((list(ms), int(work[:32].view(torch.int64)[3]), segments))
@@ -99,7 +102,15 @@ def phases(seg, slab):
             "segments": runs[0][2], "hops": runs[0][1]}
 
 
-row = {"kernel_ms": cuda_ms(walk), "split_records": len(offs_h), "split_bytes": s1 - s0}
+n_rec = len(offs_h)
+if hasattr(kch, "record_chain_keys"):  # the keys ride the walk's emit
+    keyed = lambda: kch.record_chain_keys(g, s1 - s0, n_rec)
+else:  # the walk, then the standalone key gather
+    keyed = lambda: kch.stream_keys(g, s1 - s0, *kch.record_chain(g, s1 - s0), n_rec)
+for _ in range(3):
+    keyed()
+row = {"kernel_ms": cuda_ms(walk), "walk_keys_ms": cuda_ms(keyed), "split_records": n_rec,
+       "split_bytes": s1 - s0}
 if hasattr(kch, "_launch"):
     row.update(phases(kch.SEG, kch.SLAB))
     row["geometries"] = {}
@@ -115,6 +126,7 @@ if not do_sort:
 sort_bam(src, out, device="cuda")
 torch.cuda.synchronize()
 kch.WALK_LAUNCHES.reset()
+kch.KEYS_LAUNCHES.reset()
 t0 = time.perf_counter()
 st = sort_bam(src, out, device="cuda")
 torch.cuda.synchronize()
@@ -123,7 +135,8 @@ with open(out, "rb") as f:
     digest = hashlib.blake2b(f.read(), digest_size=8).hexdigest()
 os.remove(out)
 row.update({"sort_wall_s": wall, "sort_records": st.n_records, "phases_s": st.seconds,
-            "record_chain_launches": kch.WALK_LAUNCHES.value, "out_digest": digest})
+            "record_chain_launches": kch.WALK_LAUNCHES.value,
+            "stream_keys_launches": kch.KEYS_LAUNCHES.value, "out_digest": digest})
 print(json.dumps(row), flush=True)
 """
 
@@ -180,7 +193,8 @@ def main() -> int:
             results[which].append(row)
             print(json.dumps({"tree": which, **row}), flush=True)
         for which, rows in results.items():
-            print(f"{which}: kernel ms {[round(r['kernel_ms'], 4) for r in rows]}", flush=True)
+            print(f"{which}: kernel ms {[round(r['kernel_ms'], 4) for r in rows]}, walk + keys ms "
+                  f"{[round(r['walk_keys_ms'], 4) for r in rows]}", flush=True)
             if not args.no_sort:
                 print(f"{which}: sort s {[round(r['sort_wall_s'], 3) for r in rows]}, read phase "
                       f"s {[round(r['phases_s'].get('read', float('nan')), 3) for r in rows]}",
