@@ -2732,21 +2732,24 @@ def check_region(seed: int) -> dict:
         ln = (end.astype(np.int64) - start).astype(np.int32)  # the wrap rows' lengths wrap too
         if n >= 6:  # unplaced starts on a matching refid, a length that wraps past 2**31 - 1
             refid[3:6], start[3:6], ln[3:6] = 0, [-1, -5, 2**31 - 20], [50, 5, 40]
-        for threads in (kov.THREADS, 32, 1024):
-            arrays = [torch.from_numpy(np.ascontiguousarray(a)) for a in (iv, refid, start, ln)]
-            out = torch.full((n + 1,), -7, dtype=torch.int32, device="cuda")
-            kov._launch(*[a.cuda() for a in arrays], out, threads)
+        arrays = [torch.from_numpy(np.ascontiguousarray(a)) for a in (iv, refid, start, ln)]
+        want = kov.overlap_rows_plain(*arrays)
+        c = int(want[0])
+        for threads in (None, kov.THREADS, 32, 1024):
+            if threads is None:  # the wrapper, at its own geometry
+                got = kov.overlap_rows(*[a.cuda() for a in arrays])
+            else:  # the launch into a buffer of garbage
+                got = torch.full((n + 1,), -7, dtype=torch.int32, device="cuda")
+                kov._launch(*[a.cuda() for a in arrays], got, threads)
             torch.cuda.synchronize()
-            got = out.cpu()
-            rows, count = kov.overlap_rows_plain(*arrays)
-            c = int(count[0])
-            if int(got[0]) != c or not torch.equal(got[1 : 1 + c], rows[:c]):
+            got = got.cpu()
+            if got.shape != want.shape or not torch.equal(got[: 1 + c], want[: 1 + c]):
                 raise AssertionError(f"overlap_rows kernel != plain at N {n}, K {k}, {threads} "
                                      f"threads: count {int(got[0])} vs {c}")
         hits += c
     log(f"overlap_rows kernel == plain: {len(cases) + 2} cases (N up to 100000, K 0-1500, "
-        f"unplaced starts, wrapped ends) at 256, 32 and 1024 threads a block, {hits} rows, "
-        "max_abs_err 0")
+        f"unplaced starts, wrapped ends) through the wrapper and at 256, 32 and 1024 threads a "
+        f"block, {hits} rows, max_abs_err 0")
     hcases = [(1, 1, 128, 1.0), (1000, 150, 128, 0.9), (777, 33, 256, 0.5), (300, 20, 12288, 0.7),
               (50, 7, 128, 0.0)]
     for b, length, nbins, p in hcases:
@@ -2980,7 +2983,8 @@ def overlap_device_time(path: str, view_cols) -> dict:
     return out
 
 
-def time_region_kernels(path: str, view_cols, checks: dict, launches: int) -> list:
+def time_region_kernels(path: str, view_cols, checks: dict, launches: int,
+                        mask_launches: int) -> list:
     """Rows 6, 8 and 9 at the region path's shapes: row 6's view cut over the
     chr21 view's records (K = 1) and over the sorted file's first 32 MiB
     split (K = 1 and 8), its mask form at the same shapes; rows 8 and 9 over
@@ -3011,7 +3015,7 @@ def time_region_kernels(path: str, view_cols, checks: dict, launches: int) -> li
                                 ("one split, K=1", (chr21, refid, pos, ln)),
                                 ("one split, K=8", (k8, refid, pos, ln))):
         nr, k = len(r), len(iv)
-        hits = int(kov.overlap_rows_plain(*[t(a, "cpu") for a in (iv, r, p, l)])[1][0])
+        hits = int(kov.overlap_rows_plain(*[t(a, "cpu") for a in (iv, r, p, l)])[0])
         for fn, args in ((kov.overlap_rows, (iv, r, p, l)),
                          (kov.overlap_mask, (iv, r, p, wrapped_end(p, l)))):
             g = [t(a, "cuda") for a in args]
@@ -3038,8 +3042,9 @@ def time_region_kernels(path: str, view_cols, checks: dict, launches: int) -> li
     k_ms, p_ms, bound, nv, _ = times["overlap_mask", "chr21 view, K=1"]
     rows.append({
         "name": "overlap_mask", "route": "cuda", "source": "hadoop_bam_tpu_torch/csrc/region.cu",
-        "replaces": "hadoop_bam_tpu/ops/pallas/overlap.py:46", "launches": 0,
-        "launches_from": "no path calls it: the views cut with overlap_rows",
+        "replaces": "hadoop_bam_tpu/ops/pallas/overlap.py:46", "launches": mask_launches,
+        "launches_from": "the region phase's card calls (views, depth, the CRAM view): no path "
+                         "calls it, the views cut with overlap_rows",
         "max_abs_err": checks["overlap"], "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
         "bound_by": "bytes", "library_ms": None,
         "shape": f"the chr21 view's {nv} records, K = 1 (the mask form)",
@@ -3125,6 +3130,7 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
     log(f"flagstat cuda == cpu == the generator's census: {json.dumps(fs['cuda'])}")
     recs, vstart = file_records(path)
     first = None
+    mask_launches = 0  # the mask form's launches in the phase's card calls: no path calls it
     for k, region in enumerate(REGIONS):
         blob, wall, launches, c = timed_region(
             lambda st, tm: view_blob(path, region, stream=st, timings=tm),
@@ -3142,6 +3148,7 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
         spans = len(bai.query([c for c, _ in GRCH38].index(iv.contig), iv.start - 1,
                               min(iv.end, MAX_END)))
         cuts = (c.get("serve.view.overlap_device", 0), c_cpu.get("serve.view.overlap_device", 0))
+        mask_launches += launches["overlap_mask"]
         if launches["overlap_rows"] != (1 if spans else 0) or cuts != (spans, spans) or (
                 launches["overlap_mask"] != 0) or (not spans and region != REGIONS[2]):
             raise AssertionError(f"view {region}: {launches['overlap_rows']} row 6 launches, cuts "
@@ -3160,8 +3167,12 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
             res[dev], _, launches, c = timed_region(
                 lambda st, tm: depth_stat(path, region, stream=st, timings=tm, **kw),
                 f"depth_stat({dev}, {region}, {kw})", dev)
-            if dev == "cuda" and (launches["overlap_rows"] != 1 or not c.get("pileup.device_chunks")):
-                raise AssertionError(f"depth {region}: row 6 or the device profile never ran")
+            if dev == "cuda":
+                mask_launches += launches["overlap_mask"]
+                if launches["overlap_rows"] != 1 or launches["overlap_mask"] != 0 or not c.get(
+                        "pileup.device_chunks"):
+                    raise AssertionError(f"depth {region}: row 6 launches {launches}, or the "
+                                         "device profile never ran")
         if res["cuda"] != res["cpu"]:
             raise AssertionError(f"depth {region}: card and cpu dicts differ")
         log(f"depth {region}: cuda == cpu: {res['cuda']['n_records']} records, max depth "
@@ -3185,9 +3196,12 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
     log(f"bounded-traversal sort: cuda == cpu ({len(a)} bytes, {st.n_records} records)")
     with open(twin_sorted + ".bai", "wb") as f:
         indices.build_bai(twin_sorted).save(f)
-    cram_blob, _, launches, _ = timed_region(
+    cram_blob, _, launches, c = timed_region(
         lambda st, tm: view_blob(cram_path, REGIONS[1], stream=st, timings=tm),
         f"view_blob(cuda, .cram, {REGIONS[1]})", "cuda")
+    mask_launches += launches["overlap_mask"]
+    # A CRAM view reads every split and cuts each VIEW_CUT_BYTES of them.
+    cram_splits = c.get("serve.view.overlap_device", 0)
     twin_blob, _, _, _ = timed_region(
         lambda st, tm: view_blob(twin_sorted, REGIONS[1], stream=st, timings=tm),
         f"view_blob(cuda, BAM twin, {REGIONS[1]})", "cuda")
@@ -3197,11 +3211,29 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
     ov = overlap_oracle(twin_recs, REGIONS[1])[3]
     want = np.sort(np.ascontiguousarray(twin_recs[ov]).view(f"V{REC}").ravel())
     got = blob_records(cram_blob)
-    if launches["overlap_rows"] != 1 or launches["rans"] <= 0 or not np.array_equal(got, want):
+    if not 1 <= launches["overlap_rows"] <= cram_splits or launches["overlap_mask"] != 0 or (
+            launches["rans"] <= 0) or not np.array_equal(got, want):
         raise AssertionError(f"CRAM view: {len(got)} records, the oracle {len(want)}, "
-                             f"launches {launches}")
+                             f"launches {launches}, {cram_splits} splits cut")
     log(f"view of the CRAM ({len(got)} records) == every overlapping record of its BAM twin; "
-        f"the twin's view, the same less the {head} unmapped records at its head")
+        f"the twin's view, the same less the {head} unmapped records at its head; row 6 "
+        f"launched {launches['overlap_rows']} time(s) for {cram_splits} splits")
+    # The same view held to a 16 MiB budget: several cuts, the same bytes.
+    from hadoop_bam_tpu_torch.serve import endpoints
+
+    budget, endpoints.VIEW_CUT_BYTES = endpoints.VIEW_CUT_BYTES, 16 << 20
+    try:
+        small_blob, _, launches, _ = timed_region(
+            lambda st, tm: view_blob(cram_path, REGIONS[1], stream=st, timings=tm),
+            f"view_blob(cuda, .cram, {REGIONS[1]}, 16 MiB held)", "cuda")
+    finally:
+        endpoints.VIEW_CUT_BYTES = budget
+    mask_launches += launches["overlap_mask"]
+    if small_blob != cram_blob or launches["overlap_rows"] < 2 or launches["overlap_mask"] != 0:
+        raise AssertionError(f"CRAM view cut each 16 MiB: launches {launches}, the same bytes "
+                             f"{small_blob == cram_blob}")
+    log(f"view of the CRAM cut each 16 MiB held: the same bytes, row 6 launched "
+        f"{launches['overlap_rows']} times")
     # Row 6's inputs in the chr21 view: every record of the windows it read.
     bs = [bt for bt, _ in view_records(path, REGIONS[1], device="cpu")[1]]
     refid = np.concatenate([bt.soa["refid"] for bt in bs]).astype(np.int32)
@@ -3209,7 +3241,7 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
     span = np.concatenate([cigar.reference_lengths_np(bt.data, bt.soa) for bt in bs])
     view_cols = (refid, pos, span.astype(np.int32))
     log(f"region phase: {time.perf_counter() - t_phase:.1f} s before the kernel timings")
-    return time_region_kernels(path, view_cols, checks, first)
+    return time_region_kernels(path, view_cols, checks, first, mask_launches)
 
 
 def read_header_of_blob(content: bytes) -> bytes:

@@ -158,17 +158,9 @@ __global__ void stream_keys_kernel(const uint8_t* __restrict__ s,
     return;
   }
   const int64_t body = offs[i] + 4;
-  const int32_t refid = static_cast<int32_t>(le_at(s, body, n_bytes, 4));
-  const int32_t pos = static_cast<int32_t>(le_at(s, body + 4, n_bytes, 4));
-  const uint32_t flag = le_at(s, body + 14, n_bytes, 2);
-  const int32_t pos1 = static_cast<int32_t>(static_cast<uint32_t>(pos) + 1u);
-  const bool unm = (flag & 0x4u) != 0 || refid < 0 || pos1 < 0;
-  const int32_t sel_hi = unm ? 0x7fffffff : refid;
-  const int32_t sel_lo = unm ? 0 : pos;
-  const int32_t hi = sel_lo < 0 ? -1 : sel_hi;
-  keys[i] = static_cast<int64_t>((static_cast<uint64_t>(static_cast<uint32_t>(hi)) << 32) |
-                                 static_cast<uint32_t>(sel_lo));
-  unmapped[i] = unm ? 1 : 0;
+  pack_key(static_cast<int32_t>(le_at(s, body, n_bytes, 4)),
+           static_cast<int32_t>(le_at(s, body + 4, n_bytes, 4)), le_at(s, body + 14, n_bytes, 2),
+           keys + i, unmapped + i);
 }
 
 }  // namespace

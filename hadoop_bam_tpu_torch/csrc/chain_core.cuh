@@ -510,16 +510,13 @@ HBT_CHAIN_HD inline int32_t emit_walk(const Walk& w, int64_t slab0, const Work& 
   return m;
 }
 
-// The packed sort key and the unmapped byte of the record whose size word
-// is at byte off of the staged buffer: Java's (long)refid << 32 | pos, the
-// sign of a negative low word flooding the high word; unmapped when flag &
-// 4, refid < 0 or pos + 1 < 0 in int32, and then INT_MAX << 32 until the
-// host's murmur3 hash is patched in.
-HBT_CHAIN_HD HBT_CHAIN_INLINE void key_at(const uint8_t* buf, int off, int64_t* key,
-                                          uint8_t* unmapped) {
-  const int32_t refid = static_cast<int32_t>(word_at(buf, off + 4));
-  const int32_t pos = static_cast<int32_t>(word_at(buf, off + 8));
-  const uint32_t flag = word_at(buf, off + 16) >> 16;
+// The packed sort key and the unmapped byte of a record with these
+// fields: Java's (long)refid << 32 | pos, the sign of a negative low word
+// flooding the high word; unmapped when flag & 4, refid < 0 or pos + 1 < 0
+// in int32, and then INT_MAX << 32 until the host's murmur3 hash is
+// patched in.
+HBT_CHAIN_HD HBT_CHAIN_INLINE void pack_key(int32_t refid, int32_t pos, uint32_t flag,
+                                            int64_t* key, uint8_t* unmapped) {
   const int32_t pos1 = static_cast<int32_t>(static_cast<uint32_t>(pos) + 1u);
   const bool unm = (flag & 0x4u) != 0 || refid < 0 || pos1 < 0;
   const int32_t lo = unm ? 0 : pos;
@@ -527,6 +524,15 @@ HBT_CHAIN_HD HBT_CHAIN_INLINE void key_at(const uint8_t* buf, int off, int64_t* 
   *key = static_cast<int64_t>((static_cast<uint64_t>(static_cast<uint32_t>(hi)) << 32) |
                               static_cast<uint32_t>(lo));
   *unmapped = unm ? 1 : 0;
+}
+
+// pack_key of the record whose size word is at byte off of the staged
+// buffer.
+HBT_CHAIN_HD HBT_CHAIN_INLINE void key_at(const uint8_t* buf, int off, int64_t* key,
+                                          uint8_t* unmapped) {
+  pack_key(static_cast<int32_t>(word_at(buf, off + 4)),
+           static_cast<int32_t>(word_at(buf, off + 8)), word_at(buf, off + 16) >> 16, key,
+           unmapped);
 }
 
 // The m listed records of segment k, threads tid, tid + nthreads, ...: the

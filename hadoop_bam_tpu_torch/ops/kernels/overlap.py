@@ -6,7 +6,7 @@ the ``.bai`` chunk spans picked the windows.  The TPU kernel pads the
 records to ``[8, 128]`` tiles with refid -2; the card needs no padding.
 
 :func:`overlap_rows` is the view's cut: from the raw columns (refid, pos,
-reference length) to the hit rows, compacted and in order, with their
+reference length) to the hit rows, compacted and in order, behind their
 count, in three launches (count, scan, scatter; ``csrc/region_core.cuh``)
 counted once by :data:`ROWS_LAUNCHES`.  :func:`overlap_mask` keeps the
 reference kernel's mask form over (refid, start, end).
@@ -69,31 +69,24 @@ def overlap_mask_plain(intervals: torch.Tensor, refid: torch.Tensor, start: torc
 
 
 def overlap_rows(intervals: torch.Tensor, refid: torch.Tensor, pos: torch.Tensor,
-                 ref_len: torch.Tensor, out=None):
-    """``(rows, count)``: the rows of the records whose span ``[pos, pos +
-    max(ref_len, 1))`` (the end wrapping in int32) on ``refid`` overlaps one
-    of the K intervals (int32 ``[K, 3]``: refid, beg, end; half-open,
-    0-based); a record with ``pos < 0`` never matches.  int32 columns of N
-    records on one device.  ``rows[:count]`` are the hits in order (int32;
-    past them, whatever the buffer held) and ``count`` is int32 ``[1]``:
-    both are views of one int32 ``[1 + N]`` buffer, the count first
-    (``out`` when given), so one copy reads both back.  A CUDA tensor
-    launches the kernel, a CPU tensor takes the plain version."""
+                 ref_len: torch.Tensor) -> torch.Tensor:
+    """The rows of the records whose span ``[pos, pos + max(ref_len, 1))``
+    (the end wrapping in int32) on ``refid`` overlaps one of the K intervals
+    (int32 ``[K, 3]``: refid, beg, end; half-open, 0-based); a record with
+    ``pos < 0`` never matches.  int32 columns of N records on one device.
+    Returns one int32 ``[1 + N]`` buffer, so one copy reads it back: the
+    count first, then the hits' rows in order (past them, whatever the
+    buffer held).  A CUDA tensor launches the kernel, a CPU tensor takes the
+    plain version."""
     _check(intervals, refid, pos, ref_len, names=("refid", "pos", "ref_len"))
     n = refid.numel()
     if n >= 2**31 - 1:
         raise ValueError(f"{n} records: the cut's rows are int32")
-    if out is None:
-        out = torch.empty(n + 1, dtype=torch.int32, device=refid.device)
-    check_tensor(out, "out", torch.int32)
-    if out.shape != (n + 1,):
-        raise ValueError(f"out must be [{n + 1}]")
-    if use_plain(intervals, refid, pos, ref_len, out):
-        rows, count = overlap_rows_plain(intervals, refid, pos, ref_len)
-        out.copy_(torch.cat([count, rows]))
-    else:
-        _launch(intervals, refid, pos, ref_len, out, THREADS)
-    return out[1:], out[:1]
+    if use_plain(intervals, refid, pos, ref_len):
+        return overlap_rows_plain(intervals, refid, pos, ref_len)
+    out = torch.empty(n + 1, dtype=torch.int32, device=refid.device)
+    _launch(intervals, refid, pos, ref_len, out, THREADS)
+    return out
 
 
 def _launch(intervals, refid, pos, ref_len, out, threads: int) -> None:
@@ -112,16 +105,17 @@ def _launch(intervals, refid, pos, ref_len, out, threads: int) -> None:
 
 
 def overlap_rows_plain(intervals: torch.Tensor, refid: torch.Tensor, pos: torch.Tensor,
-                       ref_len: torch.Tensor):
+                       ref_len: torch.Tensor) -> torch.Tensor:
     """The plain version: the span rule in int64 wrapped to int32, the
-    reference kernel's loop over the intervals, and ``torch.nonzero``.
-    ``(rows, count)``, rows exactly ``N`` long with zeros past the hits."""
+    reference kernel's loop over the intervals, and ``torch.nonzero``.  The
+    same ``[1 + N]`` buffer, zeros past the hits."""
     pos64 = pos.to(torch.int64)
     end = (pos64 + ref_len.to(torch.int64).clamp(min=1) + 2**31) % 2**32 - 2**31
     acc = torch.zeros(refid.numel(), dtype=torch.bool, device=refid.device)
     for rid, beg, stop in intervals.tolist():
         acc |= (refid == rid) & (pos64 < stop) & (end > beg)
     hit = torch.nonzero(acc & (pos64 >= 0)).flatten().to(torch.int32)
-    rows = torch.zeros(refid.numel(), dtype=torch.int32, device=refid.device)
-    rows[: hit.numel()] = hit
-    return rows, torch.tensor([hit.numel()], dtype=torch.int32, device=refid.device)
+    out = torch.zeros(refid.numel() + 1, dtype=torch.int32, device=refid.device)
+    out[0] = hit.numel()
+    out[1 : 1 + hit.numel()] = hit
+    return out

@@ -61,6 +61,12 @@ FLAGSTAT_KEYS = (
     "paired", "read1", "read2", "properly_paired",
     "with_itself_and_mate_mapped", "singletons",
 )
+#: Decoded bytes of batches a view holds uncut: once its batches reach
+#: this many they are cut together and those without a hit dropped, so a
+#: view of a small region of a large CRAM (whose every split it reads)
+#: never holds the whole file.  A ``.bai``-bounded BAM view of a contig
+#: (one or a few members a chunk span) is one cut.
+VIEW_CUT_BYTES = 128 << 20
 #: Hard cap on a per-base depth reply (one int per base).
 DEPTH_PER_BASE_MAX = 1 << 20
 
@@ -100,7 +106,7 @@ def _split_span(s) -> Tuple[int, int]:
 
 def _cut_view(batches, rid: int, beg0: int, end0: int, stream: DeviceStream) -> List[np.ndarray]:
     """Row indices of each batch's records that overlap ``[beg0, end0)`` on
-    refid ``rid``, in file order: one cut of the whole view on the stream's
+    refid ``rid``, in file order: one cut of all of them on the stream's
     device (kernel row 6, :func:`~.ops.kernels.overlap.overlap_rows`).  The
     host packs every batch's refid, pos and reference length (the CIGAR
     walk, :func:`~.ops.cigar.reference_lengths_np`) and the interval into
@@ -128,9 +134,8 @@ def _cut_view(batches, rid: int, beg0: int, end0: int, stream: DeviceStream) -> 
             at += k
     h[3 * n :] = (rid, beg0, end0)
     cols = host.to(dev, non_blocking=True)
-    out = torch.empty(n + 1, dtype=torch.int32, device=dev)
-    koverlap.overlap_rows(cols[3 * n :].view(1, 3), cols[:n], cols[n : 2 * n],
-                          cols[2 * n : 3 * n], out=out)
+    out = koverlap.overlap_rows(cols[3 * n :].view(1, 3), cols[:n], cols[n : 2 * n],
+                                cols[2 * n : 3 * n])
     if on_card:
         back = torch.empty(n + 1, dtype=torch.int32, pin_memory=True)
         back.copy_(out, non_blocking=True)
@@ -158,7 +163,8 @@ def view_records(
     """Resolve a ranged alignment query to ``(header, [(batch, row
     indices)])``, batches with a hit in file order.  BAM: the ``.bai``'s
     chunk spans of the region, each read as a split; CRAM: every split.
-    Then one cut of all of them (:func:`_cut_view`).  An unknown contig
+    The batches are cut together (:func:`_cut_view`) once they hold
+    :data:`VIEW_CUT_BYTES` of records, and at the end.  An unknown contig
     raises ``FormatError``.  ``timings`` receives the seconds of the
     ``index``, ``read`` and ``overlap`` phases."""
     _no_deadline(deadline, "view")
@@ -179,15 +185,19 @@ def view_records(
         splits = [FileVirtualSplit(path, c.beg, c.end) for c in chunks]
     else:
         splits = fmt.get_splits([path])
-    t1 = time.perf_counter()
-    t["index"] = t1 - t0
-    batches = [fmt.read_split(s, with_keys=False, fields=VIEW_FIELDS, stream=stream)
-               for s in splits]
-    t2 = time.perf_counter()
-    t["read"] = t2 - t1
-    picks = [(b, rows) for b, rows in zip(batches, _cut_view(batches, rid, beg0, end0, stream))
-             if len(rows)]
-    t["overlap"] = time.perf_counter() - t2
+    t["index"] = time.perf_counter() - t0
+    picks, held, size = [], [], 0
+    for i, s in enumerate(splits):
+        t1 = time.perf_counter()
+        held.append(fmt.read_split(s, with_keys=False, fields=VIEW_FIELDS, stream=stream))
+        size += held[-1].data.nbytes
+        t2 = time.perf_counter()
+        t["read"] += t2 - t1
+        if size >= VIEW_CUT_BYTES or i == len(splits) - 1:
+            picks += [(b, rows) for b, rows in zip(held, _cut_view(held, rid, beg0, end0, stream))
+                      if len(rows)]
+            held, size = [], 0
+            t["overlap"] += time.perf_counter() - t2
     if timings is not None:
         timings.update(t)
     return hdr, picks

@@ -11,9 +11,11 @@ sorted by the reference's host sort and re-blocked into members of at most
 2,500 payload bytes, so records straddle members.
 """
 
+import gc
 import io
 import os
 import shutil
+import weakref
 
 import numpy as np
 import pytest
@@ -455,6 +457,45 @@ def test_a_view_across_many_chunk_spans_is_one_cut(corpus, region):
     c = stream.metrics.counters()
     for k in ("serve.view.overlap_device", "serve.depth.requests"):
         assert c.get(k, 0) == d.get(k, 0), k
+
+
+@pytest.mark.parametrize("budget", [1, 100_000])
+def test_a_many_split_cram_view_drops_each_batch_without_a_hit(corpus, monkeypatch, budget):
+    """A CRAM view reads every split (here eight, one container each) and
+    cuts its held batches each time they reach ``VIEW_CUT_BYTES``: at each
+    cut every batch of the earlier cuts without a hit is gone, the held
+    batches but the last stay under the budget, and the bytes and dict are
+    the reference's."""
+    from hadoop_bam_tpu_torch.io import anysam as tany
+
+    splits = tany.AnySamInputFormat.get_splits
+    monkeypatch.setattr(tany.AnySamInputFormat, "get_splits",
+                        lambda self, paths, split_size=0: splits(self, paths, 4096))
+    monkeypatch.setattr(tend, "VIEW_CUT_BYTES", budget)
+    cut, dropped, sizes = tend._cut_view, [], []
+
+    def watch(batches, *args):
+        gc.collect()
+        assert all(r() is None for r in dropped)
+        assert sum(b.data.nbytes for b in batches[:-1]) < budget
+        sizes.append(len(batches))
+        rows = cut(batches, *args)
+        dropped.extend(weakref.ref(b) for b, r in zip(batches, rows) if not len(r))
+        return rows
+
+    monkeypatch.setattr(tend, "_cut_view", watch)
+    ctx = _jctx()
+    for region in ("chr3", "chr1:100,001-300,000"):
+        sizes.clear()
+        dropped.clear()
+        stream = DeviceStream(CPU)
+        assert tend.view_blob(corpus["cram"], region, stream=stream) == \
+            jend.view_blob(ctx, corpus["cram"], region), region
+        assert sum(sizes) == 8 and len(sizes) == (8 if budget == 1 else 3), sizes
+        assert stream.metrics.counters()["serve.view.overlap_device"] == 8
+        assert len(dropped) >= 5
+        assert tend.depth_stat(corpus["cram"], region, bin_size=1000, device="cpu") == \
+            jend.depth_stat(ctx, corpus["cram"], region, bin_size=1000), region
 
 
 def test_view_blob_through_the_inflate_gate(corpus):

@@ -153,9 +153,11 @@ def _run_core(so, iv, refid, pos, ln, nth: int = 256, nsc: int = 1024, guard: in
 
 
 def _plain(iv, refid, pos, ln):
-    rows, count = kov.overlap_rows_plain(*[torch.from_numpy(np.ascontiguousarray(a, np.int32))
-                                           for a in (np.reshape(iv, (-1, 3)), refid, pos, ln)])
-    return rows[: int(count[0])].numpy(), int(count[0])
+    out = kov.overlap_rows_plain(*[torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                                   for a in (np.reshape(iv, (-1, 3)), refid, pos, ln)])
+    count = int(out[0])
+    assert not out[1 + count :].any()
+    return out[1 : 1 + count].numpy(), count
 
 
 def _cigar_rows(iv, refid, pos, ln):
