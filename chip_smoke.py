@@ -3531,7 +3531,12 @@ CODEC_MIB = 64  # the round trip's input: the sort generator's record bytes
 XLA_MIB = 8  # the general programs' inputs
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 peak, the CUDA cores' rate
 OPS_PER_SYMBOL = 20  # integer operations to decode one fixed-Huffman symbol (row 10's function)
-OPS_PER_WAVE = 80  # row 11's integer operations per lane and wave (csrc/inflate_probe.cu)
+OPS_PER_WAVE = 80  # row 11's integer operations per lane and wave (the reference's function)
+# Row 11's dependent chain a wave in SM cycles: the SASS of its unrolled
+# waves (cuobjdump -sass) chains LOP3 (the table index), LDS.U8 (the table)
+# and SHF.R.W (the window); tools/inflate_probe_chain.py times those three
+# alone at 38.48 cycles a step on the H100 (PERF.md).
+PROBE_CHAIN_CYCLES = 38.48
 
 
 def fixed_literal_cases(seed: int):
@@ -3756,30 +3761,76 @@ def check_fixed_trouble(seed: int) -> None:
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+def probe_cases(seed: int) -> dict:
+    """Row 11's cursor cases over one R = 256 stream: ``{name: (streams
+    int32 [R, 128], cursors int32 [1, 128], T)}``.  Lanes all equal, spread
+    over the whole stream, negative (some walk into it), at -1, -33, R * 32 -
+    1 and R * 32, within 2**10 of INT32_MAX (the cursor wraps), lanes whose
+    every wave advances the most, 22 bits (a stream built for them), and T =
+    0, 1 and odd Ts that are not a multiple of the kernel's 8-wave blocks."""
+    rng = np.random.default_rng(seed + 11)
+    R, lanes, imax = 256, 128, 2**31 - 1
+    end = R * 32
+    streams = rng.integers(-(1 << 31), 1 << 31, (R, lanes), dtype=np.int32)
+    spread = rng.integers(-4096, end + 4096, (1, lanes), dtype=np.int32)
+    edges = spread.copy()
+    edges[0, :4] = [-1, -33, end - 1, end]
+    # From each lane's start, every 22 bits: low bits 111, bits 7-13 clear
+    # and bit 14 set (the length class 15): each wave advances 15 + 7.
+    starts = rng.integers(0, 64, lanes)
+    bits = rng.integers(0, 2, (lanes, end), dtype=np.uint8)
+    for lane, s0 in enumerate(starts):
+        at = np.arange(s0, end - 15, 22)
+        for k, b in [(0, 1), (1, 1), (2, 1), *((k, 0) for k in range(7, 14)), (14, 1)]:
+            bits[lane, at + k] = b
+    fast = np.packbits(bits.reshape(lanes, R, 32), axis=-1, bitorder="little")
+    fast = fast.view("<u4")[..., 0].T.astype(np.uint32).view(np.int32).copy()
+    return {
+        "all lanes equal": (streams, np.full((1, lanes), 1000, np.int32), 97),
+        "lanes over the whole stream": (streams, rng.integers(0, end, (1, lanes), dtype=np.int32),
+                                        301),
+        "negative cursors": (streams, rng.integers(-1500, 0, (1, lanes), dtype=np.int32), 301),
+        "-1, -33, R * 32 - 1, R * 32": (streams, edges, 64),
+        "every wave advancing 22 bits": (fast, starts.astype(np.int32)[None, :], 301),
+        "within 2**10 of INT32_MAX": (
+            streams, (imax - rng.integers(0, 1 << 10, (1, lanes))).astype(np.int32), 97),
+        "T = 0": (streams, spread, 0),
+        "T = 1": (streams, spread, 1),
+        "T = 13": (streams, spread, 13),
+    }
+
+
 def check_inflate_probe(seed: int) -> dict:
-    """Row 11 against its plain version and the NumPy oracle, exactly: R =
-    256, T = 64 with negative and past-the-end cursors, and R = 4096, T =
-    2048."""
+    """Row 11 against its plain version and the NumPy oracle, exactly, at
+    each of the kernel's ``VARIANTS`` (geometry and length class):
+    ``probe_cases`` and R = 4096, T = 2048."""
     import torch
 
     from hadoop_bam_tpu_torch.ops.kernels import inflate_probe as kip
 
+    t0 = time.perf_counter()
     rng = np.random.default_rng(seed + 11)
-    for R, T, lo, hi in ((256, 64, -4096, 256 * 32 + 4096), (4096, 2048, 0, 4096 * 32)):
-        streams = rng.integers(-(1 << 31), 1 << 31, (R, kip.LANES), dtype=np.int32)
-        cursors = rng.integers(lo, hi, (1, kip.LANES), dtype=np.int32)
-        got = []
-        for dev in ("cuda", "cpu"):
-            cur, acc = kip.make_walk(R, T, dev)(torch.from_numpy(streams).to(dev),
-                                                torch.from_numpy(cursors).to(dev))
-            got.append((cur.cpu().numpy(), acc.cpu().numpy()))
+    big = rng.integers(-(1 << 31), 1 << 31, (4096, kip.LANES), dtype=np.int32)
+    cases = dict(probe_cases(seed), **{"R = 4096, T = 2048": (
+        big, rng.integers(0, 4096 * 32, (1, kip.LANES), dtype=np.int32), 2048)})
+    u32 = lambda a: a.astype(np.int64) & 0xFFFFFFFF  # noqa: E731
+    for name, (streams, cursors, T) in cases.items():
+        R = streams.shape[0]
         c_ref, a_ref = kip.reference_walk(streams, cursors, T)
-        u32 = lambda a: a.astype(np.int64) & 0xFFFFFFFF  # noqa: E731
-        for cur, acc in got:
-            if not (np.array_equal(u32(cur), c_ref & 0xFFFFFFFF) and np.array_equal(u32(acc), a_ref)):
-                raise AssertionError(f"inflate_probe_walk != reference_walk at R={R}, T={T}")
-    log("inflate_probe_walk kernel == plain == reference_walk: R=256 T=64 (negative and "
-        "past-the-end cursors), R=4096 T=2048, max_abs_err 0")
+        p_cur, p_acc = kip.make_walk(R, T, "cpu")(torch.from_numpy(streams),
+                                                  torch.from_numpy(cursors))
+        if not (np.array_equal(u32(p_cur.numpy()), c_ref & 0xFFFFFFFF)
+                and np.array_equal(u32(p_acc.numpy()), a_ref)):
+            raise AssertionError(f"inflate_probe walk_plain != reference_walk: {name}")
+        gs, gc = torch.from_numpy(streams).cuda(), torch.from_numpy(cursors).cuda()
+        for block, table in kip.VARIANTS:
+            cur, acc = kip.make_walk_variant(R, T, "cuda", block, table)(gs, gc)
+            if not (torch.equal(cur.cpu(), p_cur) and torch.equal(acc.cpu(), p_acc)):
+                raise AssertionError(f"inflate_probe_walk (block {block}, table {table}) != "
+                                     f"walk_plain: {name}")
+    log(f"inflate_probe_walk kernel == plain == reference_walk at (block, table) "
+        f"{list(kip.VARIANTS)}, cases {sorted(cases)}, max_abs_err 0 "
+        f"({time.perf_counter() - t0:.1f} s)")
     return {"max_abs_err": 0.0}
 
 
@@ -3888,7 +3939,6 @@ def codec_phase(work: str, seed: int, checks: dict, mib: int) -> list:
     from hadoop_bam_tpu_torch.ops import flate
     from hadoop_bam_tpu_torch.ops.kernels import inflate as kin
     from hadoop_bam_tpu_torch.ops.kernels import inflate_fixed as kfix
-    from hadoop_bam_tpu_torch.ops.kernels import inflate_probe as kip
     from hadoop_bam_tpu_torch.serve import warm_kernels
     from hadoop_bam_tpu_torch.spec import bgzf
     from hadoop_bam_tpu_torch.utils.tracing import Metrics
@@ -3989,6 +4039,62 @@ def codec_phase(work: str, seed: int, checks: dict, mib: int) -> list:
         "shape": f"{len(isz)} members of <= {int(isz.max())} bytes, C = {comp.shape[1]}",
     }]
 
+    rows.append(time_inflate_probe(checks, seed))
+    log(f"codec phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def max_sm_mhz() -> float:
+    """The card's maximum SM clock in MHz, as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()
+    return float(out[0])
+
+
+def probe_walk_ms(kip, R: int, gs, gc, block: int, table: bool) -> dict:
+    """Row 11 at one geometry and length class on ``gs``, ``gc``: ``ms`` at
+    T = 2,048 (CUDA events, 20 launches), ``kernel_ms`` the bare launch (the
+    C entry on preallocated outputs, no wrapper), ``ns_per_wave_in_stream``
+    from T = 2,048 and 16,384 (every cursor in the stream) and
+    ``ns_per_wave_past`` from T = 32,768 and 131,072 (bench_marginal's fit,
+    the cursors past the stream)."""
+    import torch
+
+    from hadoop_bam_tpu_torch import _build
+
+    def walk(T):
+        w = kip.make_walk_variant(R, T, "cuda", block, table)
+        return lambda: w(gs, gc)
+
+    lib = _build.load("inflate_probe")
+    out = torch.empty((2, kip.LANES), dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def bare():
+        _build.check(lib.hbt_inflate_probe_walk(gs.data_ptr(), R, gc.data_ptr(), 2048,
+                                                out[0].data_ptr(), out[1].data_ptr(), block,
+                                                int(table), stream), "inflate_probe_walk")
+
+    k_ms = cuda_ms(walk(2048), iters=20, warmup=3)
+    t = {T: cuda_ms(walk(T), iters=5, warmup=1) for T in (16384, 32768, 131072)}
+    return {"ms": k_ms, "kernel_ms": cuda_ms(bare, iters=20, warmup=3),
+            "ns_per_wave_in_stream": (t[16384] - k_ms) / (16384 - 2048) * 1e6,
+            "ns_per_wave_past": (t[131072] - t[32768]) / (131072 - 32768) * 1e6}
+
+
+def time_inflate_probe(checks: dict, seed: int) -> dict:
+    """Row 11: ``bench_marginal()`` with the launch counts zeroed just before
+    it, then every geometry and length class timed by ``probe_walk_ms`` at
+    R = 4,096 with every cursor at 3 (the default's numbers are the row's),
+    and the latency floor: T times the wave's dependent chain
+    (``PROBE_CHAIN_CYCLES``, read from the kernel's SASS) at the card's
+    maximum SM clock."""
+    import torch
+
+    from hadoop_bam_tpu_torch.ops.kernels import inflate_probe as kip
+
     reset_counts()
     bench = kip.bench_marginal()
     probe_launches = launch_counts()[kip.LAUNCHES.name]
@@ -4000,34 +4106,39 @@ def codec_phase(work: str, seed: int, checks: dict, mib: int) -> list:
     streams = rng.integers(0, 1 << 31, (R, kip.LANES), dtype=np.int32)
     cursors = np.full((1, kip.LANES), 3, np.int32)
     gs, gc = torch.from_numpy(streams).cuda(), torch.from_numpy(cursors).cuda()
-    walk = kip.make_walk(R, T, "cuda")
-    k_ms = cuda_ms(lambda: walk(gs, gc), iters=20, warmup=3)
-    # A cursor advances 4.5 bits a wave on average, so past ~29,000 waves it
-    # has left the 131,072-bit stream and its words read as 0 without a
-    # load: bench_marginal's T = 32,768..131,072 line measures those waves.
-    # The fit through T = 2,048 and 16,384 keeps every wave in the stream.
-    long_walk = kip.make_walk(R, 16384, "cuda")
-    in_ns = (cuda_ms(lambda: long_walk(gs, gc), iters=10) - k_ms) / (16384 - T) * 1e6
+    variants = {}
+    for block, table in kip.VARIANTS:
+        key = f"block {block}, {'table' if table else 'compares'}"
+        variants[key] = probe_walk_ms(kip, R, gs, gc, block, table)
+        log(f"  inflate_probe_walk {key}: " + json.dumps(variants[key]))
+    mine = variants[f"block {kip.BLOCK}, {'table' if kip.TABLE else 'compares'}"]
     plain = kip.make_walk(R, T, "cpu")
     p_ms = once_ms(lambda: plain(torch.from_numpy(streams), torch.from_numpy(cursors)))
     b_bytes = (streams.nbytes + 3 * cursors.nbytes) / HBM_BYTES_PER_S * 1e3
     b_ops = OPS_PER_WAVE * kip.LANES * T / INT_OPS_PER_S * 1e3
-    rows.append({
+    mhz = max_sm_mhz()
+    floor_ms = T * PROBE_CHAIN_CYCLES / (mhz * 1e6) * 1e3
+    row = {
         "name": "inflate_probe_walk", "route": "cuda",
         "source": "hadoop_bam_tpu_torch/csrc/inflate_probe.cu",
         "replaces": "hadoop_bam_tpu/ops/pallas/inflate_probe.py:119", "launches": probe_launches,
         "launches_from": "bench_marginal() at the reference's defaults",
-        "max_abs_err": checks["inflate_probe"], "ms": k_ms, "plain_ms": p_ms,
+        "max_abs_err": checks["inflate_probe"], "ms": mine["ms"], "plain_ms": p_ms,
         "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "library_ms": None, "bound_bytes_ms": b_bytes, "bound_ops_ms": b_ops,
-        "fixed_ms": bench["fixed_ms"], "ns_per_wave": bench["ns_per_wave"],
-        "ns_per_wave_in_stream": in_ns, "shape": f"R = {R}, T = {T}",
-    })
-    log(f"  inflate_probe_walk: {k_ms:.4f} ms at R={R}, T={T} (plain {p_ms:.1f} ms; bound "
-        f"bytes {b_bytes:.6f} ms, operations {b_ops:.6f} ms); {in_ns:.2f} ns a wave with "
-        "every cursor in the stream (T = 2048..16384)")
-    log(f"codec phase: {time.perf_counter() - t_phase:.1f} s")
-    return rows
+        "latency_floor_ms": floor_ms, "chain_cycles": PROBE_CHAIN_CYCLES, "max_sm_mhz": mhz,
+        "kernel_ms": mine["kernel_ms"], "fixed_ms": bench["fixed_ms"],
+        "ns_per_wave": bench["ns_per_wave"], "ns_per_wave_in_stream": mine["ns_per_wave_in_stream"],
+        "geometry": f"{kip.LANES // kip.BLOCK} block(s) of {kip.BLOCK} threads",
+        "length_class": "table" if kip.TABLE else "compares", "ring_words": kip.RING,
+        "variants": variants, "shape": f"R = {R}, T = {T}",
+    }
+    log(f"  inflate_probe_walk: {mine['ms']:.4f} ms at R={R}, T={T}, bare {mine['kernel_ms']:.4f} "
+        f"(plain {p_ms:.1f} ms; bound bytes {b_bytes:.6f} ms, operations {b_ops:.6f} ms; latency "
+        f"floor {floor_ms:.5f} ms = {PROBE_CHAIN_CYCLES} cycles a wave at {mhz:.0f} MHz); "
+        f"{mine['ns_per_wave_in_stream']:.2f} ns a wave with every cursor in the stream "
+        f"(T = 2048..16384), bench_marginal {bench['ns_per_wave']:.2f}; {sm_clocks()}")
+    return row
 
 
 def sm_clocks() -> str:

@@ -6,60 +6,96 @@
 // waves of: the two words under the cursor (0 outside [0, R)), a 32-bit
 // window, a 15-class range-compare "decode", cur += length + (win & 7),
 // acc += win with int32 wrap.  The TPU kernel extracts each lane's word by
-// an iota-compare reduction over the whole [R, 128] tile every wave; here
-// one thread a lane loads its two words directly.
+// an iota-compare reduction over the whole [R, 128] tile every wave; here a
+// thread is a lane and walks with inflate_probe_core.cuh's walk_lane.
 //
-// Bound: latency.  Each wave's loads depend on the previous wave's cursor,
-// so a wave costs two dependent L2 round trips (issued together) plus the
-// compare chain.  The stream (2 MiB at R = 4096) is too large for one
-// block's shared memory and stays resident in the 50 MB L2 after the first
-// touches; its bytes would take well under a microsecond, the integer
-// operations (~80 a lane-wave) a few hundredths of a millisecond at T =
-// 131,072.  One block of 128 threads occupies one SM: the probe measures a
-// serial chain, not throughput.
+// Bound: latency.  The T waves of a lane form one dependent chain, so the
+// least time is T times one wave's dependent steps; the stream's bytes (2
+// MiB at R = 4096) and the integer operations (~80 a lane and wave) would
+// take well under a microsecond at the card's rates.  The design takes the
+// loads and the length class's select chain off that chain: each lane keeps
+// the 64 stream bits from its cursor on in two registers and shifts them
+// down by each wave's advance, taking the bits after them in at the top;
+// the words behind those come from a ring of kRing words in shared memory
+// that 4-byte cp.async copies fill ahead (groups issued kDepth blocks of
+// kWaves waves before they are read).  The length class plus the window's
+// low bits is one shared-memory byte read from a 32 KiB table built by the
+// block at launch (table = 1), or 14 independent compares and a count of
+// leading zeros (table = 0).  A wave's dependent chain is then the table's
+// index mask, its byte read and one funnel shift.
 //
-// Plain C entry point (ctypes): device pointers and the stream as
-// integers; returns cudaGetLastError() of the launch.
+// Geometry: one block of 128 threads (block = 128) or four blocks of one
+// warp on four SMs (block = 32); a lane's ring is its own, so no warp waits
+// on another.  Shared memory (dynamic): the table and kRing + 1 words a
+// lane, 49,664 bytes a block of 128 with the table, above the 48 KiB a
+// launch gets without opting in.
+//
+// Plain C entry point (ctypes): device pointers and the stream as integers;
+// returns cudaGetLastError() of the launch, or cudaErrorInvalidValue for a
+// geometry it does not have.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "inflate_probe_core.cuh"
+
 namespace {
 
-constexpr int kLanes = 128;
+using namespace hbt_probe;
 
-__global__ void probe_walk_kernel(const int* __restrict__ streams, int R,
-                                  const int* __restrict__ cursors, int T,
-                                  int* __restrict__ cur_out, int* __restrict__ acc_out) {
-  const int lane = threadIdx.x;
-  unsigned c = (unsigned)cursors[lane];  // int32 arithmetic, wrapping
-  unsigned acc = 0;
-  for (int t = 0; t < T; ++t) {
-    const int widx = (int)c >> 5;  // arithmetic shift
-    const unsigned w0 = (widx >= 0 && widx < R) ? (unsigned)streams[widx * kLanes + lane] : 0u;
-    const unsigned w1 =
-        (widx >= -1 && widx + 1 < R) ? (unsigned)streams[(widx + 1) * kLanes + lane] : 0u;
-    const unsigned sh = c & 31;
-    const unsigned win = sh ? (w0 >> sh) | (w1 << (32 - sh)) : w0;
-    const int rev = (int)(win & 0x7FFF);
-    const int bar = (rev >> 7) & 0x7F;
-    int lsel = 15;
-#pragma unroll
-    for (int L = 15; L >= 1; --L) {
-      if ((rev >> (15 - L)) < bar + L) lsel = L;
-    }
-    c += (unsigned)lsel + (win & 7);
-    acc += win;
+constexpr int kRing = 32;   // ring words a lane
+constexpr int kWaves = 8;   // waves a block of the walk
+constexpr int kDepth = 4;   // groups of copies in flight when a block starts
+
+template <int kBlock, bool kTable>
+constexpr int smem_bytes() {
+  return (kTable ? kTableBytes : 0) + 4 * (kRing + 1) * kBlock;
+}
+
+template <int kBlock, bool kTable>
+__global__ void __launch_bounds__(kBlock)
+probe_walk_kernel(const int32_t* __restrict__ streams, int R, const int32_t* __restrict__ cursors,
+                  int T, int32_t* __restrict__ cur_out, int32_t* __restrict__ acc_out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  constexpr int kTableWords = kTable ? kTableBytes / 4 : 0;
+  const uint8_t* tab = nullptr;
+  if constexpr (kTable) {
+    build_table(reinterpret_cast<uint8_t*>(smem), threadIdx.x, kBlock);
+    __syncthreads();
+    tab = reinterpret_cast<const uint8_t*>(smem);
   }
-  cur_out[lane] = (int)c;
-  acc_out[lane] = (int)acc;
+  const int lane = blockIdx.x * kBlock + threadIdx.x;
+  walk_lane<kRing, kWaves, kDepth, kTable>(streams + lane, R, static_cast<uint32_t>(cursors[lane]),
+                                           T, tab, smem + kTableWords + threadIdx.x, kBlock,
+                                           cur_out + lane, acc_out + lane);
+}
+
+template <int kBlock, bool kTable>
+int launch(const void* streams, int R, const void* cursors, int T, void* cur_out, void* acc_out,
+           cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<kBlock, kTable>();
+  static const cudaError_t opted_in = cudaFuncSetAttribute(
+      probe_walk_kernel<kBlock, kTable>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (opted_in != cudaSuccess) return static_cast<int>(opted_in);
+  probe_walk_kernel<kBlock, kTable><<<kLanes / kBlock, kBlock, bytes, stream>>>(
+      static_cast<const int32_t*>(streams), R, static_cast<const int32_t*>(cursors), T,
+      static_cast<int32_t*>(cur_out), static_cast<int32_t*>(acc_out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int hbt_inflate_probe_walk(const void* streams, int R, const void* cursors, int T,
-                                      void* cur_out, void* acc_out, void* stream) {
-  probe_walk_kernel<<<1, kLanes, 0, (cudaStream_t)stream>>>(
-      (const int*)streams, R, (const int*)cursors, T, (int*)cur_out, (int*)acc_out);
-  return (int)cudaGetLastError();
+                                      void* cur_out, void* acc_out, int block, int table,
+                                      void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (block == 128) {
+    return table ? launch<128, true>(streams, R, cursors, T, cur_out, acc_out, s)
+                 : launch<128, false>(streams, R, cursors, T, cur_out, acc_out, s);
+  }
+  if (block == 32) {
+    return table ? launch<32, true>(streams, R, cursors, T, cur_out, acc_out, s)
+                 : launch<32, false>(streams, R, cursors, T, cur_out, acc_out, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
