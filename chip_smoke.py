@@ -3532,11 +3532,7 @@ XLA_MIB = 8  # the general programs' inputs
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 peak, the CUDA cores' rate
 OPS_PER_SYMBOL = 20  # integer operations to decode one fixed-Huffman symbol (row 10's function)
 OPS_PER_WAVE = 80  # row 11's integer operations per lane and wave (the reference's function)
-# Row 11's dependent chain a wave in SM cycles: the SASS of its unrolled
-# waves (cuobjdump -sass) chains LOP3 (the table index), LDS.U8 (the table)
-# and SHF.R.W (the window); tools/inflate_probe_chain.py times those three
-# alone at 38.48 cycles a step on the H100 (PERF.md).
-PROBE_CHAIN_CYCLES = 38.48
+PROBE_CHAIN_STEPS = 1 << 20  # steps of row 11's dependent chain timed alone for its floor
 
 
 def fixed_literal_cases(seed: int):
@@ -3801,8 +3797,7 @@ def probe_cases(seed: int) -> dict:
 
 
 def check_inflate_probe(seed: int) -> dict:
-    """Row 11 against its plain version and the NumPy oracle, exactly, at
-    each of the kernel's ``VARIANTS`` (geometry and length class):
+    """Row 11 against its plain version and the NumPy oracle, exactly:
     ``probe_cases`` and R = 4096, T = 2048."""
     import torch
 
@@ -3823,14 +3818,11 @@ def check_inflate_probe(seed: int) -> dict:
                 and np.array_equal(u32(p_acc.numpy()), a_ref)):
             raise AssertionError(f"inflate_probe walk_plain != reference_walk: {name}")
         gs, gc = torch.from_numpy(streams).cuda(), torch.from_numpy(cursors).cuda()
-        for block, table in kip.VARIANTS:
-            cur, acc = kip.make_walk_variant(R, T, "cuda", block, table)(gs, gc)
-            if not (torch.equal(cur.cpu(), p_cur) and torch.equal(acc.cpu(), p_acc)):
-                raise AssertionError(f"inflate_probe_walk (block {block}, table {table}) != "
-                                     f"walk_plain: {name}")
-    log(f"inflate_probe_walk kernel == plain == reference_walk at (block, table) "
-        f"{list(kip.VARIANTS)}, cases {sorted(cases)}, max_abs_err 0 "
-        f"({time.perf_counter() - t0:.1f} s)")
+        cur, acc = kip.make_walk(R, T, "cuda")(gs, gc)
+        if not (torch.equal(cur.cpu(), p_cur) and torch.equal(acc.cpu(), p_acc)):
+            raise AssertionError(f"inflate_probe_walk != walk_plain: {name}")
+    log(f"inflate_probe_walk kernel == plain == reference_walk, cases {sorted(cases)}, "
+        f"max_abs_err 0 ({time.perf_counter() - t0:.1f} s)")
     return {"max_abs_err": 0.0}
 
 
@@ -4044,17 +4036,22 @@ def codec_phase(work: str, seed: int, checks: dict, mib: int) -> list:
     return rows
 
 
-def max_sm_mhz() -> float:
-    """The card's maximum SM clock in MHz, as nvidia-smi reads it."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True,
-    ).stdout.split()
-    return float(out[0])
+def probe_chain() -> dict:
+    """Row 11's dependent chain a wave timed alone on the card:
+    ``tools/inflate_probe_chain.py`` built and run (``measure``) at
+    ``PROBE_CHAIN_STEPS`` steps a chain, in a directory of its own."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "inflate_probe_chain", os.path.join(REPO, "tools", "inflate_probe_chain.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke.chain.", dir=REPO) as d:
+        return tool.measure(tool.build(d), PROBE_CHAIN_STEPS)
 
 
-def probe_walk_ms(kip, R: int, gs, gc, block: int, table: bool) -> dict:
-    """Row 11 at one geometry and length class on ``gs``, ``gc``: ``ms`` at
+def probe_walk_ms(kip, R: int, gs, gc) -> dict:
+    """Row 11 on ``gs``, ``gc``: ``ms`` at
     T = 2,048 (CUDA events, 20 launches), ``kernel_ms`` the bare launch (the
     C entry on preallocated outputs, no wrapper), ``ns_per_wave_in_stream``
     from T = 2,048 and 16,384 (every cursor in the stream) and
@@ -4065,7 +4062,7 @@ def probe_walk_ms(kip, R: int, gs, gc, block: int, table: bool) -> dict:
     from hadoop_bam_tpu_torch import _build
 
     def walk(T):
-        w = kip.make_walk_variant(R, T, "cuda", block, table)
+        w = kip.make_walk(R, T, "cuda")
         return lambda: w(gs, gc)
 
     lib = _build.load("inflate_probe")
@@ -4074,8 +4071,8 @@ def probe_walk_ms(kip, R: int, gs, gc, block: int, table: bool) -> dict:
 
     def bare():
         _build.check(lib.hbt_inflate_probe_walk(gs.data_ptr(), R, gc.data_ptr(), 2048,
-                                                out[0].data_ptr(), out[1].data_ptr(), block,
-                                                int(table), stream), "inflate_probe_walk")
+                                                out[0].data_ptr(), out[1].data_ptr(), stream),
+                     "inflate_probe_walk")
 
     k_ms = cuda_ms(walk(2048), iters=20, warmup=3)
     t = {T: cuda_ms(walk(T), iters=5, warmup=1) for T in (16384, 32768, 131072)}
@@ -4086,11 +4083,10 @@ def probe_walk_ms(kip, R: int, gs, gc, block: int, table: bool) -> dict:
 
 def time_inflate_probe(checks: dict, seed: int) -> dict:
     """Row 11: ``bench_marginal()`` with the launch counts zeroed just before
-    it, then every geometry and length class timed by ``probe_walk_ms`` at
-    R = 4,096 with every cursor at 3 (the default's numbers are the row's),
-    and the latency floor: T times the wave's dependent chain
-    (``PROBE_CHAIN_CYCLES``, read from the kernel's SASS) at the card's
-    maximum SM clock."""
+    it, then ``probe_walk_ms`` at R = 4,096 with every cursor at 3, and the
+    latency floor: T times the wave's dependent chain (the table index, its
+    byte load and the funnel shift, as the kernel's SASS chains them),
+    timed alone in this run by ``probe_chain``."""
     import torch
 
     from hadoop_bam_tpu_torch.ops.kernels import inflate_probe as kip
@@ -4106,18 +4102,15 @@ def time_inflate_probe(checks: dict, seed: int) -> dict:
     streams = rng.integers(0, 1 << 31, (R, kip.LANES), dtype=np.int32)
     cursors = np.full((1, kip.LANES), 3, np.int32)
     gs, gc = torch.from_numpy(streams).cuda(), torch.from_numpy(cursors).cuda()
-    variants = {}
-    for block, table in kip.VARIANTS:
-        key = f"block {block}, {'table' if table else 'compares'}"
-        variants[key] = probe_walk_ms(kip, R, gs, gc, block, table)
-        log(f"  inflate_probe_walk {key}: " + json.dumps(variants[key]))
-    mine = variants[f"block {kip.BLOCK}, {'table' if kip.TABLE else 'compares'}"]
+    mine = probe_walk_ms(kip, R, gs, gc)
+    chain = probe_chain()
+    log("  inflate_probe chain alone (tools/inflate_probe_chain.py): " + json.dumps(chain))
+    step = chain["probe_step"]
     plain = kip.make_walk(R, T, "cpu")
     p_ms = once_ms(lambda: plain(torch.from_numpy(streams), torch.from_numpy(cursors)))
     b_bytes = (streams.nbytes + 3 * cursors.nbytes) / HBM_BYTES_PER_S * 1e3
     b_ops = OPS_PER_WAVE * kip.LANES * T / INT_OPS_PER_S * 1e3
-    mhz = max_sm_mhz()
-    floor_ms = T * PROBE_CHAIN_CYCLES / (mhz * 1e6) * 1e3
+    floor_ms = T * step["ns_per_step"] / 1e6
     row = {
         "name": "inflate_probe_walk", "route": "cuda",
         "source": "hadoop_bam_tpu_torch/csrc/inflate_probe.cu",
@@ -4126,16 +4119,18 @@ def time_inflate_probe(checks: dict, seed: int) -> dict:
         "max_abs_err": checks["inflate_probe"], "ms": mine["ms"], "plain_ms": p_ms,
         "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "library_ms": None, "bound_bytes_ms": b_bytes, "bound_ops_ms": b_ops,
-        "latency_floor_ms": floor_ms, "chain_cycles": PROBE_CHAIN_CYCLES, "max_sm_mhz": mhz,
+        "latency_floor_ms": floor_ms, "chain_cycles": step["cycles_per_step"],
+        "chain_sm_mhz": step["sm_mhz"],
         "kernel_ms": mine["kernel_ms"], "fixed_ms": bench["fixed_ms"],
         "ns_per_wave": bench["ns_per_wave"], "ns_per_wave_in_stream": mine["ns_per_wave_in_stream"],
-        "geometry": f"{kip.LANES // kip.BLOCK} block(s) of {kip.BLOCK} threads",
-        "length_class": "table" if kip.TABLE else "compares", "ring_words": kip.RING,
-        "variants": variants, "shape": f"R = {R}, T = {T}",
+        "geometry": f"1 block of {kip.LANES} threads", "length_class": "table",
+        "ring_words": kip.RING, "ns_per_wave_past": mine["ns_per_wave_past"],
+        "shape": f"R = {R}, T = {T}",
     }
     log(f"  inflate_probe_walk: {mine['ms']:.4f} ms at R={R}, T={T}, bare {mine['kernel_ms']:.4f} "
         f"(plain {p_ms:.1f} ms; bound bytes {b_bytes:.6f} ms, operations {b_ops:.6f} ms; latency "
-        f"floor {floor_ms:.5f} ms = {PROBE_CHAIN_CYCLES} cycles a wave at {mhz:.0f} MHz); "
+        f"floor {floor_ms:.5f} ms = {step['cycles_per_step']:.2f} cycles a wave at "
+        f"{step['sm_mhz']:.0f} MHz); "
         f"{mine['ns_per_wave_in_stream']:.2f} ns a wave with every cursor in the stream "
         f"(T = 2048..16384), bench_marginal {bench['ns_per_wave']:.2f}; {sm_clocks()}")
     return row

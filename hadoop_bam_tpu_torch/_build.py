@@ -66,7 +66,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                       _P, _P],
     },
     "inflate_probe": {
-        "hbt_inflate_probe_walk": [_P, _I32, _P, _I32, _P, _P, _I32, _I32, _P],
+        "hbt_inflate_probe_walk": [_P, _I32, _P, _I32, _P, _P, _P],
     },
     "region": {
         "hbt_overlap_mask": [_P, _I32, _P, _P, _P, _I64, _P, _P],

@@ -20,19 +20,17 @@
 // that 4-byte cp.async copies fill ahead (groups issued kDepth blocks of
 // kWaves waves before they are read).  The length class plus the window's
 // low bits is one shared-memory byte read from a 32 KiB table built by the
-// block at launch (table = 1), or 14 independent compares and a count of
-// leading zeros (table = 0).  A wave's dependent chain is then the table's
-// index mask, its byte read and one funnel shift.
+// block at launch.  A wave's dependent chain is then the table's index
+// mask, its byte read and one funnel shift.
 //
-// Geometry: one block of 128 threads (block = 128) or four blocks of one
-// warp on four SMs (block = 32); a lane's ring is its own, so no warp waits
-// on another.  Shared memory (dynamic): the table and kRing + 1 words a
-// lane, 49,664 bytes a block of 128 with the table, above the 48 KiB a
-// launch gets without opting in.
+// Geometry: one block of 128 threads, a thread a lane; a lane's ring is its
+// own, so no warp waits on another.  Shared memory (dynamic): the table and
+// kRing + 1 words a lane, 49,664 bytes, above the 48 KiB a launch gets
+// without opting in.
 //
 // Plain C entry point (ctypes): device pointers and the stream as integers;
-// returns cudaGetLastError() of the launch, or cudaErrorInvalidValue for a
-// geometry it does not have.
+// returns the error of the shared-memory opt-in, else cudaGetLastError() of
+// the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,56 +44,30 @@ using namespace hbt_probe;
 constexpr int kRing = 32;   // ring words a lane
 constexpr int kWaves = 8;   // waves a block of the walk
 constexpr int kDepth = 4;   // groups of copies in flight when a block starts
+constexpr int kSmemBytes = kTableBytes + 4 * (kRing + 1) * kLanes;
 
-template <int kBlock, bool kTable>
-constexpr int smem_bytes() {
-  return (kTable ? kTableBytes : 0) + 4 * (kRing + 1) * kBlock;
-}
-
-template <int kBlock, bool kTable>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kLanes)
 probe_walk_kernel(const int32_t* __restrict__ streams, int R, const int32_t* __restrict__ cursors,
                   int T, int32_t* __restrict__ cur_out, int32_t* __restrict__ acc_out) {
   extern __shared__ __align__(16) uint32_t smem[];
-  constexpr int kTableWords = kTable ? kTableBytes / 4 : 0;
-  const uint8_t* tab = nullptr;
-  if constexpr (kTable) {
-    build_table(reinterpret_cast<uint8_t*>(smem), threadIdx.x, kBlock);
-    __syncthreads();
-    tab = reinterpret_cast<const uint8_t*>(smem);
-  }
-  const int lane = blockIdx.x * kBlock + threadIdx.x;
-  walk_lane<kRing, kWaves, kDepth, kTable>(streams + lane, R, static_cast<uint32_t>(cursors[lane]),
-                                           T, tab, smem + kTableWords + threadIdx.x, kBlock,
-                                           cur_out + lane, acc_out + lane);
-}
-
-template <int kBlock, bool kTable>
-int launch(const void* streams, int R, const void* cursors, int T, void* cur_out, void* acc_out,
-           cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<kBlock, kTable>();
-  static const cudaError_t opted_in = cudaFuncSetAttribute(
-      probe_walk_kernel<kBlock, kTable>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (opted_in != cudaSuccess) return static_cast<int>(opted_in);
-  probe_walk_kernel<kBlock, kTable><<<kLanes / kBlock, kBlock, bytes, stream>>>(
-      static_cast<const int32_t*>(streams), R, static_cast<const int32_t*>(cursors), T,
-      static_cast<int32_t*>(cur_out), static_cast<int32_t*>(acc_out));
-  return static_cast<int>(cudaGetLastError());
+  uint8_t* tab = reinterpret_cast<uint8_t*>(smem);
+  build_table(tab, threadIdx.x, kLanes);
+  __syncthreads();
+  const int lane = threadIdx.x;
+  walk_lane<kRing, kWaves, kDepth>(streams + lane, R, static_cast<uint32_t>(cursors[lane]), T,
+                                   tab, smem + kTableBytes / 4 + lane, kLanes, cur_out + lane,
+                                   acc_out + lane);
 }
 
 }  // namespace
 
 extern "C" int hbt_inflate_probe_walk(const void* streams, int R, const void* cursors, int T,
-                                      void* cur_out, void* acc_out, int block, int table,
-                                      void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (block == 128) {
-    return table ? launch<128, true>(streams, R, cursors, T, cur_out, acc_out, s)
-                 : launch<128, false>(streams, R, cursors, T, cur_out, acc_out, s);
-  }
-  if (block == 32) {
-    return table ? launch<32, true>(streams, R, cursors, T, cur_out, acc_out, s)
-                 : launch<32, false>(streams, R, cursors, T, cur_out, acc_out, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+                                      void* cur_out, void* acc_out, void* stream) {
+  const cudaError_t opted_in = cudaFuncSetAttribute(
+      probe_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (opted_in != cudaSuccess) return static_cast<int>(opted_in);
+  probe_walk_kernel<<<1, kLanes, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(streams), R, static_cast<const int32_t*>(cursors), T,
+      static_cast<int32_t*>(cur_out), static_cast<int32_t*>(acc_out));
+  return static_cast<int>(cudaGetLastError());
 }

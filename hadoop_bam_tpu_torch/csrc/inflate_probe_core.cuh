@@ -39,9 +39,8 @@
 // the 64 bits shift down by adv and take adv bits of next in at the top.
 // next, the words and the ring read depend on the cursor, but what they
 // feed is needed a wave or more later, and the copies are off the chain too.
-// The length class is a 32 KiB byte table of L + (rev & 7) over the 15 bits
-// (kTable; built by the block at launch from class_mask) or class_mask's 14
-// independent compares packed into a mask and one count of leading zeros.
+// L + (rev & 7) is one byte of a 32 KiB table over the 15 bits, built by
+// the block at launch from class_mask.
 //
 // The ring follows word indices from a base set when the lane syncs; a
 // block that could carry the cursor past INT32_MAX (where widx jumps from
@@ -117,11 +116,6 @@ HBT_PR_HD HBT_PR_INLINE uint32_t class_mask(uint32_t rev) {
   return m;
 }
 
-// L + (win & 7) for the window win, from the compares.
-HBT_PR_HD HBT_PR_INLINE uint32_t advance_of(uint32_t win) {
-  return clz32(class_mask(win & 0x7FFF)) + (win & 7);
-}
-
 // Thread tid of nth's share of the table: four entries a 32-bit word.  The
 // compares shift rev right by at least 1 bit, so rev and rev + 1 (rev even)
 // share their length class.
@@ -137,9 +131,9 @@ HBT_PR_HD HBT_PR_INLINE void build_table(uint8_t* tab, int tid, int nth) {
 // One lane's T waves from cursor c; col is the lane's column (word w at
 // col[w * kLanes]), ring its slot 0 (slot s at ring[s * stride]; K slots
 // and a spare one, slot K, which copies that are not needed write and
-// nothing reads), tab the table or nullptr.  Waves in blocks of W, at most
-// D groups of copies in flight when a block starts.
-template <int K, int W, int D, bool kTable>
+// nothing reads), tab the table.  Waves in blocks of W, at most D groups of
+// copies in flight when a block starts.
+template <int K, int W, int D>
 HBT_PR_HD HBT_PR_INLINE void walk_lane(const int32_t* col, int R, uint32_t c, int T,
                                        const uint8_t* tab, uint32_t* ring, int stride,
                                        int32_t* cur_out, int32_t* acc_out) {
@@ -149,13 +143,7 @@ HBT_PR_HD HBT_PR_INLINE void walk_lane(const int32_t* col, int R, uint32_t c, in
                ? static_cast<uint32_t>(col[static_cast<long long>(w) * kLanes])
                : 0u;
   };
-  const auto advance = [&](uint32_t win) -> uint32_t {
-    if constexpr (kTable) {
-      return tab[win & 0x7FFF];
-    } else {
-      return advance_of(win);
-    }
-  };
+  const auto advance = [&](uint32_t win) -> uint32_t { return tab[win & 0x7FFF]; };
   // lo and hi hold the stream's bits from the cursor on (lo is the window),
   // u0, u1, u2 three words from the one holding the bit after hi.
   uint32_t acc = 0, lo = 0, hi = 0, u0 = 0, u1 = 0, u2 = 0;

@@ -29,13 +29,6 @@ from . import LaunchCounter, check_tensor, stream_handle, use_plain
 LAUNCHES = LaunchCounter("inflate_probe_walk")
 
 LANES = 128
-#: The kernel's geometries, (threads a block, length class from the table),
-#: and the one ``make_walk`` launches.  The other three stay so that
-#: ``chip_smoke.py`` measures the choice again on each run (PERF.md): four
-#: blocks of one warp on four SMs, and the length class as 14 independent
-#: compares and a count of leading zeros instead of the 32 KiB table.
-VARIANTS = ((128, True), (128, False), (32, True), (32, False))
-BLOCK, TABLE = VARIANTS[0]
 #: Ring words a lane (``kRing`` in ``csrc/inflate_probe.cu``).
 RING = 32
 
@@ -57,17 +50,7 @@ def make_walk(R: int, T: int, device: Optional[Union[str, torch.device]] = None
     CUDA device each call launches the kernel (one block of 128 threads, a
     thread a lane, the length class from a table); on the CPU it runs the
     plain version."""
-    return make_walk_variant(R, T, device, BLOCK, TABLE)
-
-
-def make_walk_variant(R: int, T: int, device: Optional[Union[str, torch.device]], block: int,
-                      table: bool
-                      ) -> Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
-    """``make_walk`` at one of the kernel's ``VARIANTS``: ``block`` threads
-    a block, the length class from the table or from compares."""
     resolve_device(device)
-    if (block, table) not in VARIANTS:
-        raise ValueError(f"(block, table) must be one of {VARIANTS}")
 
     def walk(streams: torch.Tensor, cursors: torch.Tensor):
         _check(streams, cursors, R)
@@ -77,8 +60,7 @@ def make_walk_variant(R: int, T: int, device: Optional[Union[str, torch.device]]
         acc = torch.empty_like(cur)
         lib = _build.load("inflate_probe")
         rc = lib.hbt_inflate_probe_walk(streams.data_ptr(), R, cursors.data_ptr(), T,
-                                        cur.data_ptr(), acc.data_ptr(), block, int(table),
-                                        stream_handle(streams))
+                                        cur.data_ptr(), acc.data_ptr(), stream_handle(streams))
         _build.check(rc, "inflate_probe_walk")
         LAUNCHES.add()
         return cur, acc

@@ -23,13 +23,16 @@ every byte of every row) on ``chip_smoke.fixed_literal_trouble_cases`` and
 ``test_torch_inflate_fixed.py`` and a hypothesis fuzz, and on a few cases to
 the JAX package's Pallas kernel (``inflate_fixed_literal(...,
 interpret=True)``).  Two mutations (the map ignoring entry offset 8; the
-emit writing past ISIZE) must each make it differ.  Skips where there is
+emit writing past ISIZE) must each make it differ; a mutated core runs in a
+child process, where a crash counts as a difference.  Skips where there is
 no ``g++``."""
 
 import ctypes
 import functools
+import os
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -44,7 +47,8 @@ from hadoop_bam_tpu.ops.pallas.inflate_fixed import inflate_fixed_literal as jli
 from hadoop_bam_tpu_torch.ops import flate as tflate
 from hadoop_bam_tpu_torch.ops.kernels import inflate_fixed as kfix
 
-CSRC = Path(__file__).resolve().parents[1] / "hadoop_bam_tpu_torch" / "csrc"
+TESTS = Path(__file__).resolve().parent
+CSRC = TESTS.parent / "hadoop_bam_tpu_torch" / "csrc"
 
 HARNESS = r"""
 #include <stdlib.h>
@@ -95,7 +99,29 @@ MUTATIONS = {
 GUARD = 8192
 
 
-def _build(d: Path, header: str):
+#: A mutated core's run, in a child process: argv is the tests' directory,
+#: the repository's root and the built library.  Prints where the core first
+#: differs from the plain version on the trouble cases (largest geometry
+#: first) and exits 0, or exits 3 if it differs nowhere.
+MUTANT_RUN = r"""
+import sys
+sys.path[:0] = sys.argv[1:3]
+import test_torch_inflate_fixed_core as t
+so = t._bind(sys.argv[3])
+for g in t.GEOMETRIES[::-1]:
+    for what in sorted(t.TROUBLE):
+        try:
+            found = t._differs(so, t.TROUBLE[what], *g, t._trouble_plain(what))
+        except AssertionError as e:  # a write past a row, or a dirty tail
+            found = str(e)
+        if found is not None:
+            print("differs:", g, what, found)
+            sys.exit(0)
+sys.exit(3)
+"""
+
+
+def _compile(d: Path, header: str) -> Path:
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the inflate_fixed core on the host")
@@ -104,6 +130,14 @@ def _build(d: Path, header: str):
     lib = d / "libcore.so"
     subprocess.run([gxx, "-O2", "-shared", "-fPIC", "-std=c++17", f"-I{d}", "-o", str(lib),
                     str(d / "harness.cpp")], check=True)
+    return lib
+
+
+def _build(d: Path, header: str):
+    return _bind(_compile(d, header))
+
+
+def _bind(lib):
     so = ctypes.CDLL(str(lib))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     so.hbt_core_inflate.argtypes = [p, i64, p, p, i64, p, i64, p, i32, i32]
@@ -299,20 +333,19 @@ def test_mutations_fail(tmp_path, name):
     """Each mutation of the core makes it differ from the plain version on
     the trouble cases at some geometry.  (A write past ISIZE reaches past
     the row only where a round holds more literals than the row's slack:
-    the larger geometries.)"""
+    the larger geometries.)  The mutated core may index out of bounds, so
+    it runs in a child process (``MUTANT_RUN``), and a crash there counts
+    as a difference."""
     src = (CSRC / "inflate_fixed_core.cuh").read_text()
     old, new = MUTATIONS[name]
     assert src.count(old) == 1, f"mutation site of {name} not found"
-    so = _build(tmp_path, src.replace(old, new))
-
-    def differs(g, what):
-        try:
-            return _differs(so, TROUBLE[what], *g, _trouble_plain(what))
-        except AssertionError as e:  # a write past a row, or a dirty tail
-            return str(e)
-
-    assert any(differs(g, what) is not None for g in GEOMETRIES[::-1]
-               for what in sorted(TROUBLE)), name
+    lib = _compile(tmp_path, src.replace(old, new))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-c", MUTANT_RUN, str(TESTS), str(TESTS.parent),
+                        str(lib)], env=env, capture_output=True, text=True, timeout=600)
+    crashed = r.returncode < 0  # ended by a signal
+    assert crashed or (r.returncode == 0 and r.stdout.startswith("differs")), \
+        (name, r.returncode, r.stdout[-2000:], r.stderr[-4000:])
 
 
 def _fuzz_case(data):

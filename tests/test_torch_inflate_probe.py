@@ -69,20 +69,6 @@ def test_shapes_and_devices_are_checked(monkeypatch):
         kip.make_walk(64, 4)
 
 
-def test_every_variant_runs_the_plain_version_on_the_cpu():
-    """``make_walk`` is the first of the kernel's variants; each variant
-    takes the plain version on the CPU, and an unknown one is refused."""
-    streams, cursors = _streams(64, 9), np.arange(kip.LANES, dtype=np.int32)[None, :] * 13
-    want = _port(streams, cursors, 20)
-    assert (kip.BLOCK, kip.TABLE) == kip.VARIANTS[0]
-    for block, table in kip.VARIANTS:
-        cur, acc = kip.make_walk_variant(64, 20, "cpu", block, table)(
-            torch.from_numpy(streams), torch.from_numpy(cursors))
-        assert np.array_equal(cur.numpy(), want[0]) and np.array_equal(acc.numpy(), want[1])
-    with pytest.raises(ValueError, match="one of"):
-        kip.make_walk_variant(64, 20, "cpu", 64, True)
-
-
 def test_plain_version_does_not_count_launches():
     before = kip.LAUNCHES.value
     _port(_streams(64, 1), np.zeros((1, kip.LANES), np.int32), 8)

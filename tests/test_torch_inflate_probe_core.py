@@ -84,39 +84,36 @@ static uint32_t garbage() {
   return g_seed;
 }
 
-template <int K, int W, int D, bool kTable>
+template <int K, int W, int D>
 static int run(const int32_t* streams, int R, const int32_t* cursors, int T, int nth,
                int32_t* cur, int32_t* acc) {
   std::vector<uint8_t> tab(kTableBytes);
   for (auto& b : tab) b = static_cast<uint8_t>(garbage());
-  if (kTable) {
-    for (int tid = 0; tid < nth; ++tid) build_table(tab.data(), tid, nth);
-  }
+  for (int tid = 0; tid < nth; ++tid) build_table(tab.data(), tid, nth);
   std::vector<uint32_t> ring(static_cast<size_t>(K + 1) * kLanes);  // and the spare slot
   for (auto& w : ring) w = garbage();
   for (int lane = 0; lane < kLanes; ++lane) {
     g_group = 0;
-    walk_lane<K, W, D, kTable>(streams + lane, R, static_cast<uint32_t>(cursors[lane]), T,
-                               kTable ? tab.data() : nullptr, ring.data() + lane, kLanes,
-                               cur + lane, acc + lane);
+    walk_lane<K, W, D>(streams + lane, R, static_cast<uint32_t>(cursors[lane]), T, tab.data(),
+                       ring.data() + lane, kLanes, cur + lane, acc + lane);
     if (!g_pending.empty()) return 1;  // a copy still in flight at the lane's end
   }
   return 0;
 }
 
-// The ring geometries (K words, blocks of W waves, D groups in flight), each
-// with the table and with the compares: the order of GEOMETRIES in the test.
+// The ring geometries (K words, blocks of W waves, D groups in flight): the
+// order of GEOMETRIES in the test.
 extern "C" int hbt_core_walk(int geometry, const int32_t* streams, int R, const int32_t* cursors,
                              int T, int nth, int32_t* cur, int32_t* acc) {
   switch (geometry) {
-    case 0: return run<2, 1, 1, true>(streams, R, cursors, T, nth, cur, acc);
-    case 1: return run<2, 1, 1, false>(streams, R, cursors, T, nth, cur, acc);
-    case 2: return run<3, 1, 2, true>(streams, R, cursors, T, nth, cur, acc);
-    case 3: return run<3, 2, 0, false>(streams, R, cursors, T, nth, cur, acc);
-    case 4: return run<4, 2, 1, true>(streams, R, cursors, T, nth, cur, acc);
-    case 5: return run<4, 3, 0, false>(streams, R, cursors, T, nth, cur, acc);
-    case 6: return run<32, 8, 4, true>(streams, R, cursors, T, nth, cur, acc);
-    case 7: return run<32, 8, 4, false>(streams, R, cursors, T, nth, cur, acc);
+    case 0: return run<2, 1, 1>(streams, R, cursors, T, nth, cur, acc);
+    case 1: return run<2, 1, 0>(streams, R, cursors, T, nth, cur, acc);
+    case 2: return run<3, 1, 2>(streams, R, cursors, T, nth, cur, acc);
+    case 3: return run<3, 2, 0>(streams, R, cursors, T, nth, cur, acc);
+    case 4: return run<4, 2, 1>(streams, R, cursors, T, nth, cur, acc);
+    case 5: return run<4, 3, 0>(streams, R, cursors, T, nth, cur, acc);
+    case 6: return run<8, 4, 1>(streams, R, cursors, T, nth, cur, acc);
+    case 7: return run<32, 8, 4>(streams, R, cursors, T, nth, cur, acc);
   }
   return 2;
 }
@@ -128,10 +125,10 @@ extern "C" void hbt_core_table(int nth, uint8_t* out) {
 }
 """
 
-#: (ring words K, waves a block W, groups in flight D, table), in the
-#: harness's order; the card's ring last.
-GEOMETRIES = [(2, 1, 1, True), (2, 1, 1, False), (3, 1, 2, True), (3, 2, 0, False),
-              (4, 2, 1, True), (4, 3, 0, False), (kip.RING, 8, 4, True), (kip.RING, 8, 4, False)]
+#: (ring words K, waves a block W, groups in flight D), in the harness's
+#: order; the card's ring last.
+GEOMETRIES = [(2, 1, 1), (2, 1, 0), (3, 1, 2), (3, 2, 0), (4, 2, 1), (4, 3, 0), (8, 4, 1),
+              (kip.RING, 8, 4)]
 
 #: (what, the line of the core, what it becomes)
 MUTATIONS = {
@@ -232,8 +229,7 @@ def test_the_length_class_takes_two_values():
 
 
 @pytest.mark.parametrize("geometry", range(len(GEOMETRIES)),
-                         ids=[f"K{k}-W{w}-D{d}-{'table' if t else 'compares'}"
-                              for k, w, d, t in GEOMETRIES])
+                         ids=[f"K{k}-W{w}-D{d}-table" for k, w, d in GEOMETRIES])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_walk_matches_plain_and_oracle(core, plain_of, case, geometry):
     """Every lane's cursor and checksum are the plain version's and the
@@ -254,7 +250,7 @@ def test_walk_matches_the_reference(core, case):
     streams, cursors, T = CASES[case]
     j_cur, j_acc = jip.make_walk(streams.shape[0], T, interpret=True)(jnp.asarray(streams),
                                                                       jnp.asarray(cursors))
-    for geometry in (0, len(GEOMETRIES) - 2):
+    for geometry in (0, len(GEOMETRIES) - 1):
         cur, acc = _core_walk(core, streams, cursors, T, geometry)
         assert np.array_equal(cur, np.asarray(j_cur)) and np.array_equal(acc, np.asarray(j_acc))
 
@@ -266,7 +262,7 @@ def test_thousands_of_waves_cross_the_stream(core):
     streams = rng.integers(-(1 << 31), 1 << 31, (64, kip.LANES), dtype=np.int32)
     cursors = rng.integers(-3000, 64 * 32, (1, kip.LANES), dtype=np.int32)
     want = kip.reference_walk(streams, cursors, 2500)
-    for geometry in (0, 5, len(GEOMETRIES) - 2, len(GEOMETRIES) - 1):
+    for geometry in (0, 5, 6, len(GEOMETRIES) - 1):
         cur, acc = _core_walk(core, streams, cursors, 2500, geometry)
         assert np.array_equal(cur, _i32(want[0])) and np.array_equal(acc, _i32(want[1]))
 
@@ -308,14 +304,13 @@ def test_fuzzed_walks_match_the_oracle(core, data):
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
-    """On a card: each of the kernel's variants against the plain version on
-    the cases above, exactly."""
+    """On a card: the kernel against the plain version on the cases above,
+    exactly."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (run chip_smoke.py on the H100)")
     for name, (streams, cursors, T) in CASES.items():
         p_cur, p_acc = _plain(streams, cursors, T)
         gs, gc = torch.from_numpy(streams).cuda(), torch.from_numpy(cursors).cuda()
-        for block, table in kip.VARIANTS:
-            cur, acc = kip.make_walk_variant(streams.shape[0], T, "cuda", block, table)(gs, gc)
-            assert np.array_equal(cur.cpu().numpy(), p_cur), (name, block, table)
-            assert np.array_equal(acc.cpu().numpy(), p_acc), (name, block, table)
+        cur, acc = kip.make_walk(streams.shape[0], T, "cuda")(gs, gc)
+        assert np.array_equal(cur.cpu().numpy(), p_cur), name
+        assert np.array_equal(acc.cpu().numpy(), p_acc), name

@@ -17,10 +17,11 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, ``chip_smoke.py`` and ``tools/write_pair.py``,
-    ``tools/chain_pair.py`` and ``tools/region_pair.py`` (and the run each
-    hands a tree) load with ``jax`` blocked and pull in no module of the JAX
-    package."""
+    """Every module of the port, ``chip_smoke.py``, ``tools/write_pair.py``,
+    ``tools/chain_pair.py``, ``tools/region_pair.py`` and
+    ``tools/inflate_probe_pair.py`` (and the run each hands a tree) and
+    ``tools/inflate_probe_chain.py`` load with ``jax`` blocked and pull in no
+    module of the JAX package."""
     code = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any import of jax now fails
@@ -30,11 +31,13 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 import importlib.util
-for tool in ("write_pair", "chain_pair", "region_pair"):
+for tool in ("write_pair", "chain_pair", "region_pair", "inflate_probe_pair",
+             "inflate_probe_chain"):
     spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
-    pair = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(pair)
-    assert "jax" not in pair.ONE_RUN and "hadoop_bam_tpu." not in pair.ONE_RUN, tool
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if tool.endswith("_pair"):
+        assert "jax" not in mod.ONE_RUN and "hadoop_bam_tpu." not in mod.ONE_RUN, tool
 bad = [m for m in sys.modules if m == "hadoop_bam_tpu" or m.startswith("hadoop_bam_tpu.")]
 assert not bad, bad
 assert len(names) >= 57, names

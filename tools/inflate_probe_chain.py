@@ -18,7 +18,8 @@ steps of one kind and reads ``clock64`` and ``%globaltimer`` around it:
 
 It prints the card's name and power limit, then one JSON line: for each
 kind its cycles a step (``clock64``) and ns a step (``%globaltimer``), and
-the SM clock those two give (cycles over ns).  With ``--sass`` it writes
+the SM clock those two give (cycles over ns).  ``chip_smoke.py`` calls
+:func:`build` and :func:`measure` for row 11's latency floor.  With ``--sass`` it writes
 ``cuobjdump -sass`` of its kernel and of the port's built probe library
 (``hadoop_bam_tpu_torch/_build/libinflate_probe.so``, built first) to
 PATH.  Imports neither JAX nor the JAX package.
@@ -94,6 +95,41 @@ def card_line() -> str:
     return out[0] if out else ""
 
 
+def build(d: str) -> ctypes.CDLL:
+    """Compile ``SOURCE`` with the port's ``nvcc`` flags into directory
+    ``d`` and bind its entry."""
+    sys.path.insert(0, REPO)
+    from hadoop_bam_tpu_torch import _build
+
+    src, lib = os.path.join(d, "chain.cu"), os.path.join(d, "libchain.so")
+    with open(src, "w") as f:
+        f.write(SOURCE)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, src], check=True,
+                   capture_output=True)
+    so = ctypes.CDLL(lib)
+    so.chain_run.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    return so
+
+
+def measure(so: ctypes.CDLL, steps: int) -> dict:
+    """``{kind: {"cycles_per_step", "ns_per_step", "sm_mhz"}}`` for each of
+    ``KINDS``, a chain of ``steps`` after one of 1,024, on the current card."""
+    import torch
+
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    sink = torch.zeros(32, dtype=torch.int32, device="cuda")
+    row = {}
+    for kind, name in enumerate(KINDS):
+        so.chain_run(kind, 1024, out.data_ptr(), sink.data_ptr())  # warm-up
+        rc = so.chain_run(kind, steps, out.data_ptr(), sink.data_ptr())
+        if rc:
+            raise RuntimeError(f"inflate_probe_chain: CUDA error {rc}")
+        cycles, ns = out.tolist()
+        row[name] = {"cycles_per_step": cycles / steps, "ns_per_step": ns / steps,
+                     "sm_mhz": cycles / ns * 1e3}
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=1 << 20, help="dependent steps a chain")
@@ -110,30 +146,13 @@ def main() -> int:
 
     print(card_line(), flush=True)
     with tempfile.TemporaryDirectory() as d:
-        src, lib = os.path.join(d, "chain.cu"), os.path.join(d, "libchain.so")
-        with open(src, "w") as f:
-            f.write(SOURCE)
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, src], check=True,
-                       capture_output=True)
-        so = ctypes.CDLL(lib)
-        so.chain_run.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        out = torch.zeros(2, dtype=torch.int64, device="cuda")
-        sink = torch.zeros(32, dtype=torch.int32, device="cuda")
-        row = {}
-        for kind, name in enumerate(KINDS):
-            so.chain_run(kind, 1024, out.data_ptr(), sink.data_ptr())  # warm-up
-            rc = so.chain_run(kind, args.steps, out.data_ptr(), sink.data_ptr())
-            if rc:
-                print(f"inflate_probe_chain: CUDA error {rc}", file=sys.stderr)
-                return 1
-            cycles, ns = out.tolist()
-            row[name] = {"cycles_per_step": cycles / args.steps, "ns_per_step": ns / args.steps,
-                         "sm_mhz": cycles / ns * 1e3}
+        row = measure(build(d), args.steps)
         if args.sass:
             _build.build(["inflate_probe"])
             cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
             with open(args.sass, "w") as f:
-                for path in (lib, str(_build.BUILD_DIR / "libinflate_probe.so")):
+                for path in (os.path.join(d, "libchain.so"),
+                             str(_build.BUILD_DIR / "libinflate_probe.so")):
                     f.write(subprocess.run([cuobjdump, "-sass", path], capture_output=True,
                                            text=True, check=True).stdout)
     print(json.dumps({"steps": args.steps, **row}), flush=True)

@@ -67,8 +67,6 @@ lib = _build.load("inflate_probe")
 out = torch.empty((2, kip.LANES), dtype=torch.int32, device="cuda")
 stream = torch.cuda.current_stream().cuda_stream
 args = [gs.data_ptr(), R, gc.data_ptr(), T, out[0].data_ptr(), out[1].data_ptr()]
-if len(_build.SIGNATURES["inflate_probe"]["hbt_inflate_probe_walk"]) == 9:
-    args += [kip.BLOCK, int(kip.TABLE)]
 bare = cuda_ms(lambda: _build.check(lib.hbt_inflate_probe_walk(*args, stream), "probe"), 20)
 cur, acc = walk(gs, gc)
 digest = hashlib.blake2b(cur.cpu().numpy().tobytes() + acc.cpu().numpy().tobytes(),
