@@ -2,22 +2,29 @@
 
 Run on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--records N] [--pairs N] [--variants N]
-                          [--cram-records N] [--codec-mib N] [--seed S]
+    python3 chip_smoke.py [--records N] [--dup-pairs N] [--twin-pairs N] [--pairs N]
+                          [--variants N] [--cram-records N] [--codec-mib N] [--seed S]
 
 Phases: print the card; build the CUDA kernels from ``csrc/``; hold each
 kernel against its plain PyTorch version on the card (exact equality);
 drive ``sort_bam`` at full size on a synthetic BAM with the default gates
 (every kernel on), with the write side's gates off (byte-identical to the
 port's CPU run) and with one resident split (byte-identical to the host
-gather + deflate lanes); drive ``ingest_fastq`` on 250,000 synthetic read
-pairs with the default gates, with the deflate lanes off and on the CPU
-(byte-identical to the card without lanes; the lanes' output decompresses
-to the same bytes), and hold ``ingest_oracle`` to it on a prefix; query
-three regions of a synthetic 4,500,000-site BCF call set with
-``variants_blob`` on the card and on the CPU (byte-identical, and equal to
-the generator's records); sort a synthetic no-ref rANS CRAM of 300,000
-records on the card (its rANS blocks through the decode kernel) to the
+gather + deflate lanes); mark duplicates, sort by name and fixmate
+1,000,000 synthetic read pairs on the card and on the CPU (the collation
+phase: byte-identical with the write gates off, the duplicate decision
+against its per-record oracle on the first 50,000 pairs, the mask through
+the device write of one resident split, fixmate run again on its own
+output); drive ``ingest_fastq`` on 125,000 synthetic read pairs (cut from
+250,000, as the call set and the CRAM corpus below are cut, to fit the
+run's time limit: ``FULL_DEPTH``) with the default gates, with the deflate
+lanes off and on the CPU (byte-identical to the card without lanes; the
+lanes' output decompresses to the same bytes), and hold ``ingest_oracle``
+to it on a prefix; query three regions of a synthetic 1,500,000-site BCF
+call set with ``variants_blob`` on the card and on the CPU
+(byte-identical, and equal to the generator's records); sort a synthetic
+no-ref rANS CRAM of 150,000 records on the card (its rANS blocks through
+the decode kernel) to the
 content of the sort of its BAM twin; read regions of the sorted BAM
 (``build_bai``, ``flagstat``, ``view_blob`` of three regions, ``depth_stat``
 and a bounded-traversal ``sort_bam``, card against CPU, the views against a
@@ -1938,15 +1945,22 @@ def synth_bam(path: str, n: int, seed: int, level: int = 6, rows=None) -> int:
     return os.path.getsize(path)
 
 
-def record_digests(path: str):
-    """``(keys, digests)`` of every record of a BAM, read back by the port's
-    own reader (host keys)."""
+def bam_batch(path: str, fields=None):
+    """Every record of a BAM as one decoded batch (the port's reader, host
+    keys)."""
     from hadoop_bam_tpu_torch.io.bam import SORT_FIELDS, read_header_voffset, read_virtual_range
 
     _, vfirst = read_header_voffset(path)
     with open(path, "rb") as f:
         data = bytearray(f.read())
-    b = read_virtual_range(data, vfirst, (len(data) << 16) | 0xFFFF, fields=SORT_FIELDS)
+    return read_virtual_range(data, vfirst, (len(data) << 16) | 0xFFFF,
+                              fields=fields or SORT_FIELDS)
+
+
+def record_digests(path: str):
+    """``(keys, digests)`` of every record of a BAM, read back by the port's
+    own reader (host keys)."""
+    b = bam_batch(path)
     mv = memoryview(b.data)
     dig = np.fromiter(
         (
@@ -2000,16 +2014,17 @@ def bgzf_content(path: str) -> bytes:
     return out.tobytes()
 
 
-def timed_sort(src: str, out: str, what: str, trace: bool = False, **kw):
-    """One ``sort_bam`` with the launch counts zeroed just before it and
-    read just after it; with ``trace``, under ``torch.profiler`` (device
-    activity only)."""
+def timed_sort(src: str, out: str, what: str, trace: bool = False, job=None, **kw):
+    """One ``sort_bam`` (or ``job``: ``markdup_bam``, ``fixmate_bam``) with
+    the launch counts zeroed just before it and read just after it; with
+    ``trace``, under ``torch.profiler`` (device activity only)."""
     import contextlib
 
     import torch
 
     from hadoop_bam_tpu_torch.pipeline import sort_bam
 
+    job = job or sort_bam
     reset_counts()
     if kw.get("device") == "cuda":
         torch.cuda.synchronize()
@@ -2017,19 +2032,20 @@ def timed_sort(src: str, out: str, what: str, trace: bool = False, **kw):
            if trace else contextlib.nullcontext())
     with ctx as prof:
         t0 = time.perf_counter()
-        st = sort_bam(src, out, **kw)
+        st = job(src, out, **kw)
         if kw.get("device") == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = launch_counts()
     c = st.counters
-    log(f"sort_bam({what}): {st.n_records} records, {st.n_splits} splits, backend "
-        f"{st.backend}, wall {wall:.3f} s, {st.n_records / wall:.0f} reads/s, "
-        f"{os.path.getsize(out)} bytes out")
+    log(f"{what if '(' in what else f'sort_bam({what})'}: {st.n_records} records, "
+        f"{st.n_splits} splits, backend {st.backend}, wall {wall:.3f} s, "
+        f"{st.n_records / wall:.0f} reads/s, {os.path.getsize(out)} bytes out")
     log("  phases (s): " + json.dumps({k: round(v, 3) for k, v in st.seconds.items()}))
     log(f"  launches: {json.dumps(launches)}")
     log("  counters: " + json.dumps({k: v for k, v in sorted(c.items()) if v and (
-        k.startswith(("flate.", "bam.", "sort_bam.", "device_stream.", "cram.")))}))
+        k.startswith(("flate.", "bam.", "sort_bam.", "device_stream.", "cram.", "collate.",
+                      "fixmate.")))}))
     log("  transfers: " + json.dumps({k: v for k, v in c.items() if k.startswith("transfers.")}))
     if trace:
         log_device_time(prof, out + ".trace.json", wall)
@@ -2119,6 +2135,474 @@ def main_path(work: str, n: int, seed: int) -> dict:
     return {"src": src, "launches": launches, "launches_resident": launches_r, "wall": wall,
             "stats": st, "cpu": st_cpu, "ratio": ratio, "sorted": out["zlib"],
             "flagstat": flagstat_oracle(rows)}
+
+
+# ---------------------------------------------------------------------------
+# The collation family: markdup, the queryname sort and fixmate
+# ---------------------------------------------------------------------------
+
+PAIR_CHUNK = 50_000  # pairs a generator chunk; every family, pair and copy lies in one
+FIXMATE_PREFIX_PAIRS = 100_000  # the prefix fixmate is run on twice
+TWIN_PAIRS = 250_000  # the prefix the queryname and fixmate card/CPU twins run on
+READ_CIGAR_LEN = 150
+NAME_PREFIX = b"A00123:8:H7KJ2DSXX:"
+
+
+def _num_digits(v: np.ndarray):
+    """Decimal digits of ``v >= 0`` without leading zeros: (uint8 [n, 10],
+    lengths), left-justified."""
+    v = v.astype(np.int64)
+    nd = 1 + sum((v >= 10 ** k).astype(np.int64) for k in range(1, 10))
+    d = _digits(v, 10)
+    idx = np.minimum((10 - nd)[:, None] + np.arange(10)[None, :], 9)
+    return np.take_along_axis(d, idx, axis=1), nd
+
+
+def _hcat(pieces, n: int):
+    """Concatenate ragged pieces ``(uint8 [n, w] or bytes, lengths)`` row by
+    row: (uint8 [n, sum of widths], lengths)."""
+    width = sum(len(p) if isinstance(p, bytes) else p.shape[1] for p, _ in pieces)
+    out = np.zeros((n, width), np.uint8)
+    cur = np.zeros(n, np.int64)
+    rows = np.arange(n)
+    for p, ln in pieces:
+        if isinstance(p, bytes):
+            for k, b in enumerate(p):
+                out[rows, cur + k] = b
+            cur = cur + len(p)
+            continue
+        for k in range(p.shape[1]):
+            m = k < ln
+            out[rows[m], cur[m] + k] = p[m, k]
+        cur = cur + ln
+    return out, cur
+
+
+def illumina_names(lane: np.ndarray, i: np.ndarray, x: np.ndarray):
+    """``A00123:8:H7KJ2DSXX:{lane}:{tile}:{x}:{y}`` + NUL for pair (or
+    fragment) index ``i``: tile and y follow from i, so names are unique per
+    (lane, i); x and y have varying digit counts, so natural order is not
+    ASCII order.  (uint8 [n, w], l_read_name)."""
+    n = len(i)
+    tile = 1101 + (i % 4000) // 4
+    y = 2 + 147 * (i // 4000)
+    sep = (np.full((n, 1), ord(":"), np.uint8), np.ones(n, np.int64))
+    lane_d = ((lane[:, None] + 48).astype(np.uint8), np.ones(n, np.int64))
+    tile_d = _num_digits(tile)
+    x_d, y_d = _num_digits(x), _num_digits(y)
+    return _hcat([(NAME_PREFIX, None), lane_d, sep, tile_d, sep, x_d, sep, y_d,
+                  (b"\x00", None)], n)
+
+
+def _cigar_words(lead: np.ndarray, m: np.ndarray, trail: np.ndarray):
+    """Up to three CIGAR ops (lead S, M, trail S) a record, left-justified:
+    (uint8 [n, 12], n_cigar_op)."""
+    words = np.stack([(lead << 4) | 4, m << 4, (trail << 4) | 4], axis=1).astype(np.uint32)
+    valid = np.stack([lead > 0, m > 0, trail > 0], axis=1)
+    order = np.argsort(~valid, axis=1, kind="stable")
+    words = np.take_along_axis(words, order, axis=1)
+    return words.view(np.uint8).reshape(len(lead), 12), valid.sum(axis=1)
+
+
+_FIXED = np.dtype([("size", "<u4"), ("refid", "<i4"), ("pos", "<i4"), ("l_read_name", "u1"),
+                   ("mapq", "u1"), ("bin", "<u2"), ("n_cigar_op", "<u2"), ("flag", "<u2"),
+                   ("l_seq", "<u4"), ("next_refid", "<i4"), ("next_pos", "<i4"),
+                   ("tlen", "<i4")])
+
+
+def encode_bam_records(f: dict, rng) -> np.ndarray:
+    """The record stream (size words included) of the records in ``f``:
+    ``refid``, ``pos``, ``mapq``, ``flag``, ``next_refid``, ``next_pos``,
+    ``tlen``, ``name`` / ``l_name``, ``lead`` / ``m`` / ``trail`` (the CIGAR);
+    150 random bases and qualities 2..41 and an NM:C tag each."""
+    n = len(f["refid"])
+    L = READ_CIGAR_LEN
+    cig, n_cig = _cigar_words(f["lead"], f["m"], f["trail"])
+    span = np.maximum(f["m"], 1)
+    pos = f["pos"].astype(np.int64)
+    bin_ = np.where(pos >= 0, _reg2bin(np.maximum(pos, 0), np.maximum(pos, 0) + span), 4680)
+    body = 32 + f["l_name"] + 4 * n_cig + (L + 1) // 2 + L + 4
+    fixed = np.zeros(n, _FIXED)
+    for k, v in (("size", body), ("refid", f["refid"]), ("pos", pos), ("l_read_name", f["l_name"]),
+                 ("mapq", f["mapq"]), ("bin", bin_), ("n_cigar_op", n_cig), ("flag", f["flag"]),
+                 ("l_seq", np.full(n, L)), ("next_refid", f["next_refid"]),
+                 ("next_pos", f["next_pos"]), ("tlen", f["tlen"])):
+        fixed[k] = v
+    fixed = fixed.view(np.uint8).reshape(n, 36)
+    nib = np.asarray([1, 2, 4, 8], dtype=np.uint8)[rng.integers(0, 4, (n, L), dtype=np.uint8)]
+    seq = (nib[:, 0::2] << 4) | nib[:, 1::2]
+    qual = rng.integers(2, 42, (n, L), dtype=np.uint8)
+    tags = np.zeros((n, 4), np.uint8)
+    tags[:, :3] = np.frombuffer(b"NMC", np.uint8)
+    tags[:, 3] = rng.integers(0, 6, n, dtype=np.uint8)
+    full = 4 + body
+    offs = np.cumsum(full) - full
+    stream = np.empty(int(full.sum()), np.uint8)
+    key = f["l_name"].astype(np.int64) * 4 + n_cig
+    for k in np.unique(key):
+        rows = np.flatnonzero(key == k)
+        ln, nc = int(f["l_name"][rows[0]]), int(n_cig[rows[0]])
+        mat = np.concatenate([fixed[rows], f["name"][rows, :ln], cig[rows, : 4 * nc], seq[rows],
+                              qual[rows], tags[rows]], axis=1)
+        stream[offs[rows][:, None] + np.arange(mat.shape[1])[None, :]] = mat
+    return stream
+
+
+def synth_pair_chunk(p0: int, n: int, seed: int):
+    """Records of pairs ``p0 .. p0 + n`` in random order, and their census.
+
+    150 bp mates of fragments of about N(400, 50) over the GRCh38 primary
+    contigs, first/second flags and mate fields, Illumina names; about 10%
+    of the pairs in duplicate families of 2-4 copies with equal unclipped 5'
+    ends (each copy its own soft clips and qualities); about 2% with the
+    reverse mate unmapped and placed at its mate; 0.5% orphans (the reverse
+    mate absent); secondary or supplementary copies of about 1% of the
+    records; single-end fragments on the forward ends of about 1% of the
+    pairs.  Every census count is exact for the chunk."""
+    rng = np.random.default_rng([seed, p0])
+    L = READ_CIGAR_LEN
+    lens = np.asarray([c[1] for c in GRCH38], dtype=np.int64)
+    idx = np.arange(p0, p0 + n, dtype=np.int64)
+    refid = rng.choice(len(lens), n, p=lens / lens.sum()).astype(np.int64)
+    frag = np.clip(np.rint(rng.normal(400, 50, n)), 200, 1000).astype(np.int64)
+    start = (rng.random(n) * (lens[refid] - frag)).astype(np.int64)
+    f1_fwd = rng.random(n) < 0.5
+    # Duplicate families: blocks of a permutation copy their template's
+    # fragment; each copy keeps its own clips and qualities.
+    perm = rng.permutation(n)
+    sizes = []
+    while sum(sizes) < n // 10:
+        sizes.append(int(rng.integers(2, 5)))
+    in_fam = np.zeros(n, bool)
+    at = 0
+    for k in sizes:
+        members = perm[at : at + k]
+        t = members[0]
+        refid[members], frag[members], start[members] = refid[t], frag[t], start[t]
+        f1_fwd[members] = f1_fwd[t]
+        in_fam[members] = True
+        at += k
+    rest = perm[at:]
+    n_unm, n_orph, n_se = n // 50, n // 200, n // 100
+    unm = np.zeros(n, bool)
+    unm[rest[:n_unm]] = True
+    orph = np.zeros(n, bool)
+    orph[rest[n_unm : n_unm + n_orph]] = True
+    se_on = rest[n_unm + n_orph : n_unm + n_orph + n_se]
+    clip_f = np.where(in_fam, rng.integers(0, 21, n), rng.integers(0, 4, n) * (rng.random(n) < 0.2))
+    clip_r = np.where(in_fam, rng.integers(0, 21, n), rng.integers(0, 4, n) * (rng.random(n) < 0.2))
+    clip_r[unm] = 0
+    fpos = start + clip_f
+    rpos = start + frag - L
+    rpos[unm] = fpos[unm]
+    P, PROPER, UNM, MUNM, REV, MREV = 0x1, 0x2, 0x4, 0x8, 0x10, 0x20
+    F1, F2 = 0x40, 0x80
+    fflag = P | np.where(unm, MUNM, PROPER | MREV) | np.where(f1_fwd, F1, F2)
+    rflag = P | np.where(unm, UNM, PROPER | REV) | np.where(f1_fwd, F2, F1)
+    name, l_name = illumina_names(1 + idx % 4, idx, 1000 + rng.integers(0, 31001, n))
+    z = np.zeros(n, np.int64)
+    fwd = {"refid": refid, "pos": fpos, "mapq": np.full(n, 60), "flag": fflag,
+           "next_refid": refid, "next_pos": np.where(unm, fpos, rpos),
+           "tlen": np.where(unm, 0, frag), "name": name, "l_name": l_name,
+           "lead": clip_f, "m": L - clip_f, "trail": z}
+    rev = {"refid": refid, "pos": rpos, "mapq": np.where(unm, 0, 60), "flag": rflag,
+           "next_refid": refid, "next_pos": fpos, "tlen": np.where(unm, 0, -frag),
+           "name": name, "l_name": l_name, "lead": z, "m": np.where(unm, 0, L - clip_r),
+           "trail": clip_r}
+    keep_rev = ~orph
+    parts = [fwd, {k: v[keep_rev] for k, v in rev.items()}]
+    # Secondary / supplementary copies of about 1% of the records.
+    n_sec = (2 * n) // 100
+    src = rng.choice(np.flatnonzero(~unm & ~orph), n_sec, replace=False)
+    sec = {k: v[src].copy() for k, v in fwd.items()}
+    sec["pos"] = sec["pos"] + rng.integers(1000, 100_000, n_sec)
+    sec["flag"] = sec["flag"] | np.where(rng.random(n_sec) < 0.5, 0x100, 0x800)
+    sec["mapq"] = np.zeros(n_sec, np.int64)
+    parts.append(sec)
+    # Single-end fragments on the forward ends of pairs: always duplicates.
+    se_name, se_lname = illumina_names(np.full(n_se, 5), idx[se_on], 1000 + rng.integers(0, 31001, n_se))
+    zs = np.zeros(n_se, np.int64)
+    parts.append({"refid": refid[se_on], "pos": start[se_on], "mapq": np.full(n_se, 60),
+                  "flag": zs, "next_refid": zs - 1, "next_pos": zs - 1, "tlen": zs,
+                  "name": se_name, "l_name": se_lname, "lead": zs, "m": zs + L, "trail": zs})
+    w = max(p["name"].shape[1] for p in parts)
+    for p in parts:
+        p["name"] = np.pad(p["name"], ((0, 0), (0, w - p["name"].shape[1])))
+    f = {k: np.concatenate([p[k] for p in parts]) for k in fwd}
+    order = rng.permutation(len(f["refid"]))
+    f = {k: v[order] for k, v in f.items()}
+    census = {"pairs": n - n_orph, "orphans": n_orph, "singletons": n_se,
+              "records": len(order), "family_pairs": int(in_fam.sum()),
+              "planted_duplicates": 2 * sum(k - 1 for k in sizes) + n_se,
+              "unmapped_mates": n_unm, "secondary_supplementary": n_sec}
+    return encode_bam_records(f, rng), census
+
+
+def synth_pairs_bam(path: str, n_pairs: int, seed: int, level: int = 1):
+    """Write the unsorted paired-end BAM of :func:`synth_pair_chunk` chunks;
+    returns ``(size, census, chunk_records)`` (the records of each chunk,
+    in file order)."""
+    from hadoop_bam_tpu_torch.spec import bam, bgzf
+
+    header = bam.BamHeader(BAM_TEXT, list(GRCH38))
+    streams, census, chunk_records = [], {}, []
+    for p0 in range(0, n_pairs, PAIR_CHUNK):
+        s, c = synth_pair_chunk(p0, min(PAIR_CHUNK, n_pairs - p0), seed)
+        streams.append(s)
+        chunk_records.append(c["records"])
+        for k, v in c.items():
+            census[k] = census.get(k, 0) + v
+    body, _ = bgzf.deflate_blocks(np.concatenate(streams), level=level)
+    with open(path, "wb") as f:
+        f.write(bgzf.deflate_blocks(header.encode(), level=level)[0])
+        f.write(body)
+        f.write(bgzf.TERMINATOR)
+    return os.path.getsize(path), census, chunk_records
+
+
+def same_bytes(a: str, b: str, what: str) -> int:
+    with open(a, "rb") as f:
+        x = f.read()
+    with open(b, "rb") as f:
+        y = f.read()
+    if x != y:
+        raise AssertionError(f"{what}: the outputs differ")
+    return len(x)
+
+
+def time_decision(acc: list):
+    """A context in which every launch of the duplicate decision
+    (``dedup.device._mark_core``) is timed by CUDA events into ``acc`` (ms)."""
+    import contextlib
+
+    import torch
+
+    from hadoop_bam_tpu_torch.dedup import device as dd
+
+    @contextlib.contextmanager
+    def ctx():
+        inner = dd._mark_core
+
+        def timed(*cols):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = inner(*cols)
+            b.record()
+            b.synchronize()
+            acc.append(a.elapsed_time(b))
+            return out
+
+        dd._mark_core = timed
+        try:
+            yield
+        finally:
+            dd._mark_core = inner
+
+    return ctx()
+
+
+def collation_phase(work: str, n_pairs: int, seed: int, twin_pairs: int) -> dict:
+    """The collation family on a synthetic paired-end BAM of ``n_pairs``
+    pairs (:func:`synth_pairs_bam`).  Markdup: the card with the default
+    gates (traced), the card and the CPU with the write gates off
+    (byte-identical; the first decompresses to their bytes), its duplicates
+    counted back from the output and held to the generator, the decision on
+    the first chunk against the per-record oracle, then one resident split
+    of the generator's first ``twin_pairs`` pairs (the device write) against
+    the host gather + deflate lanes.  The queryname sort and fixmate: the
+    card with the default gates at full size (re-read: the order, the
+    header, the counts), and the card and the CPU with the write gates off
+    on the first ``twin_pairs`` pairs (byte-identical).  Fixmate again on its own output of the first
+    ``FIXMATE_PREFIX_PAIRS``.  Returns the launches of each full-size card
+    job."""
+    from hadoop_bam_tpu_torch.collate.host import natural_compare
+    from hadoop_bam_tpu_torch.conf import (DEFLATE_LANES, INFLATE_LANES, WRITE_DEVICE,
+                                            Configuration)
+    from hadoop_bam_tpu_torch.dedup import (DEDUP_EXTRA_FIELDS, mark_duplicates_device,
+                                             mark_duplicates_oracle, signature_columns)
+    from hadoop_bam_tpu_torch.io.bam import read_header
+    from hadoop_bam_tpu_torch.pipeline import fixmate_bam, markdup_bam, sort_bam
+    from hadoop_bam_tpu_torch.spec import bam
+
+    t_phase = time.perf_counter()
+    paths = {k: os.path.join(work, f"pairs.{k}.bam") for k in ("full", "twin", "idem")}
+    size, census, _ = synth_pairs_bam(paths["full"], n_pairs, seed)
+    log(f"synthetic paired BAM: {n_pairs} pairs, {census['records']} records, {size} bytes, "
+        f"built in {time.perf_counter() - t_phase:.1f} s; census {json.dumps(census)}")
+    # Whole chunks, so that the twins' input is the full file's prefix.
+    twin_pairs = min(n_pairs, max(PAIR_CHUNK, twin_pairs // PAIR_CHUNK * PAIR_CHUNK))
+    twin_size, twin_census, _ = synth_pairs_bam(paths["twin"], twin_pairs, seed)
+    if twin_pairs != n_pairs:
+        log(f"the one-split markdup pair and the queryname and fixmate twins (cuda and cpu, write "
+            f"gates off) run on the first {twin_pairs} pairs ({twin_census['records']} records) "
+            f"of the same generator")
+    src = paths["full"]
+    out = {k: os.path.join(work, f"collate.{k}.bam") for k in (
+        "md_a", "md_b", "md_c", "md_r", "md_rh", "qn_a", "qn_b", "qn_c", "fm_a", "fm_b", "fm_c",
+        "fm_p1", "fm_p2")}
+    off = Configuration({INFLATE_LANES: "true", DEFLATE_LANES: "false", WRITE_DEVICE: "false"})
+    launches = {}
+
+    def need(what: str, got: dict, names) -> None:
+        missing = [k for k in names if got[k] <= 0]
+        if missing:
+            raise AssertionError(f"{what}: kernels never launched: {missing}")
+
+    def decided(what: str, st, wall: float) -> None:
+        """Log the decision of the markdup run just made, timed on the card."""
+        if len(ms) != 1:
+            raise AssertionError(f"{what}: {len(ms)} decisions")
+        log(f"  decision: {ms[0]:.3f} ms of device time (CUDA events) = "
+            f"{ms[0] / 1e3 / wall:.6f} of the wall; {st.seconds['markdup']:.6f} s of host time "
+            f"(upload, decision, read-back), {st.n_duplicates} duplicates")
+        ms.clear()
+
+    # Markdup on the card with the default gates.
+    ms: list = []
+    with time_decision(ms):
+        st, wall, launches["markdup"] = timed_sort(src, out["md_a"], "markdup_bam(cuda, default "
+                                                   "gates)", trace=True, job=markdup_bam,
+                                                   device="cuda")
+    need("markdup", launches["markdup"], ("inflate_members", "record_chain", "deflate_members"))
+    if st.n_records != census["records"]:
+        raise AssertionError(f"markdup: {st.n_records} of {census['records']} records")
+    decided("markdup, default gates (the first decision of the process)", st, wall)
+    flags = bam_batch(out["md_a"]).soa["flag"]
+    n_marked = int(((flags & 0x400) != 0).sum())
+    if n_marked != st.n_duplicates or st.n_duplicates < census["planted_duplicates"]:
+        raise AssertionError(f"markdup: {st.n_duplicates} duplicates, {n_marked} flagged in the "
+                             f"output, {census['planted_duplicates']} planted")
+    log(f"  re-read: {n_marked} records flagged 0x400 = n_duplicates >= "
+        f"{census['planted_duplicates']} planted")
+    with time_decision(ms):
+        st_b, wall_b, _ = timed_sort(src, out["md_b"], "markdup_bam(cuda, write gates off)",
+                                     job=markdup_bam, conf=off, device="cuda")
+    decided("markdup, write gates off", st_b, wall_b)
+    st_c, _, _ = timed_sort(src, out["md_c"], "markdup_bam(cpu, write gates off)",
+                            job=markdup_bam, conf=off, device="cpu")
+    nb = same_bytes(out["md_b"], out["md_c"], "markdup, cuda and cpu with the write gates off")
+    if bgzf_content(out["md_a"]) != bgzf_content(out["md_c"]) or not (
+            st.n_duplicates == st_b.n_duplicates == st_c.n_duplicates):
+        raise AssertionError("markdup: the default-gate output decompresses to other bytes")
+    log(f"markdup: cuda == cpu with the write gates off ({nb} bytes); the default-gate output "
+        f"decompresses to the same bytes")
+    for k in ("md_a", "md_b", "md_c"):
+        os.remove(out[k])
+    # The decision on the first chunk (the file's first records, made again
+    # by the generator) against the per-record oracle.
+    stream, _ = synth_pair_chunk(0, min(PAIR_CHUNK, n_pairs), seed)
+    soa = bam.soa_decode(stream, bam.record_offsets(stream, 0),
+                         ("rec_off", "rec_len", "refid", "pos", "flag") + DEDUP_EXTRA_FIELDS)
+    t0 = time.perf_counter()
+    mask = mark_duplicates_device(signature_columns(stream, soa), device="cuda")
+    t_dev = time.perf_counter() - t0
+    recs = list(bam.iter_records(stream))
+    t0 = time.perf_counter()
+    want = mark_duplicates_oracle(recs)
+    t_or = time.perf_counter() - t0
+    if not np.array_equal(mask, want) or not want.any():
+        raise AssertionError("markdup: the decision differs from mark_duplicates_oracle")
+    log(f"markdup decision (cuda) == mark_duplicates_oracle on the first {PAIR_CHUNK} pairs "
+        f"({len(recs)} records, {int(want.sum())} duplicates; columns + decision {t_dev:.2f} s, "
+        f"oracle {t_or:.1f} s)")
+    del stream, soa, recs
+    # One resident split: the device write patches the flags in the gather.
+    whole = twin_size + 1
+    with time_decision(ms):
+        st_r, wall_r, launches["markdup_resident"] = timed_sort(
+            paths["twin"], out["md_r"], f"markdup_bam(cuda, default gates, one split, "
+            f"{twin_pairs} pairs)", job=markdup_bam, device="cuda", split_size=whole)
+    decided("markdup, one split", st_r, wall_r)
+    cr = st_r.counters
+    need("markdup, one split", launches["markdup_resident"], ("gather_stream", "crc32",
+                                                              "deflate_members"))
+    if cr.get("bam.device_write_parts", 0) != st_r.n_splits or \
+            st_r.n_duplicates < twin_census["planted_duplicates"]:
+        raise AssertionError(f"markdup, one split: device write parts, duplicates {cr}")
+    st_rh, _, _ = timed_sort(
+        paths["twin"], out["md_rh"], f"markdup_bam(cuda, host gather + lanes, one split, "
+        f"{twin_pairs} pairs)", job=markdup_bam,
+        conf=Configuration({WRITE_DEVICE: "false", DEFLATE_LANES: "true"}), device="cuda",
+        split_size=whole)
+    if st_rh.n_duplicates != st_r.n_duplicates:
+        raise AssertionError("markdup, one split: the two write paths marked differently")
+    nb = same_bytes(out["md_r"], out["md_rh"], "markdup, device write against host gather")
+    log(f"markdup: device write (with the duplicate mask) == host gather + deflate lanes: "
+        f"{nb} bytes")
+    for k in ("md_r", "md_rh"):
+        os.remove(out[k])
+
+    # The queryname sort: full size on the card, the twins on the prefix.
+    q = dict(job=sort_bam, sort_order="queryname")
+    st, _, launches["queryname"] = timed_sort(src, out["qn_a"], "sort_bam(cuda, queryname, "
+                                              "default gates)", device="cuda", **q)
+    need("queryname", launches["queryname"], ("inflate_members", "deflate_members"))
+    if read_header(out["qn_a"]).text.split("\n")[0].split("\t")[-1] != "SO:queryname":
+        raise AssertionError("queryname: the header does not say SO:queryname")
+    b = bam_batch(out["qn_a"], ("rec_off", "rec_len", "l_read_name"))
+    mv = memoryview(b.data)
+    names = [mv[o + 32 : o + 31 + ln].tobytes() for o, ln in
+             zip(b.soa["rec_off"].tolist(), b.soa["l_read_name"].tolist())]
+    t0 = time.perf_counter()
+    bad = sum(1 for a, c in zip(names, names[1:]) if a != c and natural_compare(a, c) > 0)
+    if bad or len(names) != census["records"]:
+        raise AssertionError(f"queryname: {bad} adjacent names out of natural order")
+    log(f"queryname: SO:queryname; {len(names)} names non-decreasing in natural order (checked "
+        f"in {time.perf_counter() - t0:.1f} s)")
+    del b, mv, names
+    os.remove(out["qn_a"])
+    timed_sort(paths["twin"], out["qn_b"], f"sort_bam(cuda, queryname, write gates off, "
+               f"{twin_pairs} pairs)", conf=off, device="cuda", **q)
+    timed_sort(paths["twin"], out["qn_c"], f"sort_bam(cpu, queryname, write gates off, "
+               f"{twin_pairs} pairs)", conf=off, device="cpu", **q)
+    nb = same_bytes(out["qn_b"], out["qn_c"], "queryname, cuda and cpu with the write gates off")
+    log(f"queryname: cuda == cpu with the write gates off ({nb} bytes)")
+    for k in ("qn_b", "qn_c"):
+        os.remove(out[k])
+
+    # Fixmate: full size on the card, the twins on the prefix.
+    st, _, launches["fixmate"] = timed_sort(src, out["fm_a"], "fixmate_bam(cuda, default gates)",
+                                            job=fixmate_bam, device="cuda")
+    need("fixmate", launches["fixmate"], ("inflate_members", "deflate_members"))
+    got = (st.n_pairs, st.n_singletons, st.n_orphans)
+    n_back = len(bam_batch(out["fm_a"], ("rec_off", "rec_len")).soa["rec_off"])
+    if got != (census["pairs"], census["singletons"], census["orphans"]) or \
+            n_back != census["records"]:
+        raise AssertionError(f"fixmate: pairs, singletons, orphans {got}, {n_back} records back, "
+                             f"generator {census}")
+    log(f"fixmate: pairs {got[0]}, singletons {got[1]}, orphans {got[2]} as generated; "
+        f"{n_back} records read back")
+    os.remove(out["fm_a"])
+    st_b, _, _ = timed_sort(paths["twin"], out["fm_b"], f"fixmate_bam(cuda, write gates off, "
+                            f"{twin_pairs} pairs)", job=fixmate_bam, conf=off, device="cuda")
+    st_c, _, _ = timed_sort(paths["twin"], out["fm_c"], f"fixmate_bam(cpu, write gates off, "
+                            f"{twin_pairs} pairs)", job=fixmate_bam, conf=off, device="cpu")
+    nb = same_bytes(out["fm_b"], out["fm_c"], "fixmate, cuda and cpu with the write gates off")
+    got = [(x.n_pairs, x.n_singletons, x.n_orphans) for x in (st_b, st_c)]
+    want_t = (twin_census["pairs"], twin_census["singletons"], twin_census["orphans"])
+    if got != [want_t, want_t]:
+        raise AssertionError(f"fixmate twins: {got}, generator {want_t}")
+    log(f"fixmate: cuda == cpu with the write gates off ({nb} bytes), pairs, singletons, "
+        f"orphans {want_t} as generated")
+    for k in ("fm_b", "fm_c"):
+        os.remove(out[k])
+    # Fixmate again on its own output, each run one split (one part), so
+    # that the part boundaries, and so the members, are the same.
+    n_idem = min(FIXMATE_PREFIX_PAIRS, n_pairs)
+    synth_pairs_bam(paths["idem"], n_idem, seed)
+    one = 1 << 40
+    timed_sort(paths["idem"], out["fm_p1"], f"fixmate_bam(cuda, {n_idem} pairs, one split)",
+               job=fixmate_bam, device="cuda", split_size=one)
+    timed_sort(out["fm_p1"], out["fm_p2"], "fixmate_bam(cuda, its own output, one split)",
+               job=fixmate_bam, device="cuda", split_size=one)
+    if bgzf_content(out["fm_p1"]) != bgzf_content(out["fm_p2"]):
+        raise AssertionError("fixmate run again on its own output: other records")
+    nb = same_bytes(out["fm_p1"], out["fm_p2"], "fixmate run again on its own output")
+    log(f"fixmate run again on its own output of the first {n_idem} pairs: the same {nb} bytes")
+    for k in paths.values():
+        os.remove(k)
+    log(f"collation phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -3528,7 +4012,7 @@ def time_kernels(src: str, checks: dict, launches: dict, launches_r: dict, seed:
 # ---------------------------------------------------------------------------
 
 CODEC_MIB = 64  # the round trip's input: the sort generator's record bytes
-XLA_MIB = 8  # the general programs' inputs
+XLA_MIB = 4  # the general programs' inputs (8 MiB before the collation phase took the time)
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 peak, the CUDA cores' rate
 OPS_PER_SYMBOL = 20  # integer operations to decode one fixed-Huffman symbol (row 10's function)
 OPS_PER_WAVE = 80  # row 11's integer operations per lane and wave (the reference's function)
@@ -4145,6 +4629,15 @@ def sm_clocks() -> str:
     return f"SM clock, max: {out[0]}" if out else "SM clock not read"
 
 
+#: Each path's full depth, and the depth a run takes by default: the
+#: collation phase (1,000,000 read pairs) fits the run's 1,200 s limit only
+#: with the ingest, the call set and the CRAM corpus cut (every cut is
+#: logged).
+FULL_DEPTH = {"records": 2_000_000, "pairs": 250_000, "dup_pairs": 1_000_000,
+              "variants": 4_500_000, "cram_records": 300_000}
+DEPTH = dict(FULL_DEPTH, pairs=125_000, variants=1_500_000, cram_records=150_000)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4157,11 +4650,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--records", type=int, default=2_000_000)
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--pairs", type=int, default=250_000,
+    ap.add_argument("--pairs", type=int, default=DEPTH["pairs"],
                     help="read pairs of the ingest phase")
-    ap.add_argument("--variants", type=int, default=4_500_000,
+    ap.add_argument("--dup-pairs", type=int, default=1_000_000,
+                    help="read pairs of the collation phase (markdup, queryname, fixmate)")
+    ap.add_argument("--twin-pairs", type=int, default=TWIN_PAIRS,
+                    help="read pairs of the queryname and fixmate card/CPU twins")
+    ap.add_argument("--variants", type=int, default=DEPTH["variants"],
                     help="sites of the variants phase's call set")
-    ap.add_argument("--cram-records", type=int, default=300_000,
+    ap.add_argument("--cram-records", type=int, default=DEPTH["cram_records"],
                     help="records of the CRAM phase's corpus")
     ap.add_argument("--codec-mib", type=int, default=CODEC_MIB,
                     help="MiB of record bytes of the codec phase's round trip")
@@ -4208,14 +4705,9 @@ def main() -> int:
     torch.cuda.synchronize()
     if args.kernels_only:
         return 0
-    if args.records != 2_000_000:
-        log(f"records cut from 2000000 to {args.records}")
-    if args.pairs != 250_000:
-        log(f"ingest pairs cut from 250000 to {args.pairs}")
-    if args.variants != 4_500_000:
-        log(f"variant sites cut from 4500000 to {args.variants}")
-    if args.cram_records != 300_000:
-        log(f"CRAM records cut from 300000 to {args.cram_records}")
+    for k, full in FULL_DEPTH.items():
+        if getattr(args, k) != full:
+            log(f"{k} cut from {full} to {getattr(args, k)}")
     if args.codec_mib != CODEC_MIB:
         log(f"codec round trip cut from {CODEC_MIB} MiB to {args.codec_mib} MiB")
     work = tempfile.mkdtemp(prefix="chip_smoke.", dir=REPO)
@@ -4226,6 +4718,7 @@ def main() -> int:
         os.remove(res["src"])
         for k in ("lanes", "cpu", "resident", "resident_host"):  # the region phase reads "zlib"
             os.remove(os.path.join(work, f"sorted.{k}.bam"))
+        col = collation_phase(work, args.dup_pairs, args.seed, args.twin_pairs)
         ing = ingest_phase(work, args.pairs, args.seed)
         rows.append(time_record_scan(ing["r1"], checks, ing["launches"]["record_scan"],
                                      "ingest_fastq(cuda), default gates"))
@@ -4242,6 +4735,8 @@ def main() -> int:
                              checks)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    for row in rows:  # the launches of the collation phase's card jobs
+        row["collation_launches"] = {job: n[row["name"]] for job, n in col["launches"].items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 Counterpart of ``hadoop_bam_tpu/collate/host.py``: bucket verification
 against the actual name bytes with exact repair of hash collisions,
-samtools' ``strnum_cmp`` natural name order, the queryname permutation and
-the pair census.  Host numpy, as in the reference; the collation itself runs
+samtools' ``strnum_cmp`` natural name order (the comparator, and the byte
+keys with its order that the queryname permutation sorts by), the queryname
+permutation and the pair census.  Host numpy, as in the reference; the collation itself runs
 on the caller's device (:func:`~.device.collate_by_name`).  Counters go to
 the caller's :class:`~..utils.tracing.Metrics`.
 """
@@ -11,8 +12,9 @@ the caller's :class:`~..utils.tracing.Metrics`.
 from __future__ import annotations
 
 import functools
+import re
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -78,6 +80,36 @@ def natural_compare(a: bytes, b: bytes) -> int:
 
 
 natural_sort_key = functools.cmp_to_key(natural_compare)
+
+_DIGIT_RUNS = re.compile(rb"([0-9]+)")
+
+
+def _digit_run_key(run: bytes) -> bytes:
+    sig = run.lstrip(b"0")
+    zeros = len(run) - len(sig)
+    return b"0" + len(sig).to_bytes(4, "big") + sig + (0xFFFFFFFF - zeros).to_bytes(4, "big")
+
+
+def natural_keys(names: List[bytes]) -> List[bytes]:
+    """One byte string a name whose plain byte order is
+    :func:`natural_compare`'s order: each digit run becomes ``'0'``, its
+    significant length (4 bytes), its significant digits and the complement
+    of its leading zeros (4 bytes), so runs compare by value, then more zeros
+    first, and against any other byte as a digit does; every other byte
+    stays itself.  Sorting by these costs one key a name instead of a Python
+    comparison a pair."""
+    runs: Dict[bytes, bytes] = {}
+    out = []
+    for name in names:
+        parts = _DIGIT_RUNS.split(name)
+        for i in range(1, len(parts), 2):
+            r = parts[i]
+            k = runs.get(r)
+            if k is None:
+                k = runs[r] = _digit_run_key(r)
+            parts[i] = k
+        out.append(b"".join(parts))
+    return out
 
 
 def _name_bytes(cols: Dict[str, np.ndarray], row: int) -> bytes:
@@ -182,7 +214,8 @@ def queryname_perm(cols: Dict[str, np.ndarray], device=None,
     col, n_coll = verify_and_repair(col, cols, metrics)
     bounds = col.bucket_bounds()
     reps = [_name_bytes(cols, int(col.order[int(bounds[g])])) for g in range(col.n_groups)]
-    by_name = sorted(range(col.n_groups), key=lambda g: natural_sort_key(reps[g]))
+    keys = natural_keys(reps)
+    by_name = sorted(range(col.n_groups), key=keys.__getitem__)
     rank_of_group = np.empty(col.n_groups, dtype=np.int64)
     rank_of_group[by_name] = np.arange(col.n_groups, dtype=np.int64)
     grank = np.empty(n, dtype=np.int64)

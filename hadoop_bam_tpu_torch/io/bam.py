@@ -9,8 +9,9 @@ member inflate on the device or the host, spill blocks for a tail record,
 the host chain walk, the split's resident window), ``RecordBatch``,
 ``ChunkedRecords`` (with the write path's flat resident stream), the
 chunk-span cut of interval traversal (``_voffset_mask``),
-``gather_record_array``, ``patch_flags`` and ``write_part_fast`` (device-
-resident assembly, host gather + deflate lanes, host gather + zlib).
+``gather_record_array``, ``patch_flags``, ``rebuild_record_stream`` (the
+fixmate rewrite) and ``write_part_fast`` (device-resident assembly, host
+gather + deflate lanes, host gather + zlib).
 Only local paths are read.
 """
 
@@ -577,6 +578,54 @@ def patch_flags(stream: np.ndarray, rec_starts: np.ndarray, bits: int = 0x400) -
         return
     stream[rec_starts + 18] |= np.uint8(bits & 0xFF)
     stream[rec_starts + 19] |= np.uint8((bits >> 8) & 0xFF)
+
+
+def _ragged_copy(dst: np.ndarray, dst_off: np.ndarray, src: np.ndarray, src_off: np.ndarray,
+                 lens: np.ndarray) -> None:
+    """``dst[dst_off[i] : + lens[i]] = src[src_off[i] : + lens[i]]`` for every
+    i, as one fancy-index pass."""
+    lens = lens.astype(np.int64)
+    total = int(lens.sum())
+    if total == 0:
+        return
+    base = np.cumsum(lens) - lens
+    within = np.arange(total, dtype=np.int64) - np.repeat(base, lens)
+    dst[np.repeat(dst_off.astype(np.int64), lens) + within] = src[
+        np.repeat(src_off.astype(np.int64), lens) + within]
+
+
+def rebuild_record_stream(
+    data: np.ndarray,
+    rec_off: np.ndarray,
+    rec_len: np.ndarray,
+    cut_off: np.ndarray,
+    cut_len: np.ndarray,
+    append_blob: np.ndarray,
+    append_off: np.ndarray,
+    append_len: np.ndarray,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Re-emit records with one cut and one append each (fixmate's MC tag):
+    record i becomes its size word (the new body length), ``body[:cut_off]``,
+    ``body[cut_off + cut_len:]`` and ``append_blob[append_off : +
+    append_len]``.  A record with no cut (``cut_off = rec_len``) and no
+    append comes out byte for byte; ``data`` is not changed.  Returns
+    ``(stream, body offsets, body lengths)`` in the new stream."""
+    rec_off = rec_off.astype(np.int64)
+    rec_len = rec_len.astype(np.int64)
+    cut_off = cut_off.astype(np.int64)
+    cut_len = cut_len.astype(np.int64)
+    append_len = append_len.astype(np.int64)
+    new_len = rec_len - cut_len + append_len
+    full = 4 + new_len
+    starts = np.cumsum(full) - full
+    out = np.empty(int(full.sum()), dtype=np.uint8)
+    for b in range(4):  # little-endian u32 size words
+        out[starts + b] = ((new_len >> (8 * b)) & 0xFF).astype(np.uint8)
+    _ragged_copy(out, starts + 4, data, rec_off, cut_off)
+    _ragged_copy(out, starts + 4 + cut_off, data, rec_off + cut_off + cut_len,
+                 rec_len - cut_off - cut_len)
+    _ragged_copy(out, starts + 4 + rec_len - cut_len, append_blob, append_off, append_len)
+    return out, starts + 4, new_len
 
 
 def write_part_fast(

@@ -97,12 +97,13 @@ def sum_base_qualities_np(
     total = int(l_seq.sum())
     if total == 0:
         return scores
-    rec_of_base = np.repeat(np.arange(n), l_seq)
-    within = np.arange(total) - np.repeat(np.cumsum(l_seq) - l_seq, l_seq)
-    q = data[np.repeat(qual_off, l_seq) + within].astype(np.int64)
-    counted = (q >= min_quality) & (q != _QUAL_MISSING)
-    np.add.at(scores, rec_of_base, q * counted)
-    return scores
+    # Every record's qualities are one run of the gathered bytes, so the
+    # sums are differences of one prefix sum at the run ends.
+    ends = np.cumsum(l_seq)
+    q = data[np.repeat(qual_off - (ends - l_seq), l_seq) + np.arange(total)]
+    counted = np.where((q >= min_quality) & (q != _QUAL_MISSING), q, 0).astype(np.int64)
+    prefix = np.concatenate(([0], np.cumsum(counted)))
+    return prefix[ends] - prefix[ends - l_seq]
 
 
 def sum_base_qualities(qual: torch.Tensor, valid: torch.Tensor,

@@ -1,15 +1,21 @@
-"""The in-core coordinate sort of BAM and CRAM files on one device.
+"""The in-core jobs over BAM and CRAM files on one device: the coordinate
+and queryname sorts, duplicate marking and fixmate.
 
 Counterpart of ``hadoop_bam_tpu/pipeline.py`` ``sort_bam`` (in-core,
-coordinate order), ``_input_format``, ``_read_any_header``,
+coordinate or queryname order, with or without duplicate marking),
+``markdup_bam``, ``fixmate_bam``, ``_input_format``, ``_read_any_header``,
 ``_finish_device_parse`` and ``_unmapped_hash32``.  Splits are read
 double-buffered; a BAM split's members inflate on the device and the chain
 and key kernels build its int64 keys from the resident window (a CRAM
 split's rANS blocks decode on the device, its records and keys on the
-host); one stable ``torch.sort`` orders the job; each part is
-gathered, CRC'd and deflated on the device from the resident windows (or,
-when a split has no window, gathered on the host and deflated by the
-lanes), framed on the host and merged into one BAM.
+host); one stable ``torch.sort`` orders the job (the queryname sort groups
+by name hash with the collation core on the device and ranks the names on
+the host); the duplicate decision runs on the device over the job's
+signature columns; each part is gathered, flag-patched, CRC'd and deflated
+on the device from the resident windows (or, when a split has no window,
+gathered on the host and deflated by the lanes), framed on the host and
+merged into one BAM.  Fixmate rewrites each split on the host and writes
+it as one part.
 """
 
 from __future__ import annotations
@@ -25,6 +31,16 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .collate import (
+    FIXMATE_FIELDS,
+    apply_fixmate,
+    collate_by_name,
+    collation_columns,
+    compute_fixmate_edits,
+    concat_collation,
+    queryname_perm,
+    verify_and_repair,
+)
 from .conf import (
     BAM_MARK_DUPLICATES,
     BAM_SORT_ORDER,
@@ -32,6 +48,7 @@ from .conf import (
     ERRORS_MODE,
     Configuration,
 )
+from .dedup import DEDUP_EXTRA_FIELDS, concat_columns, mark_duplicates_device, signature_columns
 from .device_stream import DeviceStream
 from .io.anysam import AnySamInputFormat, infer_from_file_path
 from .io.bam import SORT_FIELDS, BamInputFormat, ChunkedRecords, RecordBatch, read_header, write_part_fast
@@ -52,8 +69,26 @@ class SortStats:
     device: str
     counters: Dict[str, int] = field(default_factory=dict)
     #: Host seconds of the phases: read (split reads, inflate and parse
-    #: launches), sort (validation, hash patch, sort, permutation fetch),
-    #: write (part gathers and deflates, merge).
+    #: launches, signature columns), sort (validation, hash patch, sort or
+    #: name collation and ranking, permutation fetch), markdup (the
+    #: duplicate decision; duplicate-marking jobs only), write (part gathers
+    #: and deflates, merge).
+    seconds: Dict[str, float] = field(default_factory=dict)
+    n_duplicates: int = 0  # records flagged 0x400 by the duplicate marking
+
+
+@dataclass
+class FixmateStats:
+    n_records: int
+    n_splits: int
+    n_pairs: int
+    n_singletons: int
+    n_orphans: int
+    backend: str
+    counters: Dict[str, int] = field(default_factory=dict)
+    #: Host seconds of the phases: read (split reads, collation columns),
+    #: collate (name collation, verification, the edit plan), write (the
+    #: rewrite of each split, part deflates, merge).
     seconds: Dict[str, float] = field(default_factory=dict)
 
 
@@ -98,8 +133,8 @@ def sort_bam(
     resource_cache=None,
     deadline=None,
 ) -> SortStats:
-    """Coordinate-sort BAM or CRAM file(s) into one BAM, byte for byte what
-    the reference's ``sort_bam`` writes for the same input and options.
+    """Sort BAM or CRAM file(s) into one BAM, byte for byte what the
+    reference's ``sort_bam`` writes for the same input and options.
 
     ``device`` defaults to ``cuda`` and raises when there is no card; pass
     ``"cpu"`` to run every kernel's plain version instead.  Member inflate
@@ -120,6 +155,21 @@ def sort_bam(
     the host (the device parse applies only to BGZF splits);
     reference-based CRAM needs ``hadoopbam.cram.reference-source-path``.
 
+    ``sort_order`` (default ``hadoopbam.bam.sort-order``, else
+    "coordinate") is "coordinate" or "queryname": the name collation groups
+    the records by their 64-bit name hash on ``device``, the host ranks the
+    verified buckets in samtools' natural name order, and ties break on
+    flag, position and read index (``backend`` "collate-queryname").  The
+    header's ``SO:`` says the order written.  Queryname raises the
+    reference's ``ValueError`` with ``mesh`` / ``distributed``, with
+    ``mark_duplicates`` and with a true ``device_parse``.
+
+    ``mark_duplicates`` (or ``hadoopbam.bam.mark-duplicates``) marks
+    duplicates in the same job: each split's signature columns are taken
+    during the read, the decision runs once on ``device`` over the job, and
+    the part writers OR 0x400 into the written flags of the duplicates
+    (``SortStats.n_duplicates``, counter ``sort_bam.duplicates``).
+
     ``backend`` is "device" (keys sorted on ``device``, built there by the
     chain kernels when ``device_parse``) or "host" (keys built and sorted
     on the host, a stable NumPy argsort: the reference's oracle; the reads
@@ -128,13 +178,11 @@ def sort_bam(
     parts are written once, with no retry executor yet (ROADMAP A.2).
 
     ``errors`` (default ``hadoopbam.errors``, else "strict") and
-    ``sort_order`` (default ``hadoopbam.bam.sort-order``, else
-    "coordinate") are checked first, with the reference's ``ValueError``
-    outside their domains.  Not ported yet (each raises
-    ``NotImplementedError``): ``memory_budget``, ``mark_duplicates``,
-    ``sort_order="queryname"``, ``mesh`` / ``distributed``,
-    ``errors="salvage"`` and the serve job's ``resource_cache`` /
-    ``deadline``."""
+    ``sort_order`` are checked first, with the reference's ``ValueError``
+    outside their domains, then the queryname combinations.  Not ported yet
+    (each raises ``NotImplementedError``): ``memory_budget``, ``mesh`` /
+    ``distributed`` (coordinate order), ``errors="salvage"`` and the serve
+    job's ``resource_cache`` / ``deadline``."""
     if backend not in ("device", "host"):
         raise ValueError(f"backend must be 'device' or 'host', got {backend!r}")
     if errors is None:
@@ -146,20 +194,36 @@ def sort_bam(
                       else "coordinate") or "coordinate"
     if sort_order not in ("coordinate", "queryname"):
         raise ValueError(f"sort_order must be coordinate|queryname, got {sort_order!r}")
-    dev = resolve_device(device)
-    if isinstance(in_paths, str):
-        in_paths = [in_paths]
     if conf is not None:
         write_splitting_bai = write_splitting_bai or conf.get_boolean(BAM_WRITE_SPLITTING_BAI)
         mark_duplicates = mark_duplicates or conf.get_boolean(BAM_MARK_DUPLICATES)
+    queryname = sort_order == "queryname"
+    if queryname:
+        if mesh is not None or distributed is not None:
+            raise ValueError(
+                "sort_order='queryname' with a mesh goes through "
+                "parallel.multihost.sort_bam_multihost(sort_order="
+                "'queryname') — its distributed rank pass replaces "
+                "this driver's single-host collation"
+            )
+        if mark_duplicates:
+            raise ValueError(
+                "mark_duplicates needs the coordinate stream; markdup "
+                "already accepts unsorted/queryname-grouped input by "
+                "collating signatures — run it without sort_order"
+            )
+        if device_parse:
+            raise ValueError(
+                "device_parse builds coordinate keys; queryname keys "
+                "come from the collation engine"
+            )
+    dev = resolve_device(device)
+    if isinstance(in_paths, str):
+        in_paths = [in_paths]
     if resource_cache is not None or deadline is not None:
         raise _not_ported("deadline / resource_cache (the serve sort job)", "A.11")
     if memory_budget is not None:
         raise _not_ported("memory_budget (the out-of-core sort)", "A.4")
-    if mark_duplicates:
-        raise _not_ported("mark_duplicates", "A.5")
-    if sort_order != "coordinate":
-        raise _not_ported(f"sort_order={sort_order!r}", "A.6")
     if mesh is not None or distributed is not None:
         raise _not_ported("mesh / distributed sorting", "A.10")
     if errors != "strict":
@@ -168,9 +232,9 @@ def sort_bam(
     use_device_write = stream.policy.device_write
 
     fmt = _input_format(conf, in_paths)
-    header = _read_any_header(fmt, in_paths[0]).with_sort_order("coordinate")
+    header = _read_any_header(fmt, in_paths[0]).with_sort_order(sort_order)
     splits = fmt.get_splits(in_paths, split_size=split_size)
-    if backend == "host":
+    if backend == "host" or queryname:
         device_parse = False
     elif device_parse is None:
         env = os.environ.get("HBAM_DEVICE_PARSE")
@@ -187,8 +251,20 @@ def sort_bam(
     t_read = time.perf_counter()
     batches: List[RecordBatch] = []
     parsed: List[Optional[tuple]] = []
+    collate_cols: List[dict] = []
+    sig_cols: List[dict] = []
     fields = ("rec_off", "rec_len") if device_parse else SORT_FIELDS
-    for b in stream.read_splits(fmt, splits, fields=fields, with_keys=not device_parse):
+    if queryname:
+        fields = SORT_FIELDS + ("l_read_name",)
+    if mark_duplicates:
+        fields = tuple(dict.fromkeys(fields + SORT_FIELDS + DEDUP_EXTRA_FIELDS))
+    for b in stream.read_splits(fmt, splits, fields=fields,
+                                with_keys=not (device_parse or queryname)):
+        # The columns come from the whole SoA, before it is trimmed.
+        if mark_duplicates:
+            sig_cols.append(signature_columns(b.data, b.soa))
+        if queryname:
+            collate_cols.append(collation_columns(b.data, b.soa))
         if device_parse:
             parsed.append(stream.parse_split(b))
         if not use_device_write:
@@ -198,7 +274,12 @@ def sort_bam(
     n = sum(b.n_records for b in batches)
     t_sort = time.perf_counter()
 
-    if n and device_parse:
+    if n and queryname:
+        backend = "collate-queryname"
+        perm, _ = queryname_perm(concat_collation(collate_cols), device=dev,
+                                 metrics=stream.metrics)
+        collate_cols = []
+    elif n and device_parse:
         backend = "device-parse"
         perm = _finish_device_parse(batches, parsed, dev, stream.metrics)
     elif n and backend == "host":
@@ -210,13 +291,139 @@ def sort_bam(
             stream.metrics.count_h2d(keys.numel() * 8, "keys")
         perm = _fetch_perm(sort_keys(keys)[1], stream.metrics)
     else:
-        backend = "empty"
+        backend = "host"  # the reference's label of a job with no record
         perm = np.empty(0, dtype=np.int64)
+
+    # The decision over the job's columns, in read order: the index space
+    # that the part writers' ``order`` slices address.
+    t_markdup = time.perf_counter()
+    dup_mask = None
+    n_dup = 0
+    if mark_duplicates and n:
+        dup_mask = mark_duplicates_device(concat_columns(sig_cols), device=dev,
+                                          metrics=stream.metrics)
+        n_dup = int(dup_mask.sum())
+        stream.metrics.count("sort_bam.duplicates", n_dup)
+    sig_cols = []
 
     t_write = time.perf_counter()
     merged = ChunkedRecords.from_batches(batches, keep_device=use_device_write)
     for b in batches:
         b.device_data = None  # the flat stream, if any, holds the windows now
+    n_parts = max(1, len(batches))
+    bounds = [n * i // n_parts for i in range(n_parts + 1)]
+    try:
+        _write_job(out_path, header, part_dir, n_parts,
+                   lambda pi: (merged, perm[bounds[pi] : bounds[pi + 1]], dup_mask),
+                   level, write_splitting_bai, write_workers, stream, use_device_write)
+    finally:
+        merged.release_device()  # the resident payload is dead once the parts exist
+    counters = stream.metrics.counters()
+    counters.update({f"flate.inflate.{k}": v for k, v in stream.inflate_stats.as_dict().items()})
+    seconds = {"read": t_sort - t_read, "sort": t_markdup - t_sort}
+    if mark_duplicates:
+        seconds["markdup"] = t_write - t_markdup
+    seconds["write"] = time.perf_counter() - t_write
+    return SortStats(n, len(splits), backend, str(dev), counters, seconds, n_dup)
+
+
+def markdup_bam(in_paths: Union[Sequence[str], str], out_path: str, **kwargs) -> SortStats:
+    """Duplicate marking as a job of its own: ``sort_bam`` with
+    ``mark_duplicates`` on.  The sort is stable, so a coordinate-sorted
+    input keeps its order and the job only marks; an unsorted input is
+    sorted and marked in one pass.  Takes every ``sort_bam`` keyword."""
+    kwargs["mark_duplicates"] = True
+    return sort_bam(in_paths, out_path, **kwargs)
+
+
+def fixmate_bam(
+    in_paths: Union[Sequence[str], str],
+    out_path: str,
+    conf: Optional[Configuration] = None,
+    split_size: int = 32 << 20,
+    level: int = 6,
+    memory_budget: Optional[int] = None,
+    max_attempts: int = 3,
+    part_dir: Optional[str] = None,
+    write_workers: Optional[int] = None,
+    write_splitting_bai: bool = False,
+    errors: Optional[str] = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> FixmateStats:
+    """Fill in mate information from the collated pairs, keeping the record
+    order (samtools fixmate, without needing name-grouped input): mate
+    coordinates, the mate-unmapped and mate-reverse flags, TLEN, MC tags,
+    and unmapped reads placed beside their mapped mates
+    (:mod:`~.collate.fixmate`).  Byte for byte what the reference's
+    ``fixmate_bam`` writes.
+
+    Pass A reads every split for its collation columns (and name and CIGAR
+    blobs), collates the names on ``device`` (None: the card, which raises
+    when there is none; ``"cpu"`` runs the plain version) and verifies the
+    buckets on the host; pass B rewrites each split by the edit plan and
+    writes it as one part, deflated per ``hadoopbam.deflate.lanes`` (host
+    zlib at ``level`` when off).  The header is the input's: fixmate
+    changes no order.  ``max_attempts`` is inert, as in ``sort_bam``.  Not
+    ported yet (each raises ``NotImplementedError``): ``memory_budget`` and
+    ``errors="salvage"``."""
+    if isinstance(in_paths, str):
+        in_paths = [in_paths]
+    if conf is not None:
+        write_splitting_bai = write_splitting_bai or conf.get_boolean(BAM_WRITE_SPLITTING_BAI)
+    if errors is None:
+        errors = (conf.get(ERRORS_MODE, "strict") if conf is not None else "strict") or "strict"
+    if errors not in ("strict", "salvage"):
+        raise ValueError(f"errors must be strict|salvage, got {errors!r}")
+    dev = resolve_device(device)
+    if memory_budget is not None:
+        raise _not_ported("memory_budget (the out-of-core fixmate)", "A.4")
+    if errors != "strict":
+        raise _not_ported(f"errors={errors!r}", "A.7")
+    stream = DeviceStream(dev, conf=conf)
+    fmt = _input_format(conf, in_paths)
+    header = _read_any_header(fmt, in_paths[0])
+    splits = fmt.get_splits(in_paths, split_size=split_size)
+
+    t_read = time.perf_counter()
+    batches: List[RecordBatch] = []
+    cols_parts: List[dict] = []
+    row_bases = [0]
+    for b in stream.read_splits(fmt, splits, fields=FIXMATE_FIELDS, with_keys=False):
+        cols_parts.append(collation_columns(b.data, b.soa, with_cigars=True))
+        b.device_data = None  # the rewrite is on the host
+        row_bases.append(row_bases[-1] + b.n_records)
+        batches.append(b)
+    n = row_bases[-1]
+    stream.metrics.count("fixmate.records", n)
+
+    t_collate = time.perf_counter()
+    cols = concat_collation(cols_parts)
+    cols_parts = []
+    col = collate_by_name(cols, device=dev, metrics=stream.metrics)
+    col, _ = verify_and_repair(col, cols, stream.metrics)
+    edits = compute_fixmate_edits(cols, col, stream.metrics)
+    cols = col = None
+
+    def part_of(pi: int):
+        b, batches[pi] = batches[pi], None  # the split's bytes die with its part
+        return apply_fixmate(b, edits, row_bases[pi]), None, None
+
+    t_write = time.perf_counter()
+    _write_job(out_path, header, part_dir, len(splits), part_of, level, write_splitting_bai,
+               write_workers, stream, False)
+    counters = stream.metrics.counters()
+    counters.update({f"flate.inflate.{k}": v for k, v in stream.inflate_stats.as_dict().items()})
+    seconds = {"read": t_collate - t_read, "collate": t_write - t_collate,
+               "write": time.perf_counter() - t_write}
+    return FixmateStats(n, len(splits), edits.counts["pairs"], edits.counts["singletons"],
+                        edits.counts["orphans"], "collate-fixmate", counters, seconds)
+
+
+def _write_job(out_path, header, part_dir, n_parts, part_of, level, write_splitting_bai,
+               workers, stream, device_write) -> None:
+    """The parts in ``part_dir`` (else a temporary directory beside
+    ``out_path``), then their merge under ``header``.  ``n_parts`` 0 writes
+    one empty part, as the reference's fixmate of no split does."""
     with contextlib.ExitStack() as stack:
         if part_dir is not None:
             td = part_dir
@@ -224,43 +431,35 @@ def sort_bam(
         else:
             td = stack.enter_context(tempfile.TemporaryDirectory(
                 dir=os.path.dirname(os.path.abspath(out_path)) or "."))
-        try:
-            _write_parts(td, merged, perm, len(batches), level, write_splitting_bai,
-                         write_workers, stream)
-        finally:
-            merged.release_device()  # the resident payload is dead once the parts exist
+        _write_parts(td, n_parts, part_of, level, write_splitting_bai, workers, stream,
+                     device_write)
         merge_bam_parts(td, out_path, header, write_splitting_bai=write_splitting_bai)
-    counters = stream.metrics.counters()
-    counters.update({f"flate.inflate.{k}": v for k, v in stream.inflate_stats.as_dict().items()})
-    seconds = {
-        "read": t_sort - t_read,
-        "sort": t_write - t_sort,
-        "write": time.perf_counter() - t_write,
-    }
-    return SortStats(n, len(splits), backend, str(dev), counters, seconds)
 
 
-def _write_parts(td, merged, perm, n_batches, level, write_splitting_bai, workers, stream):
+def _write_parts(td, n_parts, part_of, level, write_splitting_bai, workers, stream,
+                 device_write):
     """One part per split, as the reference's executor writes them:
-    ``part-r-NNNNN`` (+ ``.splitting-bai``), then ``_SUCCESS``.  The write
-    tiers follow ``stream``'s policy."""
-    n = len(perm)
-    n_parts = max(1, n_batches)
-    bounds = [n * i // n_parts for i in range(n_parts + 1)]
-    workers = max(1, min(n_parts, workers or min(4, os.cpu_count() or 1)))
+    ``part-r-NNNNN`` (+ ``.splitting-bai``), then ``_SUCCESS``.  Part ``pi``
+    is ``part_of(pi)``'s ``(batch, order, dup_mask)``; the deflate tier
+    follows ``stream``'s policy, the device write ``device_write``."""
+    workers = max(1, min(max(1, n_parts), workers or min(4, os.cpu_count() or 1)))
     threads = max(1, (os.cpu_count() or 4) // workers)
 
     def write_one(pi: int) -> None:
         final = os.path.join(td, f"part-r-{pi:05d}")
         tmp = final + ".tmp"
-        order = perm[bounds[pi] : bounds[pi + 1]]
+        if n_parts == 0:
+            open(tmp, "wb").close()
+            os.replace(tmp, final)
+            return
+        batch, order, dup_mask = part_of(pi)
         sb = open(final + ".splitting-bai.tmp", "wb") if write_splitting_bai else None
         try:
             with open(tmp, "wb") as f:
-                write_part_fast(f, merged, order=order, level=level,
+                write_part_fast(f, batch, order=order, level=level,
                                 splitting_bai_stream=sb, threads=threads,
                                 device_deflate=stream.policy.deflate_lanes,
-                                device_write=stream.policy.device_write,
+                                device_write=device_write, dup_mask=dup_mask,
                                 device_stream=stream)
         finally:
             if sb is not None:
@@ -270,7 +469,7 @@ def _write_parts(td, merged, perm, n_batches, level, write_splitting_bai, worker
             os.replace(sb.name, final + ".splitting-bai")
 
     with ThreadPoolExecutor(workers) as pool:
-        list(pool.map(write_one, range(n_parts)))
+        list(pool.map(write_one, range(max(1, n_parts))))
     open(os.path.join(td, SUCCESS_MARKER), "wb").close()
 
 

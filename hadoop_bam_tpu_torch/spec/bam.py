@@ -157,6 +157,10 @@ class BamRecord:
                             offset=32 + self.l_read_name)
         return [(int(c) >> 4, CIGAR_OPS[int(c) & 0xF]) for c in cig]
 
+    def cigar_string(self) -> str:
+        ops = self.cigar
+        return "*" if not ops else "".join(f"{n}{op}" for n, op in ops)
+
     @property
     def seq(self) -> str:
         l_seq = self.l_seq

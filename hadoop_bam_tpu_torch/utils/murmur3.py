@@ -2,8 +2,9 @@
 vectorized over ragged slices of one byte buffer.
 
 Counterpart of ``hadoop_bam_tpu/utils/murmur3.py``
-(``murmurhash3_int32_batch``, and ``murmurhash3_chars`` for the contig keys
-of VCF records).  The reference (util/MurmurHash3.java) keeps
+(``murmurhash3_int32_batch``, ``murmurhash3_chars`` for the contig keys
+of VCF records, and the scalar ``murmurhash3_bytes`` / ``murmurhash3_int32``
+of the duplicate-marking oracle).  The reference (util/MurmurHash3.java) keeps
 one quirk in its mixing loop — the right-shift operand is h1 where canonical
 murmur reads h2 — and this copy keeps it too, because the hashes become
 the sort keys of unmapped reads (BAMRecordReader.java:97-110) and of
@@ -74,12 +75,9 @@ def murmurhash3_int32_batch(
     m = np.where(
         valid, np.asarray(data)[np.clip(idx, 0, len(data) - 1)], 0
     ).astype(np.uint8)
-    # Little-endian 8-byte words per row (explicit assembly: endianness-
-    # independent, unlike a raw .view).
-    shifts = (np.uint64(8) * np.arange(8, dtype=np.uint64))[None, None, :]
-    w64 = (m.reshape(n, W // 8, 8).astype(np.uint64) << shifts).sum(
-        axis=2, dtype=np.uint64
-    )
+    # Little-endian 8-byte words per row: a view with an explicit byte
+    # order reads them on any host.
+    w64 = m.view("<u8").astype(np.uint64)
     nblocks = (lens // 16).astype(np.int64)
     h1 = np.full(n, np.uint64(seed & _M))
     h2 = np.full(n, np.uint64(seed & _M))
@@ -141,6 +139,38 @@ def _mix(h1: int, h2: int, k1: int, k2: int) -> tuple:
     h2 = (h2 + h1) & _M
     h2 = (h2 * 5 + 0x38495AB5) & _M
     return h1, h2
+
+
+def murmurhash3_bytes(key: bytes, seed: int = 0) -> int:
+    """Hash raw bytes one record at a time (MurmurHash3.java:32-103), as a
+    Java-``long``-style signed 64-bit int."""
+    h1 = h2 = seed & _M
+    length = len(key)
+    nblocks = length // 16
+    for i in range(nblocks):
+        off = i * 16
+        h1, h2 = _mix(h1, h2, int.from_bytes(key[off : off + 8], "little"),
+                      int.from_bytes(key[off + 8 : off + 16], "little"))
+    tail = key[nblocks * 16 :]
+    n = length & 15
+    if n > 8:
+        k2 = int.from_bytes(tail[8:n], "little")
+        h2 ^= (_rotl((k2 * C2) & _M, 33) * C1) & _M
+    if n > 0:
+        k1 = int.from_bytes(tail[: min(n, 8)], "little")
+        h1 ^= (_rotl((k1 * C1) & _M, 31) * C2) & _M
+    h1 ^= length
+    h2 ^= length
+    h1 = (h1 + h2) & _M
+    h2 = (h2 + h1) & _M
+    return _signed64(_fmix(h1) + _fmix(h2))
+
+
+def murmurhash3_int32(key: bytes, seed: int = 0) -> int:
+    """The low 32 bits of :func:`murmurhash3_bytes` as a signed int32 (Java's
+    implicit ``(int)`` cast, BAMRecordReader.java:85-86)."""
+    v = murmurhash3_bytes(key, seed) & 0xFFFFFFFF
+    return v - (1 << 32) if v >= 1 << 31 else v
 
 
 def murmurhash3_chars(chars: str, seed: int = 0) -> int:

@@ -175,3 +175,176 @@ def test_forced_hash_collision_is_repaired_like_the_reference():
     jperm, jst = jhost.queryname_perm(cols)
     np.testing.assert_array_equal(perm, jperm)
     assert st.n_collisions == jst.n_collisions == 1
+
+
+# ---------------------------------------------------------------------------
+# The queryname sort (``sort_bam(sort_order="queryname")``), its columns and
+# oracles, against the reference's (its ``tests/test_collate.py`` cases)
+# ---------------------------------------------------------------------------
+
+from hadoop_bam_tpu import collate as jcollate  # noqa: E402
+from hadoop_bam_tpu import pipeline as jpipeline  # noqa: E402
+from hadoop_bam_tpu.collate import signature as jsig  # noqa: E402
+from hadoop_bam_tpu.conf import Configuration as JConf  # noqa: E402
+from hadoop_bam_tpu.spec import bam as jbam  # noqa: E402
+from hadoop_bam_tpu_torch import collate as tcollate  # noqa: E402
+from hadoop_bam_tpu_torch import pipeline as tpipeline  # noqa: E402
+from hadoop_bam_tpu_torch.collate import signature as tsig  # noqa: E402
+from hadoop_bam_tpu_torch.conf import from_reference_conf  # noqa: E402
+from test_collate import _collate_corpus  # noqa: E402
+from test_torch_markdup import HOST, LANES, port_records, read, write_bam  # noqa: E402
+
+REFS = [("c1", 1 << 24), ("c2", 1 << 24)]
+
+
+def test_exports_are_the_reference_s():
+    """All of the reference's exports but the mesh's two (ROADMAP A.10)."""
+    mesh = {"global_name_ranks", "group_representatives"}
+    assert tcollate.__all__ == [k for k in jcollate.__all__ if k not in mesh]
+    assert tcollate.COLLATE_EXTRA_FIELDS == jcollate.COLLATE_EXTRA_FIELDS
+    assert tcollate.FIXMATE_FIELDS == jcollate.FIXMATE_FIELDS
+    assert tsig._BLOB_COLS == jsig._BLOB_COLS
+
+
+@pytest.mark.parametrize("with_cigars", [False, True])
+def test_collation_columns_match_the_reference(with_cigars):
+    from hadoop_bam_tpu_torch.spec import bam as tbam
+
+    recs = _collate_corpus(np.random.default_rng(2))
+    data = np.frombuffer(b"".join(r.encode() for r in recs), np.uint8)
+    soa = tbam.soa_decode(data, tbam.record_offsets(data, 0), tcollate.FIXMATE_FIELDS)
+    got = tcollate.collation_columns(data, soa, with_cigars=with_cigars)
+    want = jcollate.collation_columns(data, dict(soa), with_cigars=with_cigars)
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    qh = tsig.name_hash_pair(data, soa)
+    for a, b in zip(qh, jsig.name_hash_pair(data, dict(soa))):
+        np.testing.assert_array_equal(a, b)
+    blob, offs = tsig.ragged_slice(data, soa["rec_off"] + 32, soa["l_read_name"] - 1)
+    jblob, joffs = jsig.ragged_slice(data, soa["rec_off"] + 32, soa["l_read_name"] - 1)
+    np.testing.assert_array_equal(blob, jblob)
+    np.testing.assert_array_equal(offs, joffs)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_oracles_match_the_reference(seed):
+    recs = _collate_corpus(np.random.default_rng(seed))
+    trecs = port_records(recs)
+    assert tcollate.collate_oracle(trecs) == jcollate.collate_oracle(recs)
+    assert tcollate.queryname_sort_oracle(trecs) == jcollate.queryname_sort_oracle(recs)
+    assert tcollate.fixmate_oracle(trecs) == jcollate.fixmate_oracle(recs)
+    assert [tcollate.mc_tag_of(r) for r in trecs] == [jcollate.mc_tag_of(r) for r in recs]
+
+
+def test_natural_keys_order_names_as_natural_compare():
+    rng = np.random.default_rng(17)
+    alphabet = np.frombuffer(b"0123456789:aZ_.\x00\xff", np.uint8)
+    pool = [rng.choice(alphabet, int(rng.integers(0, 9))).tobytes() for _ in range(600)]
+    pool += [b"x" + p for p in pool[:100]] + [p + b"00" for p in pool[:100]]
+    pool += [b"", b"00x", b"0", b"0x", b"01a", b"1", b"a01z", b"a1a", b"r07", b"r7", b"r10"]
+    keys = thost.natural_keys(pool)
+    for _ in range(20000):
+        i, j = (int(k) for k in rng.integers(0, len(pool), 2))
+        c = jhost.natural_compare(pool[i], pool[j])
+        assert (keys[i] > keys[j]) - (keys[i] < keys[j]) == (c > 0) - (c < 0), (pool[i], pool[j])
+
+
+@pytest.fixture(scope="module")
+def qcorpus(tmp_path_factory):
+    recs = _collate_corpus(np.random.default_rng(4))
+    return recs, write_bam(str(tmp_path_factory.mktemp("qname") / "in.bam"), recs, refs=REFS)
+
+
+def _both_queryname(src, tmp_path, gates=HOST, **kw):
+    t_out, j_out = str(tmp_path / "port.bam"), str(tmp_path / "ref.bam")
+    st = tpipeline.sort_bam(src, t_out, conf=from_reference_conf(gates), device="cpu", **kw)
+    jst = jpipeline.sort_bam(src, j_out, conf=JConf(gates), **kw)
+    assert read(t_out) == read(j_out)
+    assert (st.n_records, st.n_splits, st.backend) == (jst.n_records, jst.n_splits, jst.backend)
+    return st, t_out
+
+
+@pytest.mark.parametrize("split_size,backend,gates", [
+    (4 << 10, "device", HOST), (1 << 20, "device", HOST), (4 << 10, "host", HOST),
+    (8 << 10, "device", LANES)], ids=["splits", "one_split", "host_backend", "inflate_lanes"])
+def test_queryname_sort_writes_the_reference_bytes(qcorpus, tmp_path, split_size, backend,
+                                                   gates):
+    recs, src = qcorpus
+    st, out = _both_queryname(src, tmp_path, gates=gates, sort_order="queryname",
+                              split_size=split_size, backend=backend, level=1,
+                              write_splitting_bai=True)
+    assert read(out + ".splitting-bai") == read(str(tmp_path / "ref.bam") + ".splitting-bai")
+    assert st.backend == "collate-queryname" and st.n_duplicates == 0
+    hdr, got = jbam.read_bam(out)
+    assert hdr.sort_order() == "queryname"
+    order = jcollate.queryname_sort_oracle(recs)
+    assert [r.raw for r in got] == [recs[i].raw for i in order]
+    assert st.counters["collate.groups"] == len({r.read_name for r in recs})
+    assert out.endswith(".bam") and read(out).endswith(jbam_terminator())
+
+
+def jbam_terminator():
+    from hadoop_bam_tpu.spec import bgzf as jbgzf
+
+    return jbgzf.TERMINATOR
+
+
+@pytest.mark.parametrize("variant", ["shuffled", "sorted"])
+def test_queryname_sort_of_shuffled_and_sorted_input(qcorpus, tmp_path, variant):
+    """A shuffled copy, and a copy already in queryname order: the reference's
+    bytes, and the same records in the same order as the original's sort."""
+    recs, src = qcorpus
+    rng = np.random.default_rng(5)
+    order = (rng.permutation(len(recs)) if variant == "shuffled"
+             else jcollate.queryname_sort_oracle(recs))
+    other = write_bam(str(tmp_path / "in.bam"), [recs[i] for i in order], refs=REFS)
+    _, out = _both_queryname(other, tmp_path, sort_order="queryname", split_size=4 << 10)
+    base = str(tmp_path / "base.bam")
+    tpipeline.sort_bam(src, base, device="cpu", sort_order="queryname", split_size=4 << 10)
+    assert [r.raw for r in jbam.read_bam(out)[1]] == [r.raw for r in jbam.read_bam(base)[1]]
+
+
+def test_queryname_conf_key(qcorpus, tmp_path):
+    _, src = qcorpus
+    st, out = _both_queryname(src, tmp_path, gates=dict(HOST, **{
+        "hadoopbam.bam.sort-order": "queryname"}), split_size=4 << 10)
+    assert st.backend == "collate-queryname"
+    assert jbam.read_bam(out)[0].sort_order() == "queryname"
+
+
+def test_queryname_sort_survives_hash_collisions(qcorpus, tmp_path, monkeypatch):
+    def constant_hash(data, soa):
+        n = len(soa["rec_off"])
+        return np.zeros(n, np.int32), np.zeros(n, np.int32)
+
+    monkeypatch.setattr(tsig, "name_hash_pair", constant_hash)
+    monkeypatch.setattr(jsig, "name_hash_pair", constant_hash)
+    recs, src = qcorpus
+    st, out = _both_queryname(src, tmp_path, sort_order="queryname", split_size=4 << 10)
+    assert st.counters["collate.hash_collisions"] > 0
+    order = jcollate.queryname_sort_oracle(recs)
+    assert [r.raw for r in jbam.read_bam(out)[1]] == [recs[i].raw for i in order]
+
+
+def test_coordinate_sort_still_claims_coordinate(qcorpus, tmp_path):
+    _, src = qcorpus
+    _, out = _both_queryname(src, tmp_path, split_size=4 << 10)
+    assert jbam.read_bam(out)[0].sort_order() == "coordinate"
+
+
+def test_queryname_sort_of_no_record(tmp_path):
+    src = write_bam(str(tmp_path / "in.bam"), [], refs=REFS)
+    st, out = _both_queryname(src, tmp_path, sort_order="queryname")
+    assert st.n_records == 0
+
+
+def test_queryname_entry_points_raise_when_no_card(qcorpus, tmp_path, monkeypatch):
+    import torch
+
+    _, src = qcorpus
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tpipeline.sort_bam(src, str(tmp_path / "o.bam"), sort_order="queryname", **kw)

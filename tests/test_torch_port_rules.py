@@ -97,15 +97,12 @@ def test_reference_conf_dict_drives_both_packages():
     "kwargs",
     [
         {"memory_budget": 1 << 20},
-        {"mark_duplicates": True},
-        {"sort_order": "queryname"},
         {"mesh": object()},
         {"distributed": object()},
         {"errors": "salvage"},
-        {"conf": {"hadoopbam.bam.mark-duplicates": "true"}},
+        {"conf": {"hadoopbam.errors": "salvage"}},
     ],
-    ids=["memory_budget", "mark_duplicates", "queryname", "mesh", "distributed",
-         "salvage", "conf_mark_duplicates"],
+    ids=["memory_budget", "mesh", "distributed", "salvage", "conf_salvage"],
 )
 def test_options_outside_the_slice_raise(tmp_path, kwargs):
     from hadoop_bam_tpu_torch import pipeline
@@ -121,10 +118,9 @@ def test_options_outside_the_slice_raise(tmp_path, kwargs):
 
 @pytest.mark.parametrize(
     "kwargs,item",
-    [({"memory_budget": 1 << 20}, "A.4"), ({"mark_duplicates": True}, "A.5"),
-     ({"sort_order": "queryname"}, "A.6"), ({"mesh": object()}, "A.10"),
+    [({"memory_budget": 1 << 20}, "A.4"), ({"mesh": object()}, "A.10"),
      ({"distributed": object()}, "A.10"), ({"errors": "salvage"}, "A.7")],
-    ids=["memory_budget", "mark_duplicates", "queryname", "mesh", "distributed", "salvage"],
+    ids=["memory_budget", "mesh", "distributed", "salvage"],
 )
 def test_options_outside_the_slice_cite_their_roadmap_item(tmp_path, kwargs, item):
     from hadoop_bam_tpu_torch import pipeline

@@ -2,8 +2,11 @@
 ``errors``, ``sort_order`` and ``backend`` raise the reference's
 ``ValueError`` (class and message) before anything else, also when the
 value comes through the configuration; ``backend="host"`` and
-``max_attempts`` are taken and write the reference's bytes; the serve job's
-``resource_cache`` and ``deadline`` are not ported yet and say so."""
+``max_attempts`` are taken and write the reference's bytes; the queryname
+order raises the reference's ``ValueError`` (class and message) with
+``mark_duplicates``, a mesh and ``device_parse``, before any other check;
+the serve job's ``resource_cache`` and ``deadline`` and the out-of-core
+forms are not ported yet and say so."""
 
 import os
 
@@ -100,3 +103,68 @@ def test_max_attempts_is_taken(src, tmp_path):
     for out, kw in ((a, {"max_attempts": 1}), (b, {})):
         tpipeline.sort_bam(src, out, conf=from_reference_conf(HOST), device="cpu", level=1, **kw)
     assert _read(a) == _read(b)
+
+
+QUERYNAME_BAD = [
+    ({"mark_duplicates": True}, {}),
+    ({}, {"hadoopbam.bam.mark-duplicates": "true"}),
+    ({"mesh": object()}, {}),
+    ({"distributed": object()}, {}),
+    ({"device_parse": True}, {}),
+    ({"device_parse": True, "backend": "host"}, {}),
+    ({"mesh": object(), "mark_duplicates": True, "device_parse": True}, {}),
+    ({"mark_duplicates": True, "memory_budget": 1 << 20}, {}),
+    ({"device_parse": True, "resource_cache": object(), "errors": "salvage"}, {}),
+]
+
+
+@pytest.mark.parametrize("kwargs,conf", QUERYNAME_BAD, ids=[
+    "mark_duplicates", "conf_mark_duplicates", "mesh", "distributed", "device_parse",
+    "device_parse_host_backend", "mesh_first", "before_memory_budget", "before_unported"])
+@pytest.mark.parametrize("how", ["argument", "conf"])
+def test_queryname_combinations_raise_the_reference_error(src, tmp_path, kwargs, conf, how):
+    """Queryname with ``mark_duplicates``, a mesh or ``device_parse``: the
+    reference's ``ValueError``, in its order, before the checks of what the
+    port has not ported yet; the order comes as the argument or the conf
+    key."""
+    conf = dict(conf)
+    kw = dict(kwargs)
+    if how == "argument":
+        kw["sort_order"] = "queryname"
+    else:
+        conf["hadoopbam.bam.sort-order"] = "queryname"
+    ref_kw = {k: v for k, v in kw.items() if k != "resource_cache"}
+    want = _raised(lambda: jpipeline.sort_bam(src, str(tmp_path / "ref.bam"), conf=JConf(conf),
+                                              **ref_kw))
+    got = _raised(lambda: tpipeline.sort_bam(src, str(tmp_path / "port.bam"),
+                                             conf=from_reference_conf(conf), device="cpu", **kw))
+    assert want is not None and want[0] is ValueError
+    assert got == want
+    assert not os.path.exists(tmp_path / "port.bam")
+
+
+def test_queryname_checks_come_before_the_device(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="mark_duplicates needs the coordinate stream"):
+        tpipeline.sort_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"),
+                           sort_order="queryname", mark_duplicates=True)
+
+
+@pytest.mark.parametrize("kwargs", [{"mark_duplicates": True}, {"sort_order": "queryname"}],
+                         ids=["mark_duplicates", "queryname"])
+def test_out_of_core_forms_cite_a4(tmp_path, kwargs):
+    """``memory_budget`` with duplicate marking or the queryname order: the
+    out-of-core sort is not ported yet."""
+    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A\.4\)$"):
+        tpipeline.sort_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"), device="cpu",
+                           memory_budget=1 << 20, **kwargs)
+    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A\.4\)$"):
+        tpipeline.markdup_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"), device="cpu",
+                              memory_budget=1 << 20)
+
+
+def test_mesh_still_cites_a10_for_the_coordinate_order(tmp_path):
+    for kw in ({"mesh": object()}, {"distributed": object(), "mark_duplicates": True}):
+        with pytest.raises(NotImplementedError, match=r"\(ROADMAP A\.10\)$"):
+            tpipeline.sort_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"),
+                               device="cpu", **kw)
