@@ -2,8 +2,8 @@
 
 Run on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--records N] [--dup-pairs N] [--twin-pairs N] [--pairs N]
-                          [--variants N] [--cram-records N] [--codec-mib N] [--seed S]
+    python3 chip_smoke.py [--records N] [--dup-pairs N] [--pairs N] [--variants N]
+                          [--cram-records N] [--codec-mib N] [--seed S]
 
 Phases: print the card; build the CUDA kernels from ``csrc/``; hold each
 kernel against its plain PyTorch version on the card (exact equality);
@@ -12,19 +12,18 @@ drive ``sort_bam`` at full size on a synthetic BAM with the default gates
 port's CPU run) and with one resident split (byte-identical to the host
 gather + deflate lanes); mark duplicates, sort by name and fixmate
 1,000,000 synthetic read pairs on the card and on the CPU (the collation
-phase: byte-identical with the write gates off, the duplicate decision
-against its per-record oracle on the first 50,000 pairs, the mask through
-the device write of one resident split, fixmate run again on its own
-output); drive ``ingest_fastq`` on 125,000 synthetic read pairs (cut from
-250,000, as the call set and the CRAM corpus below are cut, to fit the
-run's time limit: ``FULL_DEPTH``) with the default gates, with the deflate
-lanes off and on the CPU (byte-identical to the card without lanes; the
-lanes' output decompresses to the same bytes), and hold ``ingest_oracle``
-to it on a prefix; query three regions of a synthetic 1,500,000-site BCF
-call set with ``variants_blob`` on the card and on the CPU
-(byte-identical, and equal to the generator's records); sort a synthetic
-no-ref rANS CRAM of 150,000 records on the card (its rANS blocks through
-the decode kernel) to the
+phase: byte-identical with the write gates off, the queryname and fixmate
+twins on the first 250,000 pairs, the duplicate decision against its
+per-record oracle on the first 50,000 pairs, the mask through the device
+write of one resident split, fixmate run again on its own output); drive
+``ingest_fastq`` on 250,000 synthetic read pairs with the default gates,
+with the deflate lanes off and on the CPU (byte-identical to the card
+without lanes; the lanes' output decompresses to the same bytes), and hold
+``ingest_oracle`` to it on a prefix; query three regions of a synthetic
+4,500,000-site BCF call set with ``variants_blob`` on the card and on the
+CPU (byte-identical, and equal to the generator's records); sort a
+synthetic no-ref rANS CRAM of 300,000 records on the card (its rANS blocks
+through the decode kernel) to the
 content of the sort of its BAM twin; read regions of the sorted BAM
 (``build_bai``, ``flagstat``, ``view_blob`` of three regions, ``depth_stat``
 and a bounded-traversal ``sort_bam``, card against CPU, the views against a
@@ -2142,8 +2141,7 @@ def main_path(work: str, n: int, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 PAIR_CHUNK = 50_000  # pairs a generator chunk; every family, pair and copy lies in one
-FIXMATE_PREFIX_PAIRS = 100_000  # the prefix fixmate is run on twice
-TWIN_PAIRS = 250_000  # the prefix the queryname and fixmate card/CPU twins run on
+TWIN_PAIRS = 250_000  # the prefix the card/CPU twins of queryname and fixmate run on
 READ_CIGAR_LEN = 150
 NAME_PREFIX = b"A00123:8:H7KJ2DSXX:"
 
@@ -2338,26 +2336,31 @@ def synth_pair_chunk(p0: int, n: int, seed: int):
     return encode_bam_records(f, rng), census
 
 
-def synth_pairs_bam(path: str, n_pairs: int, seed: int, level: int = 1):
-    """Write the unsorted paired-end BAM of :func:`synth_pair_chunk` chunks;
-    returns ``(size, census, chunk_records)`` (the records of each chunk,
-    in file order)."""
+def synth_pairs(n_pairs: int, seed: int):
+    """The record streams and censuses of the :func:`synth_pair_chunk`
+    chunks of pairs ``0 .. n_pairs``, made by a process pool."""
+    starts = list(range(0, n_pairs, PAIR_CHUNK))
+    sizes = [min(PAIR_CHUNK, n_pairs - p0) for p0 in starts]
+    with spawn_pool(min(len(starts), os.cpu_count() or 1)) as pool:
+        got = list(pool.map(synth_pair_chunk, starts, sizes, [seed] * len(starts)))
+    return [s for s, _ in got], [c for _, c in got]
+
+
+def census_of(chunks) -> dict:
+    return {k: sum(c[k] for c in chunks) for k in chunks[0]}
+
+
+def write_pairs_bam(path: str, streams, level: int = 1) -> int:
+    """The unsorted BAM of the record ``streams``, in order; returns its size."""
     from hadoop_bam_tpu_torch.spec import bam, bgzf
 
     header = bam.BamHeader(BAM_TEXT, list(GRCH38))
-    streams, census, chunk_records = [], {}, []
-    for p0 in range(0, n_pairs, PAIR_CHUNK):
-        s, c = synth_pair_chunk(p0, min(PAIR_CHUNK, n_pairs - p0), seed)
-        streams.append(s)
-        chunk_records.append(c["records"])
-        for k, v in c.items():
-            census[k] = census.get(k, 0) + v
     body, _ = bgzf.deflate_blocks(np.concatenate(streams), level=level)
     with open(path, "wb") as f:
         f.write(bgzf.deflate_blocks(header.encode(), level=level)[0])
         f.write(body)
         f.write(bgzf.TERMINATOR)
-    return os.path.getsize(path), census, chunk_records
+    return os.path.getsize(path)
 
 
 def same_bytes(a: str, b: str, what: str) -> int:
@@ -2370,52 +2373,57 @@ def same_bytes(a: str, b: str, what: str) -> int:
     return len(x)
 
 
-def time_decision(acc: list):
-    """A context in which every launch of the duplicate decision
-    (``dedup.device._mark_core``) is timed by CUDA events into ``acc`` (ms)."""
-    import contextlib
+def illumina_order_faults(path: str) -> int:
+    """Adjacent records of a BAM whose names, all of :func:`illumina_names`'
+    shape, are out of samtools' natural order: after the common prefix each
+    name is ``lane:tile:x:y`` in decimal without leading zeros, so that
+    order is the byte order of the four fields each right-justified in ten
+    '0's, a key built for all the names at once."""
+    b = bam_batch(path, ("rec_off", "rec_len", "l_read_name"))
+    lens = b.soa["l_read_name"].astype(np.int64) - 1
+    n, k, w = len(lens), len(NAME_PREFIX), int(lens.max())
+    buf = np.concatenate([np.asarray(b.data, np.uint8), np.zeros(w, np.uint8)])
+    names = np.lib.stride_tricks.sliding_window_view(buf, w)[b.soa["rec_off"].astype(np.int64) + 32]
+    names = np.where(np.arange(w)[None, :] < lens[:, None], names, 0)
+    if not (names[:, :k] == np.frombuffer(NAME_PREFIX, np.uint8)).all():
+        raise AssertionError("a name lacks the generator's prefix")
+    suffix = names[:, k:]
+    rows, cols = np.nonzero(suffix == ord(":"))
+    if len(rows) != 3 * n or (np.bincount(rows, minlength=n) != 3).any():
+        raise AssertionError("a name has not four fields after the prefix")
+    colon = cols.reshape(n, 3)
+    starts = np.concatenate([np.zeros((n, 1), np.int64), colon + 1], axis=1)
+    ends = np.concatenate([colon, (lens - k)[:, None]], axis=1)
+    # Field f's last ten bytes, in a copy of the names padded on the left
+    # with ten '0's; those before the field's start become '0'.
+    at = ends[:, :, None] + np.arange(10)[None, None, :]
+    padded = np.pad(suffix, ((0, 0), (10, 0)), constant_values=ord("0"))
+    key = np.take_along_axis(padded, at.reshape(n, 40), axis=1).reshape(n, 4, 10)
+    key = np.where(at - 10 >= starts[:, :, None], key, ord("0")).reshape(n, 40)
+    if ((ends - starts) < 1).any() or ((ends - starts) > 10).any() or \
+            ((key < ord("0")) | (key > ord("9"))).any():
+        raise AssertionError("a name's field is not 1 to 10 decimal digits")
+    ne = key[1:] != key[:-1]
+    first = ne.argmax(axis=1)
+    at_first = np.arange(n - 1)
+    return int((ne.any(axis=1) & (key[1:][at_first, first] < key[:-1][at_first, first])).sum())
 
-    import torch
 
-    from hadoop_bam_tpu_torch.dedup import device as dd
-
-    @contextlib.contextmanager
-    def ctx():
-        inner = dd._mark_core
-
-        def timed(*cols):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            out = inner(*cols)
-            b.record()
-            b.synchronize()
-            acc.append(a.elapsed_time(b))
-            return out
-
-        dd._mark_core = timed
-        try:
-            yield
-        finally:
-            dd._mark_core = inner
-
-    return ctx()
-
-
-def collation_phase(work: str, n_pairs: int, seed: int, twin_pairs: int) -> dict:
+def collation_phase(work: str, n_pairs: int, seed: int) -> dict:
     """The collation family on a synthetic paired-end BAM of ``n_pairs``
-    pairs (:func:`synth_pairs_bam`).  Markdup: the card with the default
+    pairs (:func:`synth_pair_chunk`).  Markdup: the card with the default
     gates (traced), the card and the CPU with the write gates off
     (byte-identical; the first decompresses to their bytes), its duplicates
     counted back from the output and held to the generator, the decision on
     the first chunk against the per-record oracle, then one resident split
-    of the generator's first ``twin_pairs`` pairs (the device write) against
+    of the generator's first ``TWIN_PAIRS`` pairs (the device write) against
     the host gather + deflate lanes.  The queryname sort and fixmate: the
     card with the default gates at full size (re-read: the order, the
     header, the counts), and the card and the CPU with the write gates off
-    on the first ``twin_pairs`` pairs (byte-identical).  Fixmate again on its own output of the first
-    ``FIXMATE_PREFIX_PAIRS``.  Returns the launches of each full-size card
+    on the first ``TWIN_PAIRS`` pairs (byte-identical; fixmate's as one
+    split, so that fixmate run again on the card's output, one split again,
+    must give its bytes).  Returns the launches of each full-size card
     job."""
-    from hadoop_bam_tpu_torch.collate.host import natural_compare
     from hadoop_bam_tpu_torch.conf import (DEFLATE_LANES, INFLATE_LANES, WRITE_DEVICE,
                                             Configuration)
     from hadoop_bam_tpu_torch.dedup import (DEDUP_EXTRA_FIELDS, mark_duplicates_device,
@@ -2425,21 +2433,26 @@ def collation_phase(work: str, n_pairs: int, seed: int, twin_pairs: int) -> dict
     from hadoop_bam_tpu_torch.spec import bam
 
     t_phase = time.perf_counter()
-    paths = {k: os.path.join(work, f"pairs.{k}.bam") for k in ("full", "twin", "idem")}
-    size, census, _ = synth_pairs_bam(paths["full"], n_pairs, seed)
+    paths = {k: os.path.join(work, f"pairs.{k}.bam") for k in ("full", "twin")}
+    streams, chunks = synth_pairs(n_pairs, seed)
+    census = census_of(chunks)
+    size = write_pairs_bam(paths["full"], streams)
+    # Whole chunks, so that the twins' input is the full file's prefix.
+    n_twin = max(1, min(len(streams), TWIN_PAIRS // PAIR_CHUNK))
+    twin_size = write_pairs_bam(paths["twin"], streams[:n_twin])
+    twin_census = census_of(chunks[:n_twin])
+    twin_pairs = min(n_pairs, n_twin * PAIR_CHUNK)
+    first = streams[0]
+    del streams
     log(f"synthetic paired BAM: {n_pairs} pairs, {census['records']} records, {size} bytes, "
         f"built in {time.perf_counter() - t_phase:.1f} s; census {json.dumps(census)}")
-    # Whole chunks, so that the twins' input is the full file's prefix.
-    twin_pairs = min(n_pairs, max(PAIR_CHUNK, twin_pairs // PAIR_CHUNK * PAIR_CHUNK))
-    twin_size, twin_census, _ = synth_pairs_bam(paths["twin"], twin_pairs, seed)
-    if twin_pairs != n_pairs:
-        log(f"the one-split markdup pair and the queryname and fixmate twins (cuda and cpu, write "
-            f"gates off) run on the first {twin_pairs} pairs ({twin_census['records']} records) "
-            f"of the same generator")
+    log(f"the one-split markdup pair and the queryname and fixmate twins (cuda and cpu, write "
+        f"gates off) run on the first {twin_pairs} pairs ({twin_census['records']} records, "
+        f"{twin_size} bytes)")
     src = paths["full"]
     out = {k: os.path.join(work, f"collate.{k}.bam") for k in (
         "md_a", "md_b", "md_c", "md_r", "md_rh", "qn_a", "qn_b", "qn_c", "fm_a", "fm_b", "fm_c",
-        "fm_p1", "fm_p2")}
+        "fm_again")}
     off = Configuration({INFLATE_LANES: "true", DEFLATE_LANES: "false", WRITE_DEVICE: "false"})
     launches = {}
 
@@ -2449,20 +2462,19 @@ def collation_phase(work: str, n_pairs: int, seed: int, twin_pairs: int) -> dict
             raise AssertionError(f"{what}: kernels never launched: {missing}")
 
     def decided(what: str, st, wall: float) -> None:
-        """Log the decision of the markdup run just made, timed on the card."""
-        if len(ms) != 1:
-            raise AssertionError(f"{what}: {len(ms)} decisions")
-        log(f"  decision: {ms[0]:.3f} ms of device time (CUDA events) = "
-            f"{ms[0] / 1e3 / wall:.6f} of the wall; {st.seconds['markdup']:.6f} s of host time "
+        """Log the decision of a markdup run on the card: its device time,
+        which the job counted by CUDA events."""
+        us = st.counters.get("dedup.decision_device_us", 0)
+        if us <= 0:
+            raise AssertionError(f"{what}: no decision timed on the card")
+        log(f"  decision: {us / 1e3:.3f} ms of device time (CUDA events) = "
+            f"{us / 1e6 / wall:.6f} of the wall; {st.seconds['markdup']:.6f} s of host time "
             f"(upload, decision, read-back), {st.n_duplicates} duplicates")
-        ms.clear()
 
     # Markdup on the card with the default gates.
-    ms: list = []
-    with time_decision(ms):
-        st, wall, launches["markdup"] = timed_sort(src, out["md_a"], "markdup_bam(cuda, default "
-                                                   "gates)", trace=True, job=markdup_bam,
-                                                   device="cuda")
+    st, wall, launches["markdup"] = timed_sort(src, out["md_a"], "markdup_bam(cuda, default "
+                                               "gates)", trace=True, job=markdup_bam,
+                                               device="cuda")
     need("markdup", launches["markdup"], ("inflate_members", "record_chain", "deflate_members"))
     if st.n_records != census["records"]:
         raise AssertionError(f"markdup: {st.n_records} of {census['records']} records")
@@ -2474,9 +2486,8 @@ def collation_phase(work: str, n_pairs: int, seed: int, twin_pairs: int) -> dict
                              f"output, {census['planted_duplicates']} planted")
     log(f"  re-read: {n_marked} records flagged 0x400 = n_duplicates >= "
         f"{census['planted_duplicates']} planted")
-    with time_decision(ms):
-        st_b, wall_b, _ = timed_sort(src, out["md_b"], "markdup_bam(cuda, write gates off)",
-                                     job=markdup_bam, conf=off, device="cuda")
+    st_b, wall_b, _ = timed_sort(src, out["md_b"], "markdup_bam(cuda, write gates off)",
+                                 job=markdup_bam, conf=off, device="cuda")
     decided("markdup, write gates off", st_b, wall_b)
     st_c, _, _ = timed_sort(src, out["md_c"], "markdup_bam(cpu, write gates off)",
                             job=markdup_bam, conf=off, device="cpu")
@@ -2488,30 +2499,28 @@ def collation_phase(work: str, n_pairs: int, seed: int, twin_pairs: int) -> dict
         f"decompresses to the same bytes")
     for k in ("md_a", "md_b", "md_c"):
         os.remove(out[k])
-    # The decision on the first chunk (the file's first records, made again
-    # by the generator) against the per-record oracle.
-    stream, _ = synth_pair_chunk(0, min(PAIR_CHUNK, n_pairs), seed)
-    soa = bam.soa_decode(stream, bam.record_offsets(stream, 0),
+    # The decision on the first chunk (the file's first records) against
+    # the per-record oracle.
+    soa = bam.soa_decode(first, bam.record_offsets(first, 0),
                          ("rec_off", "rec_len", "refid", "pos", "flag") + DEDUP_EXTRA_FIELDS)
     t0 = time.perf_counter()
-    mask = mark_duplicates_device(signature_columns(stream, soa), device="cuda")
+    mask = mark_duplicates_device(signature_columns(first, soa), device="cuda")
     t_dev = time.perf_counter() - t0
-    recs = list(bam.iter_records(stream))
+    recs = list(bam.iter_records(first))
     t0 = time.perf_counter()
     want = mark_duplicates_oracle(recs)
     t_or = time.perf_counter() - t0
     if not np.array_equal(mask, want) or not want.any():
         raise AssertionError("markdup: the decision differs from mark_duplicates_oracle")
-    log(f"markdup decision (cuda) == mark_duplicates_oracle on the first {PAIR_CHUNK} pairs "
-        f"({len(recs)} records, {int(want.sum())} duplicates; columns + decision {t_dev:.2f} s, "
-        f"oracle {t_or:.1f} s)")
-    del stream, soa, recs
+    log(f"markdup decision (cuda) == mark_duplicates_oracle on the first "
+        f"{chunks[0]['pairs'] + chunks[0]['orphans']} pairs ({len(recs)} records, "
+        f"{int(want.sum())} duplicates; columns + decision {t_dev:.2f} s, oracle {t_or:.1f} s)")
+    del first, soa, recs
     # One resident split: the device write patches the flags in the gather.
-    whole = twin_size + 1
-    with time_decision(ms):
-        st_r, wall_r, launches["markdup_resident"] = timed_sort(
-            paths["twin"], out["md_r"], f"markdup_bam(cuda, default gates, one split, "
-            f"{twin_pairs} pairs)", job=markdup_bam, device="cuda", split_size=whole)
+    one = 1 << 40
+    st_r, wall_r, launches["markdup_resident"] = timed_sort(
+        paths["twin"], out["md_r"], f"markdup_bam(cuda, default gates, one split, "
+        f"{twin_pairs} pairs)", job=markdup_bam, device="cuda", split_size=one)
     decided("markdup, one split", st_r, wall_r)
     cr = st_r.counters
     need("markdup, one split", launches["markdup_resident"], ("gather_stream", "crc32",
@@ -2523,7 +2532,7 @@ def collation_phase(work: str, n_pairs: int, seed: int, twin_pairs: int) -> dict
         paths["twin"], out["md_rh"], f"markdup_bam(cuda, host gather + lanes, one split, "
         f"{twin_pairs} pairs)", job=markdup_bam,
         conf=Configuration({WRITE_DEVICE: "false", DEFLATE_LANES: "true"}), device="cuda",
-        split_size=whole)
+        split_size=one)
     if st_rh.n_duplicates != st_r.n_duplicates:
         raise AssertionError("markdup, one split: the two write paths marked differently")
     nb = same_bytes(out["md_r"], out["md_rh"], "markdup, device write against host gather")
@@ -2539,17 +2548,12 @@ def collation_phase(work: str, n_pairs: int, seed: int, twin_pairs: int) -> dict
     need("queryname", launches["queryname"], ("inflate_members", "deflate_members"))
     if read_header(out["qn_a"]).text.split("\n")[0].split("\t")[-1] != "SO:queryname":
         raise AssertionError("queryname: the header does not say SO:queryname")
-    b = bam_batch(out["qn_a"], ("rec_off", "rec_len", "l_read_name"))
-    mv = memoryview(b.data)
-    names = [mv[o + 32 : o + 31 + ln].tobytes() for o, ln in
-             zip(b.soa["rec_off"].tolist(), b.soa["l_read_name"].tolist())]
     t0 = time.perf_counter()
-    bad = sum(1 for a, c in zip(names, names[1:]) if a != c and natural_compare(a, c) > 0)
-    if bad or len(names) != census["records"]:
+    bad = illumina_order_faults(out["qn_a"])
+    if bad or st.n_records != census["records"]:
         raise AssertionError(f"queryname: {bad} adjacent names out of natural order")
-    log(f"queryname: SO:queryname; {len(names)} names non-decreasing in natural order (checked "
+    log(f"queryname: SO:queryname; {st.n_records} names non-decreasing in natural order (checked "
         f"in {time.perf_counter() - t0:.1f} s)")
-    del b, mv, names
     os.remove(out["qn_a"])
     timed_sort(paths["twin"], out["qn_b"], f"sort_bam(cuda, queryname, write gates off, "
                f"{twin_pairs} pairs)", conf=off, device="cuda", **q)
@@ -2573,10 +2577,13 @@ def collation_phase(work: str, n_pairs: int, seed: int, twin_pairs: int) -> dict
     log(f"fixmate: pairs {got[0]}, singletons {got[1]}, orphans {got[2]} as generated; "
         f"{n_back} records read back")
     os.remove(out["fm_a"])
+    # The twins as one split (one part), so that fixmate run again on the
+    # card's output, one split again, has the same part boundaries.
+    fm = dict(job=fixmate_bam, conf=off, split_size=one)
     st_b, _, _ = timed_sort(paths["twin"], out["fm_b"], f"fixmate_bam(cuda, write gates off, "
-                            f"{twin_pairs} pairs)", job=fixmate_bam, conf=off, device="cuda")
+                            f"one split, {twin_pairs} pairs)", device="cuda", **fm)
     st_c, _, _ = timed_sort(paths["twin"], out["fm_c"], f"fixmate_bam(cpu, write gates off, "
-                            f"{twin_pairs} pairs)", job=fixmate_bam, conf=off, device="cpu")
+                            f"one split, {twin_pairs} pairs)", device="cpu", **fm)
     nb = same_bytes(out["fm_b"], out["fm_c"], "fixmate, cuda and cpu with the write gates off")
     got = [(x.n_pairs, x.n_singletons, x.n_orphans) for x in (st_b, st_c)]
     want_t = (twin_census["pairs"], twin_census["singletons"], twin_census["orphans"])
@@ -2584,21 +2591,14 @@ def collation_phase(work: str, n_pairs: int, seed: int, twin_pairs: int) -> dict
         raise AssertionError(f"fixmate twins: {got}, generator {want_t}")
     log(f"fixmate: cuda == cpu with the write gates off ({nb} bytes), pairs, singletons, "
         f"orphans {want_t} as generated")
-    for k in ("fm_b", "fm_c"):
+    os.remove(out["fm_c"])
+    timed_sort(out["fm_b"], out["fm_again"], "fixmate_bam(cuda, write gates off, one split, "
+               "its own output)", device="cuda", **fm)
+    nb = same_bytes(out["fm_b"], out["fm_again"], "fixmate run again on its own output")
+    log(f"fixmate run again on its own output of the first {twin_pairs} pairs: the same {nb} "
+        f"bytes")
+    for k in ("fm_b", "fm_again"):
         os.remove(out[k])
-    # Fixmate again on its own output, each run one split (one part), so
-    # that the part boundaries, and so the members, are the same.
-    n_idem = min(FIXMATE_PREFIX_PAIRS, n_pairs)
-    synth_pairs_bam(paths["idem"], n_idem, seed)
-    one = 1 << 40
-    timed_sort(paths["idem"], out["fm_p1"], f"fixmate_bam(cuda, {n_idem} pairs, one split)",
-               job=fixmate_bam, device="cuda", split_size=one)
-    timed_sort(out["fm_p1"], out["fm_p2"], "fixmate_bam(cuda, its own output, one split)",
-               job=fixmate_bam, device="cuda", split_size=one)
-    if bgzf_content(out["fm_p1"]) != bgzf_content(out["fm_p2"]):
-        raise AssertionError("fixmate run again on its own output: other records")
-    nb = same_bytes(out["fm_p1"], out["fm_p2"], "fixmate run again on its own output")
-    log(f"fixmate run again on its own output of the first {n_idem} pairs: the same {nb} bytes")
     for k in paths.values():
         os.remove(k)
     log(f"collation phase: {time.perf_counter() - t_phase:.1f} s")
@@ -4012,7 +4012,7 @@ def time_kernels(src: str, checks: dict, launches: dict, launches_r: dict, seed:
 # ---------------------------------------------------------------------------
 
 CODEC_MIB = 64  # the round trip's input: the sort generator's record bytes
-XLA_MIB = 4  # the general programs' inputs (8 MiB before the collation phase took the time)
+XLA_MIB = 8  # the general programs' inputs
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 peak, the CUDA cores' rate
 OPS_PER_SYMBOL = 20  # integer operations to decode one fixed-Huffman symbol (row 10's function)
 OPS_PER_WAVE = 80  # row 11's integer operations per lane and wave (the reference's function)
@@ -4629,13 +4629,9 @@ def sm_clocks() -> str:
     return f"SM clock, max: {out[0]}" if out else "SM clock not read"
 
 
-#: Each path's full depth, and the depth a run takes by default: the
-#: collation phase (1,000,000 read pairs) fits the run's 1,200 s limit only
-#: with the ingest, the call set and the CRAM corpus cut (every cut is
-#: logged).
-FULL_DEPTH = {"records": 2_000_000, "pairs": 250_000, "dup_pairs": 1_000_000,
+#: Each path's full depth; a run at another depth logs each cut.
+FULL_DEPTH = {"records": 2_000_000, "dup_pairs": 1_000_000, "pairs": 250_000,
               "variants": 4_500_000, "cram_records": 300_000}
-DEPTH = dict(FULL_DEPTH, pairs=125_000, variants=1_500_000, cram_records=150_000)
 
 
 def card_line() -> str:
@@ -4648,17 +4644,15 @@ def card_line() -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--records", type=int, default=2_000_000)
+    ap.add_argument("--records", type=int, default=FULL_DEPTH["records"])
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--pairs", type=int, default=DEPTH["pairs"],
+    ap.add_argument("--pairs", type=int, default=FULL_DEPTH["pairs"],
                     help="read pairs of the ingest phase")
-    ap.add_argument("--dup-pairs", type=int, default=1_000_000,
+    ap.add_argument("--dup-pairs", type=int, default=FULL_DEPTH["dup_pairs"],
                     help="read pairs of the collation phase (markdup, queryname, fixmate)")
-    ap.add_argument("--twin-pairs", type=int, default=TWIN_PAIRS,
-                    help="read pairs of the queryname and fixmate card/CPU twins")
-    ap.add_argument("--variants", type=int, default=DEPTH["variants"],
+    ap.add_argument("--variants", type=int, default=FULL_DEPTH["variants"],
                     help="sites of the variants phase's call set")
-    ap.add_argument("--cram-records", type=int, default=DEPTH["cram_records"],
+    ap.add_argument("--cram-records", type=int, default=FULL_DEPTH["cram_records"],
                     help="records of the CRAM phase's corpus")
     ap.add_argument("--codec-mib", type=int, default=CODEC_MIB,
                     help="MiB of record bytes of the codec phase's round trip")
@@ -4718,7 +4712,7 @@ def main() -> int:
         os.remove(res["src"])
         for k in ("lanes", "cpu", "resident", "resident_host"):  # the region phase reads "zlib"
             os.remove(os.path.join(work, f"sorted.{k}.bam"))
-        col = collation_phase(work, args.dup_pairs, args.seed, args.twin_pairs)
+        col = collation_phase(work, args.dup_pairs, args.seed)
         ing = ingest_phase(work, args.pairs, args.seed)
         rows.append(time_record_scan(ing["r1"], checks, ing["launches"]["record_scan"],
                                      "ingest_fastq(cuda), default gates"))

@@ -96,8 +96,7 @@ def natural_keys(names: List[bytes]) -> List[bytes]:
     significant length (4 bytes), its significant digits and the complement
     of its leading zeros (4 bytes), so runs compare by value, then more zeros
     first, and against any other byte as a digit does; every other byte
-    stays itself.  Sorting by these costs one key a name instead of a Python
-    comparison a pair."""
+    stays itself."""
     runs: Dict[bytes, bytes] = {}
     out = []
     for name in names:

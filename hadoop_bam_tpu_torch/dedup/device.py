@@ -118,7 +118,8 @@ def mark_duplicates_device(cols: Dict[str, np.ndarray], device: Optional[torch.d
     decided on ``device``, resolved as every entry point of the port
     resolves it: None means the card, and raises when there is none.  The
     columns go up in one upload and the mask comes back in one read-back,
-    counted into ``metrics``."""
+    counted into ``metrics``; on the card the decision's device time, by
+    CUDA events, is counted there too (``dedup.decision_device_us``)."""
     dev = resolve_device(device)
     n = len(cols["refid"])
     if n == 0:
@@ -128,8 +129,17 @@ def mark_duplicates_device(cols: Dict[str, np.ndarray], device: Optional[torch.d
     for r, k in enumerate(_COLUMNS):
         bank[r, :n] = cols[k]
     bank[_COLUMNS.index("exempt"), n:] = 1  # the padding never takes part
-    dup = _mark_core(*torch.from_numpy(bank).to(dev))[:n].cpu().numpy()
-    if dev.type == "cuda" and metrics is not None:
+    cols_d = torch.from_numpy(bank).to(dev)
+    timed = dev.type == "cuda" and metrics is not None
+    if timed:
+        span = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        span[0].record()
+    dup_d = _mark_core(*cols_d)
+    if timed:
+        span[1].record()
+    dup = dup_d[:n].cpu().numpy()
+    if timed:
         metrics.count_h2d(bank.nbytes, "dedup_cols")
         metrics.count_d2h(dup.nbytes, "dup_mask")
+        metrics.count("dedup.decision_device_us", round(span[0].elapsed_time(span[1]) * 1e3))
     return dup

@@ -94,16 +94,14 @@ def sum_base_qualities_np(
         soa["rec_off"].astype(np.int64) + 32 + soa["l_read_name"]
         + 4 * soa["n_cigar_op"].astype(np.int64) + (l_seq + 1) // 2
     )
-    total = int(l_seq.sum())
-    if total == 0:
-        return scores
-    # Every record's qualities are one run of the gathered bytes, so the
-    # sums are differences of one prefix sum at the run ends.
-    ends = np.cumsum(l_seq)
-    q = data[np.repeat(qual_off - (ends - l_seq), l_seq) + np.arange(total)]
-    counted = np.where((q >= min_quality) & (q != _QUAL_MISSING), q, 0).astype(np.int64)
-    prefix = np.concatenate(([0], np.cumsum(counted)))
-    return prefix[ends] - prefix[ends - l_seq]
+    # The records of one read length take their qualities as rows of one
+    # strided view of the bytes.
+    for length in np.unique(l_seq[l_seq > 0]).tolist():
+        rows = np.flatnonzero(l_seq == length)
+        q = np.lib.stride_tricks.sliding_window_view(data, length)[qual_off[rows]]
+        scores[rows] = np.where((q >= min_quality) & (q != _QUAL_MISSING), q, 0).sum(
+            axis=1, dtype=np.int64)
+    return scores
 
 
 def sum_base_qualities(qual: torch.Tensor, valid: torch.Tensor,

@@ -69,12 +69,21 @@ def murmurhash3_int32_batch(
     # Pad to whole 16-byte blocks plus one spare block so a row whose
     # length is an exact multiple still has an (all-zero) tail window.
     W = ((max(maxlen, 0) + 15) // 16) * 16 + 16
-    col = np.arange(W, dtype=np.int64)[None, :]
-    idx = offs[:, None] + col
-    valid = col < lens[:, None]
-    m = np.where(
-        valid, np.asarray(data)[np.clip(idx, 0, len(data) - 1)], 0
-    ).astype(np.uint8)
+    # Each row's W bytes are one row of a strided view of the buffer; the
+    # rows that start within W bytes of its end read a zero-padded copy of
+    # its last W bytes instead.
+    buf = np.asarray(data, dtype=np.uint8).reshape(-1)
+    if len(buf) < W:
+        buf = np.concatenate([buf, np.zeros(W - len(buf), np.uint8)])
+    base = len(buf) - W
+    start = np.maximum(offs, 0)
+    m = np.lib.stride_tricks.sliding_window_view(buf, W)[np.minimum(start, base)]
+    late = start > base
+    if late.any():
+        tail = np.concatenate([buf[base:], np.zeros(W, np.uint8)])
+        m[late] = np.lib.stride_tricks.sliding_window_view(tail, W)[
+            np.minimum(start[late] - base, W)]
+    m = np.where(np.arange(W)[None, :] < lens[:, None], m, 0).astype(np.uint8)
     # Little-endian 8-byte words per row: a view with an explicit byte
     # order reads them on any host.
     w64 = m.view("<u8").astype(np.uint64)
