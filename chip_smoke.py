@@ -12,10 +12,15 @@ drive ``sort_bam`` at full size on a synthetic BAM with the default gates
 port's CPU run) and with one resident split (byte-identical to the host
 gather + deflate lanes); mark duplicates, sort by name and fixmate
 1,000,000 synthetic read pairs on the card and on the CPU (the collation
-phase: byte-identical with the write gates off, the queryname and fixmate
-twins on the first 250,000 pairs, the duplicate decision against its
-per-record oracle on the first 50,000 pairs, the mask through the device
-write of one resident split, fixmate run again on its own output); drive
+phase: byte-identical with the write gates off, the markdup, queryname and
+fixmate twins on the first 250,000 pairs, the duplicate decision against
+its per-record oracle on the first 50,000 pairs, the mask through the
+device write of one resident split, fixmate run again on its own output);
+sort out of core (the out-of-core phase: the main path's input under a
+128 MiB ``memory_budget`` on the card, its content the in-core sort's, card
+against CPU byte-identical with the write gates off, and markdup, the
+queryname sort and fixmate of the first 250,000 pairs under 32 MiB, each
+decompressing to its in-core twin's bytes); drive
 ``ingest_fastq`` on 250,000 synthetic read pairs with the default gates,
 with the deflate lanes off and on the CPU (byte-identical to the card
 without lanes; the lanes' output decompresses to the same bytes), and hold
@@ -2058,6 +2063,8 @@ def main_path(work: str, n: int, seed: int) -> dict:
     (4) with one resident split and the default gates (the device part
     write), byte-identical to (5), the same split through host gather +
     deflate lanes."""
+    import torch
+
     from hadoop_bam_tpu_torch.conf import (DEFLATE_LANES, INFLATE_LANES, WRITE_DEVICE,
                                             Configuration)
 
@@ -2070,7 +2077,10 @@ def main_path(work: str, n: int, seed: int) -> dict:
     out = {k: os.path.join(work, f"sorted.{k}.bam")
            for k in ("lanes", "zlib", "cpu", "resident", "resident_host")}
     # (1) The main path: sort_bam as a user calls it on the card.
+    torch.cuda.reset_peak_memory_stats()
     st, wall, launches = timed_sort(src, out["lanes"], "cuda, default gates", device="cuda")
+    card_peak = torch.cuda.max_memory_allocated()
+    log(f"  card peak (torch.cuda.max_memory_allocated): {card_peak} bytes")
     c = st.counters
     missing = [k for k in ("inflate_members", "record_chain", "deflate_members")
                if launches[k] <= 0]
@@ -2133,7 +2143,7 @@ def main_path(work: str, n: int, seed: int) -> dict:
     log(f"device write == host gather + deflate lanes: {len(a)} bytes")
     return {"src": src, "launches": launches, "launches_resident": launches_r, "wall": wall,
             "stats": st, "cpu": st_cpu, "ratio": ratio, "sorted": out["zlib"],
-            "flagstat": flagstat_oracle(rows)}
+            "lanes": out["lanes"], "card_peak": card_peak, "flagstat": flagstat_oracle(rows)}
 
 
 # ---------------------------------------------------------------------------
@@ -2412,18 +2422,20 @@ def illumina_order_faults(path: str) -> int:
 def collation_phase(work: str, n_pairs: int, seed: int) -> dict:
     """The collation family on a synthetic paired-end BAM of ``n_pairs``
     pairs (:func:`synth_pair_chunk`).  Markdup: the card with the default
-    gates (traced), the card and the CPU with the write gates off
-    (byte-identical; the first decompresses to their bytes), its duplicates
-    counted back from the output and held to the generator, the decision on
-    the first chunk against the per-record oracle, then one resident split
-    of the generator's first ``TWIN_PAIRS`` pairs (the device write) against
-    the host gather + deflate lanes.  The queryname sort and fixmate: the
-    card with the default gates at full size (re-read: the order, the
-    header, the counts), and the card and the CPU with the write gates off
-    on the first ``TWIN_PAIRS`` pairs (byte-identical; fixmate's as one
-    split, so that fixmate run again on the card's output, one split again,
-    must give its bytes).  Returns the launches of each full-size card
-    job."""
+    gates (traced), its duplicates counted back from the output and held to
+    the generator; the card and the CPU with the write gates off on the
+    generator's first ``TWIN_PAIRS`` pairs (byte-identical); the decision
+    on the first chunk against the per-record oracle; then one resident
+    split of the first ``TWIN_PAIRS`` pairs (the device write) against the
+    host gather + deflate lanes, decompressing to the write-gates-off
+    pair's bytes.  The queryname sort and fixmate: the card with the
+    default gates at full size (re-read: the order, the header, the
+    counts), and the card and the CPU with the write gates off on the first
+    ``TWIN_PAIRS`` pairs (byte-identical; fixmate's as one split, so that
+    fixmate run again on the card's output, one split again, must give its
+    bytes).  Returns the launches of each full-size card job, and the twin
+    file with its in-core outputs (the one-split markdup, the card's
+    queryname and fixmate twins) for :func:`external_phase`."""
     from hadoop_bam_tpu_torch.conf import (DEFLATE_LANES, INFLATE_LANES, WRITE_DEVICE,
                                             Configuration)
     from hadoop_bam_tpu_torch.dedup import (DEDUP_EXTRA_FIELDS, mark_duplicates_device,
@@ -2486,19 +2498,22 @@ def collation_phase(work: str, n_pairs: int, seed: int) -> dict:
                              f"output, {census['planted_duplicates']} planted")
     log(f"  re-read: {n_marked} records flagged 0x400 = n_duplicates >= "
         f"{census['planted_duplicates']} planted")
-    st_b, wall_b, _ = timed_sort(src, out["md_b"], "markdup_bam(cuda, write gates off)",
-                                 job=markdup_bam, conf=off, device="cuda")
+    os.remove(out["md_a"])
+    # The cut that pays for the out-of-core phase: the write-gates-off pair
+    # runs on the twin file, not on the full one.
+    log(f"markdup's write-gates-off pair (cuda and cpu) cut from {n_pairs} to the first "
+        f"{twin_pairs} pairs")
+    st_b, wall_b, _ = timed_sort(paths["twin"], out["md_b"], f"markdup_bam(cuda, write gates "
+                                 f"off, {twin_pairs} pairs)", job=markdup_bam, conf=off,
+                                 device="cuda")
     decided("markdup, write gates off", st_b, wall_b)
-    st_c, _, _ = timed_sort(src, out["md_c"], "markdup_bam(cpu, write gates off)",
-                            job=markdup_bam, conf=off, device="cpu")
+    st_c, _, _ = timed_sort(paths["twin"], out["md_c"], f"markdup_bam(cpu, write gates off, "
+                            f"{twin_pairs} pairs)", job=markdup_bam, conf=off, device="cpu")
     nb = same_bytes(out["md_b"], out["md_c"], "markdup, cuda and cpu with the write gates off")
-    if bgzf_content(out["md_a"]) != bgzf_content(out["md_c"]) or not (
-            st.n_duplicates == st_b.n_duplicates == st_c.n_duplicates):
-        raise AssertionError("markdup: the default-gate output decompresses to other bytes")
-    log(f"markdup: cuda == cpu with the write gates off ({nb} bytes); the default-gate output "
-        f"decompresses to the same bytes")
-    for k in ("md_a", "md_b", "md_c"):
-        os.remove(out[k])
+    if st_b.n_duplicates != st_c.n_duplicates:
+        raise AssertionError("markdup: cuda and cpu marked differently")
+    log(f"markdup: cuda == cpu with the write gates off ({nb} bytes)")
+    os.remove(out["md_b"])
     # The decision on the first chunk (the file's first records) against
     # the per-record oracle.
     soa = bam.soa_decode(first, bam.record_offsets(first, 0),
@@ -2538,7 +2553,12 @@ def collation_phase(work: str, n_pairs: int, seed: int) -> dict:
     nb = same_bytes(out["md_r"], out["md_rh"], "markdup, device write against host gather")
     log(f"markdup: device write (with the duplicate mask) == host gather + deflate lanes: "
         f"{nb} bytes")
-    for k in ("md_r", "md_rh"):
+    if bgzf_content(out["md_r"]) != bgzf_content(out["md_c"]) or \
+            st_r.n_duplicates != st_c.n_duplicates:
+        raise AssertionError("markdup: the default-gate output decompresses to other bytes")
+    log("markdup: the one-split default-gate output decompresses to the write-gates-off "
+        "pair's bytes")
+    for k in ("md_rh", "md_c"):
         os.remove(out[k])
 
     # The queryname sort: full size on the card, the twins on the prefix.
@@ -2561,8 +2581,7 @@ def collation_phase(work: str, n_pairs: int, seed: int) -> dict:
                f"{twin_pairs} pairs)", conf=off, device="cpu", **q)
     nb = same_bytes(out["qn_b"], out["qn_c"], "queryname, cuda and cpu with the write gates off")
     log(f"queryname: cuda == cpu with the write gates off ({nb} bytes)")
-    for k in ("qn_b", "qn_c"):
-        os.remove(out[k])
+    os.remove(out["qn_c"])
 
     # Fixmate: full size on the card, the twins on the prefix.
     st, _, launches["fixmate"] = timed_sort(src, out["fm_a"], "fixmate_bam(cuda, default gates)",
@@ -2597,12 +2616,154 @@ def collation_phase(work: str, n_pairs: int, seed: int) -> dict:
     nb = same_bytes(out["fm_b"], out["fm_again"], "fixmate run again on its own output")
     log(f"fixmate run again on its own output of the first {twin_pairs} pairs: the same {nb} "
         f"bytes")
-    for k in ("fm_b", "fm_again"):
-        os.remove(out[k])
-    for k in paths.values():
-        os.remove(k)
+    os.remove(out["fm_again"])
+    os.remove(paths["full"])
     log(f"collation phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches}
+    # The twin file and its in-core outputs stay for the out-of-core phase.
+    return {"launches": launches, "twin": paths["twin"], "twin_pairs": twin_pairs,
+            "markdup": out["md_r"], "n_duplicates": st_r.n_duplicates, "queryname": out["qn_b"],
+            "fixmate": out["fm_b"], "fixmate_counts": want_t}
+
+
+# ---------------------------------------------------------------------------
+# The out-of-core sort
+# ---------------------------------------------------------------------------
+
+#: ~479,000 of the main path's 280-byte records: the scale of Picard SortSam's
+#: MAX_RECORDS_IN_RAM (500,000).
+EXTERNAL_BUDGET = 128 << 20
+TWIN_BUDGET = 32 << 20  # the collation family's budget on the twin file
+
+
+def external_phase(work: str, mp: dict, col: dict, n: int) -> dict:
+    """The out-of-core sort (``memory_budget``) on the inputs and outputs of
+    :func:`main_path` and :func:`collation_phase`.  (a) The main path's
+    input at ``EXTERNAL_BUDGET`` on the card with the default gates: runs,
+    ranges and ``peak_bytes`` within the budget, rows 1 and 3 launched
+    (row 3 once a range), rows 2, 3b and 3c not, every range tiered down
+    ``no_residency``, no member tiered down, the in-core sort's records in
+    its order, and a card peak below the in-core sort's.  (b) The same
+    budget with the write gates off on the card and the CPU, byte-identical;
+    on the card every chunk's and range's ``torch.sort`` permutation is held
+    to NumPy's stable argsort.  (c) Markdup, the queryname sort and fixmate
+    on the twin file at ``TWIN_BUDGET``, each decompressing to its in-core
+    twin's bytes with the same counts.  A run cut below full depth (``n``
+    records, the twin file's pairs) cuts both budgets in proportion, so
+    that each job still spills several runs; the cut is logged."""
+    import torch
+
+    from hadoop_bam_tpu_torch import pipeline as tp
+    from hadoop_bam_tpu_torch.conf import (DEFLATE_LANES, INFLATE_LANES, WRITE_DEVICE,
+                                            Configuration)
+
+    t_phase = time.perf_counter()
+    out = {k: os.path.join(work, f"external.{k}.bam") for k in ("a", "b", "c", "md", "qn", "fm")}
+    budget = max(4 << 20, EXTERNAL_BUDGET * n // FULL_DEPTH["records"])
+    twin_budget = max(4 << 20, TWIN_BUDGET * col["twin_pairs"] // TWIN_PAIRS)
+    if (budget, twin_budget) != (EXTERNAL_BUDGET, TWIN_BUDGET):
+        log(f"out-of-core budgets cut from {EXTERNAL_BUDGET} and {TWIN_BUDGET} to {budget} and "
+            f"{twin_budget} bytes")
+    mib = f"{budget / (1 << 20):g}"
+    torch.cuda.reset_peak_memory_stats()
+    st, _, launches = timed_sort(mp["src"], out["a"], f"sort_bam(cuda, memory_budget {mib} "
+                                 f"MiB, default gates)", device="cuda",
+                                 memory_budget=budget)
+    card_peak = torch.cuda.max_memory_allocated()
+    c = st.counters
+    log(f"  runs {st.n_runs}, ranges {st.n_ranges}, peak_bytes {st.peak_bytes} (budget "
+        f"{budget}); card peak {card_peak} bytes, against {mp['card_peak']} for the "
+        f"in-core default-gate sort of the same input")
+    if st.n_runs < 4 or st.n_ranges < 4 or st.peak_bytes > budget:
+        raise AssertionError(f"out of core: {st.n_runs} runs, {st.n_ranges} ranges, peak "
+                             f"{st.peak_bytes}")
+    if launches["inflate_members"] <= 0 or launches["deflate_members"] != st.n_ranges:
+        raise AssertionError(f"out of core: rows 1 and 3 launched {launches}")
+    if launches["record_chain"] or launches["gather_stream"] or launches["crc32"]:
+        raise AssertionError(f"out of core: rows 2, 3b or 3c launched {launches}")
+    if c.get("bam.device_write_tierdown.no_residency", 0) != st.n_ranges:
+        raise AssertionError(f"out of core: {c.get('bam.device_write_tierdown.no_residency')} "
+                             f"no_residency tier-downs of {st.n_ranges} ranges")
+    if c.get("flate.lanes_tierdown", 0) or c.get("flate.deflate_lanes_tierdown", 0):
+        raise AssertionError("out of core: members tiered down on clean input")
+    if card_peak >= mp["card_peak"]:
+        raise AssertionError(f"out of core: card peak {card_peak} not below the in-core "
+                             f"{mp['card_peak']}")
+    if bgzf_content(out["a"]) != bgzf_content(mp["lanes"]):
+        raise AssertionError("out of core: the output decompresses to other bytes than the "
+                             "in-core sort's")
+    log(f"out of core: {st.n_ranges} ranges, each one row-3 launch and one no_residency "
+        f"tier-down; rows 2, 3b, 3c not launched; decompresses to the in-core sort's bytes")
+    os.remove(out["a"])
+
+    # (b) The write gates off: card and CPU, byte-identical, each chunk's
+    # and range's card sort held to NumPy's stable argsort.
+    off = Configuration({INFLATE_LANES: "true", DEFLATE_LANES: "false", WRITE_DEVICE: "false"})
+    real = tp._sort_perm
+    held = []
+
+    def sort_perm_held(keys, backend, dev, metrics):
+        perm = real(keys, backend, dev, metrics)
+        if not np.array_equal(perm, np.argsort(keys, kind="stable")):
+            raise AssertionError(f"torch.sort on the card differs from numpy's stable argsort "
+                                 f"on {len(keys)} keys")
+        held.append(len(keys))
+        return perm
+
+    tp._sort_perm = sort_perm_held
+    try:
+        st_b, _, _ = timed_sort(mp["src"], out["b"], f"sort_bam(cuda, memory_budget {mib} MiB, "
+                                f"write gates off)", conf=off, device="cuda",
+                                memory_budget=budget)
+    finally:
+        tp._sort_perm = real
+    if len(held) != st_b.n_runs + st_b.n_ranges:
+        raise AssertionError(f"{len(held)} sorts held, {st_b.n_runs} runs + {st_b.n_ranges} "
+                             f"ranges")
+    log(f"torch.sort(stable) on the card == numpy's stable argsort on {len(held)} chunks and "
+        f"ranges ({sum(held)} keys)")
+    timed_sort(mp["src"], out["c"], f"sort_bam(cpu, memory_budget {mib} MiB, write gates off)",
+               conf=off, device="cpu", memory_budget=budget)
+    nb = same_bytes(out["b"], out["c"], "out of core, cuda and cpu with the write gates off")
+    log(f"out of core: cuda == cpu with the write gates off ({nb} bytes)")
+    for k in ("b", "c"):
+        os.remove(out[k])
+
+    # (c) The collation family under a budget on the twin file.
+    twin = col["twin"]
+    tag = (f"memory_budget {twin_budget / (1 << 20):g} MiB, default gates, "
+           f"{col['twin_pairs']} pairs")
+    job_launches = {"sort": launches}
+    st, _, job_launches["markdup"] = timed_sort(twin, out["md"], f"markdup_bam(cuda, {tag})",
+                                                job=tp.markdup_bam, device="cuda",
+                                                memory_budget=twin_budget)
+    if st.n_runs < 4 or st.n_duplicates != col["n_duplicates"] or \
+            bgzf_content(out["md"]) != bgzf_content(col["markdup"]):
+        raise AssertionError(f"out-of-core markdup: {st.n_runs} runs, {st.n_duplicates} "
+                             f"duplicates against {col['n_duplicates']}, or other bytes")
+    log(f"out-of-core markdup: {st.n_runs} runs, {st.n_duplicates} duplicates; decompresses to "
+        f"the in-core one-split markdup's bytes")
+    st, _, job_launches["queryname"] = timed_sort(twin, out["qn"], f"sort_bam(cuda, queryname, "
+                                                  f"{tag})", device="cuda",
+                                                  sort_order="queryname",
+                                                  memory_budget=twin_budget)
+    if bgzf_content(out["qn"]) != bgzf_content(col["queryname"]):
+        raise AssertionError("out-of-core queryname: other bytes than the in-core twin's")
+    log(f"out-of-core queryname: {st.n_runs} runs; decompresses to the in-core twin's bytes")
+    st, _, job_launches["fixmate"] = timed_sort(twin, out["fm"], f"fixmate_bam(cuda, {tag})",
+                                                job=tp.fixmate_bam, device="cuda",
+                                                memory_budget=twin_budget)
+    got = (st.n_pairs, st.n_singletons, st.n_orphans)
+    if got != col["fixmate_counts"] or bgzf_content(out["fm"]) != bgzf_content(col["fixmate"]):
+        raise AssertionError(f"out-of-core fixmate: pairs, singletons, orphans {got} against "
+                             f"{col['fixmate_counts']}, or other bytes")
+    log(f"out-of-core fixmate: pairs, singletons, orphans {got}; decompresses to the in-core "
+        f"twin's bytes")
+    for k in ("md", "qn", "fm"):
+        os.remove(out[k])
+    for k in (twin, col["markdup"], col["queryname"], col["fixmate"]):
+        os.remove(k)
+    log(f"out-of-core phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": job_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4709,10 +4870,12 @@ def main() -> int:
         res = main_path(work, args.records, args.seed)
         rows = time_kernels(res["src"], checks, res["launches"], res["launches_resident"],
                             args.seed)
-        os.remove(res["src"])
-        for k in ("lanes", "cpu", "resident", "resident_host"):  # the region phase reads "zlib"
+        for k in ("cpu", "resident", "resident_host"):  # the region phase reads "zlib"
             os.remove(os.path.join(work, f"sorted.{k}.bam"))
         col = collation_phase(work, args.dup_pairs, args.seed)
+        ext = external_phase(work, res, col, args.records)
+        os.remove(res["src"])
+        os.remove(res["lanes"])
         ing = ingest_phase(work, args.pairs, args.seed)
         rows.append(time_record_scan(ing["r1"], checks, ing["launches"]["record_scan"],
                                      "ingest_fastq(cuda), default gates"))
@@ -4729,8 +4892,9 @@ def main() -> int:
                              checks)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    for row in rows:  # the launches of the collation phase's card jobs
+    for row in rows:  # the launches of the collation and out-of-core phases' card jobs
         row["collation_launches"] = {job: n[row["name"]] for job, n in col["launches"].items()}
+        row["external_launches"] = {job: n[row["name"]] for job, n in ext["launches"].items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

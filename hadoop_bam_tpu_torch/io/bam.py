@@ -79,6 +79,7 @@ class ChunkedRecords:
     soa: dict
     device_flat: Optional[torch.Tensor] = None
     chunk_base: Optional[np.ndarray] = None
+    keys: Optional[np.ndarray] = None  # int64, with ``from_batches(with_keys=True)``
 
     @property
     def n_records(self) -> int:
@@ -91,14 +92,16 @@ class ChunkedRecords:
 
     @classmethod
     def from_batches(
-        cls, batches: Sequence[RecordBatch], keep_device: bool = False
+        cls, batches: Sequence[RecordBatch], keep_device: bool = False, with_keys: bool = False
     ) -> "ChunkedRecords":
         """``keep_device`` keeps the windows as :attr:`device_flat` (one
         ``torch.cat``, no copy for a single batch), and only when every
-        batch has one, as the reference does."""
+        batch has one, as the reference does; ``with_keys`` concatenates
+        the batches' host keys into :attr:`keys`."""
         if not batches:
             return cls([], np.empty(0, np.int32), {
-                "rec_off": np.empty(0, np.int64), "rec_len": np.empty(0, np.int64)})
+                "rec_off": np.empty(0, np.int64), "rec_len": np.empty(0, np.int64)},
+                keys=np.empty(0, np.int64) if with_keys else None)
         flat = base = None
         if keep_device and all(b.device_data is not None for b in batches):
             parts = [b.device_data for b in batches]
@@ -115,6 +118,7 @@ class ChunkedRecords:
             },
             device_flat=flat,
             chunk_base=base,
+            keys=np.concatenate([b.keys for b in batches]) if with_keys else None,
         )
 
 
@@ -508,7 +512,8 @@ def read_virtual_range(
             break  # <= 3 trailing bytes at EOF
         p = resume
 
-    arr = buf[:plen]
+    # A spill grows the buffer by doubling: keep only the payload's bytes.
+    arr = buf[:plen] if buf is out else buf[:plen].copy()
     offsets = np.concatenate(rec_parts) if rec_parts else np.empty(0, dtype=np.int64)
     soa = bam.soa_decode(arr, offsets, fields=fields) if len(offsets) else _empty_soa(fields)
     if interval_chunks is not None and len(offsets):
@@ -547,6 +552,9 @@ def _voffset_mask(offsets, block_uoffs, block_voffs, us_l, chunks) -> np.ndarray
     return keep
 
 
+_GATHER_BLOCK = 8192  # records joined at a time by gather_record_array
+
+
 def gather_record_array(batch, order: Optional[np.ndarray] = None) -> np.ndarray:
     """Size word + body of every record, permuted by ``order``."""
     soa = batch.soa
@@ -563,10 +571,16 @@ def gather_record_array(batch, order: Optional[np.ndarray] = None) -> np.ndarray
     if order is not None:
         order = np.asarray(order, dtype=np.int64)
         cid, off, end = cid[order], off[order], end[order]
-    pieces = [
-        views[c][s - 4 : e] for c, s, e in zip(cid.tolist(), off.tolist(), end.tolist())
-    ]
-    return np.frombuffer(b"".join(pieces), dtype=np.uint8)
+    out = np.empty(int((end - off).sum()) + 4 * len(off), dtype=np.uint8)
+    at = 0
+    # A block of records at a time, so that the slices held stay few.
+    for b0 in range(0, len(off), _GATHER_BLOCK):
+        b1 = b0 + _GATHER_BLOCK
+        block = b"".join([views[c][s - 4 : e] for c, s, e in zip(
+            cid[b0:b1].tolist(), off[b0:b1].tolist(), end[b0:b1].tolist())])
+        out[at : at + len(block)] = np.frombuffer(block, dtype=np.uint8)
+        at += len(block)
+    return out
 
 
 def patch_flags(stream: np.ndarray, rec_starts: np.ndarray, bits: int = 0x400) -> None:

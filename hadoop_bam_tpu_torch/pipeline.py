@@ -1,10 +1,12 @@
-"""The in-core jobs over BAM and CRAM files on one device: the coordinate
-and queryname sorts, duplicate marking and fixmate.
+"""The jobs over BAM and CRAM files on one device: the coordinate and
+queryname sorts, duplicate marking and fixmate, in-core or under a memory
+budget.
 
-Counterpart of ``hadoop_bam_tpu/pipeline.py`` ``sort_bam`` (in-core,
-coordinate or queryname order, with or without duplicate marking),
+Counterpart of ``hadoop_bam_tpu/pipeline.py`` ``sort_bam`` (coordinate or
+queryname order, with or without duplicate marking, in-core or out of core),
 ``markdup_bam``, ``fixmate_bam``, ``_input_format``, ``_read_any_header``,
-``_finish_device_parse`` and ``_unmapped_hash32``.  Splits are read
+``_finish_device_parse``, ``_unmapped_hash32``, ``_sort_perm``,
+``_sort_bam_external`` and ``_queryname_rank_column``.  Splits are read
 double-buffered; a BAM split's members inflate on the device and the chain
 and key kernels build its int64 keys from the resident window (a CRAM
 split's rANS blocks decode on the device, its records and keys on the
@@ -16,6 +18,10 @@ on the device from the resident windows (or, when a split has no window,
 gathered on the host and deflated by the lanes), framed on the host and
 merged into one BAM.  Fixmate rewrites each split on the host and writes
 it as one part.
+
+Under ``memory_budget`` the sort spills sorted runs (:mod:`~.io.runs`) of
+about one budget each, then merges them by exact key ranges of at most one
+budget each, one range a part, written one at a time.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from .device_stream import DeviceStream
 from .io.anysam import AnySamInputFormat, infer_from_file_path
 from .io.bam import SORT_FIELDS, BamInputFormat, ChunkedRecords, RecordBatch, read_header, write_part_fast
 from .io.merger import SUCCESS_MARKER, merge_bam_parts
+from .io.runs import Run, input_identity, load_manifest, plan_ranges, write_manifest, write_run
 from .io.splits import FileVirtualSplit
 from .ops.decode import patch_unmapped_keys
 from .ops.sort import sort_keys
@@ -72,9 +79,17 @@ class SortStats:
     #: launches, signature columns), sort (validation, hash patch, sort or
     #: name collation and ranking, permutation fetch), markdup (the
     #: duplicate decision; duplicate-marking jobs only), write (part gathers
-    #: and deflates, merge).
+    #: and deflates, merge).  Under a memory budget: prepass (queryname
+    #: only: the read for the collation columns and the ranking), spill
+    #: (split reads, chunk sorts, run writes), markdup, plan (the key
+    #: ranges), merge (range loads and sorts, part writes, merge).
     seconds: Dict[str, float] = field(default_factory=dict)
     n_duplicates: int = 0  # records flagged 0x400 by the duplicate marking
+    n_runs: int = 0  # spill runs (out-of-core only)
+    n_ranges: int = 0  # merge ranges = parts (out-of-core only)
+    #: The largest chunk or range materialized, in record bytes
+    #: (out-of-core only).
+    peak_bytes: int = 0
 
 
 @dataclass
@@ -177,12 +192,29 @@ def sort_bam(
     ``max_attempts`` is taken for the reference's signature and is inert:
     parts are written once, with no retry executor yet (ROADMAP A.2).
 
+    ``memory_budget`` (bytes of decoded record stream) sorts out of core,
+    as the reference does: splits are clamped to ``memory_budget // 16``
+    (at least 64 KiB), chunks of about one budget are sorted (``backend``:
+    on ``device``, or a NumPy argsort) and spilled as runs under
+    ``part_dir/spill`` (else a temporary directory), the runs are cut into
+    exact key ranges of at most one budget, and each range is loaded,
+    stable-sorted and written as one part, one range at a time (backend
+    "external[device]" or "external[host]").  Keys are host keys; parts
+    carry no resident window, so each tiers down ``no_residency`` to the
+    host gather and the deflate lanes.  Duplicate marking adds a read-order
+    index to each run; the queryname order first reads the splits once for
+    the name ranks, which become the keys.  With a persistent ``part_dir``
+    a completed spill phase is certified by ``spill/manifest.json``, and a
+    rerun on the same inputs and options reuses the runs (counter
+    ``sort_bam.resume_spill_reused``) and rewrites every part.
+
     ``errors`` (default ``hadoopbam.errors``, else "strict") and
     ``sort_order`` are checked first, with the reference's ``ValueError``
-    outside their domains, then the queryname combinations.  Not ported yet
-    (each raises ``NotImplementedError``): ``memory_budget``, ``mesh`` /
-    ``distributed`` (coordinate order), ``errors="salvage"`` and the serve
-    job's ``resource_cache`` / ``deadline``."""
+    outside their domains, then the queryname combinations, then
+    ``memory_budget`` with a mesh or a true ``device_parse``.  Not ported
+    yet (each raises ``NotImplementedError``): ``mesh`` / ``distributed``
+    (coordinate order), ``errors="salvage"`` and the serve job's
+    ``resource_cache`` / ``deadline``."""
     if backend not in ("device", "host"):
         raise ValueError(f"backend must be 'device' or 'host', got {backend!r}")
     if errors is None:
@@ -217,13 +249,23 @@ def sort_bam(
                 "device_parse builds coordinate keys; queryname keys "
                 "come from the collation engine"
             )
+    if memory_budget is not None:
+        if mesh is not None or distributed is not None:
+            raise ValueError(
+                "memory_budget is single-host; use the multi-host runner "
+                "for distributed out-of-core sorts"
+            )
+        if device_parse:
+            raise ValueError(
+                "device_parse is not supported with memory_budget: spill "
+                "runs sort host-side (the device-resident parse applies to "
+                "the in-memory path only)"
+            )
     dev = resolve_device(device)
     if isinstance(in_paths, str):
         in_paths = [in_paths]
     if resource_cache is not None or deadline is not None:
         raise _not_ported("deadline / resource_cache (the serve sort job)", "A.11")
-    if memory_budget is not None:
-        raise _not_ported("memory_budget (the out-of-core sort)", "A.4")
     if mesh is not None or distributed is not None:
         raise _not_ported("mesh / distributed sorting", "A.10")
     if errors != "strict":
@@ -233,6 +275,18 @@ def sort_bam(
 
     fmt = _input_format(conf, in_paths)
     header = _read_any_header(fmt, in_paths[0]).with_sort_order(sort_order)
+    if memory_budget is not None:
+        # A split is the memory floor (it inflates as one batch): keep its
+        # compressed size well under the budget, as the reference does.
+        splits = fmt.get_splits(in_paths, split_size=_budget_split_size(split_size,
+                                                                         memory_budget))
+        t0 = time.perf_counter()
+        key_column = _queryname_rank_column(fmt, splits, stream) if queryname else None
+        seconds = {"prepass": time.perf_counter() - t0} if queryname else {}
+        return _sort_bam_external(
+            fmt, splits, header, out_path, memory_budget, level, backend,
+            write_splitting_bai, part_dir, stream, mark_duplicates, sort_order, key_column,
+            seconds)
     splits = fmt.get_splits(in_paths, split_size=split_size)
     if backend == "host" or queryname:
         device_parse = False
@@ -363,8 +417,13 @@ def fixmate_bam(
     buckets on the host; pass B rewrites each split by the edit plan and
     writes it as one part, deflated per ``hadoopbam.deflate.lanes`` (host
     zlib at ``level`` when off).  The header is the input's: fixmate
-    changes no order.  ``max_attempts`` is inert, as in ``sort_bam``.  Not
-    ported yet (each raises ``NotImplementedError``): ``memory_budget`` and
+    changes no order.  ``max_attempts`` is inert, as in ``sort_bam``.
+
+    With ``memory_budget`` the splits are clamped as ``sort_bam``'s are,
+    pass A keeps no batch, and pass B reads each split again (backend
+    "collate-fixmate[budget]"): the record bytes held stay bounded while
+    the columns (~20 B a record + the name and CIGAR bytes) stay in memory.
+    Not ported yet (raises ``NotImplementedError``):
     ``errors="salvage"``."""
     if isinstance(in_paths, str):
         in_paths = [in_paths]
@@ -375,24 +434,25 @@ def fixmate_bam(
     if errors not in ("strict", "salvage"):
         raise ValueError(f"errors must be strict|salvage, got {errors!r}")
     dev = resolve_device(device)
-    if memory_budget is not None:
-        raise _not_ported("memory_budget (the out-of-core fixmate)", "A.4")
     if errors != "strict":
         raise _not_ported(f"errors={errors!r}", "A.7")
     stream = DeviceStream(dev, conf=conf)
     fmt = _input_format(conf, in_paths)
     header = _read_any_header(fmt, in_paths[0])
+    if memory_budget is not None:
+        split_size = _budget_split_size(split_size, memory_budget)
     splits = fmt.get_splits(in_paths, split_size=split_size)
+    keep_batches = memory_budget is None
 
     t_read = time.perf_counter()
-    batches: List[RecordBatch] = []
+    batches: List[Optional[RecordBatch]] = []
     cols_parts: List[dict] = []
     row_bases = [0]
     for b in stream.read_splits(fmt, splits, fields=FIXMATE_FIELDS, with_keys=False):
         cols_parts.append(collation_columns(b.data, b.soa, with_cigars=True))
         b.device_data = None  # the rewrite is on the host
         row_bases.append(row_bases[-1] + b.n_records)
-        batches.append(b)
+        batches.append(b if keep_batches else None)
     n = row_bases[-1]
     stream.metrics.count("fixmate.records", n)
 
@@ -406,6 +466,10 @@ def fixmate_bam(
 
     def part_of(pi: int):
         b, batches[pi] = batches[pi], None  # the split's bytes die with its part
+        if b is None:  # under a budget: pass B reads the split again
+            b = fmt.read_split(splits[pi], fields=FIXMATE_FIELDS, with_keys=False,
+                               stream=stream)
+            b.device_data = None
         return apply_fixmate(b, edits, row_bases[pi]), None, None
 
     t_write = time.perf_counter()
@@ -416,7 +480,21 @@ def fixmate_bam(
     seconds = {"read": t_collate - t_read, "collate": t_write - t_collate,
                "write": time.perf_counter() - t_write}
     return FixmateStats(n, len(splits), edits.counts["pairs"], edits.counts["singletons"],
-                        edits.counts["orphans"], "collate-fixmate", counters, seconds)
+                        edits.counts["orphans"],
+                        "collate-fixmate" + ("[budget]" if memory_budget is not None else ""),
+                        counters, seconds)
+
+
+@contextlib.contextmanager
+def _job_dir(part_dir: Optional[str], out_path: str):
+    """``part_dir`` (created if need be), else a temporary directory beside
+    ``out_path``, removed on exit."""
+    if part_dir is not None:
+        os.makedirs(part_dir, exist_ok=True)
+        yield part_dir
+        return
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(out_path)) or ".") as td:
+        yield td
 
 
 def _write_job(out_path, header, part_dir, n_parts, part_of, level, write_splitting_bai,
@@ -424,13 +502,7 @@ def _write_job(out_path, header, part_dir, n_parts, part_of, level, write_splitt
     """The parts in ``part_dir`` (else a temporary directory beside
     ``out_path``), then their merge under ``header``.  ``n_parts`` 0 writes
     one empty part, as the reference's fixmate of no split does."""
-    with contextlib.ExitStack() as stack:
-        if part_dir is not None:
-            td = part_dir
-            os.makedirs(td, exist_ok=True)
-        else:
-            td = stack.enter_context(tempfile.TemporaryDirectory(
-                dir=os.path.dirname(os.path.abspath(out_path)) or "."))
+    with _job_dir(part_dir, out_path) as td:
         _write_parts(td, n_parts, part_of, level, write_splitting_bai, workers, stream,
                      device_write)
         merge_bam_parts(td, out_path, header, write_splitting_bai=write_splitting_bai)
@@ -471,6 +543,217 @@ def _write_parts(td, n_parts, part_of, level, write_splitting_bai, workers, stre
     with ThreadPoolExecutor(workers) as pool:
         list(pool.map(write_one, range(max(1, n_parts))))
     open(os.path.join(td, SUCCESS_MARKER), "wb").close()
+
+
+def _budget_split_size(split_size: int, memory_budget: int) -> int:
+    """The split size under a budget: at most ``memory_budget // 16``
+    (BGZF inflates 3-5x, past 10x on low-entropy data), at least 64 KiB."""
+    return max(64 << 10, min(split_size, memory_budget // 16))
+
+
+def _queryname_rank_column(fmt, splits, stream: DeviceStream) -> np.ndarray:
+    """The out-of-core queryname prepass: one read of the splits for their
+    collation columns, the name collation on the stream's device, and each
+    record's output rank in read order: unique int64 keys for the spill
+    runs."""
+    cols: List[dict] = []
+    for b in stream.read_splits(fmt, splits, fields=SORT_FIELDS + ("l_read_name",),
+                                with_keys=False):
+        cols.append(collation_columns(b.data, b.soa))
+        b.device_data = None
+    perm, _ = queryname_perm(concat_collation(cols), device=stream.device,
+                             metrics=stream.metrics)
+    rank = np.empty(len(perm), dtype=np.int64)
+    rank[perm] = np.arange(len(perm), dtype=np.int64)
+    return rank
+
+
+def _sort_perm(keys: np.ndarray, backend: str, dev: torch.device, metrics: Metrics) -> np.ndarray:
+    """Stable sort permutation of a key column: ``sort_keys`` on ``dev``
+    (``backend`` "device"), else NumPy's stable argsort (the oracle)."""
+    if backend == "device" and len(keys):
+        t = torch.from_numpy(np.ascontiguousarray(keys, dtype=np.int64)).to(dev)
+        if dev.type == "cuda":
+            metrics.count_h2d(t.numel() * 8, "keys")
+        return _fetch_perm(sort_keys(t)[1], metrics)
+    return np.argsort(keys, kind="stable")
+
+
+def _load_range(runs: List[Run], cuts, dup_mask: Optional[np.ndarray]):
+    """One key range as a batch: each run's slice read from disk into one
+    buffer, in run order, and the range rows' duplicate flags through the
+    runs' read-order index.  Returns ``(batch, dup_rows)``."""
+    live = [(r, i0, i1) for r, (i0, i1) in enumerate(cuts) if i1 > i0]
+    data = np.empty(sum(runs[r].bytes_between(i0, i1) for r, i0, i1 in live), dtype=np.uint8)
+    keys_l, off_l, len_l, orig_l = [], [], [], []
+    base = 0
+    for r, i0, i1 in live:
+        size = runs[r].bytes_between(i0, i1)
+        runs[r].slice_stream(i0, i1, out=data[base : base + size])
+        offs = np.asarray(runs[r].offs[i0 : i1 + 1], dtype=np.int64)
+        off_l.append(base + offs[:-1] - offs[0] + 4)  # body starts
+        len_l.append(np.diff(offs) - 4)
+        keys_l.append(np.asarray(runs[r].keys[i0:i1], dtype=np.int64))
+        if dup_mask is not None:
+            orig_l.append(np.asarray(runs[r].orig_idx[i0:i1], dtype=np.int64))
+        base += size
+    if not live:
+        soa = {"rec_off": np.empty(0, np.int64), "rec_len": np.empty(0, np.int64)}
+        return RecordBatch(soa=soa, data=data, keys=np.empty(0, np.int64)), None
+    soa = {"rec_off": np.concatenate(off_l), "rec_len": np.concatenate(len_l)}
+    batch = RecordBatch(soa=soa, data=data, keys=np.concatenate(keys_l))
+    return batch, (dup_mask[np.concatenate(orig_l)] if dup_mask is not None else None)
+
+
+def _sort_bam_external(fmt, splits, header, out_path: str, memory_budget: int, level: int,
+                       backend: str, write_splitting_bai: bool, part_dir: Optional[str],
+                       stream: DeviceStream, mark_duplicates: bool, sort_order: str,
+                       key_column: Optional[np.ndarray], seconds: Dict[str, float]) -> SortStats:
+    """Bounded-memory sort: spill sorted runs, merge by exact key ranges.
+
+    Phase 1 reads the splits in file order and gathers decoded batches
+    until about one budget of record bytes is held, sorts that chunk
+    (:func:`_sort_perm`) and spills it as a run (:func:`~.io.runs.write_run`).
+    Phase 2 cuts the runs' union into key ranges of at most one budget
+    (:func:`~.io.runs.plan_ranges`), loads each range's slices in run order,
+    stable-sorts them (ties keep run order, so the output is the one-pass
+    stable sort's) and writes the range as one part, one range at a time so
+    that one budget bounds the peak.  ``key_column`` (int64, read order)
+    replaces the coordinate keys: the queryname ranks.  With
+    ``mark_duplicates`` each run carries every record's read-order index and
+    the job's duplicate mask is decided once between the phases.
+
+    With a persistent ``part_dir``, ``spill/manifest.json`` (written last,
+    after the runs and ``dupmask.npy``) certifies a completed phase 1; a
+    rerun whose inputs, budget, duplicate marking and order match it skips
+    phase 1.  A manifest that does not match is ignored and phase 1 runs
+    again."""
+    dev = stream.device
+    metrics = stream.metrics
+    read_fields = (tuple(dict.fromkeys(SORT_FIELDS + DEDUP_EXTRA_FIELDS)) if mark_duplicates
+                   else SORT_FIELDS)
+    with _job_dir(part_dir, out_path) as td:
+        spill_dir = os.path.join(td, "spill")
+        os.makedirs(spill_dir, exist_ok=True)
+
+        # Phase 0: a completed spill phase of the same job, when part_dir
+        # persists.
+        identity = None
+        if part_dir is not None:
+            try:
+                identity = input_identity(list(dict.fromkeys(s.path for s in splits)))
+            except OSError:
+                identity = None
+        dupmask_path = os.path.join(spill_dir, "dupmask.npy")
+        manifest = (load_manifest(spill_dir, identity, memory_budget, mark_duplicates,
+                                  sort_order=sort_order) if identity is not None else None)
+        if manifest is not None and mark_duplicates and not os.path.exists(dupmask_path):
+            manifest = None
+
+        dup_mask = None
+        n_dup = 0
+        peak = 0
+        t_spill = time.perf_counter()
+        if manifest is not None:
+            n = int(manifest["n_records"])
+            run_count = int(manifest["run_count"])
+            metrics.count("sort_bam.resume_spill_reused", 1)
+            if mark_duplicates:
+                dup_mask = np.load(dupmask_path)
+                n_dup = int(dup_mask.sum())
+            t_markdup = time.perf_counter()
+        else:
+            # Phase 1: the splits in read order into sorted runs.
+            n = 0
+            run_count = 0
+            acc: List[RecordBatch] = []
+            acc_bytes = 0
+            sig_cols: List[dict] = []
+
+            def flush() -> None:
+                nonlocal run_count, acc, acc_bytes, peak
+                if not acc:
+                    return
+                merged = ChunkedRecords.from_batches(acc, with_keys=True)
+                peak = max(peak, acc_bytes)
+                perm = _sort_perm(merged.keys, backend, dev, metrics)
+                # Runs flush in read order: this chunk holds records
+                # [n - k, n) of the job.
+                orig = (np.arange(n - merged.n_records, n, dtype=np.int64)
+                        if mark_duplicates else None)
+                write_run(spill_dir, run_count, merged, perm, orig_idx=orig)
+                run_count += 1
+                acc = []
+                acc_bytes = 0
+
+            for b in stream.read_splits(fmt, splits, fields=read_fields,
+                                        with_keys=key_column is None):
+                if key_column is not None:
+                    b.keys = key_column[n : n + b.n_records]
+                if mark_duplicates:  # from the whole SoA, before it is trimmed
+                    sig_cols.append(signature_columns(b.data, b.soa))
+                b.soa = {"rec_off": b.soa["rec_off"], "rec_len": b.soa["rec_len"]}
+                # Runs live on disk: a window kept on the card would stay
+                # pinned there until its run flushes.
+                b.device_data = None
+                if acc and acc_bytes + len(b.data) > memory_budget:
+                    flush()
+                n += b.n_records
+                acc.append(b)
+                acc_bytes += len(b.data)
+                if acc_bytes >= memory_budget:
+                    flush()
+            flush()
+
+            t_markdup = time.perf_counter()
+            if mark_duplicates and n:
+                dup_mask = mark_duplicates_device(concat_columns(sig_cols), device=dev,
+                                                  metrics=metrics)
+                n_dup = int(dup_mask.sum())
+            sig_cols = []
+
+            if identity is not None:
+                # Sidebands first, the manifest last: a manifest on disk
+                # certifies everything it names.
+                if dup_mask is not None:
+                    with open(dupmask_path + ".tmp", "wb") as f:
+                        np.save(f, dup_mask)
+                    os.replace(dupmask_path + ".tmp", dupmask_path)
+                write_manifest(spill_dir, identity, n_records=n, run_count=run_count,
+                               memory_budget=memory_budget, mark_duplicates=mark_duplicates,
+                               sort_order=sort_order)
+        metrics.count("sort_bam.records", n)
+        metrics.count("sort_bam.splits", len(splits))
+        metrics.count("sort_bam.runs", run_count)
+        if n_dup:
+            metrics.count("sort_bam.duplicates", n_dup)
+
+        # Phase 2: the exact key-range merge.
+        t_plan = time.perf_counter()
+        runs = [Run.open(spill_dir, k) for k in range(run_count)]
+        ranges = plan_ranges(runs, memory_budget) if runs else []
+        metrics.count("sort_bam.ranges", len(ranges))
+
+        def part_of(pi: int):
+            nonlocal peak
+            batch, dup_rows = _load_range(runs, ranges[pi], dup_mask)
+            peak = max(peak, len(batch.data))
+            return batch, _sort_perm(batch.keys, backend, dev, metrics), dup_rows
+
+        t_merge = time.perf_counter()
+        # One range in flight: each holds up to a budget of record bytes.
+        _write_parts(td, len(ranges), part_of, level, write_splitting_bai, 1, stream,
+                     stream.policy.device_write)
+        merge_bam_parts(td, out_path, header, write_splitting_bai=write_splitting_bai)
+    seconds["spill"] = t_markdup - t_spill
+    if mark_duplicates:
+        seconds["markdup"] = t_plan - t_markdup
+    seconds["plan"] = t_merge - t_plan
+    seconds["merge"] = time.perf_counter() - t_merge
+    counters = metrics.counters()
+    counters.update({f"flate.inflate.{k}": v for k, v in stream.inflate_stats.as_dict().items()})
+    return SortStats(n, len(splits), f"external[{backend}]", str(dev), counters, seconds,
+                     n_dup, run_count, len(ranges), peak)
 
 
 def _fetch_perm(perm: torch.Tensor, metrics: Metrics) -> np.ndarray:

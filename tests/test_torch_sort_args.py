@@ -4,9 +4,10 @@
 value comes through the configuration; ``backend="host"`` and
 ``max_attempts`` are taken and write the reference's bytes; the queryname
 order raises the reference's ``ValueError`` (class and message) with
-``mark_duplicates``, a mesh and ``device_parse``, before any other check;
-the serve job's ``resource_cache`` and ``deadline`` and the out-of-core
-forms are not ported yet and say so."""
+``mark_duplicates``, a mesh and ``device_parse``, before any other check,
+and so does ``memory_budget`` with a mesh or ``device_parse``; the
+out-of-core forms write the reference's bytes; the serve job's
+``resource_cache`` and ``deadline`` are not ported yet and say so."""
 
 import os
 
@@ -152,15 +153,61 @@ def test_queryname_checks_come_before_the_device(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("kwargs", [{"mark_duplicates": True}, {"sort_order": "queryname"}],
                          ids=["mark_duplicates", "queryname"])
-def test_out_of_core_forms_cite_a4(tmp_path, kwargs):
-    """``memory_budget`` with duplicate marking or the queryname order: the
-    out-of-core sort is not ported yet."""
-    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A\.4\)$"):
-        tpipeline.sort_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"), device="cpu",
-                           memory_budget=1 << 20, **kwargs)
-    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A\.4\)$"):
-        tpipeline.markdup_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"), device="cpu",
-                              memory_budget=1 << 20)
+def test_out_of_core_forms_cite_a4(src, tmp_path, kwargs):
+    """``memory_budget`` with duplicate marking or the queryname order (A.4,
+    ported): the out-of-core forms write the reference's bytes, through
+    ``sort_bam`` and, for duplicate marking, ``markdup_bam``."""
+    jobs = [("sort_bam", kwargs)]
+    if "mark_duplicates" in kwargs:
+        jobs.append(("markdup_bam", {}))
+    for job, kw in jobs:
+        t_out, j_out = str(tmp_path / f"{job}.port.bam"), str(tmp_path / f"{job}.ref.bam")
+        st = getattr(tpipeline, job)(src, t_out, conf=from_reference_conf(HOST), device="cpu",
+                                     level=1, memory_budget=64 << 10, **kw)
+        jst = getattr(jpipeline, job)(src, j_out, conf=JConf(HOST), level=1,
+                                      memory_budget=64 << 10, **kw)
+        assert st.backend == jst.backend == "external[device]"
+        assert (st.n_records, st.n_runs, st.n_ranges, st.n_duplicates) == \
+            (jst.n_records, jst.n_runs, jst.n_ranges, jst.n_duplicates)
+        assert _read(t_out) == _read(j_out)
+
+
+BUDGET_BAD = [
+    ({"mesh": object()}, {}),
+    ({"distributed": object()}, {}),
+    ({"device_parse": True}, {}),
+    ({"device_parse": True, "backend": "host"}, {}),
+    ({"mesh": object(), "device_parse": True}, {}),
+    ({"mesh": object(), "mark_duplicates": True}, {}),
+    ({"device_parse": True}, {"hadoopbam.bam.mark-duplicates": "true"}),
+    ({"device_parse": True, "resource_cache": object(), "errors": "salvage"}, {}),
+]
+
+
+@pytest.mark.parametrize("kwargs,conf", BUDGET_BAD, ids=[
+    "mesh", "distributed", "device_parse", "device_parse_host_backend", "mesh_first",
+    "mesh_markdup", "device_parse_conf_markdup", "before_unported"])
+def test_memory_budget_combinations_raise_the_reference_error(src, tmp_path, kwargs, conf):
+    """``memory_budget`` with a mesh or a true ``device_parse``: the
+    reference's ``ValueError`` (class and message), in its order (the mesh
+    first), before the mesh's A.10 and the other checks of what is not
+    ported yet."""
+    ref_kw = {k: v for k, v in kwargs.items() if k != "resource_cache"}
+    want = _raised(lambda: jpipeline.sort_bam(src, str(tmp_path / "ref.bam"), conf=JConf(conf),
+                                              memory_budget=1 << 20, **ref_kw))
+    got = _raised(lambda: tpipeline.sort_bam(src, str(tmp_path / "port.bam"),
+                                             conf=from_reference_conf(conf), device="cpu",
+                                             memory_budget=1 << 20, **kwargs))
+    assert want is not None and want[0] is ValueError
+    assert got == want
+    assert not os.path.exists(tmp_path / "port.bam")
+
+
+def test_memory_budget_checks_come_before_the_device(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="memory_budget is single-host"):
+        tpipeline.sort_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"),
+                           memory_budget=1 << 20, mesh=object())
 
 
 def test_mesh_still_cites_a10_for_the_coordinate_order(tmp_path):
