@@ -2638,11 +2638,11 @@ TWIN_BUDGET = 32 << 20  # the collation family's budget on the twin file
 def external_phase(work: str, mp: dict, col: dict, n: int) -> dict:
     """The out-of-core sort (``memory_budget``) on the inputs and outputs of
     :func:`main_path` and :func:`collation_phase`.  (a) The main path's
-    input at ``EXTERNAL_BUDGET`` on the card with the default gates: runs,
-    ranges and ``peak_bytes`` within the budget, rows 1 and 3 launched
-    (row 3 once a range), rows 2, 3b and 3c not, every range tiered down
-    ``no_residency``, no member tiered down, the in-core sort's records in
-    its order, and a card peak below the in-core sort's.  (b) The same
+    input at ``EXTERNAL_BUDGET`` on the card with the default gates
+    (traced): runs, ranges and ``peak_bytes`` within the budget, rows 1
+    and 3 launched (row 3 once a range), rows 2, 3b and 3c not, every range
+    tiered down ``no_residency``, no member tiered down, the in-core sort's
+    records in its order, and a card peak below the in-core sort's.  (b) The same
     budget with the write gates off on the card and the CPU, byte-identical;
     on the card every chunk's and range's ``torch.sort`` permutation is held
     to NumPy's stable argsort.  (c) Markdup, the queryname sort and fixmate
@@ -2666,7 +2666,7 @@ def external_phase(work: str, mp: dict, col: dict, n: int) -> dict:
     mib = f"{budget / (1 << 20):g}"
     torch.cuda.reset_peak_memory_stats()
     st, _, launches = timed_sort(mp["src"], out["a"], f"sort_bam(cuda, memory_budget {mib} "
-                                 f"MiB, default gates)", device="cuda",
+                                 f"MiB, default gates)", trace=True, device="cuda",
                                  memory_budget=budget)
     card_peak = torch.cuda.max_memory_allocated()
     c = st.counters
