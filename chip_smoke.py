@@ -11,28 +11,37 @@ drive ``sort_bam`` at full size on a synthetic BAM with the default gates
 (every kernel on), with the write side's gates off (byte-identical to the
 port's CPU run) and with one resident split (byte-identical to the host
 gather + deflate lanes); mark duplicates, sort by name and fixmate
-1,000,000 synthetic read pairs on the card and on the CPU (the collation
-phase: byte-identical with the write gates off, the markdup, queryname and
-fixmate twins on the first 250,000 pairs, the duplicate decision against
+synthetic read pairs on the card and on the CPU (the collation phase:
+markdup of 1,000,000 pairs with the default gates; byte-identical with the
+write gates off, the markdup, queryname and fixmate twins, and the
+default-gate queryname sort and fixmate, on the first 250,000 pairs; the duplicate decision against
 its per-record oracle on the first 50,000 pairs, the mask through the
 device write of one resident split, fixmate run again on its own output);
 sort out of core (the out-of-core phase: the main path's input under a
 128 MiB ``memory_budget`` on the card, its content the in-core sort's, card
 against CPU byte-identical with the write gates off, and markdup, the
 queryname sort and fixmate of the first 250,000 pairs under 32 MiB, each
-decompressing to its in-core twin's bytes); drive
+decompressing to its in-core twin's bytes); salvage (the salvage phase: a
+copy of the main path's input with four damaged members, where the strict
+sort raises and the salvage sort on the card, under injected part-write
+crashes, quarantines exactly them and decompresses to the CPU salvage
+sort's bytes; a ``part_dir`` resume that skips the finished parts; the
+out-of-core form with one range quarantined, then resumed; a salvaged BCF
+window query, card against CPU; forced codec tier-downs in the codec
+phase); drive
 ``ingest_fastq`` on 250,000 synthetic read pairs with the default gates,
-with the deflate lanes off and on the CPU (byte-identical to the card
-without lanes; the lanes' output decompresses to the same bytes), and hold
+and on the CPU (the card's output decompresses to the CPU run's bytes),
+and hold
 ``ingest_oracle`` to it on a prefix; query three regions of a synthetic
-4,500,000-site BCF call set with ``variants_blob`` on the card and on the
-CPU (byte-identical, and equal to the generator's records); sort a
+4,500,000-site BCF call set with ``variants_blob`` on the card (each
+equal to the generator's records; the first on the CPU too,
+byte-identical); sort a
 synthetic no-ref rANS CRAM of 300,000 records on the card (its rANS blocks
 through the decode kernel) to the
 content of the sort of its BAM twin; read regions of the sorted BAM
-(``build_bai``, ``flagstat``, ``view_blob`` of three regions, ``depth_stat``
-and a bounded-traversal ``sort_bam``, card against CPU, the views against a
-NumPy overlap oracle, and a view of the CRAM against its BAM twin's); run the device codec's
+(``build_bai``, ``flagstat`` against the generator's census, ``view_blob``
+of three regions against a NumPy overlap oracle, the first on the CPU too,
+``depth_stat`` and a bounded-traversal ``sort_bam``, card against CPU, and a view of the CRAM against its BAM twin's); run the device codec's
 literal-only round trip on 64 MiB of record bytes (``bgzf_compress_device``
 with ``use_lanes=False``, then ``bgzf_decompress_device`` with the inflate
 gate off, every member through kernel row 10, and with the default gates),
@@ -1817,7 +1826,7 @@ def time_bcf_chain(path: str, checks: dict, launches: int, launches_from: str) -
     from hadoop_bam_tpu_torch.ops.kernels import bcf_chain as kb
 
     split = BcfInputFormat().get_splits([path])[0]
-    _, payload, p, end, _ = _read_bcf_split_local(split)
+    _, payload, p, end, _, _ = _read_bcf_split_local(split)
     g = torch.from_numpy(np.frombuffer(payload, np.uint8).copy()).cuda()
     c = torch.from_numpy(np.frombuffer(payload, np.uint8).copy())
     k_ms = cuda_ms(lambda: kb.walk_chain_device(g, p, end), iters=10)
@@ -2049,7 +2058,7 @@ def timed_sort(src: str, out: str, what: str, trace: bool = False, job=None, **k
     log(f"  launches: {json.dumps(launches)}")
     log("  counters: " + json.dumps({k: v for k, v in sorted(c.items()) if v and (
         k.startswith(("flate.", "bam.", "sort_bam.", "device_stream.", "cram.", "collate.",
-                      "fixmate.")))}))
+                      "fixmate.", "salvage.", "executor.", "faults.")))}))
     log("  transfers: " + json.dumps({k: v for k, v in c.items() if k.startswith("transfers.")}))
     if trace:
         log_device_time(prof, out + ".trace.json", wall)
@@ -2428,12 +2437,12 @@ def collation_phase(work: str, n_pairs: int, seed: int) -> dict:
     on the first chunk against the per-record oracle; then one resident
     split of the first ``TWIN_PAIRS`` pairs (the device write) against the
     host gather + deflate lanes, decompressing to the write-gates-off
-    pair's bytes.  The queryname sort and fixmate: the card with the
-    default gates at full size (re-read: the order, the header, the
-    counts), and the card and the CPU with the write gates off on the first
-    ``TWIN_PAIRS`` pairs (byte-identical; fixmate's as one split, so that
+    pair's bytes.  The queryname sort and fixmate on the first
+    ``TWIN_PAIRS`` pairs: the card with the default gates (re-read: the
+    order, the header, the counts), and the card and the CPU with the write
+    gates off (byte-identical; fixmate's as one split, so that
     fixmate run again on the card's output, one split again, must give its
-    bytes).  Returns the launches of each full-size card job, and the twin
+    bytes).  Returns the launches of each default-gate card job, and the twin
     file with its in-core outputs (the one-split markdup, the card's
     queryname and fixmate twins) for :func:`external_phase`."""
     from hadoop_bam_tpu_torch.conf import (DEFLATE_LANES, INFLATE_LANES, WRITE_DEVICE,
@@ -2561,16 +2570,21 @@ def collation_phase(work: str, n_pairs: int, seed: int) -> dict:
     for k in ("md_rh", "md_c"):
         os.remove(out[k])
 
-    # The queryname sort: full size on the card, the twins on the prefix.
+    # The queryname sort and fixmate run on the twin file only (the cut
+    # that pays for the salvage phase): the card with the default gates and
+    # the card and the CPU with the write gates off.
+    log(f"the queryname sort's and fixmate's default-gate card runs cut from {n_pairs} to the "
+        f"first {twin_pairs} pairs")
     q = dict(job=sort_bam, sort_order="queryname")
-    st, _, launches["queryname"] = timed_sort(src, out["qn_a"], "sort_bam(cuda, queryname, "
-                                              "default gates)", device="cuda", **q)
+    st, _, launches["queryname"] = timed_sort(paths["twin"], out["qn_a"], f"sort_bam(cuda, "
+                                              f"queryname, default gates, {twin_pairs} pairs)",
+                                              device="cuda", **q)
     need("queryname", launches["queryname"], ("inflate_members", "deflate_members"))
     if read_header(out["qn_a"]).text.split("\n")[0].split("\t")[-1] != "SO:queryname":
         raise AssertionError("queryname: the header does not say SO:queryname")
     t0 = time.perf_counter()
     bad = illumina_order_faults(out["qn_a"])
-    if bad or st.n_records != census["records"]:
+    if bad or st.n_records != twin_census["records"]:
         raise AssertionError(f"queryname: {bad} adjacent names out of natural order")
     log(f"queryname: SO:queryname; {st.n_records} names non-decreasing in natural order (checked "
         f"in {time.perf_counter() - t0:.1f} s)")
@@ -2583,16 +2597,16 @@ def collation_phase(work: str, n_pairs: int, seed: int) -> dict:
     log(f"queryname: cuda == cpu with the write gates off ({nb} bytes)")
     os.remove(out["qn_c"])
 
-    # Fixmate: full size on the card, the twins on the prefix.
-    st, _, launches["fixmate"] = timed_sort(src, out["fm_a"], "fixmate_bam(cuda, default gates)",
+    st, _, launches["fixmate"] = timed_sort(paths["twin"], out["fm_a"], f"fixmate_bam(cuda, "
+                                            f"default gates, {twin_pairs} pairs)",
                                             job=fixmate_bam, device="cuda")
     need("fixmate", launches["fixmate"], ("inflate_members", "deflate_members"))
     got = (st.n_pairs, st.n_singletons, st.n_orphans)
     n_back = len(bam_batch(out["fm_a"], ("rec_off", "rec_len")).soa["rec_off"])
-    if got != (census["pairs"], census["singletons"], census["orphans"]) or \
-            n_back != census["records"]:
+    if got != (twin_census["pairs"], twin_census["singletons"], twin_census["orphans"]) or \
+            n_back != twin_census["records"]:
         raise AssertionError(f"fixmate: pairs, singletons, orphans {got}, {n_back} records back, "
-                             f"generator {census}")
+                             f"generator {twin_census}")
     log(f"fixmate: pairs {got[0]}, singletons {got[1]}, orphans {got[2]} as generated; "
         f"{n_back} records read back")
     os.remove(out["fm_a"])
@@ -2767,6 +2781,194 @@ def external_phase(work: str, mp: dict, col: dict, n: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The executor, the fault plan and salvage
+# ---------------------------------------------------------------------------
+
+#: The main path's 32 MiB splits that get a damaged member: a payload bit
+#: (the CRC gate catches it) or a destroyed gzip magic (the member scan
+#: re-syncs).
+SALVAGE_DAMAGE = {1: "payload", 3: "magic", 5: "payload", 9: "payload"}
+SALVAGE_PLAN = "exec.crash:items=0-2,attempts=0,n=3"
+SALVAGE_SPLIT = 32 << 20  # the main path's split size
+RESUME_DELETED = (2, 6, 10)  # the parts (b) deletes before its resume
+
+
+def damage_bam(src: str, dst: str, split_size: int) -> dict:
+    """Copy ``src`` to ``dst`` with one record member of each split of
+    :data:`SALVAGE_DAMAGE` damaged: the member 3/8 into the split (away
+    from the 8 MiB splits of the out-of-core sort's clamp), bit 0 of its
+    eighth DEFLATE byte flipped or its gzip magic destroyed.  Returns the
+    damaged members' offsets by split."""
+    from hadoop_bam_tpu_torch.io.bam import BamInputFormat
+    from hadoop_bam_tpu_torch.spec import bgzf
+
+    with open(src, "rb") as f:
+        data = bytearray(f.read())
+    splits = BamInputFormat().get_splits([src], split_size=split_size)
+    co, _, _ = bgzf.scan_blocks(bytes(data))
+    picked = {}
+    for k, how in SALVAGE_DAMAGE.items():
+        s = splits[k]
+        c0, c1 = s.vstart >> 16, s.vend >> 16
+        c = int(co[int(np.searchsorted(co, c0 + 3 * (c1 - c0) // 8))])
+        if how == "payload":
+            data[c + 25] ^= 0x01
+        else:
+            data[c + 1] ^= 0xFF
+        picked[k] = (c, how)
+    with open(dst, "wb") as f:
+        f.write(bytes(data))
+    return picked
+
+
+def _counted(c: dict, want: dict, what: str) -> None:
+    got = {k: c.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: counters {got}, want {want}")
+    log(f"  {what}: {json.dumps(got)}")
+
+
+def salvage_phase(work: str, mp: dict, n: int) -> dict:
+    """The executor, the fault plan and salvage on the main path's input at
+    full width (its 32 MiB splits), with :data:`SALVAGE_DAMAGE` applied to a
+    copy.  (a) A strict sort on the card raises ``BgzfError``; the salvage
+    sort on the card with the default gates and a ``part_dir``, under
+    :data:`SALVAGE_PLAN`, completes: four members quarantined after four
+    strict fallbacks, three injected crashes retried, no split failed and no
+    part quarantined, rows 1 and 2 on the seven clean splits, row 3 once a
+    part; it decompresses to the CPU salvage sort's bytes (write gates
+    off).  (b) Three parts, ``_SUCCESS`` and the output deleted, the rerun
+    on the same ``part_dir`` skips the other eight and writes (a)'s bytes.
+    (c) Out of core at ``EXTERNAL_BUDGET`` with ``max_attempts=1`` and
+    ``exec.crash:items=1,attempts=*``: salvage quarantines range 1 (the
+    executor's contract); the rerun with no plan reuses the spill, skips
+    every other range and decompresses to (a)'s bytes.  Returns the
+    launches of each card job."""
+    from hadoop_bam_tpu_torch import faults
+    from hadoop_bam_tpu_torch.conf import (DEFLATE_LANES, INFLATE_LANES, WRITE_DEVICE,
+                                            Configuration)
+    from hadoop_bam_tpu_torch.parallel.executor import bgzf_part_valid
+    from hadoop_bam_tpu_torch.pipeline import sort_bam
+    from hadoop_bam_tpu_torch.spec import bgzf
+
+    t_phase = time.perf_counter()
+    bad = os.path.join(work, "damaged.bam")
+    picked = damage_bam(mp["src"], bad, SALVAGE_SPLIT)
+    log(f"damaged copy of the main path's input: members {json.dumps(picked)} (split: offset, "
+        f"how)")
+    out = {k: os.path.join(work, f"salvage.{k}.bam") for k in ("strict", "a", "cpu", "c")}
+    launches = {}
+    t0 = time.perf_counter()
+    try:
+        sort_bam(bad, out["strict"], device="cuda", split_size=SALVAGE_SPLIT)
+    except bgzf.BgzfError as e:
+        log(f"sort_bam(cuda, strict) on the damaged copy raised BgzfError in "
+            f"{time.perf_counter() - t0:.1f} s: {e}")
+    else:
+        raise AssertionError("the strict sort of the damaged copy did not raise")
+
+    # (a) Salvage on the card under the plan, then on the CPU.
+    pdir = os.path.join(work, "salvage.parts")
+    faults.arm(SALVAGE_PLAN)
+    try:
+        st, _, launches["sort"] = timed_sort(bad, out["a"], f"sort_bam(cuda, salvage, default "
+                                             f"gates, {SALVAGE_PLAN})", device="cuda",
+                                             errors="salvage", part_dir=pdir,
+                                             split_size=SALVAGE_SPLIT)
+    finally:
+        faults.disarm()
+    n_damaged = len(SALVAGE_DAMAGE)
+    clean_splits = st.n_splits - n_damaged
+    _counted(st.counters, {"salvage.members_quarantined": n_damaged,
+                           "salvage.strict_fallbacks": n_damaged, "salvage.splits_failed": 0,
+                           "faults.fired.exec.crash": 3, "executor.retried": 3,
+                           "executor.failed_parts": 0, "salvage.parts_quarantined": 0},
+             "salvage sort (a)")
+    la = launches["sort"]
+    if la["record_chain"] != clean_splits or la["inflate_members"] < clean_splits or \
+            la["deflate_members"] != st.n_splits or la["gather_stream"] or la["crc32"]:
+        raise AssertionError(f"salvage sort: launches {la} for {clean_splits} clean splits of "
+                             f"{st.n_splits}")
+    log(f"  rows 1 and 2 on the {clean_splits} clean splits (row 1 {la['inflate_members']} "
+        f"launches, with the damaged splits' strict attempts), row 3 once a part; "
+        f"{st.n_records} of {n} records salvaged")
+    off = Configuration({INFLATE_LANES: "true", DEFLATE_LANES: "false", WRITE_DEVICE: "false"})
+    st_cpu, _, _ = timed_sort(bad, out["cpu"], "sort_bam(cpu, salvage, write gates off)",
+                              conf=off, device="cpu", errors="salvage",
+                              split_size=SALVAGE_SPLIT)
+    _counted(st_cpu.counters, {"salvage.members_quarantined": n_damaged,
+                               "salvage.strict_fallbacks": n_damaged}, "salvage sort, cpu")
+    content = bgzf_content(out["a"])
+    if content != bgzf_content(out["cpu"]) or st_cpu.n_records != st.n_records:
+        raise AssertionError("the card's salvage sort decompresses to other bytes than the cpu's")
+    log(f"salvage sort: cuda decompresses to the cpu salvage sort's bytes ({len(content)} "
+        f"bytes, {st.n_records} records)")
+    os.remove(out["cpu"])
+    with open(out["a"], "rb") as f:
+        a_bytes = f.read()
+
+    # (b) Resume: three parts, _SUCCESS and the output gone.
+    for i in RESUME_DELETED:
+        os.remove(os.path.join(pdir, f"part-r-{i:05d}"))
+    os.remove(os.path.join(pdir, "_SUCCESS"))
+    os.remove(out["a"])
+    st_b, _, launches["resume"] = timed_sort(bad, out["a"], "sort_bam(cuda, salvage, default "
+                                             "gates, resumed part_dir)", device="cuda",
+                                             errors="salvage", part_dir=pdir,
+                                             split_size=SALVAGE_SPLIT)
+    _counted(st_b.counters, {"executor.skipped_existing": st.n_splits - len(RESUME_DELETED),
+                             "executor.attempts": len(RESUME_DELETED)}, "resume (b)")
+    with open(out["a"], "rb") as f:
+        if f.read() != a_bytes:
+            raise AssertionError("the resumed salvage sort wrote other bytes")
+    if launches["resume"]["deflate_members"] != len(RESUME_DELETED):
+        raise AssertionError(f"resume: row 3 launched {launches['resume']}")
+    log(f"resume: {len(RESUME_DELETED)} parts written, the other "
+        f"{st.n_splits - len(RESUME_DELETED)} skipped, (a)'s bytes")
+    shutil.rmtree(pdir)
+
+    # (c) Out of core: range 1 fails its one attempt (quarantined under
+    # salvage), then the rerun resumes.
+    budget = max(4 << 20, EXTERNAL_BUDGET * n // FULL_DEPTH["records"])
+    mib = f"{budget / (1 << 20):g}"
+    xdir = os.path.join(work, "salvage.xparts")
+    plan = "exec.crash:items=1,attempts=*"
+    faults.arm(plan)
+    try:
+        st_c, _, launches["external"] = timed_sort(
+            bad, out["c"], f"sort_bam(cuda, salvage, memory_budget {mib} MiB, max_attempts=1, "
+            f"{plan})", device="cuda", errors="salvage", memory_budget=budget, part_dir=xdir,
+            max_attempts=1)
+    finally:
+        faults.disarm()
+    _counted(st_c.counters, {"salvage.members_quarantined": n_damaged,
+                             "faults.fired.exec.crash": 1, "executor.failed_parts": 1,
+                             "salvage.parts_quarantined": 1}, "out of core (c), first run")
+    if os.path.exists(os.path.join(xdir, "part-r-00001")) or \
+            not bgzf_part_valid(os.path.join(xdir, "part-r-00000")):
+        raise AssertionError("out of core: range 1 was written, or range 0 was not")
+    st_r, _, launches["external_resume"] = timed_sort(
+        bad, out["c"], f"sort_bam(cuda, salvage, memory_budget {mib} MiB, resumed)",
+        device="cuda", errors="salvage", memory_budget=budget, part_dir=xdir)
+    _counted(st_r.counters, {"sort_bam.resume_spill_reused": 1,
+                             "executor.skipped_existing": st_r.n_ranges - 1,
+                             "executor.failed_parts": 0}, "out of core (c), resumed")
+    if launches["external_resume"]["deflate_members"] != 1 or \
+            bgzf_content(out["c"]) != content:
+        raise AssertionError("out of core: the resumed run wrote more than one range, or its "
+                             "output decompresses to other bytes than (a)'s")
+    log(f"out of core: range 1 quarantined on its one attempt, then the resume wrote it alone "
+        f"({st_r.n_ranges} ranges, peak_bytes {st_r.peak_bytes}); decompresses to (a)'s bytes")
+    shutil.rmtree(xdir)
+    for k in ("a", "c"):
+        os.remove(out[k])
+    os.remove(bad)
+    seconds = time.perf_counter() - t_phase
+    log(f"salvage phase, sorts (a)-(c): {seconds:.1f} s")
+    return {"launches": launches, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # The ingest path
 # ---------------------------------------------------------------------------
 
@@ -2876,12 +3078,12 @@ def timed_ingest(paths, out: str, what: str, trace: bool = False, **kw):
 
 def ingest_phase(work: str, n_pairs: int, seed: int) -> dict:
     """FASTQ ingest of ``n_pairs`` synthetic read pairs: (a) on the card with
-    the default gates, (b) on the card with the deflate lanes off, (c) the
-    port on the CPU; (b) == (c) byte for byte, (a) decompresses to (c)'s
-    bytes; then the port's ``ingest_oracle`` on a prefix of
-    ``ORACLE_PAIRS`` equals the CPU run at that size.  (a) runs under
-    ``torch.profiler`` for the card's busy time."""
-    from hadoop_bam_tpu_torch.conf import DEFLATE_LANES, Configuration
+    the default gates, (c) the port on the CPU; (a) decompresses to (c)'s
+    bytes with (c)'s stats; then the port's ``ingest_oracle`` on a prefix
+    of ``ORACLE_PAIRS`` equals the CPU run at that size.  (a) runs under
+    ``torch.profiler`` for the card's busy time.  The card run with the
+    deflate lanes off, byte-identical to (c), is cut (it paid for the
+    salvage phase)."""
     from hadoop_bam_tpu_torch.ingest import ingest_oracle
 
     t0 = time.perf_counter()
@@ -2890,7 +3092,7 @@ def ingest_phase(work: str, n_pairs: int, seed: int) -> dict:
     log(f"synthetic FASTQ: {n_pairs} pairs, {len(r1) + len(r2)} bytes of text, "
         f"{os.path.getsize(paths[0])} + {os.path.getsize(paths[1])} bytes compressed, built in "
         f"{time.perf_counter() - t0:.1f} s")
-    out = {k: os.path.join(work, f"ingest.{k}.bam") for k in ("a", "b", "c", "pc", "oracle")}
+    out = {k: os.path.join(work, f"ingest.{k}.bam") for k in ("a", "c", "pc", "oracle")}
     st_a, wall_a, launches = timed_ingest(paths, out["a"], "cuda, default gates", trace=True,
                                           device="cuda")
     c = st_a.counters
@@ -2903,24 +3105,15 @@ def ingest_phase(work: str, n_pairs: int, seed: int) -> dict:
         raise AssertionError(f"the card tiered down on clean input: {st_a.counts()}")
     if st_a.n_records != 2 * n_pairs or st_a.n_pairs != n_pairs or st_a.n_repacked == 0:
         raise AssertionError(f"ingest stats {st_a.counts()}")
-    off = Configuration({DEFLATE_LANES: "false"})
-    st_b, _, _ = timed_ingest(paths, out["b"], "cuda, deflate lanes off", conf=off,
-                              device="cuda")
     st_c, _, _ = timed_ingest(paths, out["c"], "cpu", device="cpu")
-    with open(out["b"], "rb") as f:
-        b = f.read()
-    with open(out["c"], "rb") as f:
-        cc = f.read()
-    if b != cc:
-        raise AssertionError("ingest: card output (deflate lanes off) differs from the cpu run")
-    log(f"ingest (b) == (c): {len(cc)} bytes")
+    cc_len = os.path.getsize(out["c"])
     if bgzf_content(out["a"]) != bgzf_content(out["c"]):
         raise AssertionError("ingest: default-gate output decompresses to other bytes than (c)")
-    ratio = os.path.getsize(out["a"]) / len(cc)
+    ratio = os.path.getsize(out["a"]) / cc_len
     log(f"ingest (a) decompresses to (c)'s bytes; size {os.path.getsize(out['a'])} = "
         f"{ratio:.4f} x (c)")
     for k in ("n_records", "n_pairs", "n_members", "n_repacked", "scan_chunks"):
-        if getattr(st_a, k) != getattr(st_c, k) or getattr(st_b, k) != getattr(st_c, k):
+        if getattr(st_a, k) != getattr(st_c, k):
             raise AssertionError(f"ingest stats differ between runs: {k}")
     # The oracle on a prefix of the same corpus.
     n_or = min(ORACLE_PAIRS, n_pairs)
@@ -2965,7 +3158,7 @@ def timed_variants(path: str, region: str, what: str, trace: bool = False, conf=
     timings: dict = {}
     with ctx as prof:
         t0 = time.perf_counter()
-        blob = variants_blob(path, region, stream=stream, timings=timings)
+        blob = variants_blob(path, region, conf=conf, stream=stream, timings=timings)
         if on_card:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2987,9 +3180,10 @@ def variants_phase(work: str, n_sites: int, seed: int) -> dict:
     """Ranged queries of a synthetic call set of ``n_sites`` sites: per
     region of :data:`VARIANT_REGIONS`, ``variants_blob`` on the card with the
     default gates (inflate, chain walk and join on the card; the first
-    region under ``torch.profiler``) and on the CPU with the walk and
-    inflate gates on (the plain versions), byte-identical, and the blob
-    decodes to exactly the generator's records of the region."""
+    region under ``torch.profiler``, and on the CPU with the walk and
+    inflate gates on, the plain versions, byte-identical), each blob
+    decoding to exactly the generator's records of the region.  Returns the
+    call set and its generator's columns for :func:`salvage_variants`."""
     from hadoop_bam_tpu_torch.conf import BCF_CHAIN, INFLATE_LANES, Configuration
     from hadoop_bam_tpu_torch.utils.intervals import MAX_END, parse_interval
 
@@ -3011,19 +3205,82 @@ def variants_phase(work: str, n_sites: int, seed: int) -> dict:
         if c.get("bcf.chain.host_walks", 0) or c.get("flate.lanes_tierdown", 0) \
                 or c.get("variants.join_host", 0):
             raise AssertionError(f"the card tiered down on clean input: {c}")
-        blob_cpu, _, _, _ = timed_variants(path, region, f"cpu, {region}", conf=cpu_conf,
-                                           device="cpu")
-        if blob != blob_cpu:
-            raise AssertionError(f"variants {region}: card and cpu blobs differ")
+        if k == 0:  # the other regions are held to the generator alone
+            blob_cpu, _, _, _ = timed_variants(path, region, f"cpu, {region}", conf=cpu_conf,
+                                               device="cpu")
+            if blob != blob_cpu:
+                raise AssertionError(f"variants {region}: card and cpu blobs differ")
         iv = parse_interval(region)
         keep = (contig == names.index(iv.contig)) & (pos >= iv.start) & (pos <= min(iv.end, MAX_END))
         if bgzf_bytes(blob) != head + rows[keep].tobytes():
             raise AssertionError(f"variants {region}: blob differs from the generator's records")
-        log(f"variants {region}: cuda == cpu ({len(blob)} bytes), decodes to the generator's "
-            f"{int(keep.sum())} records")
+        log(f"variants {region}: {'cuda == cpu' if k == 0 else 'cuda'} ({len(blob)} bytes), "
+            f"decodes to the generator's {int(keep.sum())} records")
         if first is None:
             first = {"launches": launches, "wall": wall}
-    return {"path": path, "launches": first["launches"]}
+    return {"path": path, "launches": first["launches"], "contig": contig, "pos": pos,
+            "rows": rows, "head": head}
+
+
+def salvage_variants(work: str, var: dict) -> dict:
+    """The salvage phase's BCF read (d): a copy of the call set with one
+    member inside :data:`VARIANT_REGIONS`' first window flipped, queried
+    with ``hadoopbam.errors=salvage`` on the card (row 5 on every split but
+    the torn one) and on the CPU: equal blobs, one member quarantined, and
+    exactly the generator's records of the window that lie wholly outside
+    the member."""
+    from hadoop_bam_tpu_torch.conf import BCF_CHAIN, ERRORS_MODE, INFLATE_LANES, Configuration
+    from hadoop_bam_tpu_torch.spec import bgzf
+    from hadoop_bam_tpu_torch.utils.intervals import MAX_END, parse_interval
+
+    t0 = time.perf_counter()
+    region = VARIANT_REGIONS[0]
+    iv = parse_interval(region)
+    names = [c for c, _ in GRCH38]
+    contig, pos, rows, head = var["contig"], var["pos"], var["rows"], var["head"]
+    keep = (contig == names.index(iv.contig)) & (pos >= iv.start) & (pos <= min(iv.end, MAX_END))
+    idx = np.nonzero(keep)[0]
+    k = int(idx[len(idx) // 2])
+    member = (len(head) + k * BCF_RECORD) // bgzf.MAX_PAYLOAD
+    with open(var["path"], "rb") as f:
+        data = bytearray(f.read())
+    co, _, _ = bgzf.scan_blocks(bytes(data))
+    # Not a member where a 4 MiB split starts: a split's end member is
+    # read by two splits, and each would count it.
+    split = 4 << 20
+    member = next((m for m in (member, member - 1, member + 1)
+                   if all(int(co[j - 1]) // split == int(co[j]) // split for j in (m, m + 1))),
+                  member)
+    c = int(co[member])
+    data[c + 25] ^= 0x01
+    path = os.path.join(work, "calls.damaged.bcf")
+    with open(path, "wb") as f:
+        f.write(bytes(data))
+    del data
+    log(f"damaged call set: member {member} at {c} (record {k} of the {region} window)")
+    salvage = {ERRORS_MODE: "salvage"}
+    blob, _, launches, cnt = timed_variants(path, region, f"cuda, salvage, {region}",
+                                            conf=Configuration(salvage))
+    blob_cpu, _, _, cnt_cpu = timed_variants(
+        path, region, f"cpu, salvage, {region}", device="cpu",
+        conf=Configuration(dict(salvage, **{BCF_CHAIN: "true", INFLATE_LANES: "true"})))
+    _counted(cnt, {"salvage.members_quarantined": 1}, "variants salvage, cuda")
+    _counted(cnt_cpu, {"salvage.members_quarantined": 1}, "variants salvage, cpu")
+    walks = cnt.get("bcf.chain.device_walks", 0)
+    if blob != blob_cpu or launches["bcf_chain"] < 1 or walks != launches["bcf_chain"]:
+        raise AssertionError(f"variants salvage: blobs equal {blob == blob_cpu}, row 5 "
+                             f"launches {launches['bcf_chain']}, device walks {walks}")
+    lo, hi = member * bgzf.MAX_PAYLOAD, (member + 1) * bgzf.MAX_PAYLOAD
+    start = len(head) + np.arange(len(contig), dtype=np.int64) * BCF_RECORD
+    whole = (start + BCF_RECORD <= lo) | (start >= hi)
+    if bgzf_bytes(blob) != head + rows[keep & whole].tobytes():
+        raise AssertionError("variants salvage: other records than the generator's survivors")
+    log(f"variants salvage: cuda == cpu ({len(blob)} bytes), the generator's "
+        f"{int((keep & whole).sum())} of {int(keep.sum())} records; row 5 launched "
+        f"{launches['bcf_chain']} times (the torn split took the salvage walk) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    os.remove(path)
+    return {"launches": launches, "seconds": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -3740,11 +3997,11 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
                  checks: dict) -> list:
     """The region reads on the main path's sorted BAM (``census``: its
     generator's flagstat counts): build its ``.bai``; ``flagstat`` on the
-    card and on the CPU (equal, and equal to the census); ``view_blob`` of
-    :data:`REGIONS` on the card (the first traced) and on the CPU
-    (byte-identical, and exactly the records a NumPy overlap oracle over the
-    sorted file keeps, row 6 launched); ``depth_stat`` per base on the
-    chr20 window and binned on chr21, card against CPU; a bounded-traversal
+    card (equal to the census); ``view_blob`` of :data:`REGIONS` on the card
+    (the first traced, and that one on the CPU too, byte-identical), each
+    exactly the records a NumPy overlap oracle over the sorted file keeps,
+    row 6 launched; ``depth_stat`` per base on the chr20 window (card
+    against CPU) and binned on chr21 (the card); a bounded-traversal
     ``sort_bam`` of :data:`SORT_INTERVALS`, card against CPU byte for byte;
     ``view_blob`` of chr21 of the CRAM phase's file (every record that
     overlaps) against its BAM twin's.  Returns the kernel rows 6, 8 and 9."""
@@ -3764,15 +4021,15 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
     log(f"build_bai: {census['total']} records, {os.path.getsize(path + '.bai')} bytes of .bai "
         f"in {time.perf_counter() - t0:.3f} s ({bai.n_no_coor} without coordinates)")
     header = read_header(path).encode()
-    fs = {}
-    for dev in ("cuda", "cpu"):
-        fs[dev], _, launches, _ = timed_region(
-            lambda st, tm: flagstat(path, stream=st, timings=tm), f"flagstat({dev})", dev)
-        if dev == "cuda" and launches["inflate_members"] <= 0:
-            raise AssertionError("flagstat(cuda) never launched the inflate kernel")
-    if not fs["cuda"] == fs["cpu"] == census:
-        raise AssertionError(f"flagstat: cuda {fs['cuda']} cpu {fs['cpu']} generator {census}")
-    log(f"flagstat cuda == cpu == the generator's census: {json.dumps(fs['cuda'])}")
+    # The CPU twins of flagstat and of the views past the first are cut
+    # (the generator's census and the overlap oracle hold them).
+    fs, _, launches, _ = timed_region(
+        lambda st, tm: flagstat(path, stream=st, timings=tm), "flagstat(cuda)", "cuda")
+    if launches["inflate_members"] <= 0:
+        raise AssertionError("flagstat(cuda) never launched the inflate kernel")
+    if fs != census:
+        raise AssertionError(f"flagstat: cuda {fs} generator {census}")
+    log(f"flagstat cuda == the generator's census: {json.dumps(fs)}")
     recs, vstart = file_records(path)
     first = None
     mask_launches = 0  # the mask form's launches in the phase's card calls: no path calls it
@@ -3781,11 +4038,13 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
             lambda st, tm: view_blob(path, region, stream=st, timings=tm),
             f"view_blob(cuda, {region})", "cuda",
             trace=os.path.join(work, "region.trace.json") if k == 0 else "")
-        blob_cpu, _, _, c_cpu = timed_region(
-            lambda st, tm: view_blob(path, region, stream=st, timings=tm),
-            f"view_blob(cpu, {region})", "cpu")
-        if blob != blob_cpu:
-            raise AssertionError(f"view {region}: card and cpu blobs differ")
+        c_cpu = c
+        if k == 0:
+            blob_cpu, _, _, c_cpu = timed_region(
+                lambda st, tm: view_blob(path, region, stream=st, timings=tm),
+                f"view_blob(cpu, {region})", "cpu")
+            if blob != blob_cpu:
+                raise AssertionError(f"view {region}: card and cpu blobs differ")
         # Row 6 cuts a view once; each of its .bai chunk spans is one batch
         # cut (serve.view.overlap_device, as the reference counts windows).
         # The empty window's query yields no chunk: no batch, no launch.
@@ -3799,7 +4058,8 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
             raise AssertionError(f"view {region}: {launches['overlap_rows']} row 6 launches, cuts "
                                  f"(cuda, cpu) {cuts} for {spans} chunk spans")
         head = check_view(blob, header, recs, vstart, bai, region)
-        log(f"view {region}: cuda == cpu ({len(blob)} bytes), {c.get('serve.view.records', 0)} "
+        log(f"view {region}: {'cuda == cpu' if k == 0 else 'cuda'} ({len(blob)} bytes), "
+            f"{c.get('serve.view.records', 0)} "
             f"records == the NumPy overlap oracle's; {head} overlapping unmapped records at the "
             f"file's head lie outside the .bai's chunks; row 6 launched "
             f"{launches['overlap_rows']} time(s) for {spans} chunk spans")
@@ -3808,7 +4068,8 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
     del recs, vstart
     for region, kw in ((REGIONS[0], {"per_base": True}), (REGIONS[1], {})):
         res = {}
-        for dev in ("cuda", "cpu"):
+        # The binned chr21 profile's CPU twin is cut (the salvage phase's).
+        for dev in ("cuda", "cpu") if kw else ("cuda",):
             res[dev], _, launches, c = timed_region(
                 lambda st, tm: depth_stat(path, region, stream=st, timings=tm, **kw),
                 f"depth_stat({dev}, {region}, {kw})", dev)
@@ -3818,10 +4079,11 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
                         "pileup.device_chunks"):
                     raise AssertionError(f"depth {region}: row 6 launches {launches}, or the "
                                          "device profile never ran")
-        if res["cuda"] != res["cpu"]:
+        if res["cuda"] != res.get("cpu", res["cuda"]):
             raise AssertionError(f"depth {region}: card and cpu dicts differ")
-        log(f"depth {region}: cuda == cpu: {res['cuda']['n_records']} records, max depth "
-            f"{res['cuda']['max_depth']}, mean {res['cuda']['mean_depth']}, covered "
+        log(f"depth {region}: {'cuda == cpu' if kw else 'cuda'}: {res['cuda']['n_records']} "
+            f"records, max depth {res['cuda']['max_depth']}, mean {res['cuda']['mean_depth']}, "
+            f"covered "
             f"{res['cuda']['covered_bases']} of {res['cuda']['total_bases']}")
     bounded = Configuration({BAM_BOUNDED_TRAVERSAL: "true", BAM_INTERVALS: SORT_INTERVALS,
                              INFLATE_LANES: "true", DEFLATE_LANES: "false", WRITE_DEVICE: "false"})
@@ -4555,7 +4817,7 @@ def once_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def codec_phase(work: str, seed: int, checks: dict, mib: int) -> list:
+def codec_phase(work: str, seed: int, checks: dict, mib: int):
     """The device codec's literal-only round trip at full width: ``mib`` MiB
     of the sort generator's record bytes compressed by
     ``bgzf_compress_device(level=1, use_lanes=False)`` on the card (gzip
@@ -4564,9 +4826,13 @@ def codec_phase(work: str, seed: int, checks: dict, mib: int) -> list:
     (every member through row 10, traced) and with the default gates (row
     1); the general programs on the card with the gate off (zlib-6 members
     through ``inflate_dynamic``, deflate-lanes members rejected by row 10
-    and decoded by ``inflate_fixed``); ``warm_kernels`` twice; row 10 and
-    row 1 timed on the round trip's members, row 11 by ``bench_marginal``.
-    Returns the kernel rows 10 and 11."""
+    and decoded by ``inflate_fixed``); the salvage phase's forced member
+    tier-downs on the card (``flate.inflate.tierdown:members=0-7,n=8``,
+    8 MiB of zlib-6 members through row 1 and of literal-only members
+    through row 10, each the clean decode's bytes); ``warm_kernels`` twice;
+    row 10 and row 1 timed on the round trip's members, row 11 by
+    ``bench_marginal``.  Returns the kernel rows 10 and 11, and the launches
+    of the forced decodes by the name of the row each drives."""
     import gzip
     import io
 
@@ -4637,6 +4903,40 @@ def codec_phase(work: str, seed: int, checks: dict, mib: int) -> list:
         if "lanes" in what and down != k:
             raise AssertionError("row 10 took a member with LZ77 copies")
 
+    # The salvage phase's forced tier-downs (e): members 0-7 to the host,
+    # the rest through row 1 (zlib-6 members, default gates) or row 10
+    # (literal-only members, inflate gate off).
+    from hadoop_bam_tpu_torch import faults
+
+    t0 = time.perf_counter()
+    plan = "flate.inflate.tierdown:members=0-7,n=8"
+    forced = {}
+    for what, src, conf, tier in (
+            ("zlib-6 members, default gates: row 1",
+             bgzf.deflate_blocks(data[:xla_n], 6)[0] + bgzf.TERMINATOR, None, kin.LAUNCHES.name),
+            ("literal-only members, inflate gate off: row 10",
+             flate.bgzf_compress_device(data[:xla_n], level=1, use_lanes=False, device="cuda"),
+             off, kfix.LAUNCHES.name)):
+        st, m = flate.CodecTierStats(), Metrics()
+        k = len(bgzf.scan_blocks(src)[0]) - 1  # the terminator is empty
+        faults.arm(plan)
+        try:
+            out, _, launches, _ = timed_codec(
+                lambda: flate.bgzf_decompress_device(src, conf=conf, device="cuda", stats=st,
+                                                     metrics=m),
+                f"bgzf_decompress_device(cuda, {what}, {plan}): {k} members")
+        finally:
+            faults.disarm()
+        fired = m.get("faults.fired.flate.inflate.tierdown")
+        log(f"  stats {json.dumps(st.as_dict())}, faults.fired.flate.inflate.tierdown {fired}")
+        if out != data[:xla_n] or fired != 8 or st.host != 8 or st.lanes != k - 8 or \
+                launches.get(tier, 0) < 1:
+            raise AssertionError(f"forced tier-downs ({what}): the clean decode's bytes "
+                                 f"{out == data[:xla_n]}, {fired} fired, stats {st.as_dict()}")
+        forced[tier] = launch_counts()
+    log(f"forced tier-downs: 8 members a decode to the host, the same bytes ({xla_n}), in "
+        f"{time.perf_counter() - t0:.1f} s")
+
     t0 = time.perf_counter()
     rep = warm_kernels(device="cuda")
     rep2 = warm_kernels(device="cuda")
@@ -4678,7 +4978,7 @@ def codec_phase(work: str, seed: int, checks: dict, mib: int) -> list:
 
     rows.append(time_inflate_probe(checks, seed))
     log(f"codec phase: {time.perf_counter() - t_phase:.1f} s")
-    return rows
+    return rows, forced
 
 
 def probe_chain() -> dict:
@@ -4874,6 +5174,7 @@ def main() -> int:
             os.remove(os.path.join(work, f"sorted.{k}.bam"))
         col = collation_phase(work, args.dup_pairs, args.seed)
         ext = external_phase(work, res, col, args.records)
+        sal = salvage_phase(work, res, args.records)
         os.remove(res["src"])
         os.remove(res["lanes"])
         ing = ingest_phase(work, args.pairs, args.seed)
@@ -4881,20 +5182,27 @@ def main() -> int:
                                      "ingest_fastq(cuda), default gates"))
         del ing
         var = variants_phase(work, args.variants, args.seed)
+        sal_var = salvage_variants(work, var)
         rows.append(time_bcf_chain(var["path"], checks, var["launches"]["bcf_chain"],
                                    f"variants_blob(cuda), {VARIANT_REGIONS[0]}"))
         del var
         cr = cram_phase(work, args.cram_records, args.seed)
         rows.append(dict(rans_row, launches=cr["launches"]["rans"],
                          launches_from="sort_bam(cuda, .cram), default gates"))
-        rows += codec_phase(work, args.seed, checks, args.codec_mib)
+        codec_rows, forced = codec_phase(work, args.seed, checks, args.codec_mib)
+        rows += codec_rows
         rows += region_phase(work, res["flagstat"], res["sorted"], cr["cram"], cr["twin_sorted"],
                              checks)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    for row in rows:  # the launches of the collation and out-of-core phases' card jobs
+    salvage = dict(sal["launches"], variants=sal_var["launches"])
+    salvage.update({f"codec_{name}": n for name, n in forced.items()})
+    log(f"salvage phase: {sal['seconds'] + sal_var['seconds']:.1f} s of sorts and the BCF "
+        f"read, and the forced tier-downs of the codec phase")
+    for row in rows:  # the launches of the later phases' card jobs
         row["collation_launches"] = {job: n[row["name"]] for job, n in col["launches"].items()}
         row["external_launches"] = {job: n[row["name"]] for job, n in ext["launches"].items()}
+        row["salvage_launches"] = {job: n[row["name"]] for job, n in salvage.items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

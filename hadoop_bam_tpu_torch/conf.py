@@ -2,7 +2,8 @@
 
 Counterpart of ``hadoop_bam_tpu/conf.py`` with only the keys the in-core
 coordinate sort (of BAM and CRAM input, with interval traversal), the
-FASTQ ingest, the BCF variant plane and the region reads read.  The key strings are the
+FASTQ ingest, the BCF variant plane, the region reads, the part executor
+and the fault plan read.  The key strings are the
 reference's, so one dict drives both packages (:func:`from_reference_conf`).
 """
 
@@ -30,7 +31,17 @@ DEFLATE_LANES = "hadoopbam.deflate.lanes"
 WRITE_DEVICE = "hadoopbam.write.device"
 #: Split read-ahead depth (this key → HBAM_READ_DEPTH → 2).
 READ_DEPTH = "hadoopbam.read.depth"
+#: "strict" (raise on corrupt input) or "salvage" (quarantine and go on).
 ERRORS_MODE = "hadoopbam.errors"
+#: A fault-injection plan (``faults/plan.py`` grammar); ``HBAM_FAULTS``
+#: takes precedence.  Unset: disarmed.
+FAULTS_PLAN = "hadoopbam.faults.plan"
+#: The part executor's per-attempt deadline (milliseconds; 0/unset: none;
+#: an attempt past it counts failed and is retried) and the base backoff
+#: between attempts (milliseconds, doubled per attempt with deterministic
+#: jitter; default 50).
+EXECUTOR_ATTEMPT_TIMEOUT_MS = "hadoopbam.executor.attempt-timeout-ms"
+EXECUTOR_BACKOFF_MS = "hadoopbam.executor.backoff-ms"
 #: FASTQ quality encoding ("sanger"/"illumina") and failed-QC filtering
 #: ("true"/"false"): the FASTQ-specific key, else the generic input key.
 FASTQ_BASE_QUALITY_ENCODING = "hbam.fastq-input.base-quality-encoding"

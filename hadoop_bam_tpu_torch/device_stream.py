@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import os
 import threading
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional, Tuple
 
@@ -31,15 +32,19 @@ from .conf import (
     WRITE_DEVICE,
     gate,
 )
-from .io.bam import ChunkedRecords
+from .io.bam import ChunkedRecords, RecordBatch, _empty_soa
+from .spec.fragment import FormatException
 from .ops import decode, flate
 from .ops.kernels import OutsideInt32Domain
 from .ops.kernels.bcf_chain import walk_chain
 from .ops.kernels.gather import gather_stream_device
-from .spec import bgzf, cram_codecs
+from .spec import bam, bgzf, cram_codecs
 from .utils.tracing import Metrics
 
 DEFAULT_DEPTH = 2
+
+#: The data errors a salvaging split read turns into an empty batch.
+DATA_ERRORS = (bgzf.BgzfError, bam.BamError, FormatException, zlib.error)
 
 
 def resolve_depth(conf=None) -> int:
@@ -119,14 +124,28 @@ class DeviceStream:
                 setattr(self.inflate_stats, k, getattr(self.inflate_stats, k) + getattr(stats, k))
         return res
 
-    def read_splits(self, fmt, splits, fields=None, with_keys: bool = True) -> Iterator:
+    def read_splits(self, fmt, splits, fields=None, with_keys: bool = True,
+                    errors: Optional[str] = None) -> Iterator:
         """Yield decoded split batches in order, ``depth`` splits in flight:
         split k+1's file read, upload and inflate run while the caller
-        handles split k."""
+        handles split k.
+
+        Under ``errors="salvage"`` a split whose read fails outright with a
+        data error (:data:`DATA_ERRORS`) becomes an empty batch in its slot,
+        counted ``salvage.splits_failed``; any other failure (a kernel, the
+        card) raises, where the reference catches every exception."""
         d = self.policy.depth
 
         def read_one(s):
-            return fmt.read_split(s, fields=fields, with_keys=with_keys, stream=self)
+            try:
+                return fmt.read_split(s, fields=fields, with_keys=with_keys, stream=self,
+                                      errors=errors)
+            except DATA_ERRORS:
+                if errors != "salvage":
+                    raise
+                self.metrics.count("salvage.splits_failed", 1)
+                return RecordBatch(soa=_empty_soa(fields), data=np.empty(0, np.uint8),
+                                   keys=np.empty(0, np.int64), salvaged=True)
 
         if d <= 1 or len(splits) <= 1:
             for s in splits:

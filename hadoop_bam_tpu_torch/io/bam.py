@@ -29,13 +29,14 @@ from ..conf import (
     BAM_ENABLE_BAI_SPLITTER,
     BAM_INTERVALS,
     BAM_TRAVERSE_UNPLACED_UNMAPPED,
+    ERRORS_MODE,
     Configuration,
 )
 from ..ops import flate
 from ..spec import bam, bgzf, indices
 from ..utils.intervals import Interval, parse_intervals
 from ..utils.tracing import Metrics
-from .guesser import BamSplitGuesser
+from .guesser import BamSplitGuesser, find_record_start_in_payload
 from .splits import FileVirtualSplit
 
 SPLITTING_BAI_EXT = indices.SPLITTING_BAI_EXT
@@ -52,12 +53,15 @@ class RecordBatch:
     Record i's body is ``data[soa['rec_off'][i] : + soa['rec_len'][i]]``.
     ``device_data``, when set, is a uint8 tensor on the device holding the
     same bytes as ``data`` — the inflate kernel's output left resident for
-    the chain kernel."""
+    the chain kernel.  ``salvaged`` marks a batch of the salvage reader:
+    its records are no back-to-back chain, it never has a window, and its
+    keys come from the host."""
 
     soa: dict
     data: np.ndarray
     keys: np.ndarray
     device_data: Optional[object] = None
+    salvaged: bool = False
 
     @property
     def n_records(self) -> int:
@@ -183,10 +187,24 @@ def read_header(path: str) -> bam.BamHeader:
 
 
 class BamInputFormat:
-    """Split planning + split reading for BAM files."""
+    """Split planning + split reading for BAM files.  Reads without a
+    stream count into ``metrics``."""
 
-    def __init__(self, conf: Optional[Configuration] = None):
+    def __init__(self, conf: Optional[Configuration] = None, metrics: Optional[Metrics] = None):
         self.conf = conf or Configuration()
+        self.metrics = metrics if metrics is not None else Metrics()
+        self._nrefs_cache: dict = {}
+
+    def errors_mode(self) -> str:
+        """``hadoopbam.errors``: "strict" (default) or "salvage"."""
+        return self.conf.get(ERRORS_MODE, "strict") or "strict"
+
+    def _nrefs(self, path: str) -> int:
+        """The header's reference count, cached per path: the salvage
+        reader's record re-sync rules need it."""
+        if path not in self._nrefs_cache:
+            self._nrefs_cache[path] = read_header(path).n_refs
+        return self._nrefs_cache[path]
 
     def get_splits(
         self, paths: Sequence[str], split_size: int = DEFAULT_SPLIT_SIZE
@@ -365,6 +383,7 @@ class BamInputFormat:
         fields: Optional[Sequence[str]] = None,
         with_keys: bool = True,
         stream=None,
+        errors: Optional[str] = None,
     ) -> RecordBatch:
         """Inflate the split's members and decode its records as one batch.
 
@@ -373,7 +392,15 @@ class BamInputFormat:
         With a :class:`~hadoop_bam_tpu_torch.device_stream.DeviceStream`
         whose policy has inflate on, members inflate on its device.  A
         split with ``interval_chunks`` keeps only the records that start
-        inside one of them."""
+        inside one of them.  ``errors`` (default :meth:`errors_mode`):
+        "strict" raises on corrupt input, "salvage" quarantines corrupt
+        members and unparseable records and returns what survived
+        (``salvage.*`` counters, into the stream's metrics or
+        :attr:`metrics`)."""
+        if errors is None:
+            errors = self.errors_mode()
+        n_refs = self._nrefs(split.path) if errors == "salvage" else None
+        metrics = stream.metrics if stream is not None else self.metrics
         size = os.path.getsize(split.path)
         cstart = min(split.vstart >> 16, size)
         cend = min(split.vend >> 16, size)
@@ -390,7 +417,8 @@ class BamInputFormat:
                 return read_virtual_range(
                     window, split.vstart - shift, split.vend - shift,
                     with_keys=with_keys, fields=fields, stream=stream,
-                    interval_chunks=chunks,
+                    interval_chunks=chunks, errors=errors, n_refs=n_refs,
+                    window_at_eof=at_eof, metrics=metrics,
                 )
             except (bam.BamError, bgzf.BgzfError):
                 if at_eof:
@@ -413,6 +441,10 @@ def read_virtual_range(
     fields: Optional[Sequence[str]] = None,
     stream=None,
     interval_chunks: Optional[List[Tuple[int, int]]] = None,
+    errors: str = "strict",
+    n_refs: Optional[int] = None,
+    window_at_eof: bool = True,
+    metrics: Optional[Metrics] = None,
 ) -> RecordBatch:
     """Decode all records whose start voffset lies in ``[vstart, vend)``.
 
@@ -424,9 +456,32 @@ def read_virtual_range(
     exact: no spill member was needed (tier-downs already drop it).  With
     ``interval_chunks`` (voffset spans relative to ``data``) only the
     records starting inside a span are kept (``bam.records_kept`` on the
-    stream's metrics); there is no record-level overlap cut here."""
+    stream's metrics); there is no record-level overlap cut here.
+
+    ``errors="salvage"`` (with ``n_refs`` from the header) runs this strict
+    read first and, when it raises a data error, counts
+    ``salvage.strict_fallbacks`` and reads the range again with the
+    quarantining reader (:func:`_read_virtual_range_salvage`), on the host.
+    ``window_at_eof=False`` says that ``data`` stops short of the file's
+    end, so that trouble near its edge raises (the caller widens the
+    window) instead of passing for corruption.  Counters go to the
+    stream's metrics, else to ``metrics``."""
     if fields is not None and with_keys:
         fields = tuple(dict.fromkeys(tuple(fields) + SORT_FIELDS))
+    if errors == "salvage":
+        if n_refs is None:
+            raise ValueError("salvage mode needs n_refs from the header")
+        m = stream.metrics if stream is not None else (metrics or Metrics())
+        try:
+            return read_virtual_range(data, vstart, vend, with_keys=with_keys, fields=fields,
+                                      stream=stream, interval_chunks=interval_chunks)
+        except (bgzf.BgzfError, bam.BamError):
+            m.count("salvage.strict_fallbacks", 1)
+        return _read_virtual_range_salvage(
+            data, vstart, vend, n_refs=n_refs, with_keys=with_keys,
+            interval_chunks=interval_chunks, fields=fields, window_at_eof=window_at_eof,
+            metrics=m,
+        )
     if vstart >= vend:
         return RecordBatch(
             soa=_empty_soa(fields), data=np.empty(0, np.uint8), keys=np.empty(0, np.int64)
@@ -533,6 +588,231 @@ def read_virtual_range(
     if dev is not None and plen == len(out):
         device_data = stream.attach_window(dev)
     return RecordBatch(soa=soa, data=arr, keys=keys, device_data=device_data)
+
+
+def _next_member(data, start: int) -> Optional[int]:
+    """The next offset at or after ``start`` holding a parseable member
+    header whose member fits in ``data`` with a plausible ISIZE (the
+    guesser's phase-1 scan), or None."""
+    data = bytes(data)
+    pos = start
+    while True:
+        pos = bgzf.find_next_block(data, pos)
+        if pos < 0:
+            return None
+        bsize = bgzf.parse_block_header(data, pos)[0]
+        if int.from_bytes(bytes(data[pos + bsize - 4 : pos + bsize]), "little") \
+                <= bgzf.MAX_BLOCK_SIZE:
+            return pos
+        pos += 1
+
+
+def _read_virtual_range_salvage(
+    data,
+    vstart: int,
+    vend: int,
+    n_refs: int,
+    with_keys: bool = True,
+    interval_chunks: Optional[List[Tuple[int, int]]] = None,
+    fields: Optional[Sequence[str]] = None,
+    window_at_eof: bool = True,
+    metrics: Optional[Metrics] = None,
+) -> RecordBatch:
+    """The quarantining split reader: every record that is provably intact
+    survives corrupt members and torn record chains.
+
+    1. Member scan with re-sync: an unparseable header quarantines the
+       bytes up to the next plausible one (:func:`_next_member`).
+    2. Per-member inflate under the CRC32 and ISIZE gates; a member that
+       fails is quarantined.
+    3. Segmented chain walk: file-contiguous runs of good members form
+       segments; each segment but a first that starts at the split's own
+       ``vstart`` re-syncs its first record with the guesser's rules
+       (:func:`~.guesser.find_record_start_in_payload`).  A record cut by a
+       gap, or failing mid-segment, is dropped and the walk re-syncs past
+       it.
+    4. Spill continuation: a tail record past the split's end completes
+       through the following members, as in the strict read.
+
+    Counters (``salvage.*``, into ``metrics``): quarantined members and
+    bytes, counted once per file region (members at or past the split's
+    end member belong to the next split), re-syncs and failed re-syncs,
+    dropped and salvaged records.  The device tiers are bypassed: the
+    batch has no window, and ``salvaged`` is set."""
+    m = metrics if metrics is not None else Metrics()
+    if vstart >= vend:
+        return RecordBatch(soa=_empty_soa(fields), data=np.empty(0, np.uint8),
+                           keys=np.empty(0, np.int64), salvaged=True)
+    file_end = len(data)
+    cstart = vstart >> 16
+    cend = min(vend >> 16, file_end)
+    last_split = (vend >> 16) >= file_end
+
+    def count_quarantine(co: int, nbytes: int) -> None:
+        # A member at or past the end member belongs to the next split.
+        if co < cend or last_split:
+            m.count("salvage.members_quarantined", 1)
+            m.count("salvage.bytes_quarantined", nbytes)
+
+    def widen_guard(pos: int) -> None:
+        # Trouble within one member of a window edge that is not the
+        # file's end may be the window's cut: let the caller widen.
+        if not window_at_eof and pos + bgzf.MAX_BLOCK_SIZE > file_end:
+            raise bgzf.BgzfError(f"salvage: window too small to classify bytes at {pos}")
+
+    # 1 + 2: the member scan with re-sync, the per-member inflate.
+    good_co: List[int] = []
+    good_cs: List[int] = []
+    good_us: List[int] = []
+    payloads: List[bytes] = []
+    pos = cstart
+    while pos < file_end and pos <= cend:
+        try:
+            csize, _ = bgzf.read_block_at(data, pos)
+        except bgzf.BgzfError:
+            widen_guard(pos)
+            nxt = _next_member(data, pos + 1)
+            npos = nxt if nxt is not None else file_end
+            if nxt is None:
+                widen_guard(npos)
+            count_quarantine(pos, npos - pos)
+            pos = npos
+            continue
+        try:
+            payload, _ = bgzf.inflate_block(data, pos, metrics=m)
+        except bgzf.BgzfError:
+            count_quarantine(pos, csize)
+            pos += csize
+            continue
+        good_co.append(pos)
+        good_cs.append(csize)
+        good_us.append(len(payload))
+        payloads.append(payload)
+        pos += csize
+    spill_pos = pos
+
+    buf = bytearray()
+    uoffs: List[int] = []
+    for p_ in payloads:
+        uoffs.append(len(buf))
+        buf.extend(p_)
+
+    # Segments: contiguity breaks at every quarantined member.
+    seg_starts = [k for k in range(len(good_co))
+                  if k == 0 or good_co[k] != good_co[k - 1] + good_cs[k - 1]]
+    seg_bounds = [(s, seg_starts[i + 1] if i + 1 < len(seg_starts) else len(good_co))
+                  for i, s in enumerate(seg_starts)]
+
+    # The vend cutoff over the good members (monotone, as in the strict read).
+    vc = vend >> 16
+    vend_off: Optional[int]
+    if vc >= file_end or not good_co:
+        vend_off = None
+    elif vc < good_co[0]:
+        vend_off = 0
+    else:
+        bi = max(0, int(np.searchsorted(good_co, vc, side="right")) - 1)
+        if good_co[bi] == vc:
+            vend_off = uoffs[bi] + min(vend & 0xFFFF, good_us[bi])
+        else:
+            vend_off = uoffs[bi] + good_us[bi]
+
+    rec_parts: List[np.ndarray] = []
+    up0 = vstart & 0xFFFF
+    done = False
+
+    def spill_one() -> bool:
+        """Extend the frontier segment by one member; a corrupt spill
+        member ends the chain (its record is counted by the caller, the
+        member by the next split)."""
+        nonlocal spill_pos
+        if spill_pos >= file_end:
+            if not window_at_eof:
+                raise bgzf.BgzfError("salvage: window too small for spilled tail record")
+            return False
+        try:
+            csize, _ = bgzf.read_block_at(data, spill_pos)
+            payload, _ = bgzf.inflate_block(data, spill_pos, metrics=m)
+        except bgzf.BgzfError:
+            widen_guard(spill_pos)
+            return False
+        good_co.append(spill_pos)
+        good_cs.append(csize)
+        good_us.append(len(payload))
+        uoffs.append(len(buf))
+        buf.extend(payload)
+        spill_pos += csize
+        return True
+
+    for si, (k0, k1) in enumerate(seg_bounds):
+        if done:
+            break
+        seg_u0 = uoffs[k0]
+        seg_u1 = uoffs[k1 - 1] + good_us[k1 - 1]
+        if vend_off is not None and seg_u0 >= vend_off:
+            break
+        # The frontier segment ends at the scan cursor: only it may spill.
+        at_frontier = (si == len(seg_bounds) - 1
+                       and good_co[k1 - 1] + good_cs[k1 - 1] == spill_pos)
+        # The split's vstart is a planned record boundary if its member
+        # survived; any other segment re-syncs.
+        if si == 0 and k0 == 0 and good_co[0] == cstart and up0 <= good_us[0]:
+            p = seg_u0 + up0
+        else:
+            m.count("salvage.resyncs", 1)
+            r = find_record_start_in_payload(
+                np.frombuffer(bytes(buf[seg_u0:seg_u1]), np.uint8), n_refs)
+            if r is None:
+                m.count("salvage.resync_failed", 1)
+                continue
+            p = seg_u0 + r
+        guard = 0
+        while p < seg_u1 and guard < 1000:
+            guard += 1
+            offs, resume = bam.record_chain_partial(buf, p, seg_u1)
+            k = (int(np.searchsorted(offs, vend_off, side="left")) if vend_off is not None
+                 else len(offs))
+            rec_parts.append(np.asarray(offs[:k], dtype=np.int64))
+            if k < len(offs) or (vend_off is not None and resume >= vend_off):
+                done = True
+                break
+            if resume + 4 > seg_u1 and not at_frontier:
+                break  # <= 3 trailing bytes at a gap, as at a strict EOF
+            if at_frontier:
+                if resume + 4 > seg_u1 and spill_pos >= file_end:
+                    break  # <= 3 trailing bytes at the file's end
+                if spill_one():
+                    seg_u1 = uoffs[-1] + good_us[-1]
+                    p = resume
+                    continue
+                if resume < seg_u1:
+                    m.count("salvage.records_dropped", 1)  # a torn tail record
+                break
+            # A record cut by the next gap, or unparseable mid-segment:
+            # drop it and re-sync past its start.
+            m.count("salvage.records_dropped", 1)
+            m.count("salvage.resyncs", 1)
+            r = find_record_start_in_payload(
+                np.frombuffer(bytes(buf[seg_u0:seg_u1]), np.uint8), n_refs,
+                start=resume - seg_u0 + 1)
+            if r is None:
+                m.count("salvage.resync_failed", 1)
+                break
+            p = seg_u0 + r
+
+    arr = np.frombuffer(bytes(buf), dtype=np.uint8)
+    offsets = np.concatenate(rec_parts) if rec_parts else np.empty(0, dtype=np.int64)
+    soa = bam.soa_decode(arr, offsets, fields=fields) if len(offsets) else _empty_soa(fields)
+    if interval_chunks is not None and len(offsets):
+        keep = _voffset_mask(offsets, np.asarray(uoffs, dtype=np.int64),
+                             np.asarray(good_co, dtype=np.int64), good_us, interval_chunks)
+        soa = {k: v[keep] for k, v in soa.items()}
+    keys = (bam.soa_keys(soa, arr) if with_keys and len(soa["rec_off"])
+            else np.empty(0, dtype=np.int64))
+    m.count("salvage.records_salvaged", len(offsets))
+    if interval_chunks is not None:
+        m.count("bam.records_kept", len(soa["rec_off"]))
+    return RecordBatch(soa=soa, data=arr, keys=keys, salvaged=True)
 
 
 def _voffset_mask(offsets, block_uoffs, block_voffs, us_l, chunks) -> np.ndarray:

@@ -7,14 +7,15 @@ VCFInputFormat):
   a BGZF or uncompressed BCF (candidate sanity scan, then a decode of two
   BGZF blocks or a 0x80000-byte window; BCFSplitGuesser.java:61-360);
 - ``BcfInputFormat``: byte splits fixed up to record starts
-  (VCFInputFormat.java:302-385) and the strict split reader: the device
+  (VCFInputFormat.java:302-385) and the split reader: the device
   record-chain walk and the ragged interval join when the stream's gate is
-  armed, else the exact ``spec/bcf.decode_record`` loop;
+  armed, else the exact ``spec/bcf.decode_record`` loop; under
+  ``errors="salvage"`` a corrupt member is quarantined and the torn chain
+  re-synced by the guesser (``_salvage_walk``);
 - ``BcfRecordWriter``: BGZF output with the headerless part mode
   (BCFRecordWriter.java:49-178).
 
-Not ported: ``errors="salvage"`` (ROADMAP A.7) raises; the reference's
-vectorized host tier needs its C ``bcf_scan`` (ROADMAP A.9), so with the
+Not ported: the reference's vectorized host tier needs its C ``bcf_scan`` (ROADMAP A.9), so with the
 gate off every split takes the exact loop, as the reference does without
 its native library.  Counters go to the format's
 :class:`~..utils.tracing.Metrics`.
@@ -271,20 +272,23 @@ class BcfInputFormat:
         prefix.  ``stream`` (a ``DeviceStream``) arms the
         device record-chain walk and, when its inflate gate is armed,
         inflates the window through ``stream.decode_members`` (unless the
-        caller passes ``inflate_fn``, with that contract).  Strict: a
-        corrupt member raises through the CRC gate, a bad record raises
-        under STRICT stringency."""
+        caller passes ``inflate_fn``, with that contract).  ``errors``
+        (default ``hadoopbam.errors``, else "strict"): strict raises on a
+        corrupt member through the CRC gate, and on a bad record under
+        STRICT stringency; salvage quarantines exactly the bad member
+        (``salvage.*`` counters) and, when that tears the chain, walks it
+        with the guesser's re-sync and the exact decoder; a clean window
+        still takes the device walk."""
         if errors is None:
             errors = self.conf.get(ERRORS_MODE, "strict") or "strict"
-        if errors == "salvage":
-            raise NotImplementedError(
-                "BCF salvage (errors='salvage') is not ported yet: ROADMAP A.7"
-            )
         stringency = self._stringency()
         intervals = self._intervals()
         if inflate_fn is None and stream is not None and stream.policy.inflate_lanes:
             inflate_fn = stream.decode_members
-        hdr, payload, p, end, resident = _read_bcf_split_local(split, inflate_fn=inflate_fn)
+        hdr, payload, p, end, resident, breaks = _read_bcf_split_local(
+            split, errors=errors, inflate_fn=inflate_fn, metrics=self.metrics)
+        if breaks:
+            return _salvage_walk(payload, p, end, breaks, hdr, intervals, self.metrics)
         if stream is not None:
             dev = _read_device(payload, p, end, hdr, intervals, stream, resident)
             if dev is not None:
@@ -375,9 +379,79 @@ def _read_device(payload, p: int, end: int, hdr: bcf.BcfHeader, intervals, strea
                         materializer=materialize, device_columns=(keys, pos1, endp))
 
 
-def _read_bcf_split_local(split: FileVirtualSplit, inflate_fn=None):
-    """(header, payload, start, record-start limit, resident window) read
-    from the split's own byte window and a growing header prefix."""
+def _find_resync(payload, start: int, hdr: bcf.BcfHeader, metrics: Metrics) -> Optional[int]:
+    """The first verifiable record start at or after ``start``: the
+    guesser's candidate and verify passes over an inflated stream (the
+    salvage re-sync after a quarantined member)."""
+    g = BcfSplitGuesser(b"", hdr, compressed=False, metrics=metrics)
+    window = payload[start : start + UNCOMPRESSED_BYTES_NEEDED_FOR_GUESS]
+    cands = g._candidate_offsets(np.frombuffer(window, dtype=np.uint8))
+    metrics.count("bcf.guess.candidates", len(cands))
+    for off in cands:
+        if g._decodes_from(payload, start + int(off), UNCOMPRESSED_BYTES_NEEDED_FOR_GUESS):
+            return start + int(off)
+    return None
+
+
+def _salvage_walk(payload, p: int, end: int, breaks: List[int], hdr: bcf.BcfHeader, intervals,
+                  metrics: Metrics) -> VariantBatch:
+    """The exact decoder over a chain torn by quarantined members.
+    ``breaks`` are the payload offsets where inflated bytes are missing: a
+    record across one is torn (dropped, ``salvage.records_dropped``) and the
+    walk re-syncs at the next guesser-verified record start."""
+    variants: List[bcf.BcfVariant] = []
+    bq = sorted(b for b in breaks if b is not None)
+    bi = 0
+    while bq and bi < len(bq) and bq[bi] <= p:
+        # The chain is torn at or before the split's start.
+        r = _find_resync(payload, bq[bi], hdr, metrics)
+        bi += 1
+        if r is None:
+            break
+        p = r
+    while p + 8 <= end:
+        b = bq[bi] if bi < len(bq) else None
+        if b is not None and p >= b:
+            bi += 1
+            r = _find_resync(payload, b, hdr, metrics)
+            if r is None:
+                break
+            p = r
+            continue
+        torn = False
+        if b is not None:
+            l_shared, l_indiv = struct.unpack_from("<II", payload, p)
+            torn = p + 8 + l_shared + l_indiv > b
+        if torn:
+            # The rest of this record went with its member.
+            metrics.count("salvage.records_dropped", 1)
+            bi += 1
+            r = _find_resync(payload, b, hdr, metrics)
+            if r is None:
+                break
+            p = r
+            continue
+        try:
+            v, p = bcf.decode_record(payload, p, hdr)
+        except _RECORD_ERRORS:
+            metrics.count("salvage.records_dropped", 1)
+            break
+        if intervals is not None and not any(
+            iv.overlaps(v.chrom, v.start, v.end) for iv in intervals
+        ):
+            continue
+        variants.append(v)
+    keys = np.array([variant_key(hdr.vcf, v) for v in variants], dtype=np.int64)
+    pos = np.array([v.pos for v in variants], dtype=np.int64)
+    endp = np.array([v.end for v in variants], dtype=np.int64)
+    return VariantBatch(header=hdr.vcf, variants=variants, keys=keys, pos=pos, end=endp)
+
+
+def _read_bcf_split_local(split: FileVirtualSplit, errors: str = "strict", inflate_fn=None,
+                          metrics: Optional[Metrics] = None):
+    """(header, payload, start, record-start limit, resident window, chain
+    breaks) read from the split's own byte window and a growing header
+    prefix."""
     hdr, compressed = _read_bcf_header_prefix(split.path)
     if compressed:
         c0 = split.vstart >> 16
@@ -385,36 +459,59 @@ def _read_bcf_split_local(split: FileVirtualSplit, inflate_fn=None):
         # The end block's full extent (<= 64 KiB) plus slack.
         window = _read_range(split.path, c0, (c1 - c0) + 0x20000)
         shift = c0 << 16
-        payload, p, end, resident = _inflate_range(
-            window, split.vstart - shift, split.vend - shift, inflate_fn=inflate_fn
+        payload, p, end, resident, breaks = _inflate_range(
+            window, split.vstart - shift, split.vend - shift, errors=errors,
+            inflate_fn=inflate_fn, metrics=metrics,
         )
-        return hdr, payload, p, end, resident
+        return hdr, payload, p, end, resident, breaks
     p = split.vstart >> 16
     end = split.vend >> 16
-    return hdr, _read_range(split.path, p, end - p), 0, end - p, None
+    return hdr, _read_range(split.path, p, end - p), 0, end - p, None, []
 
 
-def _inflate_range(data: bytes, vstart: int, vend: int, inflate_fn=None):
+def _inflate_range(data: bytes, vstart: int, vend: int, errors: str = "strict",
+                   inflate_fn=None, metrics: Optional[Metrics] = None):
     """Inflate the BGZF blocks covering ``[vstart, vend)``: ``(payload,
-    start offset, record-start limit, resident)``.  Records start strictly
-    before the limit; the block at vend's coffset is included, so a record
-    straddling the boundary completes (BCFRecordReader.java:176-236).
+    start offset, record-start limit, resident, chain breaks)``.  Records
+    start strictly before the limit; the block at vend's coffset is
+    included, so a record straddling the boundary completes
+    (BCFRecordReader.java:176-236).
 
     ``inflate_fn(data, coffsets, csizes, usizes) -> (out, offsets, dev)``
     (``DeviceStream.decode_members``) inflates the member table as one
     batch; ``resident`` is its ``dev``, the payload on the device, when
     every member came from the kernel, else None.  A data error there
     (``BgzfError``, ``zlib.error``) sends the window to the per-member host
-    loop, which raises for the bad member; anything else raises."""
+    loop; anything else raises.
+
+    ``errors="strict"`` raises the bad member's ``BgzfError``; "salvage"
+    quarantines exactly it (``salvage.members_quarantined`` and
+    ``salvage.bytes_quarantined``, into ``metrics``) and records a chain
+    break at the payload offset where its bytes are missing."""
+    m = metrics if metrics is not None else Metrics()
     c0, u0 = bgzf.split_voffset(vstart)
     c1, u1 = bgzf.split_voffset(vend)
     members: List[Tuple[int, int, int]] = []  # (coffset, csize, usize)
+    bad: List[int] = []  # member-order positions of the breaks
     pos = c0
     end_block_index = None
     while pos < len(data) and pos <= c1:
         if pos == c1:
             end_block_index = len(members)
-        csize, usize = bgzf.read_block_at(data, pos)
+        try:
+            csize, usize = bgzf.read_block_at(data, pos)
+        except bgzf.BgzfError:
+            if errors != "salvage":
+                raise
+            # An unreadable header: quarantine up to the next plausible one.
+            nxt = bgzf.find_next_block(data, pos + 1, min(len(data), c1 + 1))
+            if nxt < 0:
+                nxt = len(data)
+            m.count("salvage.members_quarantined", 1)
+            m.count("salvage.bytes_quarantined", nxt - pos)
+            bad.append(len(members))
+            pos = nxt
+            continue
         members.append((pos, csize, usize))
         pos += csize
     chunks: List[Optional[bytes]] = [None] * len(members)
@@ -433,18 +530,35 @@ def _inflate_range(data: bytes, vstart: int, vend: int, inflate_fn=None):
         except _DATA_ERRORS:
             chunks = [None] * len(members)
             resident = None
-    for i, (mpos, _, _) in enumerate(members):
-        if chunks[i] is None:
-            chunks[i], _ = bgzf.inflate_block(data, mpos)
+    for i, (mpos, csize, _) in enumerate(members):
+        if chunks[i] is not None:
+            continue
+        try:
+            chunks[i], _ = bgzf.inflate_block(data, mpos, metrics=m)
+        except bgzf.BgzfError:
+            if errors != "salvage":
+                raise
+            m.count("salvage.members_quarantined", 1)
+            m.count("salvage.bytes_quarantined", csize)
+            chunks[i] = b""
+            bad.append(i)
+    # A break lands where the quarantined bytes would have been.
     acc_before_end_block = None
     acc = 0
-    for i, c in enumerate(chunks):
+    break_at: List[int] = []
+    bad = sorted(set(bad))
+    bj = 0
+    for i in range(len(members) + 1):
+        while bj < len(bad) and bad[bj] == i:
+            break_at.append(acc)
+            bj += 1
         if i == end_block_index:
             acc_before_end_block = acc
-        acc += len(c)
+        if i < len(members):
+            acc += len(chunks[i])
     blob = b"".join(chunks)
     limit = len(blob) if acc_before_end_block is None else min(acc_before_end_block + u1, len(blob))
-    return blob, u0, limit, resident
+    return blob, u0, limit, resident, sorted(set(break_at))
 
 
 class BcfRecordWriter:

@@ -218,3 +218,62 @@ class BamSplitGuesser:
             if (c & 0xF) > 8:
                 return False
         return True
+
+
+#: The first window of the salvage re-sync's candidate scan; it doubles
+#: until a candidate verifies or the payload is covered.
+RESYNC_WINDOW = 1 << 16
+#: Bytes past a candidate that its sanity rules read (the 36-byte fixed
+#: part and up to 255 name bytes).
+_CANDIDATE_REACH = 36 + 255
+
+
+def find_record_start_in_payload(
+    payload, n_refs: int, start: int = 0, verify_records: int = 4
+) -> Optional[int]:
+    """The first verifiable BAM record start at or after ``start`` in an
+    inflated payload: the salvage reader's chain re-sync after a
+    quarantined member.  Candidates from the sanity rules (vectorized) are
+    verified by walking the chain with the strict per-record validation for
+    up to ``verify_records`` records (a record cut by the payload's end is
+    fine once one decoded).  Returns the offset of the record's size word,
+    or None.
+
+    The candidates are scanned in windows from ``start``, doubling, and a
+    window trusts only the candidates whose rules read inside it, so the
+    answer is the one a scan of the whole payload gives, without its
+    temporaries for every byte of a split."""
+    arr = payload if isinstance(payload, np.ndarray) else np.frombuffer(payload, dtype=np.uint8)
+    if start:
+        arr = arr[start:]
+    n = len(arr)
+    if n < SHORTEST_POSSIBLE_BAM_RECORD:
+        return None
+    g = BamSplitGuesser(b"", n_refs)
+    data = np.ascontiguousarray(arr)
+    lo = 0  # candidates below lo were tried by an earlier window
+    w = RESYNC_WINDOW
+    while True:
+        whole = w >= n
+        cands = g._candidate_offsets(data[: min(w, n)])
+        if not whole:
+            cands = cands[cands - 4 < w - _CANDIDATE_REACH]
+        for up in cands[cands - 4 >= lo]:
+            p = int(up) - 4
+            ok = True
+            decoded = 0
+            while decoded < verify_records and p + 4 <= n:
+                (bs,) = struct.unpack_from("<I", data, p)
+                if p + 4 + bs > n:
+                    break
+                if not g._sane_record(data, p, bs):
+                    ok = False
+                    break
+                decoded += 1
+                p += 4 + bs
+            if ok and decoded:
+                return start + int(up) - 4
+        if whole:
+            return None
+        lo = w - _CANDIDATE_REACH
+        w *= 2

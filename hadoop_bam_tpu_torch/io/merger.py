@@ -9,23 +9,18 @@ terminator, and merge the per-part indices by shifting their offsets.
 from __future__ import annotations
 
 import os
-import re
 import shutil
 from typing import List
 
 from ..spec import bam, bgzf, indices
+from ..utils import nio
 
-SUCCESS_MARKER = "_SUCCESS"
-_PART_RE = re.compile(r"^part-[mr]-\d{5}.*$")
+SUCCESS_MARKER = nio.SUCCESS_MARKER
 
 
 def list_parts(directory: str) -> List[str]:
     """Sorted part files, their ``.splitting-bai`` companions excluded."""
-    return sorted(
-        os.path.join(directory, x)
-        for x in os.listdir(directory)
-        if _PART_RE.match(x) and not x.endswith(indices.SPLITTING_BAI_EXT)
-    )
+    return [str(p) for p in nio.list_parts(directory, indices.SPLITTING_BAI_EXT)]
 
 
 def prepare_bam_header_block(header: bam.BamHeader, level: int = 6) -> bytes:
@@ -40,10 +35,7 @@ def merge_bam_parts(
     header: bam.BamHeader,
     write_splitting_bai: bool = False,
 ) -> None:
-    if not os.path.exists(os.path.join(part_dir, SUCCESS_MARKER)):
-        raise FileNotFoundError(
-            f"no {SUCCESS_MARKER} marker in {part_dir}: job output incomplete"
-        )
+    nio.check_success(part_dir)
     parts = list_parts(part_dir)
     header_block = prepare_bam_header_block(header)
     part_lengths: List[int] = []

@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import faults
 from ..conf import DEFLATE_LANES, INFLATE_LANES, gate
 from ..spec import bgzf
 from ..utils.backend import resolve_device
@@ -530,6 +531,13 @@ def _compress_members(
             for i in down.tolist():
                 overrides[i] = _host_raw_deflate(member_payload(i), level)
                 clens[i] = len(overrides[i])
+    if faults.ACTIVE is not None and level != 0:
+        # The forced tier-down seam: the chosen members go to host zlib
+        # whichever tier made them; the framing below stays exact.
+        for i in range(nblk):
+            if faults.ACTIVE.flate_tierdown("deflate", i, metrics):
+                overrides[i] = _host_raw_deflate(member_payload(i), level)
+                clens[i] = len(overrides[i])
     stats.publish(metrics, "flate.deflate")
 
     # Framing: header, member bytes, CRC32 and ISIZE per member.  Host
@@ -596,7 +604,9 @@ def bgzf_compress_device(
     is a member every ``block_payload`` bytes (default
     :data:`DEV_LZ_PAYLOAD` for the lanes, :data:`DEV_DEFAULT_PAYLOAD`
     otherwise, as in the reference).  Tier accounting goes to ``stats``
-    and, as ``flate.deflate.*``, to ``metrics``."""
+    and, as ``flate.deflate.*``, to ``metrics``.  An armed fault plan's
+    ``flate.deflate.tierdown`` re-deflates the members it picks with host
+    zlib (level > 0)."""
     blob, _ = _compress_members(data, block_payload, level, use_lanes, device_input, device,
                                 metrics, stats, conf)
     return blob + bgzf.TERMINATOR if append_terminator else blob
@@ -1111,7 +1121,9 @@ def bgzf_decompress_device(
        the host (``_force_no_host``: raises).
 
     Members per tier go to ``stats`` and, as ``flate.inflate.*``, to
-    ``metrics``.  A kernel that fails to build or launch raises."""
+    ``metrics``.  An armed fault plan's ``flate.inflate.tierdown`` sends
+    the members it picks straight to the host, before step 2.  A kernel
+    that fails to build or launch raises."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     metrics = metrics if metrics is not None else Metrics()
@@ -1132,6 +1144,19 @@ def bgzf_decompress_device(
             continue
         hdr3 = int(raw[int(co[i] + 12 + xlen[i])]) & 7
         groups["stored" if hdr3 < 2 else "fixed" if hdr3 < 4 else "dyn"].append(i)
+    if faults.ACTIVE is not None:
+        # The forced tier-down seam: the chosen members skip every device
+        # tier and decode on the host (corrupt data still raises).
+        forced = [i for kind in groups for i in groups[kind]
+                  if faults.ACTIVE.flate_tierdown("inflate", i, metrics)]
+        for i in forced:
+            outs[i], _ = bgzf.inflate_block(raw[int(co[i]) : int(co[i] + cs[i])].tobytes(), 0,
+                                            check_crc, metrics)
+            stats.host += 1
+        if forced:
+            fset = set(forced)
+            for kind in groups:
+                groups[kind] = [i for i in groups[kind] if i not in fset]
 
     if gate("HBAM_INFLATE_LANES", conf, INFLATE_LANES, on_card):
         idx = np.asarray(sorted(groups["stored"] + groups["fixed"] + groups["dyn"]), np.int64)

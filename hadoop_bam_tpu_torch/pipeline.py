@@ -30,7 +30,6 @@ import contextlib
 import os
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -52,17 +51,21 @@ from .conf import (
     BAM_SORT_ORDER,
     BAM_WRITE_SPLITTING_BAI,
     ERRORS_MODE,
+    EXECUTOR_ATTEMPT_TIMEOUT_MS,
+    EXECUTOR_BACKOFF_MS,
     Configuration,
 )
 from .dedup import DEDUP_EXTRA_FIELDS, concat_columns, mark_duplicates_device, signature_columns
 from .device_stream import DeviceStream
 from .io.anysam import AnySamInputFormat, infer_from_file_path
 from .io.bam import SORT_FIELDS, BamInputFormat, ChunkedRecords, RecordBatch, read_header, write_part_fast
-from .io.merger import SUCCESS_MARKER, merge_bam_parts
+from .io.merger import merge_bam_parts
 from .io.runs import Run, input_identity, load_manifest, plan_ranges, write_manifest, write_run
 from .io.splits import FileVirtualSplit
 from .ops.decode import patch_unmapped_keys
 from .ops.sort import sort_keys
+from .parallel.executor import ElasticExecutor, bgzf_part_valid
+from .spec import bam as bam_spec
 from .utils.backend import resolve_device
 from .utils.murmur3 import murmurhash3_int32_batch
 from .utils.tracing import Metrics
@@ -189,8 +192,15 @@ def sort_bam(
     chain kernels when ``device_parse``) or "host" (keys built and sorted
     on the host, a stable NumPy argsort: the reference's oracle; the reads
     and part writes still follow the gates); the output bytes are the same.
-    ``max_attempts`` is taken for the reference's signature and is inert:
-    parts are written once, with no retry executor yet (ROADMAP A.2).
+
+    Parts are written by :class:`~.parallel.executor.ElasticExecutor`: up
+    to ``max_attempts`` attempts a part (``ValueError`` below 1, raised
+    when the write phase starts, as the reference raises it), the
+    attempt deadline and backoff of ``hadoopbam.executor.attempt-timeout-ms``
+    and ``hadoopbam.executor.backoff-ms``, and, with a persistent
+    ``part_dir``, a rerun skips the parts already there that
+    :func:`~.parallel.executor.bgzf_part_valid` accepts
+    (``executor.skipped_existing``).
 
     ``memory_budget`` (bytes of decoded record stream) sorts out of core,
     as the reference does: splits are clamped to ``memory_budget // 16``
@@ -206,15 +216,26 @@ def sort_bam(
     the name ranks, which become the keys.  With a persistent ``part_dir``
     a completed spill phase is certified by ``spill/manifest.json``, and a
     rerun on the same inputs and options reuses the runs (counter
-    ``sort_bam.resume_spill_reused``) and rewrites every part.
+    ``sort_bam.resume_spill_reused``) and writes only the parts that are
+    missing.
 
-    ``errors`` (default ``hadoopbam.errors``, else "strict") and
-    ``sort_order`` are checked first, with the reference's ``ValueError``
-    outside their domains, then the queryname combinations, then
-    ``memory_budget`` with a mesh or a true ``device_parse``.  Not ported
-    yet (each raises ``NotImplementedError``): ``mesh`` / ``distributed``
-    (coordinate order), ``errors="salvage"`` and the serve job's
-    ``resource_cache`` / ``deadline``."""
+    ``errors`` (default ``hadoopbam.errors``, else "strict"): "salvage"
+    degrades instead of dying.  A split that raises a data error is read
+    again by the quarantining reader, on the host (corrupt members and
+    unparseable records quarantined, the chain re-synced by the guesser;
+    ``salvage.*`` counters say what was lost); its batch has no resident
+    window, so its part tiers down ``no_residency`` and its keys come from
+    the host.  A split whose read still fails becomes an empty batch
+    (``salvage.splits_failed``), and a part that fails every attempt is
+    quarantined (``salvage.parts_quarantined``) instead of failing the job.
+    A kernel or card failure raises in either mode.
+
+    ``errors`` and ``sort_order`` are checked first, with the reference's
+    ``ValueError`` outside their domains, then the queryname combinations,
+    then ``memory_budget`` with a mesh or a true ``device_parse``.  Not
+    ported yet (each raises ``NotImplementedError``): ``mesh`` /
+    ``distributed`` (coordinate order) and the serve job's
+    ``resource_cache`` / ``deadline`` (ROADMAP A.11)."""
     if backend not in ("device", "host"):
         raise ValueError(f"backend must be 'device' or 'host', got {backend!r}")
     if errors is None:
@@ -268,10 +289,9 @@ def sort_bam(
         raise _not_ported("deadline / resource_cache (the serve sort job)", "A.11")
     if mesh is not None or distributed is not None:
         raise _not_ported("mesh / distributed sorting", "A.10")
-    if errors != "strict":
-        raise _not_ported(f"errors={errors!r}", "A.7")
     stream = DeviceStream(dev, conf=conf)
     use_device_write = stream.policy.device_write
+    write = _WriteSettings(conf, max_attempts, errors, write_workers)
 
     fmt = _input_format(conf, in_paths)
     header = _read_any_header(fmt, in_paths[0]).with_sort_order(sort_order)
@@ -281,12 +301,13 @@ def sort_bam(
         splits = fmt.get_splits(in_paths, split_size=_budget_split_size(split_size,
                                                                          memory_budget))
         t0 = time.perf_counter()
-        key_column = _queryname_rank_column(fmt, splits, stream) if queryname else None
+        key_column = (_queryname_rank_column(fmt, splits, stream, errors) if queryname
+                      else None)
         seconds = {"prepass": time.perf_counter() - t0} if queryname else {}
         return _sort_bam_external(
             fmt, splits, header, out_path, memory_budget, level, backend,
             write_splitting_bai, part_dir, stream, mark_duplicates, sort_order, key_column,
-            seconds)
+            seconds, write)
     splits = fmt.get_splits(in_paths, split_size=split_size)
     if backend == "host" or queryname:
         device_parse = False
@@ -313,14 +334,16 @@ def sort_bam(
     if mark_duplicates:
         fields = tuple(dict.fromkeys(fields + SORT_FIELDS + DEDUP_EXTRA_FIELDS))
     for b in stream.read_splits(fmt, splits, fields=fields,
-                                with_keys=not (device_parse or queryname)):
+                                with_keys=not (device_parse or queryname), errors=errors):
         # The columns come from the whole SoA, before it is trimmed.
         if mark_duplicates:
             sig_cols.append(signature_columns(b.data, b.soa))
         if queryname:
             collate_cols.append(collation_columns(b.data, b.soa))
         if device_parse:
-            parsed.append(stream.parse_split(b))
+            # A salvaged batch is no back-to-back chain: host keys.
+            parsed.append(_host_parse(b, dev, stream.metrics) if b.salvaged
+                          else stream.parse_split(b))
         if not use_device_write:
             b.device_data = None  # the chain kernels hold their own view
         b.soa = {"rec_off": b.soa["rec_off"], "rec_len": b.soa["rec_len"]}
@@ -369,7 +392,7 @@ def sort_bam(
     try:
         _write_job(out_path, header, part_dir, n_parts,
                    lambda pi: (merged, perm[bounds[pi] : bounds[pi + 1]], dup_mask),
-                   level, write_splitting_bai, write_workers, stream, use_device_write)
+                   level, write_splitting_bai, write, stream, use_device_write)
     finally:
         merged.release_device()  # the resident payload is dead once the parts exist
     counters = stream.metrics.counters()
@@ -416,15 +439,16 @@ def fixmate_bam(
     when there is none; ``"cpu"`` runs the plain version) and verifies the
     buckets on the host; pass B rewrites each split by the edit plan and
     writes it as one part, deflated per ``hadoopbam.deflate.lanes`` (host
-    zlib at ``level`` when off).  The header is the input's: fixmate
-    changes no order.  ``max_attempts`` is inert, as in ``sort_bam``.
+    zlib at ``level`` when off), through the part executor as in
+    ``sort_bam`` (``max_attempts``, resume from ``part_dir``).  The header
+    is the input's: fixmate changes no order.  ``errors="salvage"`` reads
+    as ``sort_bam``'s does, in both passes, and quarantines a part that
+    fails every attempt.
 
     With ``memory_budget`` the splits are clamped as ``sort_bam``'s are,
     pass A keeps no batch, and pass B reads each split again (backend
     "collate-fixmate[budget]"): the record bytes held stay bounded while
-    the columns (~20 B a record + the name and CIGAR bytes) stay in memory.
-    Not ported yet (raises ``NotImplementedError``):
-    ``errors="salvage"``."""
+    the columns (~20 B a record + the name and CIGAR bytes) stay in memory."""
     if isinstance(in_paths, str):
         in_paths = [in_paths]
     if conf is not None:
@@ -434,9 +458,8 @@ def fixmate_bam(
     if errors not in ("strict", "salvage"):
         raise ValueError(f"errors must be strict|salvage, got {errors!r}")
     dev = resolve_device(device)
-    if errors != "strict":
-        raise _not_ported(f"errors={errors!r}", "A.7")
     stream = DeviceStream(dev, conf=conf)
+    write = _WriteSettings(conf, max_attempts, errors, write_workers)
     fmt = _input_format(conf, in_paths)
     header = _read_any_header(fmt, in_paths[0])
     if memory_budget is not None:
@@ -448,7 +471,8 @@ def fixmate_bam(
     batches: List[Optional[RecordBatch]] = []
     cols_parts: List[dict] = []
     row_bases = [0]
-    for b in stream.read_splits(fmt, splits, fields=FIXMATE_FIELDS, with_keys=False):
+    for b in stream.read_splits(fmt, splits, fields=FIXMATE_FIELDS, with_keys=False,
+                                errors=errors):
         cols_parts.append(collation_columns(b.data, b.soa, with_cigars=True))
         b.device_data = None  # the rewrite is on the host
         row_bases.append(row_bases[-1] + b.n_records)
@@ -465,16 +489,19 @@ def fixmate_bam(
     cols = col = None
 
     def part_of(pi: int):
-        b, batches[pi] = batches[pi], None  # the split's bytes die with its part
+        b = batches[pi]
         if b is None:  # under a budget: pass B reads the split again
             b = fmt.read_split(splits[pi], fields=FIXMATE_FIELDS, with_keys=False,
-                               stream=stream)
+                               stream=stream, errors=errors)
             b.device_data = None
         return apply_fixmate(b, edits, row_bases[pi]), None, None
 
+    def part_done(pi: int) -> None:
+        batches[pi] = None  # the split's bytes die with its part
+
     t_write = time.perf_counter()
     _write_job(out_path, header, part_dir, len(splits), part_of, level, write_splitting_bai,
-               write_workers, stream, False)
+               write, stream, False, part_done)
     counters = stream.metrics.counters()
     counters.update({f"flate.inflate.{k}": v for k, v in stream.inflate_stats.as_dict().items()})
     seconds = {"read": t_collate - t_read, "collate": t_write - t_collate,
@@ -497,35 +524,51 @@ def _job_dir(part_dir: Optional[str], out_path: str):
         yield td
 
 
+class _WriteSettings:
+    """How a job's parts are written: the executor's attempts, its attempt
+    deadline and backoff (from the conf keys, as the reference reads
+    them), quarantine under salvage, and the writer threads."""
+
+    def __init__(self, conf, max_attempts: int, errors: str, workers: Optional[int]) -> None:
+        timeout_ms = conf.get_int(EXECUTOR_ATTEMPT_TIMEOUT_MS, 0) if conf is not None else 0
+        self.attempt_timeout = timeout_ms / 1e3 if timeout_ms > 0 else None
+        self.retry_backoff = (conf.get_int(EXECUTOR_BACKOFF_MS, 50) if conf is not None
+                              else 50) / 1e3
+        self.max_attempts = max_attempts
+        self.errors = errors
+        self.workers = workers
+
+    def executor(self, td: str, metrics: Metrics, workers: Optional[int] = None):
+        return ElasticExecutor(
+            td, max_attempts=self.max_attempts, max_workers=workers or self.workers,
+            validate_part=bgzf_part_valid, quarantine=self.errors == "salvage",
+            attempt_timeout=self.attempt_timeout, retry_backoff=self.retry_backoff,
+            metrics=metrics)
+
+
 def _write_job(out_path, header, part_dir, n_parts, part_of, level, write_splitting_bai,
-               workers, stream, device_write) -> None:
+               write: _WriteSettings, stream, device_write, part_done=None) -> None:
     """The parts in ``part_dir`` (else a temporary directory beside
     ``out_path``), then their merge under ``header``.  ``n_parts`` 0 writes
     one empty part, as the reference's fixmate of no split does."""
     with _job_dir(part_dir, out_path) as td:
-        _write_parts(td, n_parts, part_of, level, write_splitting_bai, workers, stream,
-                     device_write)
+        _write_parts(td, n_parts, part_of, level, write_splitting_bai,
+                     write.executor(td, stream.metrics), stream, device_write, part_done)
         merge_bam_parts(td, out_path, header, write_splitting_bai=write_splitting_bai)
 
 
-def _write_parts(td, n_parts, part_of, level, write_splitting_bai, workers, stream,
-                 device_write):
-    """One part per split, as the reference's executor writes them:
-    ``part-r-NNNNN`` (+ ``.splitting-bai``), then ``_SUCCESS``.  Part ``pi``
-    is ``part_of(pi)``'s ``(batch, order, dup_mask)``; the deflate tier
+def _write_parts(td, n_parts, part_of, level, write_splitting_bai, executor: ElasticExecutor,
+                 stream, device_write, part_done=None) -> None:
+    """One part per split or range through ``executor``: ``part-r-NNNNN``
+    (+ ``.splitting-bai``), then ``_SUCCESS``.  Part ``pi`` is
+    ``part_of(pi)``'s ``(batch, order, dup_mask)``, called again by a
+    retry; ``part_done(pi)`` follows its written part.  The deflate tier
     follows ``stream``'s policy, the device write ``device_write``."""
-    workers = max(1, min(max(1, n_parts), workers or min(4, os.cpu_count() or 1)))
-    threads = max(1, (os.cpu_count() or 4) // workers)
+    threads = max(1, (os.cpu_count() or 4) // executor.max_workers)
 
-    def write_one(pi: int) -> None:
-        final = os.path.join(td, f"part-r-{pi:05d}")
-        tmp = final + ".tmp"
-        if n_parts == 0:
-            open(tmp, "wb").close()
-            os.replace(tmp, final)
-            return
+    def write_one(pi: int, tmp: str) -> None:
         batch, order, dup_mask = part_of(pi)
-        sb = open(final + ".splitting-bai.tmp", "wb") if write_splitting_bai else None
+        sb = open(tmp + ".sb", "wb") if write_splitting_bai else None
         try:
             with open(tmp, "wb") as f:
                 write_part_fast(f, batch, order=order, level=level,
@@ -536,13 +579,16 @@ def _write_parts(td, n_parts, part_of, level, write_splitting_bai, workers, stre
         finally:
             if sb is not None:
                 sb.close()
-        os.replace(tmp, final)
         if sb is not None:
-            os.replace(sb.name, final + ".splitting-bai")
+            os.replace(tmp + ".sb", os.path.join(td, f"part-r-{pi:05d}.splitting-bai"))
+        if part_done is not None:
+            part_done(pi)
 
-    with ThreadPoolExecutor(workers) as pool:
-        list(pool.map(write_one, range(max(1, n_parts))))
-    open(os.path.join(td, SUCCESS_MARKER), "wb").close()
+    executor.run(list(range(max(1, n_parts))), write_one if n_parts else _write_empty_part)
+
+
+def _write_empty_part(pi: int, tmp: str) -> None:
+    open(tmp, "wb").close()
 
 
 def _budget_split_size(split_size: int, memory_budget: int) -> int:
@@ -551,14 +597,14 @@ def _budget_split_size(split_size: int, memory_budget: int) -> int:
     return max(64 << 10, min(split_size, memory_budget // 16))
 
 
-def _queryname_rank_column(fmt, splits, stream: DeviceStream) -> np.ndarray:
+def _queryname_rank_column(fmt, splits, stream: DeviceStream, errors: str) -> np.ndarray:
     """The out-of-core queryname prepass: one read of the splits for their
     collation columns, the name collation on the stream's device, and each
     record's output rank in read order: unique int64 keys for the spill
     runs."""
     cols: List[dict] = []
     for b in stream.read_splits(fmt, splits, fields=SORT_FIELDS + ("l_read_name",),
-                                with_keys=False):
+                                with_keys=False, errors=errors):
         cols.append(collation_columns(b.data, b.soa))
         b.device_data = None
     perm, _ = queryname_perm(concat_collation(cols), device=stream.device,
@@ -608,7 +654,8 @@ def _load_range(runs: List[Run], cuts, dup_mask: Optional[np.ndarray]):
 def _sort_bam_external(fmt, splits, header, out_path: str, memory_budget: int, level: int,
                        backend: str, write_splitting_bai: bool, part_dir: Optional[str],
                        stream: DeviceStream, mark_duplicates: bool, sort_order: str,
-                       key_column: Optional[np.ndarray], seconds: Dict[str, float]) -> SortStats:
+                       key_column: Optional[np.ndarray], seconds: Dict[str, float],
+                       write: _WriteSettings) -> SortStats:
     """Bounded-memory sort: spill sorted runs, merge by exact key ranges.
 
     Phase 1 reads the splits in file order and gathers decoded batches
@@ -626,8 +673,11 @@ def _sort_bam_external(fmt, splits, header, out_path: str, memory_budget: int, l
     With a persistent ``part_dir``, ``spill/manifest.json`` (written last,
     after the runs and ``dupmask.npy``) certifies a completed phase 1; a
     rerun whose inputs, budget, duplicate marking and order match it skips
-    phase 1.  A manifest that does not match is ignored and phase 1 runs
-    again."""
+    phase 1, and the executor skips the ranges whose parts are there.  A
+    manifest that does not match is ignored and phase 1 runs again.  Under
+    salvage the split reads (and the queryname prepass's) salvage as the
+    in-core sort's do; the key column stays aligned, because both passes
+    salvage the same records."""
     dev = stream.device
     metrics = stream.metrics
     read_fields = (tuple(dict.fromkeys(SORT_FIELDS + DEDUP_EXTRA_FIELDS)) if mark_duplicates
@@ -687,7 +737,7 @@ def _sort_bam_external(fmt, splits, header, out_path: str, memory_budget: int, l
                 acc_bytes = 0
 
             for b in stream.read_splits(fmt, splits, fields=read_fields,
-                                        with_keys=key_column is None):
+                                        with_keys=key_column is None, errors=write.errors):
                 if key_column is not None:
                     b.keys = key_column[n : n + b.n_records]
                 if mark_duplicates:  # from the whole SoA, before it is trimmed
@@ -742,8 +792,8 @@ def _sort_bam_external(fmt, splits, header, out_path: str, memory_budget: int, l
 
         t_merge = time.perf_counter()
         # One range in flight: each holds up to a budget of record bytes.
-        _write_parts(td, len(ranges), part_of, level, write_splitting_bai, 1, stream,
-                     stream.policy.device_write)
+        _write_parts(td, len(ranges), part_of, level, write_splitting_bai,
+                     write.executor(td, metrics, workers=1), stream, stream.policy.device_write)
         merge_bam_parts(td, out_path, header, write_splitting_bai=write_splitting_bai)
     seconds["spill"] = t_markdup - t_spill
     if mark_duplicates:
@@ -796,6 +846,21 @@ def _finish_device_parse(
             metrics.count_h2d(h.numel() * 4, "unmapped_hash")
         keys = patch_unmapped_keys(keys, unm, h)
     return _fetch_perm(sort_keys(keys)[1], metrics)
+
+
+def _host_parse(b: RecordBatch, dev: torch.device, metrics: Metrics):
+    """``parse_split``'s ``(keys, unmapped, meta)`` for a salvaged batch,
+    from its host keys: the unmapped rows' hashes are in the keys already,
+    so no row is flagged for the patch."""
+    n_i = b.n_records
+    if n_i == 0:
+        return None
+    off = np.asarray(b.soa["rec_off"], dtype=np.int64) - 4
+    keys = bam_spec.soa_keys(bam_spec.soa_decode(b.data, off, fields=SORT_FIELDS), b.data)
+    if dev.type == "cuda":
+        metrics.count_h2d(keys.nbytes, "keys")
+    return (torch.from_numpy(keys).to(dev), torch.zeros(n_i, dtype=torch.bool, device=dev),
+            torch.tensor([n_i, 1], dtype=torch.int64, device=dev))
 
 
 def _unmapped_hash32(b: RecordBatch, mask: np.ndarray) -> np.ndarray:

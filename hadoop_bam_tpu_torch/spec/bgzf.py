@@ -1,7 +1,9 @@
 """BGZF framing: block header parse, block inflate/deflate, batched host codec.
 
 Counterpart of ``hadoop_bam_tpu/spec/bgzf.py`` (header walk, single-block
-codec, virtual offsets, ``BgzfWriter``, ``TERMINATOR``) plus the batched host codec that the reference keeps
+codec with the ``flate.corrupt`` fault seam, virtual offsets, the EOF
+probe, ``BgzfReader`` with its salvage mode, ``BgzfWriter``,
+``TERMINATOR``) plus the batched host codec that the reference keeps
 in C++ (``hadoop_bam_tpu/native``): here it is Python ``zlib`` over a thread
 pool (zlib releases the GIL).  Raw DEFLATE with ``compressobj(level,
 DEFLATED, -15, 8, Z_DEFAULT_STRATEGY)`` — the native library's parameters —
@@ -17,6 +19,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import BinaryIO, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .. import faults
 
 MAGIC = b"\x1f\x8b\x08\x04"
 _BC_ID = b"BC"
@@ -34,6 +38,13 @@ TERMINATOR = (
 
 class BgzfError(IOError):
     pass
+
+
+def has_eof_terminator(data) -> bool:
+    """Does the stream end with the 28-byte BGZF EOF marker?  A missing
+    marker is the signature of a truncated file (htsjdk's
+    ``checkTermination``)."""
+    return len(data) >= len(TERMINATOR) and bytes(data[-len(TERMINATOR):]) == TERMINATOR
 
 
 def default_threads() -> int:
@@ -115,8 +126,17 @@ def is_bgzf(data) -> bool:
     return parse_block_header(data, 0) is not None
 
 
-def inflate_block(buf, pos: int = 0, check_crc: bool = True) -> Tuple[bytes, int]:
-    """Inflate one BGZF block at ``pos``; returns ``(payload, csize)``."""
+def inflate_block(buf, pos: int = 0, check_crc: bool = True,
+                  metrics=None) -> Tuple[bytes, int]:
+    """Inflate one BGZF block at ``pos``; returns ``(payload, csize)``.
+
+    The armed fault plan's ``flate.corrupt`` flips a payload byte here,
+    before the CRC gate, so the gate, not luck, catches it (counted into
+    ``metrics``)."""
+    return _inflate_one(buf, pos, check_crc, True, metrics)
+
+
+def _inflate_one(buf, pos: int, check_crc: bool, seam: bool, metrics=None) -> Tuple[bytes, int]:
     hdr = parse_block_header(buf, pos)
     if hdr is None:
         raise BgzfError(f"not a BGZF block at offset {pos}")
@@ -130,6 +150,8 @@ def inflate_block(buf, pos: int = 0, check_crc: bool = True) -> Tuple[bytes, int
         )
     except zlib.error as e:
         raise BgzfError(f"corrupt deflate stream at offset {pos}: {e}") from e
+    if seam and faults.ACTIVE is not None:
+        payload = faults.ACTIVE.corrupt_payload(payload, metrics)
     crc, isize = struct.unpack_from("<II", buf, pos + bsize - FOOTER)
     if len(payload) != isize:
         raise BgzfError(f"ISIZE mismatch at {pos}: {len(payload)} != {isize}")
@@ -196,7 +218,9 @@ def inflate_blocks(
     out = np.empty(int(out_offsets[-1]), dtype=np.uint8)
 
     def one(i: int) -> None:
-        payload, _ = inflate_block(data, int(coffsets[i]), check_crc)
+        # The batched codec stands for the reference's native one: no
+        # fault seam here.
+        payload, _ = _inflate_one(data, int(coffsets[i]), check_crc, False)
         if len(payload) != out_offsets[i + 1] - out_offsets[i]:
             raise BgzfError(f"inflate failed in block {i}")
         out[out_offsets[i] : out_offsets[i + 1]] = np.frombuffer(payload, np.uint8)
@@ -233,10 +257,37 @@ def deflate_blocks(
 
 
 class BgzfReader:
-    """Sequential reader addressed by virtual offsets (header reads)."""
+    """Sequential reader addressed by virtual offsets.
 
-    def __init__(self, data) -> None:
-        self._data = data
+    ``source`` is a path, bytes or a binary stream.  ``check_eof``
+    (default: on for a path, off for bytes, which may be a window ending
+    mid-stream) probes for the EOF terminator at open, setting
+    :attr:`truncated` and counting ``bgzf.missing_eof`` into ``metrics``
+    when it is absent.  ``errors="salvage"`` makes a final member that
+    fails to parse or inflate a clean EOF at the last whole member
+    (``salvage.torn_tail``) instead of the strict raise."""
+
+    def __init__(self, source, errors: str = "strict", check_eof: Optional[bool] = None,
+                 metrics=None) -> None:
+        if isinstance(source, str):
+            with open(source, "rb") as f:
+                self._data = f.read()
+            if check_eof is None:
+                check_eof = True
+        elif isinstance(source, (bytes, bytearray, memoryview, np.ndarray)):
+            self._data = source
+        else:
+            self._data = source.read()
+        if errors not in ("strict", "salvage"):
+            raise ValueError(f"errors must be strict|salvage, got {errors!r}")
+        self._errors = errors
+        self._metrics = metrics
+        #: None: not probed (a windowed source); else the missing-EOF flag.
+        self.truncated: Optional[bool] = None
+        if check_eof:
+            self.truncated = not has_eof_terminator(self._data)
+            if self.truncated and metrics is not None:
+                metrics.count("bgzf.missing_eof", 1)
         self._coffset = 0
         self._uoffset = 0
         self._block: Optional[bytes] = None
@@ -247,8 +298,25 @@ class BgzfReader:
             return True
         if self._coffset >= len(self._data):
             return False
-        self._block, self._block_csize = inflate_block(self._data, self._coffset)
+        try:
+            self._block, self._block_csize = inflate_block(self._data, self._coffset,
+                                                           metrics=self._metrics)
+        except BgzfError:
+            if self._errors != "salvage":
+                raise
+            # A torn tail: stop cleanly at the last whole member.
+            if self._metrics is not None:
+                self._metrics.count("salvage.torn_tail", 1)
+            self._coffset = len(self._data)
+            return False
         return True
+
+    def seek_voffset(self, voffset: int) -> None:
+        co, uo = split_voffset(voffset)
+        if co != self._coffset:
+            self._coffset = co
+            self._block = None
+        self._uoffset = uo
 
     def tell_voffset(self) -> int:
         if self._block is not None and self._uoffset >= len(self._block):
@@ -277,6 +345,13 @@ class BgzfReader:
             raise BgzfError(f"EOF: wanted {n} bytes, got {len(b)}")
         return b
 
+    @property
+    def at_eof(self) -> bool:
+        if self._coffset >= len(self._data):
+            return True
+        if self._block is not None and self._uoffset >= len(self._block):
+            return self._coffset + self._block_csize >= len(self._data)
+        return False
 
 
 class BgzfWriter:

@@ -11,6 +11,7 @@ cuts, ``SortStats`` and counters.  The cases are the reference's
 itself and a header-only input."""
 
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -416,23 +417,16 @@ def test_kill9_mid_external_sort_then_resume(tmp_path):
 
     out = str(tmp_path / "resumed.bam")
     pdir = str(tmp_path / "parts")
-    # The child holds itself in phase 2: the second range's part write
-    # sleeps, so the parent's SIGKILL lands between checkpoints.
     child = (
-        "import sys, time; sys.path.insert(0, {repo!r})\n"
+        "import sys; sys.path.insert(0, {repo!r})\n"
         "from hadoop_bam_tpu_torch import pipeline\n"
-        "real = pipeline.write_part_fast\n"
-        "calls = []\n"
-        "def held(*a, **k):\n"
-        "    calls.append(1)\n"
-        "    if len(calls) == 2:\n"
-        "        time.sleep(60)\n"
-        "    return real(*a, **k)\n"
-        "pipeline.write_part_fast = held\n"
         "pipeline.sort_bam([{src!r}], {out!r}, device='cpu', backend='host', level=1, "
         "memory_budget={budget}, part_dir={pdir!r})\n"
     ).format(repo=REPO, src=src, out=out, budget=budget, pdir=pdir)
-    proc = subprocess.Popen([sys.executable, "-c", child])
+    # The child holds itself mid-phase 2 (the second range's every attempt
+    # stalls), so the parent's SIGKILL lands between checkpoints.
+    env = dict(os.environ, HBAM_FAULTS="exec.delay:items=1,attempts=*,ms=60000,n=*")
+    proc = subprocess.Popen([sys.executable, "-c", child], env=env)
     part0 = os.path.join(pdir, "part-r-00000")
     deadline = time.time() + 120
     while time.time() < deadline and not os.path.exists(part0):
@@ -447,12 +441,24 @@ def test_kill9_mid_external_sort_then_resume(tmp_path):
     assert not os.path.exists(out)
     assert os.path.exists(os.path.join(pdir, "spill", "manifest.json"))
 
+    # The rerun, no faults: the spill runs and the finished parts are the
+    # checkpoints; its peak is the reference's resumed run's.
+    jpdir = str(tmp_path / "jparts")
+    shutil.copytree(pdir, jpdir)
+    before = snapshot()
+    jst = jpipeline.sort_bam([src], str(tmp_path / "jresumed.bam"), backend="host", level=1,
+                             memory_budget=budget, part_dir=jpdir)
+    jc = delta(before)["counters"]
     st = tpipeline.sort_bam([src], out, device="cpu", backend="host", level=1,
                             memory_budget=budget, part_dir=pdir)
     assert st.counters["sort_bam.resume_spill_reused"] == 1
+    assert st.counters["executor.skipped_existing"] >= 1
+    assert st.counters["executor.skipped_existing"] == jc["executor.skipped_existing"]
+    assert st.peak_bytes == jst.peak_bytes
     assert st.n_records == 4000 and st.n_ranges > 2
     assert "spill" in st.seconds  # phase 1 was skipped: loading the manifest
-    assert _bytes(out) == _bytes(out_clean) == _bytes(j_clean)
+    assert _bytes(out) == _bytes(out_clean) == _bytes(j_clean) == \
+        _bytes(tmp_path / "jresumed.bam")
 
 
 def test_stale_manifest_redoes_spill(tmp_path):

@@ -42,6 +42,7 @@ from hadoop_bam_tpu_torch.collate import signature as tsig
 from hadoop_bam_tpu_torch.conf import from_reference_conf
 from hadoop_bam_tpu_torch.io.bam import RecordBatch, rebuild_record_stream
 from hadoop_bam_tpu_torch.spec import bam as tbam
+from hadoop_bam_tpu_torch.spec import bgzf as tbgzf
 from hadoop_bam_tpu_torch.utils.tracing import Metrics
 from test_collate import _collate_corpus
 from test_torch_markdup import HOST, port_records, read, write_bam
@@ -334,9 +335,9 @@ def test_concat_collation_matches_the_reference():
                          ids=["errors", "errors_empty", "memory_budget", "salvage"])
 def test_fixmate_arguments(straddling, tmp_path, kwargs):
     """The reference's ``ValueError`` outside the domain of ``errors``;
-    salvage is not ported yet and says so; the out-of-core form writes the
-    reference's bytes, stats and counters (``tests/test_torch_external_sort.py``
-    holds it to the in-core form)."""
+    salvage and the out-of-core form write the reference's bytes, stats and
+    counters (``tests/test_torch_external_sort.py`` holds the out-of-core
+    form to the in-core one); salvage over a file with a corrupt member."""
     _, src = straddling
     out = str(tmp_path / "o.bam")
     if "memory_budget" in kwargs:
@@ -351,8 +352,20 @@ def test_fixmate_arguments(straddling, tmp_path, kwargs):
             jpipeline.fixmate_bam(src, str(tmp_path / "j.bam"), **kwargs)
         assert str(got.value) == str(want.value)
     else:
-        with pytest.raises(NotImplementedError, match=r"\(ROADMAP A\.7\)$"):
-            tpipeline.fixmate_bam(src, out, device="cpu", **kwargs)
+        data = bytearray(read(src))
+        co, cs, _ = tbgzf.scan_blocks(bytes(data))
+        k = len(co) // 2  # a record member in the middle
+        data[int(co[k]) + 25] ^= 0x01  # a payload bit: the CRC gate catches it
+        bad = str(tmp_path / "bad.bam")
+        with open(bad, "wb") as f:
+            f.write(bytes(data))
+        before = snapshot()
+        st, _ = both_fixmates(bad, tmp_path, **kwargs)
+        fam = ("salvage.", "executor.")
+        want = {k: v for k, v in delta(before)["counters"].items() if k.startswith(fam) and v}
+        assert {k: v for k, v in st.counters.items() if k.startswith(fam) and v} == want
+        assert st.counters["salvage.members_quarantined"] == 1
+        return
     assert not os.path.exists(out)
 
 

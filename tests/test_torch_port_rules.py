@@ -106,13 +106,19 @@ def test_reference_conf_dict_drives_both_packages():
 )
 def test_options_outside_the_slice_raise(tmp_path, kwargs):
     """What is not ported yet raises, citing ROADMAP; ``memory_budget`` is
-    ported (the out-of-core sort) and writes the reference's bytes."""
+    ported (the out-of-core sort) and writes the reference's bytes, and so
+    is salvage, as the argument or the conf key: the reference's bytes and
+    counters on a damaged file."""
     from hadoop_bam_tpu_torch import pipeline
     from hadoop_bam_tpu_torch.conf import Configuration
 
     kw = dict(kwargs)
     if "memory_budget" in kw:
         assert _budget_sort_matches_the_reference(tmp_path, kw).n_runs > 1
+        return
+    if kw.get("errors") == "salvage" or "conf" in kw:
+        st = _salvage_sort_matches_the_reference(tmp_path, kw)
+        assert st.counters["salvage.members_quarantined"] == 2
         return
     if "conf" in kw:
         kw["conf"] = Configuration(kw["conf"])
@@ -138,6 +144,36 @@ def _budget_sort_matches_the_reference(tmp_path, kw):
     return st
 
 
+def _salvage_sort_matches_the_reference(tmp_path, kw):
+    """``sort_bam`` with ``kw`` (salvage, as the argument or the conf key)
+    through both packages on the CPU over a file with two corrupt members:
+    the same bytes and ``salvage.*`` / ``executor.*`` counters; returns the
+    port's stats."""
+    from hadoop_bam_tpu import pipeline as jpipeline
+    from hadoop_bam_tpu.conf import Configuration as JConf
+    from hadoop_bam_tpu.utils.tracing import delta, snapshot
+    from hadoop_bam_tpu_torch import pipeline
+    from hadoop_bam_tpu_torch.conf import Configuration
+    from test_faults import _build_bam, _corrupt
+
+    clean = str(tmp_path / "clean.bam")
+    data, stream, hlen = _build_bam(clean)
+    src = _corrupt({"clean": data, "hlen": hlen}, tmp_path / "in.bam", [4, 19])
+    t_out, j_out = str(tmp_path / "port.bam"), str(tmp_path / "ref.bam")
+    conf = kw.get("conf", {})
+    args = {k: v for k, v in kw.items() if k != "conf"}
+    before = snapshot()
+    jpipeline.sort_bam(src, j_out, conf=JConf(conf), level=1, **args)
+    want = {k: v for k, v in delta(before)["counters"].items()
+            if k.startswith(("salvage.", "executor.")) and v}
+    st = pipeline.sort_bam(src, t_out, conf=Configuration(conf), device="cpu", level=1, **args)
+    with open(t_out, "rb") as f, open(j_out, "rb") as g:
+        assert f.read() == g.read()
+    assert {k: v for k, v in st.counters.items()
+            if k.startswith(("salvage.", "executor.")) and v} == want
+    return st
+
+
 @pytest.mark.parametrize(
     "kwargs,item",
     [({"memory_budget": 1 << 20}, "A.4"), ({"mesh": object()}, "A.10"),
@@ -146,12 +182,15 @@ def _budget_sort_matches_the_reference(tmp_path, kw):
 )
 def test_options_outside_the_slice_cite_their_roadmap_item(tmp_path, kwargs, item):
     """Each option not ported yet cites its ROADMAP item; A.4's
-    ``memory_budget`` is ported and cites nothing: it sorts, with the
-    reference's bytes."""
+    ``memory_budget`` and A.7's salvage are ported and cite nothing: they
+    sort, with the reference's bytes."""
     from hadoop_bam_tpu_torch import pipeline
 
     if item == "A.4":
         _budget_sort_matches_the_reference(tmp_path, kwargs)
+        return
+    if item == "A.7":
+        assert _salvage_sort_matches_the_reference(tmp_path, kwargs).n_records > 0
         return
     with pytest.raises(NotImplementedError, match=rf"\(ROADMAP {re.escape(item)}\)$"):
         pipeline.sort_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"), device="cpu",

@@ -98,12 +98,22 @@ def test_host_backend_writes_the_reference_bytes(src, tmp_path, gates, device_pa
 
 
 def test_max_attempts_is_taken(src, tmp_path):
-    """``max_attempts`` is inert until the retry executor (A.2): the bytes
-    are those of the default."""
+    """``max_attempts`` bounds each part's attempts (the executor, A.2): one
+    attempt writes the default's bytes, and 0 raises the reference's
+    ``ValueError`` when the write phase starts, leaving no output."""
     a, b = str(tmp_path / "a.bam"), str(tmp_path / "b.bam")
     for out, kw in ((a, {"max_attempts": 1}), (b, {})):
-        tpipeline.sort_bam(src, out, conf=from_reference_conf(HOST), device="cpu", level=1, **kw)
+        st = tpipeline.sort_bam(src, out, conf=from_reference_conf(HOST), device="cpu",
+                                level=1, **kw)
+        assert st.counters["executor.attempts"] == st.n_splits
     assert _read(a) == _read(b)
+    want = _raised(lambda: jpipeline.sort_bam(src, str(tmp_path / "ref.bam"), conf=JConf(HOST),
+                                              max_attempts=0))
+    got = _raised(lambda: tpipeline.sort_bam(src, str(tmp_path / "port.bam"),
+                                             conf=from_reference_conf(HOST), device="cpu",
+                                             max_attempts=0))
+    assert want is not None and want[0] is ValueError and got == want
+    assert not os.path.exists(tmp_path / "port.bam")
 
 
 QUERYNAME_BAD = [

@@ -433,10 +433,35 @@ def tbcf_split(path, s):
     return type(s)(path, s.vstart, s.vend)
 
 
-def test_salvage_is_not_ported(corpus):
-    s = tio.BcfInputFormat().get_splits([corpus["path"]])[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        tio.BcfInputFormat().read_split(s, errors="salvage")
+def test_salvage_is_not_ported(corpus, tmp_path):
+    """BCF salvage is ported: on a flipped byte and a truncated member, with
+    the walk gate off and on, every split reads as the reference's does,
+    with its ``salvage.*`` counters; the clean splits of the gate-on read
+    still take the walk."""
+    splits = tio.BcfInputFormat().get_splits([corpus["path"]], split_size=3000)
+    salvage = {"hadoopbam.errors": "salvage"}
+    for how in ("flipped_byte", "truncated"):
+        bad = str(tmp_path / f"{how}.bcf")
+        with open(bad, "wb") as f:
+            f.write(_corrupt(corpus["data"], how))
+        for gates in (False, True):
+            walks = 0
+            for s in splits:
+                s = tbcf_split(bad, s)
+                before = snapshot()
+                want = _ref_read(s, salvage, gates)
+                d = delta(before)["counters"]
+                got, m = _port_read(s, salvage, gates)
+                _same_batch(got, want)
+                for k in set(d) | set(m.counters()):
+                    if k.startswith("salvage."):
+                        assert m.get(k) == d.get(k, 0), (how, gates, k)
+                walks += m.get("bcf.chain.device_walks")
+            q = sum(_port_read(tbcf_split(bad, s), salvage, gates)[1].get(
+                "salvage.members_quarantined") for s in splits)
+            assert q >= 1, (how, gates)
+            if gates:
+                assert 0 < walks < len(splits)
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,7 @@ from hadoop_bam_tpu_torch.serve.endpoints import variants_blob
 path, region = sys.argv[1], sys.argv[2]
 _build.build(force=True)
 split = BcfInputFormat().get_splits([path])[0]
-_, payload, p, end, _ = _read_bcf_split_local(split)
+_, payload, p, end, _, _ = _read_bcf_split_local(split)
 g = torch.from_numpy(np.frombuffer(payload, np.uint8).copy()).cuda()
 walk = lambda: kb.walk_chain_device(g, p, end)
 for _ in range(3):
