@@ -12,7 +12,7 @@ drive ``sort_bam`` at full size on a synthetic BAM with the default gates
 port's CPU run) and with one resident split (byte-identical to the host
 gather + deflate lanes); mark duplicates, sort by name and fixmate
 synthetic read pairs on the card and on the CPU (the collation phase:
-markdup of 1,000,000 pairs with the default gates; byte-identical with the
+markdup of 500,000 pairs with the default gates, cut from 1,000,000; byte-identical with the
 write gates off, the markdup, queryname and fixmate twins, and the
 default-gate queryname sort and fixmate, on the first 250,000 pairs; the duplicate decision against
 its per-record oracle on the first 50,000 pairs, the mask through the
@@ -28,7 +28,13 @@ crashes, quarantines exactly them and decompresses to the CPU salvage
 sort's bytes; a ``part_dir`` resume that skips the finished parts; the
 out-of-core form with one range quarantined, then resumed; a salvaged BCF
 window query, card against CPU; forced codec tier-downs in the codec
-phase); drive
+phase); the text formats (the text phase, after the variants phase: the
+main path's input rows as SAM text sorted on the card to the content of
+its BAM twin's sort, a sorted part through ``SamOutputWriter`` and back;
+the call set's sites as plain, BGZF and plain-gzip VCF text read through
+``VcfInputFormat`` to the card BCF read's keys, positions and ends, with
+a malformed line under LENIENT and STRICT; ``join_counts_device`` on the
+card against ``join_counts_np``); drive
 ``ingest_fastq`` on 250,000 synthetic read pairs with the default gates,
 and on the CPU (the card's output decompresses to the CPU run's bytes),
 and hold
@@ -1943,12 +1949,12 @@ def synth_rows(n: int, seed: int) -> np.ndarray:
     return np.concatenate([synth_records(i, min(chunk, n - i), rng) for i in range(0, n, chunk)])
 
 
-def synth_bam(path: str, n: int, seed: int, level: int = 6, rows=None) -> int:
-    """Write an unsorted BAM of ``n`` synthetic records (or of ``rows``);
-    returns its size."""
+def synth_bam(path: str, n: int, seed: int, level: int = 6, rows=None, text: str = BAM_TEXT) -> int:
+    """Write an unsorted BAM of ``n`` synthetic records (or of ``rows``),
+    with header text ``text``; returns its size."""
     from hadoop_bam_tpu_torch.spec import bam, bgzf
 
-    header = bam.BamHeader(BAM_TEXT, list(GRCH38))
+    header = bam.BamHeader(text, list(GRCH38))
     stream = (synth_rows(n, seed) if rows is None else rows).reshape(-1)
     body, _ = bgzf.deflate_blocks(stream, level=level)
     with open(path, "wb") as f:
@@ -3281,6 +3287,359 @@ def salvage_variants(work: str, var: dict) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     os.remove(path)
     return {"launches": launches, "seconds": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# The text formats: SAM input to the sort, VCF text input, the counts join
+# ---------------------------------------------------------------------------
+
+TEXT_CHUNK = 250_000  # rows a rendering pass
+GZIP_SITES = 500_000  # the plain-gzip VCF's sites: one split by the format's rule
+JOIN_WINDOWS = 100_000
+TEXT_KERNELS = ("inflate_members", "record_chain", "deflate_members", "gather_stream", "crc32",
+                "bcf_chain")
+
+
+def _rows_text(pieces, n: int) -> bytes:
+    """Concatenate ragged pieces ``(uint8 [n, w] or bytes, lengths)`` row
+    by row (as :func:`_hcat` does) and join the rows: a piece whose rows
+    all fill its width, or a constant, goes in one scatter."""
+    lens = [np.full(n, len(p), np.int64) if isinstance(p, bytes) else np.asarray(ln, np.int64)
+            for p, ln in pieces]
+    row_len = np.sum(lens, axis=0)
+    cur = np.cumsum(row_len) - row_len
+    out = np.empty(int(row_len.sum()), np.uint8)
+    for (p, _), ln in zip(pieces, lens):
+        if isinstance(p, bytes):
+            out[cur[:, None] + np.arange(len(p))] = np.frombuffer(p, np.uint8)
+        elif bool((ln == p.shape[1]).all()):
+            out[cur[:, None] + np.arange(p.shape[1])] = p
+        else:
+            for k in range(p.shape[1]):
+                m = ln > k
+                out[cur[m] + k] = p[m, k]
+        cur += ln
+    return out.tobytes()
+
+
+def _table(words):
+    """``(uint8 [k, width], lengths)`` of byte strings, for row lookups."""
+    w = max(len(x) for x in words)
+    t = np.zeros((len(words), w), np.uint8)
+    for i, x in enumerate(words):
+        t[i, : len(x)] = np.frombuffer(x, np.uint8)
+    return t, np.asarray([len(x) for x in words], np.int64)
+
+
+def _i32_col(rows: np.ndarray, col: int) -> np.ndarray:
+    return rows[:, col : col + 4].copy().view("<i4").reshape(-1).astype(np.int64)
+
+
+def sam_text(rows: np.ndarray) -> bytes:
+    """The SAM lines of :func:`synth_records` rows (no header), rendered by
+    array passes: QNAME, FLAG, RNAME, POS, MAPQ, CIGAR (150M or *), RNEXT
+    *, PNEXT 0, TLEN 0, SEQ, QUAL and ``NM:i:<n>``."""
+    names, name_len = _table([b"*"] + [c.encode() for c, _ in GRCH38])
+    cigars, cigar_len = _table([b"*", b"150M"])
+    seq_lut = np.frombuffer(b"=ACMGRSVTWYHKDBN", np.uint8)
+    parts = []
+    for i in range(0, len(rows), TEXT_CHUNK):
+        r = rows[i : i + TEXT_CHUNK]
+        n = len(r)
+        refid, pos = _i32_col(r, 4), _i32_col(r, 8)
+        flag = r[:, 18].astype(np.int64) | (r[:, 19].astype(np.int64) << 8)
+        mapped = r[:, 16] == 1
+        cig = r[:, 47:51].copy().view("<u4").reshape(-1)
+        if not np.all(cig[mapped] == 150 << 4) or np.any(r[~mapped, 16]):
+            raise AssertionError("a synthetic record without the 150M or empty CIGAR")
+        nib = r[:, 51:126]
+        seq = np.empty((n, 150), np.uint8)
+        seq[:, 0::2] = seq_lut[nib >> 4]
+        seq[:, 1::2] = seq_lut[nib & 0xF]
+        full = np.full(n, 150, np.int64)
+        parts.append(_rows_text([
+            (r[:, 36:50], r[:, 12].astype(np.int64) - 1), (b"\t", None),
+            _num_digits(flag), (b"\t", None),
+            (names[refid + 1], name_len[refid + 1]), (b"\t", None),
+            _num_digits(pos + 1), (b"\t", None),
+            _num_digits(r[:, 13]), (b"\t", None),
+            (cigars[mapped.astype(np.int64)], cigar_len[mapped.astype(np.int64)]),
+            (b"\t*\t0\t0\t", None), (seq, full), (b"\t", None), (r[:, 126:276] + 33, full),
+            (b"\tNM:i:", None), ((r[:, 279:280] + 48), np.ones(n, np.int64)), (b"\n", None),
+        ], n))
+    return b"".join(parts)
+
+
+def vcf_sites_text(contig: np.ndarray, pos: np.ndarray, bcf_rows: np.ndarray) -> tuple:
+    """The call set's sites as VCF text lines (``#CHROM`` to ``INFO``), from
+    the generator's BCF rows: REF, ALT, QUAL (two decimals), PASS, INFO AC,
+    AF, AN, DP, and ``END`` where the row's rlen differs from the REF's
+    length.  Returns ``(bytes, lines with END)``."""
+    names, name_len = _table([c.encode() for c, _ in GRCH38])
+    afs, af_len = _table([f"{k / 6:g}".encode() for k in range(7)])
+    parts = []
+    n_end = 0
+    for i in range(0, len(pos), TEXT_CHUNK):
+        r, c, p = bcf_rows[i : i + TEXT_CHUNK], contig[i : i + TEXT_CHUNK], pos[i : i + TEXT_CHUNK]
+        n = len(r)
+        rlen = _i32_col(r, 16)
+        ref_len = np.ones(n, np.int64)  # the generator's REF is one base
+        end_at = rlen != ref_len
+        n_end += int(end_at.sum())
+        q = np.round(r[:, 20:24].copy().view("<f4").reshape(-1).astype(np.float64) * 100)
+        q = q.astype(np.int64)
+        one = np.ones(n, np.int64)
+        end_digits, end_len = _num_digits(p + rlen - 1)
+        pieces = [
+            (names[c], name_len[c]), (b"\t", None), _num_digits(p), (b"\t.\t", None),
+            (r[:, 34:35], one), (b"\t", None), (r[:, 36:37], one), (b"\t", None),
+            _num_digits(q // 100), (b".", None), (_digits(q % 100, 2), np.full(n, 2, np.int64)),
+            (b"\tPASS\tAC=", None), _num_digits(r[:, 42]), (b";AF=", None),
+            (afs[r[:, 42]], af_len[r[:, 42]]), (b";AN=6;DP=", None), _num_digits(r[:, 57]),
+            (np.frombuffer(b";END=", np.uint8)[None, :].repeat(n, 0), np.where(end_at, 5, 0)),
+            (end_digits, np.where(end_at, end_len, 0)), (b"\n", None),
+        ]
+        parts.append(_rows_text(pieces, n))
+    return b"".join(parts), n_end
+
+
+def _text_launches(launches: dict) -> dict:
+    return {k: launches[k] for k in TEXT_KERNELS}
+
+
+def timed_vcf(path: str, what: str, conf=None):
+    """Every split of ``path`` through ``VcfInputFormat``, the launch counts
+    zeroed just before and read just after: ``(keys, pos, end, splits,
+    wall, launches)``."""
+    from hadoop_bam_tpu_torch.io.vcf import VcfInputFormat
+
+    reset_counts()
+    t0 = time.perf_counter()
+    fmt = VcfInputFormat(conf)
+    splits = fmt.get_splits([path])
+    batches = [fmt.read_split(s) for s in splits]
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    cols = [np.concatenate([getattr(b, k) for b in batches]) if batches else np.empty(0, np.int64)
+            for k in ("keys", "pos", "end")]
+    log(f"VcfInputFormat({what}): {len(cols[0])} records, {len(splits)} splits, "
+        f"{os.path.getsize(path)} bytes, wall {wall:.3f} s, {len(cols[0]) / wall:.0f} records/s")
+    log(f"  launches: {json.dumps(_text_launches(launches))}")
+    return cols[0], cols[1], cols[2], splits, wall, launches
+
+
+def text_phase(work: str, n: int, seed: int, var: dict, device: str = "cuda") -> dict:
+    """The text formats on the card.  (a) The main path's ``n`` input rows
+    as SAM text (:func:`sam_text` under :data:`BAM_TEXT`): ``sort_bam`` on
+    the card with the default gates (host tokenizer, ``torch.sort``, parts
+    through row 3) decompresses to the card sort of its BAM twin (the rows
+    with the NM tag's type ``C`` made ``c``, the text encoder's narrowing);
+    the first sorted part goes through ``SamOutputWriter`` and back.  (b)
+    The call set's sites as VCF text, plain, BGZF and a plain-gzip prefix
+    (one split), read through ``VcfInputFormat``: keys, pos and end equal
+    the card read of the ``.bcf`` (rows 1 and 5); a malformed line is
+    skipped under LENIENT and raises under STRICT.  (c) ``join_counts_device``
+    on the card over the call set's ``[pos - 1, end)`` and
+    :data:`JOIN_WINDOWS` seeded windows equals ``join_counts_np``.
+    ``device="cpu"`` rehearses the phase without a card (no launch is
+    counted there)."""
+    import gzip
+
+    import torch
+
+    from hadoop_bam_tpu_torch.conf import (BCF_CHAIN, INFLATE_LANES,
+                                            VCFRECORDREADER_VALIDATION_STRINGENCY, Configuration)
+    from hadoop_bam_tpu_torch.device_stream import DeviceStream
+    from hadoop_bam_tpu_torch.io.bcf import BcfInputFormat
+    from hadoop_bam_tpu_torch.io.sam import SamInputFormat, SamOutputWriter
+    from hadoop_bam_tpu_torch.ops.overlap import join_counts_device, join_counts_np
+    from hadoop_bam_tpu_torch.spec import bam, bgzf
+    from hadoop_bam_tpu_torch.spec.vcf import FormatException
+
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    launches = {}
+    # (a) SAM input to the sort.
+    t0 = time.perf_counter()
+    rows = synth_rows(n, seed)
+    t_rows = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    text = BAM_TEXT.encode() + sam_text(rows)
+    t_render = time.perf_counter() - t0
+    sam_path = os.path.join(work, "in.sam")
+    with open(sam_path, "wb") as f:
+        f.write(text)
+    log(f"SAM text of the main path's {n} rows: {len(text)} bytes "
+        f"({(len(text) - len(BAM_TEXT)) / n:.1f} a line), rows {t_rows:.1f} s, rendered in "
+        f"{t_render:.1f} s")
+    del text
+    rows[:, 278] = ord("c")  # the text encoder narrows NM:i:<0..5> to type c
+    twin = os.path.join(work, "in.twin.bam")
+    synth_bam(twin, n, seed, rows=rows, text=BAM_TEXT.rstrip("\n"))
+    del rows
+    out_s, out_t = os.path.join(work, "sorted.sam.bam"), os.path.join(work, "sorted.twin.bam")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    st, wall, launches["sam_sort"] = timed_sort(sam_path, out_s, f"{device}, .sam, default gates",
+                                                device=device)
+    if on_card:
+        log(f"  card peak (torch.cuda.max_memory_allocated): "
+            f"{torch.cuda.max_memory_allocated()} bytes")
+    la, c = launches["sam_sort"], st.counters
+    if st.n_records != n or (on_card and (la["deflate_members"] != st.n_splits or any(
+            la[k] for k in ("inflate_members", "record_chain", "gather_stream", "crc32")))):
+        raise AssertionError(f"SAM sort: {st.n_records} of {n} records, {st.n_splits} splits, "
+                             f"launches {la}")
+    _, _, launches["sam_twin_sort"] = timed_sort(twin, out_t, f"{device}, BAM twin of the .sam",
+                                                 device=device)
+    if bgzf_content(out_s) != bgzf_content(out_t):
+        raise AssertionError("the .sam sort decompresses to other bytes than its BAM twin's")
+    log(f"sort_bam(.sam) decompresses to sort_bam(BAM twin)'s bytes; row 3 launched "
+        f"{la['deflate_members']} times for {st.n_splits} parts, rows 1, 2, 3b, 3c "
+        f"{[la[k] for k in ('inflate_members', 'record_chain', 'gather_stream', 'crc32')]}")
+    os.remove(twin)
+    os.remove(out_t)
+    # The first sorted part through the text writer and back.
+    t0 = time.perf_counter()
+    b = bam_batch(out_s)
+    k = n // st.n_splits
+    back = os.path.join(work, "part0.sam")
+    with open(back, "wb") as f:
+        w = SamOutputWriter(f, bam.BamHeader(BAM_TEXT.rstrip("\n"), list(GRCH38)))
+        w.write_batch(b, range(k))
+    fmt = SamInputFormat()
+    got = b"".join(np.asarray(fmt.read_split(s).data).tobytes() for s in fmt.get_splits([back]))
+    s0 = int(b.soa["rec_off"][0]) - 4
+    s1 = int(b.soa["rec_off"][k - 1] + b.soa["rec_len"][k - 1])
+    if got != np.asarray(b.data[s0:s1]).tobytes():
+        raise AssertionError("the first sorted part does not read back through SamOutputWriter")
+    log(f"SamOutputWriter: the first sorted part's {k} records ({os.path.getsize(back)} bytes "
+        f"of SAM) read back to the same record bytes in {time.perf_counter() - t0:.1f} s")
+    del b
+    for x in (back, sam_path, out_s):
+        os.remove(x)
+    # (b) The call set's sites as VCF text.
+    t0 = time.perf_counter()
+    contig, pos = var["contig"], var["pos"]
+    body, n_end = vcf_sites_text(contig, pos, var["rows"])
+    head_lines = [x for x in bcf_header_lines() if not x.startswith("#CHROM")]
+    head = ("\n".join(head_lines + ["#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO"])
+            + "\n").encode()
+    plain = os.path.join(work, "sites.vcf")
+    with open(plain, "wb") as f:
+        f.write(head + body)
+    bgz = os.path.join(work, "sites.vcf.gz")
+    with open(bgz, "wb") as f:
+        f.write(bgzf.deflate_blocks(head + body, level=1)[0] + bgzf.TERMINATOR)
+    n_gz = min(GZIP_SITES, len(pos))
+    cut = int(np.flatnonzero(np.frombuffer(body, np.uint8) == 10)[n_gz - 1]) + 1
+    gz = os.path.join(work, "sites.head.vcf.gz")
+    with open(gz, "wb") as f:
+        f.write(gzip.compress(head + body[:cut], compresslevel=1, mtime=0))
+    log(f"VCF text of the call set: {len(pos)} sites, {len(head) + len(body)} bytes plain, "
+        f"{os.path.getsize(bgz)} BGZF at level 1, the first {n_gz} sites as plain gzip "
+        f"({os.path.getsize(gz)} bytes); INFO END on {n_end} lines; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del body
+    # The oracle: the card read of the .bcf (rows 1 and 5).
+    reset_counts()
+    t0 = time.perf_counter()
+    # Off the card the walk and inflate gates default off: arm their plain versions.
+    stream = DeviceStream(dev, conf=None if on_card else Configuration(
+        {BCF_CHAIN: "true", INFLATE_LANES: "true"}))
+    bfmt = BcfInputFormat()
+    bb = [bfmt.read_split(s, stream=stream) for s in bfmt.get_splits([var["path"]])]
+    if on_card:
+        torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    launches["bcf_oracle"] = lb = launch_counts()
+    want = [np.concatenate([getattr(x, k) for x in bb]) for k in ("keys", "pos", "end")]
+    dev_pos = torch.cat([x.device_columns[1] for x in bb])
+    dev_end = torch.cat([x.device_columns[2] for x in bb])
+    del bb
+    if len(want[0]) != len(pos) or (on_card and min(lb["inflate_members"], lb["bcf_chain"]) <= 0):
+        raise AssertionError(f"BCF read ({device}): {len(want[0])} records, launches {lb}")
+    log(f"BcfInputFormat({device}): {len(want[0])} records in {wall_b:.3f} s; launches "
+        f"{json.dumps(_text_launches(lb))}")
+    for job, path, what, m in (("vcf_plain", plain, "plain .vcf", len(pos)),
+                               ("vcf_bgzf", bgz, "BGZF .vcf.gz", len(pos)),
+                               ("vcf_gzip", gz, "plain-gzip .vcf.gz", n_gz)):
+        keys, p, e, splits, _, launches[job] = timed_vcf(path, what)
+        if not all(np.array_equal(x, y[:m]) for x, y in zip((keys, p, e), want)):
+            raise AssertionError(f"VcfInputFormat({what}): columns differ from the BCF read")
+        if path == gz and len(splits) != 1:
+            raise AssertionError(f"plain gzip planned as {len(splits)} splits")
+        log(f"  keys, pos and end == the BCF read's first {m} rows")
+    # A malformed line: LENIENT skips it, STRICT raises.
+    with open(plain, "rb") as f:
+        small = f.read(len(head) + 4_000_000)
+    small = small[: small.rindex(b"\n") + 1]
+    at = small.index(b"\n", len(head) + (len(small) - len(head)) // 2) + 1
+    bad_path = os.path.join(work, "bad.vcf")
+    with open(bad_path, "wb") as f:
+        f.write(small[:at] + b"chr1\tBAD\t.\tA\tT\t.\tPASS\t.\n" + small[at:])
+    m = small.count(b"\n") - len(head_lines) - 1
+    keys = timed_vcf(bad_path, "a malformed line, LENIENT", conf=Configuration(
+        {VCFRECORDREADER_VALIDATION_STRINGENCY: "LENIENT"}))[0]
+    if not np.array_equal(keys, want[0][:m]):
+        raise AssertionError("LENIENT did not skip exactly the malformed line")
+    try:
+        timed_vcf(bad_path, "a malformed line, STRICT", conf=Configuration(
+            {VCFRECORDREADER_VALIDATION_STRINGENCY: "STRICT"}))
+    except FormatException as err:
+        log(f"  STRICT raised FormatException: {err}")
+    else:
+        raise AssertionError("STRICT read a malformed line")
+    for x in (plain, bgz, gz, bad_path):
+        os.remove(x)
+    # (c) The counts join on the card, per contig (one coordinate axis).
+    rng = np.random.default_rng(seed + 5)
+    lens = np.asarray([c[1] for c in GRCH38], dtype=np.int64)
+    q_c = np.sort(rng.choice(len(lens), JOIN_WINDOWS, p=lens / lens.sum()))
+    q_b = (rng.random(JOIN_WINDOWS) * lens[q_c]).astype(np.int64)
+    q_e = q_b + rng.integers(1, 100_000, JOIN_WINDOWS)
+    ids = np.arange(len(lens))
+    rc = want[0] >> 32
+    r_lo, r_hi = np.searchsorted(rc, ids), np.searchsorted(rc, ids, side="right")
+    w_lo, w_hi = np.searchsorted(q_c, ids), np.searchsorted(q_c, ids, side="right")
+    qb_d, qe_d = torch.from_numpy(q_b).to(dev), torch.from_numpy(q_e).to(dev)
+    starts_d = dev_pos - 1
+
+    def join():
+        return torch.cat([join_counts_device(starts_d[r_lo[i]:r_hi[i]], dev_end[r_lo[i]:r_hi[i]],
+                                             qb_d[w_lo[i]:w_hi[i]], qe_d[w_lo[i]:w_hi[i]])
+                          for i in ids])
+
+    join()  # warm
+    reset_counts()
+    if on_card:
+        torch.cuda.synchronize()
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+    t0 = time.perf_counter()
+    got = join()
+    if on_card:
+        ev1.record()
+        torch.cuda.synchronize()
+        ms = ev0.elapsed_time(ev1)
+    else:
+        ms = (time.perf_counter() - t0) * 1e3
+    launches["counts_join"] = launch_counts()
+    t0 = time.perf_counter()
+    plain_c = np.concatenate([join_counts_np(want[1][r_lo[i]:r_hi[i]] - 1, want[2][r_lo[i]:r_hi[i]],
+                                             q_b[w_lo[i]:w_hi[i]], q_e[w_lo[i]:w_hi[i]])
+                              for i in ids])
+    np_ms = (time.perf_counter() - t0) * 1e3
+    if got.device.type != dev.type or not np.array_equal(got.cpu().numpy(), plain_c):
+        raise AssertionError("join_counts_device differs from join_counts_np")
+    log(f"join_counts_device({device}): {JOIN_WINDOWS} windows over {len(pos)} sites on "
+        f"{len(lens)} contigs, {ms:.3f} ms ({'CUDA events' if on_card else 'host clock'}, "
+        f"columns resident), == join_counts_np ({np_ms:.3f} ms on the host); "
+        f"{int(plain_c.sum())} overlaps")
+    seconds = time.perf_counter() - t_phase
+    log(f"text phase: {seconds:.1f} s")
+    return {"launches": launches, "seconds": seconds, "join_ms": ms}
 
 
 # ---------------------------------------------------------------------------
@@ -5093,6 +5452,9 @@ def sm_clocks() -> str:
 #: Each path's full depth; a run at another depth logs each cut.
 FULL_DEPTH = {"records": 2_000_000, "dup_pairs": 1_000_000, "pairs": 250_000,
               "variants": 4_500_000, "cram_records": 300_000}
+#: The depths a run takes by default where they are cut below the full one
+#: to keep the run inside its time limit (logged as cuts).
+RUN_DEPTH = dict(FULL_DEPTH, dup_pairs=500_000)
 
 
 def card_line() -> str:
@@ -5105,15 +5467,15 @@ def card_line() -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--records", type=int, default=FULL_DEPTH["records"])
+    ap.add_argument("--records", type=int, default=RUN_DEPTH["records"])
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--pairs", type=int, default=FULL_DEPTH["pairs"],
+    ap.add_argument("--pairs", type=int, default=RUN_DEPTH["pairs"],
                     help="read pairs of the ingest phase")
-    ap.add_argument("--dup-pairs", type=int, default=FULL_DEPTH["dup_pairs"],
+    ap.add_argument("--dup-pairs", type=int, default=RUN_DEPTH["dup_pairs"],
                     help="read pairs of the collation phase (markdup, queryname, fixmate)")
-    ap.add_argument("--variants", type=int, default=FULL_DEPTH["variants"],
+    ap.add_argument("--variants", type=int, default=RUN_DEPTH["variants"],
                     help="sites of the variants phase's call set")
-    ap.add_argument("--cram-records", type=int, default=FULL_DEPTH["cram_records"],
+    ap.add_argument("--cram-records", type=int, default=RUN_DEPTH["cram_records"],
                     help="records of the CRAM phase's corpus")
     ap.add_argument("--codec-mib", type=int, default=CODEC_MIB,
                     help="MiB of record bytes of the codec phase's round trip")
@@ -5185,6 +5547,7 @@ def main() -> int:
         sal_var = salvage_variants(work, var)
         rows.append(time_bcf_chain(var["path"], checks, var["launches"]["bcf_chain"],
                                    f"variants_blob(cuda), {VARIANT_REGIONS[0]}"))
+        txt = text_phase(work, args.records, args.seed, var)
         del var
         cr = cram_phase(work, args.cram_records, args.seed)
         rows.append(dict(rans_row, launches=cr["launches"]["rans"],
@@ -5203,6 +5566,7 @@ def main() -> int:
         row["collation_launches"] = {job: n[row["name"]] for job, n in col["launches"].items()}
         row["external_launches"] = {job: n[row["name"]] for job, n in ext["launches"].items()}
         row["salvage_launches"] = {job: n[row["name"]] for job, n in salvage.items()}
+        row["text_launches"] = {job: n[row["name"]] for job, n in txt["launches"].items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

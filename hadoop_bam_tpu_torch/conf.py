@@ -61,6 +61,13 @@ INGEST_DEVICE_SCAN = "hadoopbam.ingest.device-scan"
 VCF_INTERVALS = "hadoopbam.vcf.intervals"
 VCFRECORDREADER_VALIDATION_STRINGENCY = "hadoopbam.vcfrecordreader.validation-stringency"
 BCF_CHAIN = "hadoopbam.bcf.chain"
+#: VCF input: trust the .vcf/.vcf.gz/.vcf.bgz/.bcf extensions (default
+#: true), else sniff the content.  VCF output: the format ("VCF" or "BCF")
+#: and whether a part writes the header (named, as the reference names
+#: them; no writer reads them).
+VCF_TRUST_EXTS = "hadoopbam.vcf.trust-exts"
+VCF_OUTPUT_FORMAT = "hadoopbam.vcf.output-format"
+VCF_WRITE_HEADER = "hadoopbam.vcf.write-header"
 #: CRAM input: the reference FASTA of reference-based CRAM, and the card's
 #: rANS 4x8 decode ("true"/"false"; unset: on for a CUDA device).
 CRAM_REFERENCE_SOURCE_PATH = "hadoopbam.cram.reference-source-path"
@@ -68,6 +75,12 @@ CRAM_RANS_LANES = "hadoopbam.cram.rans-lanes"
 #: AnySAM input: trust the .bam/.cram/.sam extensions (default true), else
 #: sniff the first byte.
 ANYSAM_TRUST_EXTS = "hadoopbam.anysam.trust-exts"
+#: AnySAM output: the format ("BAM", "SAM" or "CRAM") and whether a part
+#: writes the header; the SAM header reader's stringency (named, as the
+#: reference names them; nothing reads them).
+ANYSAM_OUTPUT_FORMAT = "hadoopbam.anysam.output-format"
+ANYSAM_WRITE_HEADER = "hadoopbam.anysam.write-header"
+SAMHEADERREADER_VALIDATION_STRINGENCY = "hadoopbam.samheaderreader.validation-stringency"
 
 _TRUE_WORDS = frozenset(("yes", "true", "t", "y", "1", "on", "enabled"))
 _FALSE_ENV = ("0", "false", "no", "off", "")

@@ -5,8 +5,12 @@ SAMFormat.java): with ``hadoopbam.anysam.trust-exts`` (default true) the
 ``.bam``/``.cram``/``.sam`` extension decides, otherwise the first byte
 (``0x1f`` BAM, ``C`` CRAM, ``@`` SAM); per-path decisions are cached;
 ``get_splits`` groups the paths by format and asks each format's planner.
-The SAM text format is not ported yet: a ``.sam`` input raises
-``NotImplementedError`` (ROADMAP A.9).
+
+A SAM header is read from the text by ``SamInputFormat.read_header``.  The
+reference sends a SAM file's header to its BGZF reader
+(``hadoop_bam_tpu/io/anysam.py`` ``read_header`` → ``io/bam.read_header``),
+which raises ``BgzfError`` on text, so its ``sort_bam`` cannot take a
+``.sam``; the port reads the header the SAM reader's way.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Dict, List, Optional, Union
 from ..conf import ANYSAM_TRUST_EXTS, Configuration
 from .bam import BamInputFormat, RecordBatch, read_header
 from .cram import CramInputFormat, read_cram_header
+from .sam import SamInputFormat
 from .splits import ByteSplit, FileVirtualSplit
 
 AnySplit = Union[ByteSplit, FileVirtualSplit]
@@ -43,17 +48,12 @@ def infer_from_data(first_byte: int) -> Optional[str]:
     return None
 
 
-def _sam_not_ported(path: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{path}: the SAM text input format is not ported yet (ROADMAP A.9)"
-    )
-
-
 class AnySamInputFormat:
     def __init__(self, conf: Optional[Configuration] = None):
         self.conf = conf or Configuration()
         self._format_cache: Dict[str, Optional[str]] = {}
         self._bam = BamInputFormat(self.conf)
+        self._sam = SamInputFormat(self.conf)
         self._cram = CramInputFormat(self.conf)  # one FASTA parse for all splits
 
     def get_format(self, path: str) -> str:
@@ -81,7 +81,7 @@ class AnySamInputFormat:
             if fmt == "bam":
                 out.extend(self._bam.get_splits(group, split_size))
             elif fmt == "sam":
-                raise _sam_not_ported(group[0])
+                out.extend(self._sam.get_splits(group, split_size))
             else:
                 out.extend(self._cram.get_splits(group, split_size))
         return out
@@ -89,11 +89,13 @@ class AnySamInputFormat:
     def read_split(self, split: AnySplit, **kw) -> RecordBatch:
         """Per-format dispatch with the read-drive keyword arguments
         passed through, so this format drops into
-        ``DeviceStream.read_splits`` like a BamInputFormat."""
+        ``DeviceStream.read_splits`` like a BamInputFormat.  The text
+        reader takes none of them but ``data``: it has no codec tiers and
+        no projection."""
         if isinstance(split, FileVirtualSplit):
             return self._bam.read_split(split, **kw)
         if self.get_format(split.path) == "sam":
-            raise _sam_not_ported(split.path)
+            return self._sam.read_split(split, data=kw.get("data"))
         return self._cram.read_split(split, **kw)
 
     def read_header(self, path: str):
@@ -101,5 +103,5 @@ class AnySamInputFormat:
         if fmt == "cram":
             return read_cram_header(path)
         if fmt == "sam":
-            raise _sam_not_ported(path)
+            return self._sam.read_header(path)
         return read_header(path)

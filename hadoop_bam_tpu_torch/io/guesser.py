@@ -277,3 +277,20 @@ def find_record_start_in_payload(
             return None
         lo = w - _CANDIDATE_REACH
         w *= 2
+
+
+def guess_bgzf_block_start(data: bytes, beg: int, end: int) -> Optional[int]:
+    """The plain BGZF guesser (util/BGZFSplitGuesser.java:64-112): the first
+    block start in ``[beg, end)`` whose block inflates with a good CRC, or
+    None."""
+    window_end = min(len(data), end + 2 * 0xFFFF - 1)
+    pos = beg
+    while True:
+        pos = bgzf.find_next_block(data, pos, min(end, window_end))
+        if pos < 0 or pos >= end:
+            return None
+        try:
+            bgzf.inflate_block(data, pos, check_crc=True)
+            return pos
+        except bgzf.BgzfError:
+            pos += 1

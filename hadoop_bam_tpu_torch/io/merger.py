@@ -1,9 +1,12 @@
-"""Post-job merge: headerless parts → one BAM (+ merged ``.splitting-bai``).
+"""Post-job merge: headerless parts → one BAM (+ merged ``.splitting-bai``)
+or one CRAM.
 
 Counterpart of ``hadoop_bam_tpu/io/merger.py`` (util/SAMFileMerger.java
 semantics): require the ``_SUCCESS`` marker, take ``part-[mr]-NNNNN`` in
 order, write the header block, append the parts untouched and the BGZF
-terminator, and merge the per-part indices by shifting their offsets.
+terminator, and merge the per-part indices by shifting their offsets; CRAM
+parts get the file definition and header container before them and the EOF
+container after them.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import os
 import shutil
 from typing import List
 
-from ..spec import bam, bgzf, indices
+from ..spec import bam, bgzf, cram, indices
 from ..utils import nio
 
 SUCCESS_MARKER = nio.SUCCESS_MARKER
@@ -58,3 +61,21 @@ def merge_bam_parts(
                 total_length=os.path.getsize(out_path),
                 out=f,
             )
+
+
+def merge_cram_parts(
+    part_dir: str,
+    out_path: str,
+    header: bam.BamHeader,
+    check_success: bool = True,
+) -> None:
+    """Headerless CRAM parts → one CRAM: the file definition (version 3.0,
+    a zero file id) and the header container, the parts' containers
+    untouched, the EOF container (util/SAMFileMerger.java:77-78,96-102)."""
+    if check_success:
+        nio.check_success(part_dir)
+    with open(out_path, "wb") as out:
+        out.write(cram.MAGIC + bytes([3, 0]) + b"\x00" * 20)
+        out.write(cram.encode_file_header_container(header.text, 3))
+        nio.concat_files(list_parts(part_dir), out)
+        out.write(cram.EOF_V3)

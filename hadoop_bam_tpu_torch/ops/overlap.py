@@ -1,10 +1,12 @@
-"""The ragged interval join: which records overlap any of a set of windows.
+"""The ragged interval join: which records overlap any of a set of windows,
+and how many records overlap each window.
 
 Counterpart of the ragged half of ``hadoop_bam_tpu/ops/pallas/overlap.py``
-(``join_mask_np``, ``join_mask_device``, ``ragged_overlap_mask``,
-``intervals_to_array``).  The reference's device form is a jitted XLA
-program (two sorted axes joined by binary search, no ``pallas_call``); here
-it is ``torch.searchsorted`` and a gather on the records' device.
+(``join_mask_np``, ``join_mask_device``, ``join_counts_np``,
+``join_counts_device``, ``ragged_overlap_mask``, ``intervals_to_array``).
+The reference's device forms are jitted XLA programs (two sorted axes
+joined by binary search, no ``pallas_call``); here they are
+``torch.searchsorted`` (and a gather) on the records' device.
 
 Mask form: with windows sorted by begin and ``P[j] = max(q_end[0..j])``
 (the prefix max), record ``[s, e)`` overlaps some window iff
@@ -13,6 +15,15 @@ Mask form: with windows sorted by begin and ``P[j] = max(q_end[0..j])``
 prefix max witnesses a window among those that ends after the record
 starts.  The device form runs on int32 coordinates, as the reference's;
 callers gate on that domain and send other joins to the host twin.
+
+Counts form: with the record starts and ends each sorted ascending, window
+``[b, e)`` overlaps ``#(start < e) - #(end <= b)`` records, that is
+``searchsorted(starts, e, 'left') - searchsorted(ends, b, 'right')``: every
+record that ends at or before ``b`` also starts before ``e``.  The device
+form casts to int32, as the reference's does, and needs no sentinel pads;
+the reference's pads its record columns to a power of two with ends of
+``2**31 - 1``, which a window beginning at ``2**31 - 1`` subtracts (a
+standing deviation: the port counts what ``join_counts_np`` counts).
 """
 
 from __future__ import annotations
@@ -53,6 +64,35 @@ def join_mask_np(starts, ends, q_beg, q_end) -> np.ndarray:
     j_hi = np.searchsorted(qb, ends, side="left")
     cover = qe_cummax[np.maximum(j_hi - 1, 0)]
     return (j_hi > 0) & (cover > starts)
+
+
+def join_counts_np(starts, ends, q_beg, q_end) -> np.ndarray:
+    """The host twin of the device counts form: int32 per-window overlap
+    counts over one record set (starts and ends sorted here)."""
+    starts = np.sort(_host(starts), kind="stable")
+    ends = np.sort(_host(ends), kind="stable")
+    hi = np.searchsorted(starts, _host(q_end), side="left")
+    lo = np.searchsorted(ends, _host(q_beg), side="right")
+    return (hi - lo).astype(np.int32)
+
+
+def join_counts_device(
+    starts: Column, ends: Column, q_beg: Column, q_end: Column,
+    device: Optional[torch.device] = None,
+) -> torch.Tensor:
+    """The counts form on ``device`` (default: where ``starts`` lies when
+    it is a tensor, else the card), int32 coordinates: an int32 tensor of
+    per-window counts there.  Both record columns are sorted on the device
+    and searched by the windows; nothing runs on the host."""
+    if device is None:
+        device = starts.device if isinstance(starts, torch.Tensor) else resolve_device(None)
+    s, e, qb, qe = (torch.as_tensor(a, device=device).to(torch.int32)
+                    for a in (starts, ends, q_beg, q_end))
+    if qb.numel() == 0 or s.numel() == 0:
+        return torch.zeros(qb.numel(), dtype=torch.int32, device=device)
+    hi = torch.searchsorted(torch.sort(s).values, qe, side="left")
+    lo = torch.searchsorted(torch.sort(e).values, qb, side="right")
+    return (hi - lo).to(torch.int32)
 
 
 def join_mask_device(

@@ -1,4 +1,4 @@
-"""The jobs over BAM and CRAM files on one device: the coordinate and
+"""The jobs over BAM, CRAM and SAM files on one device: the coordinate and
 queryname sorts, duplicate marking and fixmate, in-core or under a memory
 budget.
 
@@ -116,7 +116,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def _input_format(conf, in_paths):
     """BamInputFormat when every input is ``.bam``, else the AnySAM
-    dispatcher (``.cram`` input; ``.sam`` raises, ROADMAP A.9)."""
+    dispatcher (``.cram`` and ``.sam`` input)."""
     if all(infer_from_file_path(p) == "bam" for p in in_paths):
         return BamInputFormat(conf)
     return AnySamInputFormat(conf)
@@ -124,7 +124,7 @@ def _input_format(conf, in_paths):
 
 def _read_any_header(fmt, path):
     """The header by the format's own reader (CRAM: the file-header
-    container), else the BAM reader."""
+    container; SAM: the text's ``@`` lines), else the BAM reader."""
     rh = getattr(fmt, "read_header", None)
     return rh(path) if rh is not None else read_header(path)
 
@@ -151,8 +151,10 @@ def sort_bam(
     resource_cache=None,
     deadline=None,
 ) -> SortStats:
-    """Sort BAM or CRAM file(s) into one BAM, byte for byte what the
-    reference's ``sort_bam`` writes for the same input and options.
+    """Sort BAM, CRAM or SAM file(s) into one BAM, byte for byte what the
+    reference's ``sort_bam`` writes for the same input and options (for a
+    ``.sam``, which the reference cannot read, what it writes for the BAM
+    of the same records).
 
     ``device`` defaults to ``cuda`` and raises when there is no card; pass
     ``"cpu"`` to run every kernel's plain version instead.  Member inflate
@@ -172,6 +174,9 @@ def sort_bam(
     ``HBAM_RANS_LANES`` (on by default on a card), its records and keys on
     the host (the device parse applies only to BGZF splits);
     reference-based CRAM needs ``hadoopbam.cram.reference-source-path``.
+    SAM text input (``.sam``, or sniffed) is read by byte splits, its lines
+    tokenized on the host (:mod:`~.io.sam_vec`); like CRAM it takes host
+    keys, the card's ``torch.sort`` and the part writers.
 
     ``sort_order`` (default ``hadoopbam.bam.sort-order``, else
     "coordinate") is "coordinate" or "queryname": the name collation groups
@@ -318,7 +323,7 @@ def sort_bam(
             if env is not None
             else stream.default_device_parse()
         )
-    # CRAM's byte splits have no BGZF window for the chain kernels, and the
+    # CRAM's and SAM's byte splits have no BGZF window for the chain kernels, and the
     # records bounded traversal keeps are no contiguous stream.
     device_parse = device_parse and all(
         isinstance(s, FileVirtualSplit) and s.interval_chunks is None for s in splits)

@@ -12,18 +12,16 @@ from __future__ import annotations
 
 import struct
 from dataclasses import dataclass, field
-from typing import Iterator, List, Optional, Sequence, Tuple, Union
+from typing import BinaryIO, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from ..utils.murmur3 import murmurhash3_int32_batch
+from ..utils.murmur3 import murmurhash3_int32, murmurhash3_int32_batch
 
 MAGIC = b"BAM\x01"
 SEQ_DECODE = "=ACMGRSVTWYHKDBN"
-_SEQ_NIB_TABLE = bytes(
-    {c: i for i, c in enumerate(SEQ_DECODE)}.get(chr(b).upper(), 15)
-    for b in range(256)
-)
+_SEQ_ENCODE = {c: i for i, c in enumerate(SEQ_DECODE)}
+_SEQ_NIB_TABLE = bytes(_SEQ_ENCODE.get(chr(b).upper(), 15) for b in range(256))
 CIGAR_OPS = "MIDNSHP=X"
 _CIGAR_ENCODE = {c: i for i, c in enumerate(CIGAR_OPS)}
 
@@ -64,6 +62,9 @@ class BamHeader:
     def n_refs(self) -> int:
         return len(self.refs)
 
+    def ref_name(self, refid: int) -> str:
+        return "*" if refid < 0 else self.refs[refid][0]
+
     def ref_index(self, name: str) -> int:
         """The reference's index by name; ``*`` is -1; unknown raises
         ``KeyError``."""
@@ -101,6 +102,27 @@ class BamHeader:
             nb = name.encode() + b"\x00"
             out += struct.pack("<i", len(nb)) + nb + struct.pack("<i", length)
         return bytes(out)
+
+    @staticmethod
+    def decode(buf, pos: int = 0) -> Tuple["BamHeader", int]:
+        """Parse the header block at ``pos``: ``(header, offset after it)``."""
+        if bytes(buf[pos : pos + 4]) != MAGIC:
+            raise BamError("missing BAM magic")
+        (l_text,) = struct.unpack_from("<i", buf, pos + 4)
+        p = pos + 8
+        text = bytes(buf[p : p + l_text]).split(b"\x00", 1)[0].decode()
+        p += l_text
+        (n_ref,) = struct.unpack_from("<i", buf, p)
+        p += 4
+        refs: List[Tuple[str, int]] = []
+        for _ in range(n_ref):
+            (l_name,) = struct.unpack_from("<i", buf, p)
+            name = bytes(buf[p + 4 : p + 4 + l_name - 1]).decode()
+            p += 4 + l_name
+            (l_ref,) = struct.unpack_from("<i", buf, p)
+            p += 4
+            refs.append((name, l_ref))
+        return BamHeader(text, refs), p
 
 
 def header_from_text(text: str) -> BamHeader:
@@ -187,9 +209,14 @@ class BamRecord:
     def is_unmapped(self) -> bool:
         return bool(self.flag & FLAG_UNMAPPED)
 
+    @property
+    def alignment_start(self) -> int:
+        """1-based leftmost coordinate, 0 if unplaced."""
+        return self.pos + 1
+
     def reference_length(self) -> int:
         """Span on the reference from the CIGAR."""
-        return sum(n for n, op in self.cigar if op in "MDN=X")
+        return _ref_span(self.cigar)
 
     def encode(self) -> bytes:
         return struct.pack("<I", len(self.raw)) + self.raw
@@ -278,7 +305,10 @@ def build_record(
         struct.pack("<I", (n << 4) | _CIGAR_ENCODE[op]) for n, op in cigar
     )
     l_seq = 0 if seq == "*" else len(seq)
-    nib = seq.encode("latin-1").translate(_SEQ_NIB_TABLE) if l_seq else b""
+    try:
+        nib = seq.encode("latin-1").translate(_SEQ_NIB_TABLE) if l_seq else b""
+    except UnicodeEncodeError:  # past latin-1: one character at a time
+        nib = bytes(_SEQ_ENCODE.get(c.upper(), 15) for c in seq)
     if l_seq % 2:
         nib += b"\x00"
     arr = np.frombuffer(nib, dtype=np.uint8)
@@ -288,9 +318,7 @@ def build_record(
     else:
         qual_b = qual if qual else b"\xff" * l_seq
     # An unmapped read's alignment covers a single base for binning.
-    span = 1 if flag & FLAG_UNMAPPED else max(
-        1, sum(n for n, op in cigar if op in "MDN=X")
-    )
+    span = 1 if flag & FLAG_UNMAPPED else max(1, _ref_span(cigar))
     bin_ = reg2bin(pos, pos + span) if pos >= 0 else 4680
     body = (
         _FIXED.pack(
@@ -300,6 +328,10 @@ def build_record(
         + name_b + cigar_b + seq_b + qual_b + tags
     )
     return struct.pack("<I", len(body)) + body
+
+
+def _ref_span(cigar: Sequence[Tuple[int, str]]) -> int:
+    return sum(n for n, op in cigar if op in "MDN=X")
 
 
 def record_chain_partial(data, start: int, end: int) -> Tuple[np.ndarray, int]:
@@ -379,3 +411,44 @@ def soa_keys(soa: dict, data) -> np.ndarray:
         h = murmurhash3_int32_batch(np.asarray(data), off, ln, 0)
         keys[rows] = key0(np.full(len(rows), INT_MAX, dtype=np.int64), h)
     return keys
+
+
+def alignment_key(rec: BamRecord) -> int:
+    """One record's sort key: ``refIdx << 32 | pos0`` when mapped, else
+    ``INT_MAX << 32 | murmur3(the bytes after the 32-byte fixed prefix)``."""
+    if rec.is_unmapped or rec.refid < 0 or rec.alignment_start < 0:
+        low = murmurhash3_int32(rec.raw[32:], 0)
+        return int(key0(np.asarray([INT_MAX]), np.asarray([low]))[0])
+    return int(key0(np.asarray([rec.refid]), np.asarray([rec.pos]))[0])
+
+
+def read_bam(path_or_bytes: Union[str, bytes]) -> Tuple[BamHeader, List[BamRecord]]:
+    """Every record of a whole BAM (path or bytes), with its header."""
+    from . import bgzf
+
+    if isinstance(path_or_bytes, str):
+        with open(path_or_bytes, "rb") as f:
+            raw = f.read()
+    else:
+        raw = path_or_bytes
+    data = bgzf.decompress_all(raw)
+    header, p = BamHeader.decode(data)
+    return header, list(iter_records(data, p))
+
+
+def write_bam(
+    stream: BinaryIO,
+    header: BamHeader,
+    records: Iterator[BamRecord],
+    level: int = 6,
+    append_terminator: bool = True,
+    write_header: bool = True,
+) -> None:
+    from . import bgzf
+
+    w = bgzf.BgzfWriter(stream, level=level, append_terminator=append_terminator)
+    if write_header:
+        w.write(header.encode())
+    for rec in records:
+        w.write(rec.encode())
+    w.close()

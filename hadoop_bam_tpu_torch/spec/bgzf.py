@@ -201,6 +201,11 @@ def scan_blocks(data) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     )
 
 
+def decompress_all(data) -> bytes:
+    """The payload of a whole back-to-back BGZF stream."""
+    return inflate_blocks(data, *scan_blocks(data))[0].tobytes()
+
+
 def inflate_blocks(
     data,
     coffsets: Sequence[int],

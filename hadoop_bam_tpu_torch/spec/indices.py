@@ -1,15 +1,19 @@
-"""Index formats: the ``.splitting-bai`` and the standard ``.bai``.
+"""Index formats: ``.splitting-bai``, ``.bai``, ``.tbi`` (tabix), ``.bgzfi``.
 
-Counterpart of the ``.splitting-bai`` and ``.bai`` parts of
-``hadoop_bam_tpu/spec/indices.py``:
+Counterpart of ``hadoop_bam_tpu/spec/indices.py``:
 
 - ``SplittingBai``: big-endian u64 virtual offsets of every g-th alignment,
   terminated by ``fileSize << 16`` (SplittingBAMIndexer.java semantics);
+  ``build_splitting_bai`` derives one from a whole BAM;
 - ``Bai``: the standard BAM index (SAM spec §5.2) with linear-index access
   and interval → chunk-span queries (the getFileSpan path of
   filterByInterval); ``build_bai`` derives one from a coordinate-sorted
   BAM, byte for byte the reference's per-record ``BaiBuilder`` walk, from
-  the SoA columns of the whole file at once.
+  the SoA columns of the whole file at once;
+- ``Tabix``: the ``.tbi`` of a BGZF text file (VCF) with interval → chunk
+  span queries, which filter VCF splits (VCFInputFormat.java:387-471);
+- ``BgzfBlockIndex``: ``.bgzfi``, 48-bit big-endian offsets of every Nth
+  BGZF block and the file size (util/BGZFBlockIndexer.java:109-127).
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from . import bgzf
 SPLITTING_BAI_EXT = ".splitting-bai"
 DEFAULT_GRANULARITY = 4096
 BAI_MAGIC = b"BAI\x01"
+TBI_MAGIC = b"TBI\x01"
+BGZFI_EXT = ".bgzfi"
 MAX_BIN = 37450  # pseudo-bin holding file-level metadata
 
 
@@ -83,9 +89,40 @@ class SplittingBaiBuilder:
         self.count = 0
         self.voffsets: List[int] = []
 
+    def process_alignment(self, virtual_offset: int) -> None:
+        if self.count == 0 or (self.count + 1) % self.granularity == 0:
+            self.voffsets.append(virtual_offset)
+        self.count += 1
+
     def finish(self, input_size: int) -> SplittingBai:
         self.voffsets.append(input_size << 16)
         return SplittingBai(self.voffsets)
+
+
+def build_splitting_bai(
+    bam_path_or_bytes: Union[str, bytes],
+    granularity: int = DEFAULT_GRANULARITY,
+) -> SplittingBai:
+    """The ``.splitting-bai`` of a whole BAM (SplittingBAMIndexer.index,
+    :248-290): the reference skips the header and walks the records one at
+    a time through a BGZF reader; this inflates every member at once and
+    takes the same virtual offsets from the record chain.  A truncated
+    record raises :class:`~.bgzf.BgzfError`; fewer than four trailing
+    bytes end the walk."""
+    if isinstance(bam_path_or_bytes, str):
+        with open(bam_path_or_bytes, "rb") as f:
+            raw = f.read()
+    else:
+        raw = bam_path_or_bytes
+    offs, _, _, co, cs, uoffs = _record_chain(raw)
+    builder = SplittingBaiBuilder(granularity)
+    n = len(offs)
+    if n:
+        pick = (np.arange(n) + 1) % granularity == 0
+        pick[0] = True
+        builder.voffsets = _reader_voffsets(offs[pick], co, cs, uoffs).tolist()
+        builder.count = n
+    return builder.finish(len(raw))
 
 
 def merge_splitting_bais(
@@ -297,6 +334,27 @@ def _reader_voffsets(p: np.ndarray, coffs: np.ndarray, csizes: np.ndarray,
     )
 
 
+def _record_chain(raw: bytes):
+    """``(record offsets, payload, header, coffsets, csizes, payload
+    starts)`` of a whole BAM: every member inflated, the header skipped by
+    a BGZF reader, the record chain walked to the end."""
+    from . import bam as bam_mod
+
+    reader = bgzf.BgzfReader(raw)
+    hdr = bam_mod.read_header_stream(reader)
+    v0 = reader.tell_voffset()
+    co, cs, us = bgzf.scan_blocks(raw)
+    out, uoffs = bgzf.inflate_blocks(raw, co, cs, us)
+    co = co.astype(np.int64)
+    cs = cs.astype(np.int64)
+    b0 = int(np.searchsorted(co, v0 >> 16))
+    p0 = int(uoffs[b0]) + (v0 & 0xFFFF) if b0 < len(co) else len(out)
+    offs, resume = bam_mod.record_chain_partial(out, p0, len(out))
+    if len(out) - resume >= 4:
+        raise bgzf.BgzfError("EOF: truncated record at the end of the BAM")
+    return offs, out, hdr, co, cs, uoffs
+
+
 def build_bai(bam_path_or_bytes: Union[str, bytes]) -> Bai:
     """Build a ``.bai`` of a coordinate-sorted BAM.
 
@@ -316,18 +374,7 @@ def build_bai(bam_path_or_bytes: Union[str, bytes]) -> Bai:
             raw = f.read()
     else:
         raw = bam_path_or_bytes
-    reader = bgzf.BgzfReader(raw)
-    hdr = bam_mod.read_header_stream(reader)
-    v0 = reader.tell_voffset()
-    co, cs, us = bgzf.scan_blocks(raw)
-    out, uoffs = bgzf.inflate_blocks(raw, co, cs, us)
-    co = co.astype(np.int64)
-    cs = cs.astype(np.int64)
-    b0 = int(np.searchsorted(co, v0 >> 16))
-    p0 = int(uoffs[b0]) + (v0 & 0xFFFF) if b0 < len(co) else len(out)
-    offs, resume = bam_mod.record_chain_partial(out, p0, len(out))
-    if len(out) - resume >= 4:
-        raise bgzf.BgzfError("EOF: truncated record at the end of the BAM")
+    offs, out, hdr, co, cs, uoffs = _record_chain(raw)
     builder = BaiBuilder(hdr.n_refs)
     n = len(offs)
     if n == 0:
@@ -370,3 +417,112 @@ def build_bai(bam_path_or_bytes: Union[str, bytes]) -> Bai:
         lin[lin == np.iinfo(np.int64).max] = 0
         builder.refs[r].linear = lin.tolist()
     return builder.build()
+
+
+# ---------------------------------------------------------------------------
+# .tbi
+# ---------------------------------------------------------------------------
+
+
+class Tabix:
+    """``.tbi`` reader (BGZF-compressed or plain) with interval span
+    queries."""
+
+    def __init__(
+        self,
+        refs: List[RefIndex],
+        names: List[str],
+        fmt: int,
+        col_seq: int,
+        col_beg: int,
+        col_end: int,
+        meta_char: str,
+        skip: int,
+    ):
+        self.refs = refs
+        self.names = names
+        self.fmt = fmt
+        self.col_seq = col_seq
+        self.col_beg = col_beg
+        self.col_end = col_end
+        self.meta_char = meta_char
+        self.skip = skip
+        self._name_to_id = {n: i for i, n in enumerate(names)}
+
+    @staticmethod
+    def load(source: Union[str, bytes]) -> "Tabix":
+        if isinstance(source, str):
+            with open(source, "rb") as f:
+                raw = f.read()
+        else:
+            raw = source
+        buf = bgzf.decompress_all(raw) if bgzf.is_bgzf(raw) else raw
+        if buf[:4] != TBI_MAGIC:
+            raise IOError("missing TBI magic")
+        n_ref, fmt, col_seq, col_beg, col_end, meta, skip, l_nm = struct.unpack_from("<8i", buf, 4)
+        p = 36
+        names = [n.decode() for n in buf[p : p + l_nm].rstrip(b"\x00").split(b"\x00")]
+        p += l_nm
+        refs = []
+        for _ in range(n_ref):
+            ref, p = _read_ref_index(buf, p)
+            refs.append(ref)
+        return Tabix(refs, names, fmt, col_seq, col_beg, col_end, chr(meta), skip)
+
+    def ref_id(self, name: str) -> int:
+        return self._name_to_id.get(name, -1)
+
+    def query(self, contig: str, beg: int, end: int) -> List[Chunk]:
+        """The merged chunk spans of 0-based ``[beg, end)`` on ``contig``;
+        none for a contig the index lacks."""
+        rid = self.ref_id(contig)
+        if rid < 0:
+            return []
+        return _query_ref(self.refs[rid], beg, end)
+
+
+# ---------------------------------------------------------------------------
+# .bgzfi
+# ---------------------------------------------------------------------------
+
+
+class BgzfBlockIndex:
+    """``.bgzfi``: 48-bit big-endian offsets of every Nth BGZF block, the
+    file size last (util/BGZFBlockIndexer.java:109-127)."""
+
+    def __init__(self, offsets: Sequence[int]):
+        self.offsets = sorted(offsets)
+
+    @staticmethod
+    def load(source: Union[str, bytes]) -> "BgzfBlockIndex":
+        if isinstance(source, str):
+            with open(source, "rb") as f:
+                raw = f.read()
+        else:
+            raw = source
+        if len(raw) % 6 != 0:
+            raise IOError("invalid .bgzfi: not a multiple of 6 bytes")
+        return BgzfBlockIndex(
+            [int.from_bytes(raw[i : i + 6], "big") for i in range(0, len(raw), 6)])
+
+    def save(self, stream: BinaryIO) -> None:
+        for o in self.offsets:
+            stream.write(o.to_bytes(6, "big"))
+
+    @staticmethod
+    def build(bgzf_bytes: bytes, granularity: int = 1024) -> "BgzfBlockIndex":
+        """Every ``granularity``-th block and the file size
+        (util/BGZFBlockIndexer.java:37-41: g = 1024 by default)."""
+        co = bgzf.scan_blocks(bgzf_bytes)[0]
+        return BgzfBlockIndex(co[::granularity].tolist() + [len(bgzf_bytes)])
+
+    def prev_block(self, pos: int) -> Optional[int]:
+        i = bisect.bisect_right(self.offsets, pos)
+        return self.offsets[i - 1] if i > 0 else None
+
+    def next_block(self, pos: int) -> Optional[int]:
+        i = bisect.bisect_right(self.offsets, pos)
+        return self.offsets[i] if i < len(self.offsets) else None
+
+    def size(self) -> int:
+        return len(self.offsets)

@@ -491,10 +491,49 @@ def test_anysam_sniffs_like_the_reference(tmp_path, twins):
     for a, b in zip(ts, js):
         assert np.array_equal(t.read_split(a).keys, j.read_split(b).keys)
     assert t.read_header(odd).text == j.read_header(odd).text
-    sam = tmp_path / "x.sam"
-    sam.write_bytes(b"@HD\tVN:1.6\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        tanysam.AnySamInputFormat().get_splits([str(sam)])
+    # A SAM text twin: the reference's splits and batches, and the header
+    # the port reads as text (the reference's AnySAM reader takes BGZF).
+    from hadoop_bam_tpu.spec import sam as jsam
+
+    sam = str(tmp_path / "twin.sam")
+    with open(sam, "wb") as f:
+        jsam.write_sam(f, jbam.header_from_text(_header_text()), twins["j_recs"])
+    t, j = tanysam.AnySamInputFormat(), janysam.AnySamInputFormat()
+    ts, js = t.get_splits([sam], 16 << 10), j.get_splits([sam], 16 << 10)
+    assert [(s.start, s.length) for s in ts] == [(s.start, s.length) for s in js]
+    assert len(ts) > 1
+    for a, b in zip(ts, js):
+        tb, jb = t.read_split(a), j.read_split(b)
+        assert np.array_equal(tb.keys, jb.keys)
+        assert np.asarray(tb.data).tobytes() == np.asarray(jb.data).tobytes()
+    assert t.read_header(sam).text == _header_text().rstrip("\n")
+
+
+def test_merge_cram_parts_writes_the_reference_bytes(tmp_path, monkeypatch, twins):
+    """Headerless CRAM parts merge into the reference's file: the file
+    definition and header container, the parts untouched, the EOF
+    container; the merged file reads back to every record."""
+    from hadoop_bam_tpu.io import merger as jmerger
+    from hadoop_bam_tpu.utils import nio as jnio
+    from hadoop_bam_tpu_torch.io import merger as tmerger
+
+    monkeypatch.setattr(gzip, "time", types.SimpleNamespace(time=lambda: 1.6e9))
+    part_dir = tmp_path / "parts"
+    part_dir.mkdir()
+    recs = twins["t_recs"]
+    for i, lo in enumerate(range(0, len(recs), 200)):
+        (part_dir / f"part-r-{i:05d}").write_bytes(
+            tcram.encode_container(recs[lo : lo + 200], 0, codec="gzip"))
+    out_t, out_j = str(tmp_path / "t.cram"), str(tmp_path / "j.cram")
+    with pytest.raises(FileNotFoundError):
+        tmerger.merge_cram_parts(str(part_dir), out_t, tbam.header_from_text(_header_text()))
+    jnio.write_success(part_dir)
+    tmerger.merge_cram_parts(str(part_dir), out_t, tbam.header_from_text(_header_text()))
+    jmerger.merge_cram_parts(str(part_dir), out_j, jbam.header_from_text(_header_text()))
+    assert _read(out_t) == _read(out_j)
+    f = tiocram.CramInputFormat()
+    got = b"".join(np.asarray(f.read_split(s).data).tobytes() for s in f.get_splits([out_t]))
+    assert got == b"".join(r.encode() for r in recs)
 
 
 # ---------------------------------------------------------------------------
