@@ -14,13 +14,14 @@ gather + deflate lanes); mark duplicates, sort by name and fixmate
 synthetic read pairs on the card and on the CPU (the collation phase:
 markdup of 500,000 pairs with the default gates, cut from 1,000,000; byte-identical with the
 write gates off, the markdup, queryname and fixmate twins, and the
-default-gate queryname sort and fixmate, on the first 250,000 pairs; the duplicate decision against
+default-gate queryname sort and fixmate, on the first 100,000 pairs (cut from 250,000); the duplicate decision against
 its per-record oracle on the first 50,000 pairs, the mask through the
 device write of one resident split, fixmate run again on its own output);
 sort out of core (the out-of-core phase: the main path's input under a
 128 MiB ``memory_budget`` on the card, its content the in-core sort's, card
-against CPU byte-identical with the write gates off, and markdup, the
-queryname sort and fixmate of the first 250,000 pairs under 32 MiB, each
+against CPU byte-identical with the write gates off on 500,000 records at
+32 MiB (cut from the main path's 2,000,000), and markdup, the
+queryname sort and fixmate of those 100,000 pairs under 12.8 MiB, each
 decompressing to its in-core twin's bytes); salvage (the salvage phase: a
 copy of the main path's input with four damaged members, where the strict
 sort raises and the salvage sort on the card, under injected part-write
@@ -28,7 +29,11 @@ crashes, quarantines exactly them and decompresses to the CPU salvage
 sort's bytes; a ``part_dir`` resume that skips the finished parts; the
 out-of-core form with one range quarantined, then resumed; a salvaged BCF
 window query, card against CPU; forced codec tier-downs in the codec
-phase); the text formats (the text phase, after the variants phase: the
+phase); the filesystem seam (the fs phase: the main path's input sorted
+on the card from a loopback HTTP server, from ``mem://`` and from
+``file://`` under two injected read errors, each to the local sort's
+bytes with the same launches, then FASTQ, QSEQ and FASTA input and FASTQ
+output on the host against the generators); the text formats (the text phase, after the variants phase: the
 main path's input rows as SAM text sorted on the card to the content of
 its BAM twin's sort, a sorted part through ``SamOutputWriter`` and back;
 the call set's sites as plain, BGZF and plain-gzip VCF text read through
@@ -39,7 +44,7 @@ card against ``join_counts_np``); drive
 and on the CPU (the card's output decompresses to the CPU run's bytes),
 and hold
 ``ingest_oracle`` to it on a prefix; query three regions of a synthetic
-4,500,000-site BCF call set with ``variants_blob`` on the card (each
+2,250,000-site BCF call set (cut from 4,500,000) with ``variants_blob`` on the card (each
 equal to the generator's records; the first on the CPU too,
 byte-identical); sort a
 synthetic no-ref rANS CRAM of 300,000 records on the card (its rANS blocks
@@ -1103,12 +1108,15 @@ SCAN_CHUNK = 0xDF00  # the ingest's default claim region
 SCAN_OVERLAP = 2048
 
 
-def fastq_pairs(n_pairs: int, seed: int, crlf: bool = False, at_quals: bool = False):
+def fastq_pairs(n_pairs: int, seed: int, crlf: bool = False, at_quals: bool = False,
+                fields: dict = None):
     """``(r1, r2)`` FASTQ texts of ``n_pairs`` read pairs: 151 bp reads with
     Phred+33 qualities and CASAVA 1.8 ids
     (``@INST:RUN:FC:LANE:TILE:X:Y 1:N:0:BARCODE``) in cluster order (lane,
     tile, then a random walk of X/Y), not in name order.  ``at_quals``
-    starts every third quality string with ``@``."""
+    starts every third quality string with ``@``.  A ``fields`` dict
+    receives the generator's columns: ``lane``, ``tile``, ``x``, ``y``, and
+    per mate ``ids``, ``seq`` and ``qual``."""
     rng = np.random.default_rng(seed)
     eol = b"\r\n" if crlf else b"\n"
     lane = 1 + (np.arange(n_pairs) * 4 // max(n_pairs, 1))
@@ -1127,6 +1135,11 @@ def fastq_pairs(n_pairs: int, seed: int, crlf: bool = False, at_quals: bool = Fa
         rows = [b"".join((ids[i], eol, seq[i].tobytes(), eol, b"+", eol, qual[i].tobytes(), eol))
                 for i in range(n_pairs)]
         texts.append(b"".join(rows))
+        if fields is not None:
+            fields.update(lane=lane, tile=tile, x=x, y=y)
+            fields.setdefault("ids", []).append(ids)
+            fields.setdefault("seq", []).append(seq)
+            fields.setdefault("qual", []).append(qual)
     return texts[0], texts[1]
 
 
@@ -2434,17 +2447,18 @@ def illumina_order_faults(path: str) -> int:
     return int((ne.any(axis=1) & (key[1:][at_first, first] < key[:-1][at_first, first])).sum())
 
 
-def collation_phase(work: str, n_pairs: int, seed: int) -> dict:
+def collation_phase(work: str, n_pairs: int, seed: int, twin_pairs: int = TWIN_PAIRS) -> dict:
     """The collation family on a synthetic paired-end BAM of ``n_pairs``
-    pairs (:func:`synth_pair_chunk`).  Markdup: the card with the default
-    gates (traced), its duplicates counted back from the output and held to
-    the generator; the card and the CPU with the write gates off on the
-    generator's first ``TWIN_PAIRS`` pairs (byte-identical); the decision
+    pairs (:func:`synth_pair_chunk`); its twins run on the first
+    ``twin_pairs`` (whole chunks; ``TWIN_PAIRS`` at full depth).  Markdup:
+    the card with the default gates (traced), its duplicates counted back
+    from the output and held to the generator; the card and the CPU with
+    the write gates off on the twins' pairs (byte-identical); the decision
     on the first chunk against the per-record oracle; then one resident
-    split of the first ``TWIN_PAIRS`` pairs (the device write) against the
+    split of the twins' pairs (the device write) against the
     host gather + deflate lanes, decompressing to the write-gates-off
-    pair's bytes.  The queryname sort and fixmate on the first
-    ``TWIN_PAIRS`` pairs: the card with the default gates (re-read: the
+    pair's bytes.  The queryname sort and fixmate on the twins' pairs: the
+    card with the default gates (re-read: the
     order, the header, the counts), and the card and the CPU with the write
     gates off (byte-identical; fixmate's as one split, so that
     fixmate run again on the card's output, one split again, must give its
@@ -2465,7 +2479,7 @@ def collation_phase(work: str, n_pairs: int, seed: int) -> dict:
     census = census_of(chunks)
     size = write_pairs_bam(paths["full"], streams)
     # Whole chunks, so that the twins' input is the full file's prefix.
-    n_twin = max(1, min(len(streams), TWIN_PAIRS // PAIR_CHUNK))
+    n_twin = max(1, min(len(streams), twin_pairs // PAIR_CHUNK))
     twin_size = write_pairs_bam(paths["twin"], streams[:n_twin])
     twin_census = census_of(chunks[:n_twin])
     twin_pairs = min(n_pairs, n_twin * PAIR_CHUNK)
@@ -2653,19 +2667,24 @@ def collation_phase(work: str, n_pairs: int, seed: int) -> dict:
 #: MAX_RECORDS_IN_RAM (500,000).
 EXTERNAL_BUDGET = 128 << 20
 TWIN_BUDGET = 32 << 20  # the collation family's budget on the twin file
+#: Records of (b)'s input, the write-gates-off card/CPU pair: cut from the
+#: main path's 2,000,000 (its own synthetic BAM; the budget shrinks in
+#: proportion) to keep the run inside its time limit (logged as a cut).
+EXTERNAL_PAIR_RECORDS = 500_000
 
 
-def external_phase(work: str, mp: dict, col: dict, n: int) -> dict:
+def external_phase(work: str, mp: dict, col: dict, n: int, seed: int) -> dict:
     """The out-of-core sort (``memory_budget``) on the inputs and outputs of
     :func:`main_path` and :func:`collation_phase`.  (a) The main path's
     input at ``EXTERNAL_BUDGET`` on the card with the default gates
     (traced): runs, ranges and ``peak_bytes`` within the budget, rows 1
     and 3 launched (row 3 once a range), rows 2, 3b and 3c not, every range
     tiered down ``no_residency``, no member tiered down, the in-core sort's
-    records in its order, and a card peak below the in-core sort's.  (b) The same
-    budget with the write gates off on the card and the CPU, byte-identical;
-    on the card every chunk's and range's ``torch.sort`` permutation is held
-    to NumPy's stable argsort.  (c) Markdup, the queryname sort and fixmate
+    records in its order, and a card peak below the in-core sort's.  (b) A
+    synthetic BAM of ``EXTERNAL_PAIR_RECORDS`` records at the budget cut in
+    proportion, with the write gates off on the card and the CPU,
+    byte-identical; on the card every chunk's and range's ``torch.sort``
+    permutation is held to NumPy's stable argsort.  (c) Markdup, the queryname sort and fixmate
     on the twin file at ``TWIN_BUDGET``, each decompressing to its in-core
     twin's bytes with the same counts.  A run cut below full depth (``n``
     records, the twin file's pairs) cuts both budgets in proportion, so
@@ -2717,6 +2736,14 @@ def external_phase(work: str, mp: dict, col: dict, n: int) -> dict:
 
     # (b) The write gates off: card and CPU, byte-identical, each chunk's
     # and range's card sort held to NumPy's stable argsort.
+    m = min(n, EXTERNAL_PAIR_RECORDS)
+    pair_src = os.path.join(work, "external.pair.bam")
+    synth_bam(pair_src, m, seed + 2)
+    pair_budget = max(4 << 20, EXTERNAL_BUDGET * m // FULL_DEPTH["records"])
+    if m != FULL_DEPTH["records"]:
+        log(f"out-of-core write-gates-off pair cut from {FULL_DEPTH['records']} to {m} records, "
+            f"its budget to {pair_budget} bytes")
+    mib = f"{pair_budget / (1 << 20):g}"
     off = Configuration({INFLATE_LANES: "true", DEFLATE_LANES: "false", WRITE_DEVICE: "false"})
     real = tp._sort_perm
     held = []
@@ -2731,9 +2758,9 @@ def external_phase(work: str, mp: dict, col: dict, n: int) -> dict:
 
     tp._sort_perm = sort_perm_held
     try:
-        st_b, _, _ = timed_sort(mp["src"], out["b"], f"sort_bam(cuda, memory_budget {mib} MiB, "
-                                f"write gates off)", conf=off, device="cuda",
-                                memory_budget=budget)
+        st_b, _, _ = timed_sort(pair_src, out["b"], f"sort_bam(cuda, memory_budget {mib} MiB, "
+                                f"write gates off, {m} records)", conf=off, device="cuda",
+                                memory_budget=pair_budget)
     finally:
         tp._sort_perm = real
     if len(held) != st_b.n_runs + st_b.n_ranges:
@@ -2741,12 +2768,13 @@ def external_phase(work: str, mp: dict, col: dict, n: int) -> dict:
                              f"ranges")
     log(f"torch.sort(stable) on the card == numpy's stable argsort on {len(held)} chunks and "
         f"ranges ({sum(held)} keys)")
-    timed_sort(mp["src"], out["c"], f"sort_bam(cpu, memory_budget {mib} MiB, write gates off)",
-               conf=off, device="cpu", memory_budget=budget)
+    timed_sort(pair_src, out["c"], f"sort_bam(cpu, memory_budget {mib} MiB, write gates off, "
+               f"{m} records)", conf=off, device="cpu", memory_budget=pair_budget)
     nb = same_bytes(out["b"], out["c"], "out of core, cuda and cpu with the write gates off")
     log(f"out of core: cuda == cpu with the write gates off ({nb} bytes)")
     for k in ("b", "c"):
         os.remove(out[k])
+    os.remove(pair_src)
 
     # (c) The collation family under a budget on the twin file.
     twin = col["twin"]
@@ -2972,6 +3000,296 @@ def salvage_phase(work: str, mp: dict, n: int) -> dict:
     seconds = time.perf_counter() - t_phase
     log(f"salvage phase, sorts (a)-(c): {seconds:.1f} s")
     return {"launches": launches, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# The filesystem seam and the read formats
+# ---------------------------------------------------------------------------
+
+#: The FASTA phase's contigs: GRCh38's chr20 and chr21 lengths, 60-base lines.
+FASTA_CONTIGS = (("chr20", 64_444_167), ("chr21", 46_709_983))
+FASTA_WIDTH = 60
+FS_PLAN = "io.read.error:n=2,path=in.bam"
+
+
+class Served:
+    """What a loopback range server sent: requests and body bytes."""
+
+    def __init__(self, files: dict):
+        import threading
+
+        self.files = files
+        self.lock = threading.Lock()
+        self.requests = 0
+        self.bytes = 0
+
+    def count(self, n: int) -> None:
+        with self.lock:
+            self.requests += 1
+            self.bytes += n
+
+
+def range_handler(served: Served):
+    """A request handler serving ``served.files`` (URL path -> bytes) with
+    HEAD, ``Range`` GETs (206 with ``Content-Range``, 416 past the end),
+    plain GETs and 404."""
+    from http.server import BaseHTTPRequestHandler
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_HEAD(self):
+            blob = served.files.get(self.path)
+            served.count(0)
+            if blob is None:
+                self.send_error(404)
+                return
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(blob)))
+            self.send_header("Accept-Ranges", "bytes")
+            self.end_headers()
+
+        def do_GET(self):
+            blob = served.files.get(self.path)
+            if blob is None:
+                served.count(0)
+                self.send_error(404)
+                return
+            rng = self.headers.get("Range")
+            body = memoryview(blob)
+            if rng:
+                lo, hi = (int(v) for v in rng.split("=")[1].split("-"))
+                if lo >= len(blob):
+                    served.count(0)
+                    self.send_error(416)
+                    return
+                hi = min(hi, len(blob) - 1)
+                body = body[lo : hi + 1]
+                self.send_response(206)
+                self.send_header("Content-Range", f"bytes {lo}-{hi}/{len(blob)}")
+            else:
+                self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+            served.count(len(body))
+
+    return Handler
+
+
+def fasta_text(seed: int):
+    """``(text, {contig: bases})`` of ``FASTA_CONTIGS``: random ACGT in
+    lines of ``FASTA_WIDTH`` bases."""
+    rng = np.random.default_rng(seed)
+    parts, contigs = [], {}
+    for name, n in FASTA_CONTIGS:
+        bases = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)]
+        contigs[name] = bases
+        full = n // FASTA_WIDTH * FASTA_WIDTH
+        rows = np.concatenate([bases[:full].reshape(-1, FASTA_WIDTH),
+                               np.full((full // FASTA_WIDTH, 1), 0x0A, np.uint8)], axis=1)
+        tail = bases[full:].tobytes() + b"\n" if full < n else b""
+        parts.append(f">{name}\n".encode() + rows.tobytes() + tail)
+    return b"".join(parts), contigs
+
+
+def qseq_text(f: dict) -> bytes:
+    """The generator's R1 reads as QSEQ lines (Illumina Phred+64 quality,
+    index 0, filter passed)."""
+    seq, qual = f["seq"][0], f["qual"][0] + 31
+    return b"".join(
+        b"A00123\t8\t%d\t%d\t%d\t%d\t0\t1\t%s\t%s\t1\n"
+        % (f["lane"][i], f["tile"][i], f["x"][i], f["y"][i], seq[i].tobytes(), qual[i].tobytes())
+        for i in range(len(seq)))
+
+
+def read_all_splits(fmt, path: str):
+    """Every split of ``path`` read by ``fmt``: ``(batches, seconds)``."""
+    t0 = time.perf_counter()
+    batches = [fmt.read_split(s) for s in fmt.get_splits([path])]
+    return batches, time.perf_counter() - t0
+
+
+def same_reads(batches, names, seq, qual, what: str) -> int:
+    """The batches hold the generator's reads once each, in order."""
+    got_names = [nm for b in batches for nm in b.names]
+    if got_names != names:
+        raise AssertionError(f"{what}: names differ from the generator's")
+    for col, want in (("seq", seq), ("qual", qual)):
+        got = np.concatenate([getattr(b, col) for b in batches])
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{what}: {col} differs from the generator's")
+    return len(got_names)
+
+
+def formats_phase(work: str, n_pairs: int, seed: int) -> dict:
+    """(d) of :func:`fs_phase`, on the host: the ingest corpus's R1 as plain
+    FASTQ through ``FastqInputFormat`` (4 MiB splits) and its first split
+    through ``FastqOutputFormat`` (Illumina) and back; the same reads as
+    QSEQ through ``QseqInputFormat``; two contigs at GRCh38's chr20 and
+    chr21 lengths through ``FastaInputFormat``.  Each gives the generator's
+    records; no kernel launches."""
+    import io
+
+    from hadoop_bam_tpu_torch.conf import (FASTQ_BASE_QUALITY_ENCODING,
+                                            FASTQ_OUTPUT_BASE_QUALITY_ENCODING, Configuration)
+    from hadoop_bam_tpu_torch.io.fasta import FastaInputFormat
+    from hadoop_bam_tpu_torch.io.fastq import FastqInputFormat, FastqOutputFormat
+    from hadoop_bam_tpu_torch.io.qseq import QseqInputFormat
+    from hadoop_bam_tpu_torch.io.splits import ByteSplit
+
+    reset_counts()
+    f: dict = {}
+    r1, _ = fastq_pairs(n_pairs, seed, fields=f)
+    fq = os.path.join(work, "fs.r1.fastq")
+    with open(fq, "wb") as fh:
+        fh.write(r1)
+    names = [i[1:].decode() for i in f["ids"][0]]
+    batches, sec = read_all_splits(FastqInputFormat(), fq)
+    n = same_reads(batches, names, f["seq"][0], f["qual"][0], "FastqInputFormat")
+    log(f"FastqInputFormat: {n} reads of {len(r1)} bytes in {len(batches)} splits, {sec:.3f} s, "
+        f"{n / sec:.0f} records/s, {len(r1) / sec / 1e6:.1f} MB/s; the generator's reads once "
+        f"each")
+    buf = io.BytesIO()
+    FastqOutputFormat(Configuration({FASTQ_OUTPUT_BASE_QUALITY_ENCODING: "illumina"})).write(
+        buf, batches[0])
+    text = buf.getvalue()
+    back = FastqInputFormat(Configuration({FASTQ_BASE_QUALITY_ENCODING: "illumina"})).read_split(
+        ByteSplit("<mem>", 0, len(text)), data=text)
+    k = batches[0].n_records
+    same_reads([back], names[:k], f["seq"][0][:k], f["qual"][0][:k], "FastqOutputFormat(illumina)")
+    log(f"FastqOutputFormat(illumina): the first split's {k} reads written and read back equal")
+    del batches, back, r1, text
+    qs = qseq_text(f)
+    qp = os.path.join(work, "fs.r1.qseq")
+    with open(qp, "wb") as fh:
+        fh.write(qs)
+    qnames = [f"A00123:8:{f['lane'][i]}:{f['tile'][i]}:{f['x'][i]}:{f['y'][i]}:1"
+              for i in range(n_pairs)]
+    batches, sec = read_all_splits(QseqInputFormat(), qp)
+    n = same_reads(batches, qnames, f["seq"][0], f["qual"][0], "QseqInputFormat")
+    log(f"QseqInputFormat: {n} reads of {len(qs)} bytes in {len(batches)} splits, {sec:.3f} s, "
+        f"{n / sec:.0f} records/s, {len(qs) / sec / 1e6:.1f} MB/s; the generator's reads")
+    del batches, qs, f
+    text, contigs = fasta_text(seed)
+    fa = os.path.join(work, "fs.ref.fa")
+    with open(fa, "wb") as fh:
+        fh.write(text)
+    batches, sec = read_all_splits(FastaInputFormat(), fa)
+    if [b.contig for b in batches] != list(contigs):
+        raise AssertionError(f"FastaInputFormat: contigs {[b.contig for b in batches]}")
+    for b in batches:
+        want = contigs[b.contig]
+        if not np.array_equal(b.bases, want) or int(b.line_positions[-1]) != \
+                (len(want) - 1) // FASTA_WIDTH * FASTA_WIDTH + 1:
+            raise AssertionError(f"FastaInputFormat: {b.contig} differs from the generator's")
+    log(f"FastaInputFormat: {len(batches)} splits, {sum(len(v) for v in contigs.values())} bases "
+        f"of {len(text)} bytes, {sec:.3f} s, {len(text) / sec / 1e6:.1f} MB/s; the generator's "
+        f"bases")
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the host formats launched kernels: {launches}")
+    log("formats: no kernel launched")
+    for p in (fq, qp, fa):
+        os.remove(p)
+    return launches
+
+
+def fs_phase(work: str, mp: dict, n_pairs: int, seed: int, device: str = "cuda") -> dict:
+    """The main path's input sorted through the filesystem seam on the
+    card, with the default gates: (a) from a loopback HTTP server (in a
+    thread; HEAD, ``Range`` GETs), (b) from a registered ``mem://``
+    filesystem, (c) as ``file://`` under ``FS_PLAN`` (two injected read
+    errors, each retried).  Each writes the bytes of :func:`main_path`'s
+    default-gate sort with rows 1, 2 and 3 launched as often; (a) logs the
+    bytes and requests the server saw.  Then (d), the read formats on the
+    host (:func:`formats_phase`)."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from hadoop_bam_tpu_torch import faults
+    from hadoop_bam_tpu_torch.io import fs
+
+    t_phase = time.perf_counter()
+    src = mp["src"]
+    with open(src, "rb") as f:
+        blob = f.read()
+    with open(mp["lanes"], "rb") as f:
+        want = f.read()
+    local = mp["launches"]
+    rows = ("inflate_members", "record_chain", "deflate_members")
+    out = os.path.join(work, "fs.sorted.bam")
+    job_launches = {}
+
+    def held(st, launches, what: str) -> None:
+        with open(out, "rb") as fh:
+            if fh.read() != want:
+                raise AssertionError(f"{what}: other bytes than the local sort's")
+        if any(launches[k] != local[k] or (launches[k] <= 0 and device == "cuda")
+               for k in rows):
+            raise AssertionError(f"{what}: rows 1, 2, 3 launched {launches}, the local sort "
+                                 f"{ {k: local[k] for k in rows} }")
+        log(f"  {what}: the local sort's {len(want)} bytes; rows 1, 2, 3 launched "
+            f"{[launches[k] for k in rows]} times as in the local sort; wall {mp['wall']:.3f} s "
+            f"locally, read phase {st.seconds.get('read', 0):.3f} s against "
+            f"{mp['stats'].seconds.get('read', 0):.3f} s")
+
+    # (a) http://: the split plan reads the whole file once (no
+    # .splitting-bai beside it), each split its window and a 4 MiB margin.
+    served = Served({"/in.bam": blob})
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), range_handler(served))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}/in.bam"
+        st, wall, job_launches["http"] = timed_sort(url, out, f"{device}, http://, default gates",
+                                                    device=device)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+    held(st, job_launches["http"], "http://")
+    log(f"  http://: the server sent {served.bytes} bytes in {served.requests} requests for a "
+        f"{len(blob)}-byte file ({served.bytes / len(blob):.3f} x): the split plan's whole-file "
+        f"read, the header's 1 MiB and each split's window with its 4 MiB margin; wall {wall:.3f} "
+        f"s against {mp['wall']:.3f} s locally")
+    del served
+
+    # (b) mem://
+    mem = fs.MemFilesystem()
+    fs.register_filesystem("mem", mem)
+    try:
+        with mem.open_write("mem://smoke/in.bam") as w:
+            w.write(blob)
+        st, wall, job_launches["mem"] = timed_sort("mem://smoke/in.bam", out,
+                                                   f"{device}, mem://, default gates", device=device)
+    finally:
+        fs._REGISTRY.pop("mem", None)
+        del mem
+    held(st, job_launches["mem"], "mem://")
+    del blob
+
+    # (c) file:// with two injected transient read errors.
+    faults.arm(FS_PLAN)
+    try:
+        st, wall, job_launches["file"] = timed_sort("file://" + src, out,
+                                                    f"{device}, file://, {FS_PLAN}", device=device)
+    finally:
+        faults.disarm()
+    _counted(st.counters, {"io.read_retries": 2, "faults.fired.io.read.error": 2}, "file://")
+    held(st, job_launches["file"], "file:// under " + FS_PLAN)
+    log(f"  file://: io.read_retries {st.counters['io.read_retries']}, "
+        f"faults.fired.io.read.error {st.counters['faults.fired.io.read.error']}")
+    os.remove(out)
+    t_sorts = time.perf_counter() - t_phase
+
+    # (d) The read formats, on the host.
+    t0 = time.perf_counter()
+    job_launches["formats"] = formats_phase(work, n_pairs, seed)
+    log(f"fs phase: {time.perf_counter() - t_phase:.1f} s (the three sorts {t_sorts:.1f} s, the "
+        f"formats {time.perf_counter() - t0:.1f} s)")
+    return {"launches": job_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4677,7 +4995,7 @@ def time_kernels(src: str, checks: dict, launches: dict, launches_r: dict, seed:
     import torch
 
     from hadoop_bam_tpu_torch.conf import INFLATE_LANES, Configuration
-    from hadoop_bam_tpu_torch.io.bam import BamInputFormat, _read_range
+    from hadoop_bam_tpu_torch.io.bam import BamInputFormat
     from hadoop_bam_tpu_torch.ops.kernels import chain as kch
     from hadoop_bam_tpu_torch.ops.kernels import inflate as kin
     from hadoop_bam_tpu_torch.spec import bam, bgzf
@@ -4686,7 +5004,9 @@ def time_kernels(src: str, checks: dict, launches: dict, launches_r: dict, seed:
     split = fmt.get_splits([src], split_size=32 << 20)[0]
     size = os.path.getsize(src)
     c0, c1 = split.vstart >> 16, min(split.vend >> 16, size)
-    data = _read_range(src, c0, min(c1 + (1 << 20), size) - c0)
+    with open(src, "rb") as f:
+        f.seek(c0)
+        data = bytearray(f.read(min(c1 + (1 << 20), size) - c0))
     raw = np.frombuffer(data, dtype=np.uint8)
     co_l, cs_l, us_l = [], [], []
     pos = 0
@@ -4795,6 +5115,9 @@ def time_kernels(src: str, checks: dict, launches: dict, launches_r: dict, seed:
 
 CODEC_MIB = 64  # the round trip's input: the sort generator's record bytes
 XLA_MIB = 8  # the general programs' inputs
+#: The ``inflate_dynamic`` decode's input: cut from ``XLA_MIB`` to keep the
+#: run inside its time limit (logged as a cut).
+DYNAMIC_MIB = 2
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 peak, the CUDA cores' rate
 OPS_PER_SYMBOL = 20  # integer operations to decode one fixed-Huffman symbol (row 10's function)
 OPS_PER_WAVE = 80  # row 11's integer operations per lane and wave (the reference's function)
@@ -5244,20 +5567,23 @@ def codec_phase(work: str, seed: int, checks: dict, mib: int):
                              os.path.join(work, "codec.trace.json"))
 
     xla_n = XLA_MIB << 20
-    for what, src in (("zlib-6 members: inflate_dynamic", bgzf.deflate_blocks(data[:xla_n], 6)[0]),
-                      ("deflate-lanes members: row 10 rejects, inflate_fixed",
-                       flate.bgzf_compress_device(data[:xla_n], level=1, use_lanes=True,
-                                                  device="cuda", append_terminator=False))):
+    log(f"the inflate_dynamic decode cut from {XLA_MIB} MiB to {DYNAMIC_MIB} MiB")
+    for what, n_in, src in (
+            ("zlib-6 members: inflate_dynamic", DYNAMIC_MIB << 20,
+             bgzf.deflate_blocks(data[:DYNAMIC_MIB << 20], 6)[0]),
+            ("deflate-lanes members: row 10 rejects, inflate_fixed", xla_n,
+             flate.bgzf_compress_device(data[:xla_n], level=1, use_lanes=True, device="cuda",
+                                        append_terminator=False))):
         st, m = flate.CodecTierStats(), Metrics()
         k = len(bgzf.scan_blocks(src)[0])
         out, wall, _, _ = timed_codec(
             lambda: flate.bgzf_decompress_device(src + bgzf.TERMINATOR, conf=off, device="cuda",
                                                  stats=st, metrics=m),
-            f"bgzf_decompress_device(cuda, inflate gate off, {what}): {k} members, {xla_n} bytes")
+            f"bgzf_decompress_device(cuda, inflate gate off, {what}): {k} members, {n_in} bytes")
         down = m.get("flate.lockstep_tierdown")
         log(f"  stats {json.dumps(st.as_dict())}, flate.lockstep_tierdown {down}, "
-            f"{xla_n / wall / 1e6:.2f} MB/s")
-        if out != data[:xla_n] or st.xla != k or st.host or st.lanes:
+            f"{n_in / wall / 1e6:.2f} MB/s")
+        if out != data[:n_in] or st.xla != k or st.host or st.lanes:
             raise AssertionError(f"the general programs missed {what}")
         if "lanes" in what and down != k:
             raise AssertionError("row 10 took a member with LZ77 copies")
@@ -5450,11 +5776,11 @@ def sm_clocks() -> str:
 
 
 #: Each path's full depth; a run at another depth logs each cut.
-FULL_DEPTH = {"records": 2_000_000, "dup_pairs": 1_000_000, "pairs": 250_000,
-              "variants": 4_500_000, "cram_records": 300_000}
+FULL_DEPTH = {"records": 2_000_000, "dup_pairs": 1_000_000, "twin_pairs": TWIN_PAIRS,
+              "pairs": 250_000, "variants": 4_500_000, "cram_records": 300_000}
 #: The depths a run takes by default where they are cut below the full one
 #: to keep the run inside its time limit (logged as cuts).
-RUN_DEPTH = dict(FULL_DEPTH, dup_pairs=500_000)
+RUN_DEPTH = dict(FULL_DEPTH, dup_pairs=500_000, twin_pairs=100_000, variants=2_250_000)
 
 
 def card_line() -> str:
@@ -5473,6 +5799,9 @@ def main() -> int:
                     help="read pairs of the ingest phase")
     ap.add_argument("--dup-pairs", type=int, default=RUN_DEPTH["dup_pairs"],
                     help="read pairs of the collation phase (markdup, queryname, fixmate)")
+    ap.add_argument("--twin-pairs", type=int, default=RUN_DEPTH["twin_pairs"],
+                    help="read pairs of the collation phase's twins (whole chunks of "
+                         f"{PAIR_CHUNK})")
     ap.add_argument("--variants", type=int, default=RUN_DEPTH["variants"],
                     help="sites of the variants phase's call set")
     ap.add_argument("--cram-records", type=int, default=RUN_DEPTH["cram_records"],
@@ -5490,6 +5819,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from hadoop_bam_tpu_torch import _build
+
+    t_run = time.perf_counter()
+
+    def clock(after: str) -> None:
+        log(f"run clock: {time.perf_counter() - t_run:.1f} s after {after}")
 
     log(card_line())
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -5520,6 +5854,7 @@ def main() -> int:
     checks["inflate_probe"] = check_inflate_probe(args.seed)["max_abs_err"]
     pool.shutdown()
     torch.cuda.synchronize()
+    clock("the kernel checks")
     if args.kernels_only:
         return 0
     for k, full in FULL_DEPTH.items():
@@ -5534,28 +5869,40 @@ def main() -> int:
                             args.seed)
         for k in ("cpu", "resident", "resident_host"):  # the region phase reads "zlib"
             os.remove(os.path.join(work, f"sorted.{k}.bam"))
-        col = collation_phase(work, args.dup_pairs, args.seed)
-        ext = external_phase(work, res, col, args.records)
+        clock("the main path and the kernel timings")
+        col = collation_phase(work, args.dup_pairs, args.seed, args.twin_pairs)
+        clock("the collation phase")
+        ext = external_phase(work, res, col, args.records, args.seed)
+        clock("the out-of-core phase")
         sal = salvage_phase(work, res, args.records)
+        clock("the salvage phase")
+        fsp = fs_phase(work, res, args.pairs, args.seed)
+        clock("the fs phase")
         os.remove(res["src"])
         os.remove(res["lanes"])
         ing = ingest_phase(work, args.pairs, args.seed)
         rows.append(time_record_scan(ing["r1"], checks, ing["launches"]["record_scan"],
                                      "ingest_fastq(cuda), default gates"))
         del ing
+        clock("the ingest phase")
         var = variants_phase(work, args.variants, args.seed)
         sal_var = salvage_variants(work, var)
+        clock("the variants phase")
         rows.append(time_bcf_chain(var["path"], checks, var["launches"]["bcf_chain"],
                                    f"variants_blob(cuda), {VARIANT_REGIONS[0]}"))
         txt = text_phase(work, args.records, args.seed, var)
         del var
+        clock("the text phase")
         cr = cram_phase(work, args.cram_records, args.seed)
         rows.append(dict(rans_row, launches=cr["launches"]["rans"],
                          launches_from="sort_bam(cuda, .cram), default gates"))
+        clock("the CRAM phase")
         codec_rows, forced = codec_phase(work, args.seed, checks, args.codec_mib)
+        clock("the codec phase")
         rows += codec_rows
         rows += region_phase(work, res["flagstat"], res["sorted"], cr["cram"], cr["twin_sorted"],
                              checks)
+        clock("the region phase")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     salvage = dict(sal["launches"], variants=sal_var["launches"])
@@ -5567,6 +5914,7 @@ def main() -> int:
         row["external_launches"] = {job: n[row["name"]] for job, n in ext["launches"].items()}
         row["salvage_launches"] = {job: n[row["name"]] for job, n in salvage.items()}
         row["text_launches"] = {job: n[row["name"]] for job, n in txt["launches"].items()}
+        row["fs_launches"] = {job: n[row["name"]] for job, n in fsp["launches"].items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,6 +48,13 @@ FASTQ_BASE_QUALITY_ENCODING = "hbam.fastq-input.base-quality-encoding"
 FASTQ_FILTER_FAILED_QC = "hbam.fastq-input.filter-failed-qc"
 INPUT_BASE_QUALITY_ENCODING = "hbam.input.base-quality-encoding"
 INPUT_FILTER_FAILED_QC = "hbam.input.filter-failed-qc"
+#: QSEQ input's quality encoding (default "illumina") and failed-QC
+#: filtering, each else the generic input key; the FASTQ and QSEQ writers'
+#: quality encodings (defaults "sanger" and "illumina").
+QSEQ_BASE_QUALITY_ENCODING = "hbam.qseq-input.base-quality-encoding"
+QSEQ_FILTER_FAILED_QC = "hbam.qseq-input.filter-failed-qc"
+FASTQ_OUTPUT_BASE_QUALITY_ENCODING = "hbam.fastq-output.base-quality-encoding"
+QSEQ_OUTPUT_BASE_QUALITY_ENCODING = "hbam.qseq-output.base-quality-encoding"
 #: FASTQ ingest: claim region per record-scan chunk (default 57088), scan
 #: overlap past the claim (default 2048), and the device scan gate
 #: ("true"/"false"; unset: follows the inflate gate).

@@ -18,10 +18,12 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Union
 
 from ..conf import ANYSAM_TRUST_EXTS, Configuration
-from .bam import BamInputFormat, RecordBatch, read_header
+from ..utils.tracing import Metrics
+from .bam import BamInputFormat, RecordBatch
 from .cram import CramInputFormat, read_cram_header
 from .sam import SamInputFormat
 from .splits import ByteSplit, FileVirtualSplit
+from .text import read_range
 
 AnySplit = Union[ByteSplit, FileVirtualSplit]
 
@@ -49,10 +51,11 @@ def infer_from_data(first_byte: int) -> Optional[str]:
 
 
 class AnySamInputFormat:
-    def __init__(self, conf: Optional[Configuration] = None):
+    def __init__(self, conf: Optional[Configuration] = None, metrics: Optional[Metrics] = None):
         self.conf = conf or Configuration()
         self._format_cache: Dict[str, Optional[str]] = {}
-        self._bam = BamInputFormat(self.conf)
+        self._bam = BamInputFormat(self.conf, metrics)
+        self.metrics = self._bam.metrics
         self._sam = SamInputFormat(self.conf)
         self._cram = CramInputFormat(self.conf)  # one FASTA parse for all splits
 
@@ -64,8 +67,7 @@ class AnySamInputFormat:
             if self.conf.get_boolean(ANYSAM_TRUST_EXTS, True):
                 fmt = infer_from_file_path(path)
             if fmt is None:
-                with open(path, "rb") as f:
-                    head = f.read(1)
+                head = read_range(path, 0, 1)
                 fmt = infer_from_data(head[0]) if head else None
             self._format_cache[path] = fmt
         if fmt is None:
@@ -104,4 +106,4 @@ class AnySamInputFormat:
             return read_cram_header(path)
         if fmt == "sam":
             return self._sam.read_header(path)
-        return read_header(path)
+        return self._bam.read_header(path)

@@ -12,7 +12,9 @@ chunk-span cut of interval traversal (``_voffset_mask``),
 ``gather_record_array``, ``patch_flags``, ``rebuild_record_stream`` (the
 fixmate rewrite) and ``write_part_fast`` (device-resident assembly, host
 gather + deflate lanes, host gather + zlib).
-Only local paths are read.
+Every read goes through the filesystem seam (:mod:`.fs`), so a path may be
+any registered scheme (``file://``, ``mem://``, ``http://``, ``gs://``);
+each read is retried on a transient ``OSError`` into the job's metrics.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..ops import flate
 from ..spec import bam, bgzf, indices
 from ..utils.intervals import Interval, parse_intervals
 from ..utils.tracing import Metrics
+from . import fs
 from .guesser import BamSplitGuesser, find_record_start_in_payload
 from .splits import FileVirtualSplit
 
@@ -134,31 +137,21 @@ def _find_bai(path: str) -> Optional[str]:
     """The companion ``.bai`` (htsjdk's SamFiles.findIndex convention:
     ``x.bam.bai``, else ``x.bai``), or None."""
     for cand in (path + ".bai", os.path.splitext(path)[0] + ".bai"):
-        if os.path.exists(cand):
+        if fs.get_fs(cand).exists(cand):
             return cand
     return None
 
 
-def _load_bai(path: str) -> indices.Bai:
+def _load_bai(path: str, metrics: Optional[Metrics] = None) -> indices.Bai:
     """The companion ``.bai``, else one built from the BAM."""
     bai_path = _find_bai(path)
-    return indices.build_bai(path) if bai_path is None else indices.Bai.load(bai_path)
+    if bai_path is None:
+        return indices.build_bai(_read_all(path, metrics))
+    return indices.Bai.load(_read_all(bai_path, metrics))
 
 
-def _read_all(path: str) -> bytes:
-    with open(path, "rb") as f:
-        return f.read()
-
-
-def _read_range(path: str, start: int, length: int) -> bytearray:
-    """``length`` bytes from ``start`` (fewer at EOF), in a writable buffer
-    so tensors can be made from it without a copy."""
-    buf = bytearray(length)
-    with open(path, "rb") as f:
-        f.seek(start)
-        n = f.readinto(buf)
-    del buf[n:]
-    return buf
+def _read_all(path: str, metrics: Optional[Metrics] = None) -> bytes:
+    return fs.read_all_retry(fs.get_fs(path), path, metrics=metrics)
 
 
 def _read_header(data) -> Tuple[bam.BamHeader, int]:
@@ -168,22 +161,23 @@ def _read_header(data) -> Tuple[bam.BamHeader, int]:
     return hdr, r.tell_voffset()
 
 
-def read_header_voffset(path: str) -> Tuple[bam.BamHeader, int]:
+def read_header_voffset(path: str, metrics: Optional[Metrics] = None) -> Tuple[bam.BamHeader, int]:
     """Header + first-record virtual offset, reading the file in growing
     prefixes."""
-    size = os.path.getsize(path)
+    hfs = fs.get_fs(path)
+    size = hfs.size(path, metrics=metrics)
     chunk = 1 << 20
     while True:
         try:
-            return _read_header(_read_range(path, 0, chunk))
+            return _read_header(fs.read_range_retry(hfs, path, 0, chunk, metrics=metrics))
         except (bgzf.BgzfError, bam.BamError):
             if chunk >= size:
                 raise
             chunk *= 8
 
 
-def read_header(path: str) -> bam.BamHeader:
-    return read_header_voffset(path)[0]
+def read_header(path: str, metrics: Optional[Metrics] = None) -> bam.BamHeader:
+    return read_header_voffset(path, metrics)[0]
 
 
 class BamInputFormat:
@@ -199,11 +193,14 @@ class BamInputFormat:
         """``hadoopbam.errors``: "strict" (default) or "salvage"."""
         return self.conf.get(ERRORS_MODE, "strict") or "strict"
 
+    def read_header(self, path: str) -> bam.BamHeader:
+        return read_header(path, self.metrics)
+
     def _nrefs(self, path: str) -> int:
         """The header's reference count, cached per path: the salvage
         reader's record re-sync rules need it."""
         if path not in self._nrefs_cache:
-            self._nrefs_cache[path] = read_header(path).n_refs
+            self._nrefs_cache[path] = self.read_header(path).n_refs
         return self._nrefs_cache[path]
 
     def get_splits(
@@ -226,14 +223,14 @@ class BamInputFormat:
         return parse_intervals(self.conf.get(BAM_INTERVALS))
 
     def _splits_for_file(self, path: str, split_size: int) -> List[FileVirtualSplit]:
-        size = os.path.getsize(path)
+        size = fs.get_fs(path).size(path, metrics=self.metrics)
         byte_splits = [(s, min(s + split_size, size)) for s in range(0, size, split_size)]
         if not byte_splits:
             return []
         idx_path = splitting_bai_path(path)
-        if os.path.exists(idx_path):
+        if fs.get_fs(idx_path).exists(idx_path):
             try:
-                idx = indices.SplittingBai.load(idx_path)
+                idx = indices.SplittingBai.load(_read_all(idx_path, self.metrics))
                 if idx.bam_size() != size:
                     raise IOError("splitting-bai does not match file size")
                 return self._indexed_splits(path, byte_splits, idx)
@@ -243,7 +240,7 @@ class BamInputFormat:
             bai_path = _find_bai(path)
             if bai_path is not None:
                 try:
-                    bai = indices.Bai.load(bai_path)
+                    bai = indices.Bai.load(_read_all(bai_path, self.metrics))
                     return self._bai_splits(path, byte_splits, bai)
                 except IOError:
                     pass  # an unreadable or stale .bai: plan with the guesser
@@ -275,14 +272,14 @@ class BamInputFormat:
         starts: List[int] = []
         for j, (start, end) in enumerate(byte_splits):
             if j == 0:
-                starts.append(read_header_voffset(path)[1])
+                starts.append(read_header_voffset(path, self.metrics)[1])
                 continue
             k = int(np.searchsorted(coffs, start, side="left"))
             if k < len(varr) and coffs[k] < end:
                 starts.append(int(varr[k]))
                 continue
             if guesser is None:
-                data = _read_all(path)
+                data = _read_all(path, self.metrics)
                 guesser = BamSplitGuesser(data, _read_header(data)[0].n_refs)
             g = guesser.guess_next_record_start(start, end)
             if g != end:
@@ -316,8 +313,7 @@ class BamInputFormat:
         return out
 
     def _probabilistic_splits(self, path, byte_splits) -> List[FileVirtualSplit]:
-        with open(path, "rb") as f:
-            data = f.read()
+        data = _read_all(path, self.metrics)
         hdr, _ = _read_header(data)
         guesser = BamSplitGuesser(data, hdr.n_refs)
         out: List[FileVirtualSplit] = []
@@ -353,8 +349,8 @@ class BamInputFormat:
         for s in splits:
             by_path.setdefault(s.path, []).append(s)
         for path, file_splits in by_path.items():
-            hdr = read_header(path)
-            bai = _load_bai(path)
+            hdr = self.read_header(path)
+            bai = _load_bai(path, self.metrics)
             chunks: List[indices.Chunk] = []
             for iv in intervals or ():
                 try:
@@ -401,13 +397,15 @@ class BamInputFormat:
             errors = self.errors_mode()
         n_refs = self._nrefs(split.path) if errors == "salvage" else None
         metrics = stream.metrics if stream is not None else self.metrics
-        size = os.path.getsize(split.path)
+        sfs = fs.get_fs(split.path)
+        size = sfs.size(split.path, metrics=metrics)
         cstart = min(split.vstart >> 16, size)
         cend = min(split.vend >> 16, size)
         margin = 4 << 20
         while True:
             end_byte = min(cend + margin, size)
-            window = _read_range(split.path, cstart, end_byte - cstart)
+            window = fs.read_range_retry(sfs, split.path, cstart, end_byte - cstart,
+                                         metrics=metrics)
             at_eof = end_byte >= size
             shift = cstart << 16
             chunks = None

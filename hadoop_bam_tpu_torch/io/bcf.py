@@ -18,12 +18,12 @@ VCFInputFormat):
 Not ported: the reference's vectorized host tier needs its C ``bcf_scan`` (ROADMAP A.9), so with the
 gate off every split takes the exact loop, as the reference does without
 its native library.  Counters go to the format's
-:class:`~..utils.tracing.Metrics`.
+:class:`~..utils.tracing.Metrics`.  Files are read through the filesystem
+seam (:mod:`.fs`).
 """
 
 from __future__ import annotations
 
-import os
 import struct
 import zlib
 from typing import List, Optional, Tuple
@@ -38,6 +38,7 @@ from ..spec.vcf import VcfHeader, variant_key
 from ..utils.intervals import Interval, parse_intervals
 from ..utils.tracing import Metrics
 from .splits import FileVirtualSplit
+from .text import file_size, read_all, read_range
 from .vcf import VariantBatch
 
 # Verification bounds (BCFSplitGuesser.java:61-75).
@@ -46,12 +47,6 @@ UNCOMPRESSED_BYTES_NEEDED_FOR_GUESS = 0x80000
 
 _DATA_ERRORS = (bgzf.BgzfError, zlib.error)
 _RECORD_ERRORS = (bcf.BcfError, struct.error, IndexError, ValueError, KeyError)
-
-
-def _read_range(path: str, start: int, length: int) -> bytes:
-    with open(path, "rb") as f:
-        f.seek(start)
-        return f.read(length)
 
 
 class BcfSplitGuesser:
@@ -197,10 +192,10 @@ def read_bcf_header(data: bytes, compressed: Optional[bool] = None) -> Tuple[bcf
 
 def _read_bcf_header_prefix(path: str):
     """(header, compressed?) through growing prefix reads: O(header) bytes."""
-    size = os.path.getsize(path)
+    size = file_size(path)
     n = 8 << 10
     while True:
-        prefix = _read_range(path, 0, min(n, size))
+        prefix = read_range(path, 0, min(n, size))
         compressed = bgzf.is_bgzf(prefix)
         try:
             hdr, _ = read_bcf_header(prefix, compressed)
@@ -230,8 +225,7 @@ class BcfInputFormat:
         ``offset << 16`` for uncompressed ones."""
         out: List[FileVirtualSplit] = []
         for path in sorted(paths):
-            with open(path, "rb") as f:
-                data = f.read()
+            data = read_all(path)
             compressed = bgzf.is_bgzf(data)
             hdr, first = read_bcf_header(data, compressed)
             guesser = BcfSplitGuesser(data, hdr, compressed, self.metrics)
@@ -457,7 +451,7 @@ def _read_bcf_split_local(split: FileVirtualSplit, errors: str = "strict", infla
         c0 = split.vstart >> 16
         c1 = split.vend >> 16
         # The end block's full extent (<= 64 KiB) plus slack.
-        window = _read_range(split.path, c0, (c1 - c0) + 0x20000)
+        window = read_range(split.path, c0, (c1 - c0) + 0x20000)
         shift = c0 << 16
         payload, p, end, resident, breaks = _inflate_range(
             window, split.vstart - shift, split.vend - shift, errors=errors,
@@ -466,7 +460,7 @@ def _read_bcf_split_local(split: FileVirtualSplit, errors: str = "strict", infla
         return hdr, payload, p, end, resident, breaks
     p = split.vstart >> 16
     end = split.vend >> 16
-    return hdr, _read_range(split.path, p, end - p), 0, end - p, None, []
+    return hdr, read_range(split.path, p, end - p), 0, end - p, None, []
 
 
 def _inflate_range(data: bytes, vstart: int, vend: int, errors: str = "strict",

@@ -1,8 +1,8 @@
 """CRAM input and output: container-aligned splits, record decode, writer.
 
 Counterpart of ``hadoop_bam_tpu/io/cram.py`` (CRAMInputFormat.java:58-80,
-CRAMRecordReader.java:43-88, CRAMRecordWriter.java:98-116), reading local
-files.  Splits snap byte ranges to container starts; the reference FASTA
+CRAMRecordReader.java:43-88, CRAMRecordWriter.java:98-116), reading
+through the filesystem seam (:mod:`.fs`).  Splits snap byte ranges to container starts; the reference FASTA
 comes from ``hadoopbam.cram.reference-source-path``; the writer emits bare
 containers with the EOF marker suppressed for parts.  Record decode lives
 in ``spec/cram.py``; its rANS blocks decode on the card through a
@@ -16,13 +16,9 @@ from typing import Callable, Dict, List, Optional
 
 from ..conf import CRAM_REFERENCE_SOURCE_PATH, Configuration
 from ..spec import bam, cram
-from .bam import _read_range
 from .splits import ByteSplit
-
-
-def _read_all(path: str) -> bytes:
-    with open(path, "rb") as f:
-        return f.read()
+from .text import read_all as _read_all
+from .text import read_range as _read_range
 
 
 class ReferenceSource:

@@ -6,24 +6,36 @@ mid-file drops the partial first line and reads one line past its end, so
 every record belongs to exactly one split (SAMRecordReader.java:108-146,
 QseqInputFormat.java:136-155).  Gzip text is one unsplittable split
 (FastqInputFormat.java:393-398); BGZF VCF has its own virtual splits.
-Files are read by plain path.  ``gather_padded`` keeps the NumPy arm only:
-the reference's other arm is its C++ library.
+Files are read through the filesystem seam (:mod:`.fs`).
+``gather_padded`` keeps the NumPy arm only: the reference's other arm is
+its C++ library.
 """
 
 from __future__ import annotations
 
 import gzip
-import os
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from ..spec import bgzf
-from .bam import _read_all as read_all
-from .bam import _read_range as read_range
+from . import fs
 from .splits import ByteSplit
 
 MAX_LINE_LENGTH = 20000  # FastqInputFormat.java MAX_LINE_LENGTH
+
+
+def read_range(path: str, start: int, length: int) -> bytes:
+    """Bytes ``[start, start + length)`` of ``path`` through its filesystem."""
+    return fs.get_fs(path).read_range(path, start, length)
+
+
+def read_all(path: str) -> bytes:
+    return fs.get_fs(path).read_all(path)
+
+
+def file_size(path: str) -> int:
+    return fs.get_fs(path).size(path)
 
 
 def line_table(
@@ -115,7 +127,7 @@ def is_gzip(path: str) -> bool:
 def plan_byte_splits(
     path: str, split_size: int, splittable: Optional[bool] = None
 ) -> List[ByteSplit]:
-    size = os.path.getsize(path)
+    size = file_size(path)
     compressed = None
     if splittable is None:
         compressed = is_gzip(path)
@@ -211,7 +223,7 @@ def read_header_prefix(path: str, marker: bytes) -> bytes:
     The shared header re-injection primitive (SAM ``@`` lines per
     SAMRecordReader.java:183-330, VCF ``#`` lines per
     VCFRecordReader.java:111-154)."""
-    size = os.path.getsize(path)
+    size = file_size(path)
     n = 8 << 10
     while True:
         blob = read_range(path, 0, min(n, size))

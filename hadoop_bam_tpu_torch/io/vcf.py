@@ -18,7 +18,8 @@ Counterpart of ``hadoop_bam_tpu/io/vcf.py``:
 - the header reader that tries VCF, then BCF (util/VCFHeaderReader.java:51-78).
 
 A split's lines are tokenized by array passes (:func:`_read_vectorized`),
-else by the exact per-line parser.  Files are read by plain path.
+else by the exact per-line parser.  Files are read through the filesystem
+seam (:mod:`.fs`).
 :class:`VariantBatch` also carries the BCF reader's device columns.
 """
 
@@ -26,7 +27,6 @@ from __future__ import annotations
 
 import bisect
 import gzip
-import os
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,11 +41,13 @@ from ..spec import bgzf, indices
 from ..spec.vcf import FormatException, VariantContext, VcfHeader, parse_variant_line, variant_key
 from ..utils import nio
 from ..utils.intervals import Interval, parse_intervals
+from . import fs
 from .guesser import guess_bgzf_block_start
 from .splits import ByteSplit, FileVirtualSplit
 from .text import (
     MAX_LINE_LENGTH,
     SplitLineReader,
+    file_size,
     gather_padded,
     line_table,
     read_all,
@@ -164,7 +166,7 @@ class VcfInputFormat:
             return mixed
         out: List[ByteSplit] = []
         for path in sorted(paths):
-            size = os.path.getsize(path)
+            size = file_size(path)
             head = read_range(path, 0, 18)
             if head[:2] == b"\x1f\x8b":
                 if bgzf.parse_block_header(head + b"\x00" * 64, 0) or bgzf.is_bgzf(
@@ -200,7 +202,7 @@ class VcfInputFormat:
         out: List[ByteSplit] = []
         for s in splits:
             tbi_path = s.path + ".tbi"
-            if not os.path.exists(tbi_path):
+            if not fs.get_fs(tbi_path).exists(tbi_path):
                 out.append(s)
                 continue
             tbi = indices.Tabix.load(tbi_path)
@@ -326,7 +328,7 @@ class VcfInputFormat:
         guessed boundary inside a bounded raw window (blocks are ≤64KiB,
         so a 2·64KiB back-margin always contains a block start; the
         forward margin covers the one-extra-block line-completion rule)."""
-        size = os.path.getsize(split.path)
+        size = file_size(split.path)
         end = min(split.end, size)
         w0 = max(0, split.start - 2 * 0xFFFF)
         w1 = min(size, end + 4 * 0xFFFF)

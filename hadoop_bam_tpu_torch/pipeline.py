@@ -4,7 +4,8 @@ budget.
 
 Counterpart of ``hadoop_bam_tpu/pipeline.py`` ``sort_bam`` (coordinate or
 queryname order, with or without duplicate marking, in-core or out of core),
-``markdup_bam``, ``fixmate_bam``, ``_input_format``, ``_read_any_header``,
+``markdup_bam``, ``fixmate_bam``, ``_input_format`` (with ``_read_any_header``
+as each input format's ``read_header``),
 ``_finish_device_parse``, ``_unmapped_hash32``, ``_sort_perm``,
 ``_sort_bam_external`` and ``_queryname_rank_column``.  Splits are read
 double-buffered; a BAM split's members inflate on the device and the chain
@@ -58,7 +59,7 @@ from .conf import (
 from .dedup import DEDUP_EXTRA_FIELDS, concat_columns, mark_duplicates_device, signature_columns
 from .device_stream import DeviceStream
 from .io.anysam import AnySamInputFormat, infer_from_file_path
-from .io.bam import SORT_FIELDS, BamInputFormat, ChunkedRecords, RecordBatch, read_header, write_part_fast
+from .io.bam import SORT_FIELDS, BamInputFormat, ChunkedRecords, RecordBatch, write_part_fast
 from .io.merger import merge_bam_parts
 from .io.runs import Run, input_identity, load_manifest, plan_ranges, write_manifest, write_run
 from .io.splits import FileVirtualSplit
@@ -114,19 +115,13 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
-def _input_format(conf, in_paths):
+def _input_format(conf, in_paths, metrics=None):
     """BamInputFormat when every input is ``.bam``, else the AnySAM
-    dispatcher (``.cram`` and ``.sam`` input)."""
+    dispatcher (``.cram`` and ``.sam`` input); reads count into
+    ``metrics``."""
     if all(infer_from_file_path(p) == "bam" for p in in_paths):
-        return BamInputFormat(conf)
-    return AnySamInputFormat(conf)
-
-
-def _read_any_header(fmt, path):
-    """The header by the format's own reader (CRAM: the file-header
-    container; SAM: the text's ``@`` lines), else the BAM reader."""
-    rh = getattr(fmt, "read_header", None)
-    return rh(path) if rh is not None else read_header(path)
+        return BamInputFormat(conf, metrics)
+    return AnySamInputFormat(conf, metrics)
 
 
 def sort_bam(
@@ -298,8 +293,8 @@ def sort_bam(
     use_device_write = stream.policy.device_write
     write = _WriteSettings(conf, max_attempts, errors, write_workers)
 
-    fmt = _input_format(conf, in_paths)
-    header = _read_any_header(fmt, in_paths[0]).with_sort_order(sort_order)
+    fmt = _input_format(conf, in_paths, stream.metrics)
+    header = fmt.read_header(in_paths[0]).with_sort_order(sort_order)
     if memory_budget is not None:
         # A split is the memory floor (it inflates as one batch): keep its
         # compressed size well under the budget, as the reference does.
@@ -465,8 +460,8 @@ def fixmate_bam(
     dev = resolve_device(device)
     stream = DeviceStream(dev, conf=conf)
     write = _WriteSettings(conf, max_attempts, errors, write_workers)
-    fmt = _input_format(conf, in_paths)
-    header = _read_any_header(fmt, in_paths[0])
+    fmt = _input_format(conf, in_paths, stream.metrics)
+    header = fmt.read_header(in_paths[0])
     if memory_budget is not None:
         split_size = _budget_split_size(split_size, memory_budget)
     splits = fmt.get_splits(in_paths, split_size=split_size)

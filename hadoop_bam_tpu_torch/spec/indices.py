@@ -27,6 +27,13 @@ import numpy as np
 
 from . import bgzf
 
+def _path_bytes(path: str) -> bytes:
+    """A whole index or BAM named by path, through the filesystem seam."""
+    from ..io import fs
+
+    return fs.get_fs(path).read_all(path)
+
+
 SPLITTING_BAI_EXT = ".splitting-bai"
 DEFAULT_GRANULARITY = 4096
 BAI_MAGIC = b"BAI\x01"
@@ -50,9 +57,8 @@ class SplittingBai:
     @staticmethod
     def load(source: Union[str, bytes, BinaryIO]) -> "SplittingBai":
         if isinstance(source, str):
-            with open(source, "rb") as f:
-                raw = f.read()
-        elif isinstance(source, bytes):
+            raw = _path_bytes(source)
+        elif isinstance(source, (bytes, bytearray)):
             raw = source
         else:
             raw = source.read()
@@ -110,8 +116,7 @@ def build_splitting_bai(
     record raises :class:`~.bgzf.BgzfError`; fewer than four trailing
     bytes end the walk."""
     if isinstance(bam_path_or_bytes, str):
-        with open(bam_path_or_bytes, "rb") as f:
-            raw = f.read()
+        raw = _path_bytes(bam_path_or_bytes)
     else:
         raw = bam_path_or_bytes
     offs, _, _, co, cs, uoffs = _record_chain(raw)
@@ -223,8 +228,7 @@ class Bai:
     @staticmethod
     def load(source: Union[str, bytes]) -> "Bai":
         if isinstance(source, str):
-            with open(source, "rb") as f:
-                raw = f.read()
+            raw = _path_bytes(source)
         else:
             raw = source
         if raw[:4] != BAI_MAGIC:
@@ -370,8 +374,7 @@ def build_bai(bam_path_or_bytes: Union[str, bytes]) -> Bai:
     from . import bam as bam_mod
 
     if isinstance(bam_path_or_bytes, str):
-        with open(bam_path_or_bytes, "rb") as f:
-            raw = f.read()
+        raw = _path_bytes(bam_path_or_bytes)
     else:
         raw = bam_path_or_bytes
     offs, out, hdr, co, cs, uoffs = _record_chain(raw)
@@ -452,8 +455,7 @@ class Tabix:
     @staticmethod
     def load(source: Union[str, bytes]) -> "Tabix":
         if isinstance(source, str):
-            with open(source, "rb") as f:
-                raw = f.read()
+            raw = _path_bytes(source)
         else:
             raw = source
         buf = bgzf.decompress_all(raw) if bgzf.is_bgzf(raw) else raw
@@ -496,8 +498,7 @@ class BgzfBlockIndex:
     @staticmethod
     def load(source: Union[str, bytes]) -> "BgzfBlockIndex":
         if isinstance(source, str):
-            with open(source, "rb") as f:
-                raw = f.read()
+            raw = _path_bytes(source)
         else:
             raw = source
         if len(raw) % 6 != 0:

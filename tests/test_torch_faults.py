@@ -1,8 +1,8 @@
 """Fault injection and salvage in the port against the reference, on the CPU.
 
-The cases are the reference's ``tests/test_faults.py`` that need no
-``io/fs.py``, serve daemon or CLI (their CLI cases go through the Python
-entry points), its ``test_variant_plane.py`` BCF quarantine and its
+The cases are the reference's ``tests/test_faults.py`` that need no serve
+daemon or CLI (their CLI cases go through the Python entry points; the
+``io.read.*`` cases go through the port's ``io/fs.py``), its ``test_variant_plane.py`` BCF quarantine and its
 ``test_device_stream.py`` ``salvage.splits_failed`` case.  Every case runs
 the same damaged input, made from a seed, through both packages: the output
 bytes are equal, and every ``salvage.*``, ``executor.*`` and
@@ -475,6 +475,68 @@ def test_torn_tail_strict_raises_salvage_stops(bam_corpus, tmp_path):
     assert m.get("salvage.torn_tail") == delta(before)["counters"]["salvage.torn_tail"] == 1
     with pytest.raises(ValueError, match="strict|salvage"):
         bgzf.BgzfReader(torn, errors="lenient")
+
+
+# ---------------------------------------------------------------------------
+# Byte-I/O seam: transient errors and disk bit-flips through io/fs.py
+# ---------------------------------------------------------------------------
+
+
+def test_transient_read_error_retried_at_fs_seam(bam_corpus):
+    path = bam_corpus["clean_path"]
+    jfmt = JFormat()
+    fmt = BamInputFormat()
+    jsplits = jfmt.get_splits([path], split_size=1 << 30)
+    splits = fmt.get_splits([path], split_size=1 << 30)
+    arm_both("io.read.error:n=1,path=clean.bam")
+    before = snapshot()
+    want = jfmt.read_split(jsplits[0])
+    d = delta(before)["counters"]
+    got = fmt.read_split(splits[0])
+    assert got.n_records == want.n_records == 1500
+    c = fmt.metrics.counters()
+    assert c["io.read_retries"] == d["io.read_retries"] == 1
+    assert c["faults.fired.io.read.error"] == d["faults.fired.io.read.error"] == 1
+    same_counters(c, d)
+    assert _records_of([got]) == _records_of([want])
+
+
+def test_fs_seam_bitflip_feeds_salvage(bam_corpus):
+    """The flip is in the read path (a bad disk byte), not in the file:
+    salvage quarantines the member it lands in, and, the flip being
+    offset-pinned and persistent, the widened re-reads see it too."""
+    blocks, idx, _ = _record_members(bam_corpus)
+    co = blocks[idx[9]].coffset
+    arm_both(f"io.read.bitflip:offset={co + 25},path=clean.bam")
+    got, want, m, d = _read_both(bam_corpus["clean_path"])
+    assert m.get("salvage.members_quarantined") == d.get("salvage.members_quarantined") == 1
+    assert m.get("faults.fired.io.read.bitflip") >= 1
+    same_counters(m.counters(), d)
+    assert _records_of(got) == _records_of(want)
+    assert sorted(_records_of(got)) == sorted(_surviving_oracle(bam_corpus, [9]))
+
+
+@pytest.mark.parametrize("scheme", ["", "file://"])
+def test_sort_retries_every_read_of_its_input(bam_corpus, tmp_path, scheme):
+    """Every read of a sort's input (the header, the split plan's whole-file
+    read, the split windows) is retried on a transient error into the job's
+    counters: two injected errors cost two retries and change no byte.
+    Deviation: the reference retries only the split windows, so the same
+    plan fails its sort at the header read."""
+    src = scheme + bam_corpus["clean_path"]
+    clean = str(tmp_path / "clean.bam")
+    pipeline.sort_bam(bam_corpus["clean_path"], clean, conf=from_reference_conf(HOST),
+                      device="cpu", split_size=6000)
+    faults.arm("io.read.error:n=2,path=clean.bam")
+    out = str(tmp_path / "retried.bam")
+    st = pipeline.sort_bam(src, out, conf=from_reference_conf(HOST), device="cpu",
+                           split_size=6000)
+    assert _bytes(out) == _bytes(clean)
+    assert st.counters["io.read_retries"] == 2
+    assert st.counters["faults.fired.io.read.error"] == 2
+    jfaults.arm("io.read.error:n=2,path=clean.bam")
+    with pytest.raises(OSError):
+        jpipeline.sort_bam(src, str(tmp_path / "ref.bam"), conf=JConf(HOST), backend="host")
 
 
 def test_forced_tierdown_cascade_bit_exact():

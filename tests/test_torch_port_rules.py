@@ -50,6 +50,34 @@ print("ok", len(names))
     assert r.stdout.startswith("ok")
 
 
+def test_smoke_and_tools_import_only_names_the_port_has():
+    """Every ``from hadoop_bam_tpu_torch... import name`` in ``chip_smoke.py``
+    and ``tools/*.py``, inside functions and in the pair tools' ``ONE_RUN``
+    too, names something the port has: such imports run only on the card."""
+    import ast
+    import importlib
+
+    missing = []
+    for path in [REPO / "chip_smoke.py", *sorted((REPO / "tools").glob("*.py"))]:
+        tree = ast.parse(path.read_text())
+        trees = [tree] + [ast.parse(node.value.value) for node in ast.walk(tree)
+                          if isinstance(node, ast.Assign) and isinstance(node.value, ast.Constant)
+                          and any(getattr(t, "id", "") == "ONE_RUN" for t in node.targets)]
+        for t in trees:
+            for node in ast.walk(t):
+                if not (isinstance(node, ast.ImportFrom) and node.module
+                        and node.module.startswith("hadoop_bam_tpu_torch")):
+                    continue
+                mod = importlib.import_module(node.module)
+                for alias in node.names:
+                    if not hasattr(mod, alias.name):
+                        try:
+                            importlib.import_module(f"{node.module}.{alias.name}")
+                        except ImportError:
+                            missing.append((path.name, node.module, alias.name))
+    assert not missing, missing
+
+
 def test_sort_bam_without_device_raises_when_no_card(tmp_path, monkeypatch):
     from hadoop_bam_tpu_torch import pipeline
 
@@ -432,6 +460,30 @@ def test_reference_conf_dict_drives_the_variant_keys():
         k = getattr(tconf, key)
         assert k == getattr(jconf, key)
         assert a.get(k) == b.get(k) and a.get_boolean(k) == b.get_boolean(k)
+
+
+def test_reference_conf_dict_drives_the_fastq_qseq_keys():
+    """The reader and writer keys of FASTQ and QSEQ keep the reference's
+    strings, and one dict read by both packages' formats picks the same
+    encodings and filters."""
+    from hadoop_bam_tpu import conf as jconf
+    from hadoop_bam_tpu.io import fastq as jfastq
+    from hadoop_bam_tpu.io import qseq as jqseq
+    from hadoop_bam_tpu_torch import conf as tconf
+    from hadoop_bam_tpu_torch.io import fastq, qseq
+
+    keys = ("FASTQ_OUTPUT_BASE_QUALITY_ENCODING", "QSEQ_BASE_QUALITY_ENCODING",
+            "QSEQ_FILTER_FAILED_QC", "QSEQ_OUTPUT_BASE_QUALITY_ENCODING")
+    d = {getattr(jconf, k): v for k, v in zip(keys, ("illumina", "sanger", "yes", "sanger"))}
+    a, b = jconf.Configuration(d), tconf.from_reference_conf(d)
+    for key in keys:
+        k = getattr(tconf, key)
+        assert k == getattr(jconf, key)
+        assert a.get(k) == b.get(k) and a.get_boolean(k) == b.get_boolean(k)
+    assert fastq.FastqOutputFormat(b).encoding == jfastq.FastqOutputFormat(a).encoding
+    assert qseq.QseqOutputFormat(b).encoding == jqseq.QseqOutputFormat(a).encoding
+    assert qseq.QseqInputFormat(b)._encoding() == jqseq.QseqInputFormat(a)._encoding()
+    assert qseq.QseqInputFormat(b)._filter_failed() == jqseq.QseqInputFormat(a)._filter_failed()
 
 
 def test_variant_and_collate_entry_points_raise_when_no_card(tmp_path, monkeypatch):

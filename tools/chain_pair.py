@@ -46,7 +46,7 @@ import numpy as np
 import torch
 sys.path.insert(0, os.getcwd())
 from hadoop_bam_tpu_torch import _build
-from hadoop_bam_tpu_torch.io.bam import BamInputFormat, _read_range
+from hadoop_bam_tpu_torch.io.bam import BamInputFormat
 from hadoop_bam_tpu_torch.ops.kernels import chain as kch
 from hadoop_bam_tpu_torch.pipeline import sort_bam
 from hadoop_bam_tpu_torch.spec import bam, bgzf
@@ -56,7 +56,9 @@ _build.build(None if do_sort else ["chain"], force=True)
 split = BamInputFormat().get_splits([src], split_size=32 << 20)[0]
 size = os.path.getsize(src)
 c0, c1 = split.vstart >> 16, min(split.vend >> 16, size)
-data = _read_range(src, c0, min(c1 + (1 << 20), size) - c0)
+with open(src, "rb") as f:
+    f.seek(c0)
+    data = bytearray(f.read(min(c1 + (1 << 20), size) - c0))
 co, cs, us = [], [], []
 pos = 0
 while pos < len(data) and pos <= c1 - c0:  # the members read_split inflates
