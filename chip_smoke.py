@@ -4,6 +4,7 @@ Run on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--records N] [--dup-pairs N] [--pairs N] [--variants N]
                           [--cram-records N] [--codec-mib N] [--seed S]
+                          [--ingest-cpu 0|1] [--fixmate-again 0|1] [--sam-roundtrip N]
 
 Phases: print the card; build the CUDA kernels from ``csrc/``; hold each
 kernel against its plain PyTorch version on the card (exact equality);
@@ -16,7 +17,8 @@ markdup of 500,000 pairs with the default gates, cut from 1,000,000; byte-identi
 write gates off, the markdup, queryname and fixmate twins, and the
 default-gate queryname sort and fixmate, on the first 100,000 pairs (cut from 250,000); the duplicate decision against
 its per-record oracle on the first 50,000 pairs, the mask through the
-device write of one resident split, fixmate run again on its own output);
+device write of one resident split; fixmate run again on its own output
+only with ``--fixmate-again 1``);
 sort out of core (the out-of-core phase: the main path's input under a
 128 MiB ``memory_budget`` on the card, its content the in-core sort's, card
 against CPU byte-identical with the write gates off on 500,000 records at
@@ -35,16 +37,17 @@ on the card from a loopback HTTP server, from ``mem://`` and from
 bytes with the same launches, then FASTQ, QSEQ and FASTA input and FASTQ
 output on the host against the generators); the text formats (the text phase, after the variants phase: the
 main path's input rows as SAM text sorted on the card to the content of
-its BAM twin's sort, a sorted part through ``SamOutputWriter`` and back;
+its BAM twin's sort, the first 20,000 records of a sorted part through
+``SamOutputWriter`` and back (``--sam-roundtrip``);
 the call set's sites as plain, BGZF and plain-gzip VCF text read through
 ``VcfInputFormat`` to the card BCF read's keys, positions and ends, with
 a malformed line under LENIENT and STRICT; ``join_counts_device`` on the
 card against ``join_counts_np``); drive
-``ingest_fastq`` on 250,000 synthetic read pairs with the default gates,
-and on the CPU (the card's output decompresses to the CPU run's bytes),
-and hold
-``ingest_oracle`` to it on a prefix; query three regions of a synthetic
-2,250,000-site BCF call set (cut from 4,500,000) with ``variants_blob`` on the card (each
+``ingest_fastq`` on 250,000 synthetic read pairs with the default gates
+(the CPU run of them, whose bytes the card's output decompresses to, only
+with ``--ingest-cpu 1``), and hold ``ingest_oracle`` and the card's run to
+the CPU run on a prefix; query three regions of a synthetic
+1,500,000-site BCF call set (cut from 4,500,000) with ``variants_blob`` on the card (each
 equal to the generator's records; the first on the CPU too,
 byte-identical); sort a
 synthetic no-ref rANS CRAM of 300,000 records on the card (its rANS blocks
@@ -52,7 +55,13 @@ through the decode kernel) to the
 content of the sort of its BAM twin; read regions of the sorted BAM
 (``build_bai``, ``flagstat`` against the generator's census, ``view_blob``
 of three regions against a NumPy overlap oracle, the first on the CPU too,
-``depth_stat`` and a bounded-traversal ``sort_bam``, card against CPU, and a view of the CRAM against its BAM twin's); run the device codec's
+``depth_stat`` and a bounded-traversal ``sort_bam``, card against CPU, and a view of the CRAM against its BAM twin's); serve them
+from the resident daemon on the card (the serve phase, after the region
+phase: 64 seeded views from 16 client threads cold then warm, coalesced
+into shared inflate launches, flagstat, depth, the chr20 variants window,
+a sort job, typed deadline, shed and out-of-memory replies, stats and
+Prometheus text, each reply equal to the one-shot endpoint on the card);
+run the device codec's
 literal-only round trip on 64 MiB of record bytes (``bgzf_compress_device``
 with ``use_lanes=False``, then ``bgzf_decompress_device`` with the inflate
 gate off, every member through kernel row 10, and with the default gates),
@@ -2447,7 +2456,8 @@ def illumina_order_faults(path: str) -> int:
     return int((ne.any(axis=1) & (key[1:][at_first, first] < key[:-1][at_first, first])).sum())
 
 
-def collation_phase(work: str, n_pairs: int, seed: int, twin_pairs: int = TWIN_PAIRS) -> dict:
+def collation_phase(work: str, n_pairs: int, seed: int, twin_pairs: int = TWIN_PAIRS,
+                    fixmate_again: bool = True) -> dict:
     """The collation family on a synthetic paired-end BAM of ``n_pairs``
     pairs (:func:`synth_pair_chunk`); its twins run on the first
     ``twin_pairs`` (whole chunks; ``TWIN_PAIRS`` at full depth).  Markdup:
@@ -2645,12 +2655,15 @@ def collation_phase(work: str, n_pairs: int, seed: int, twin_pairs: int = TWIN_P
     log(f"fixmate: cuda == cpu with the write gates off ({nb} bytes), pairs, singletons, "
         f"orphans {want_t} as generated")
     os.remove(out["fm_c"])
-    timed_sort(out["fm_b"], out["fm_again"], "fixmate_bam(cuda, write gates off, one split, "
-               "its own output)", device="cuda", **fm)
-    nb = same_bytes(out["fm_b"], out["fm_again"], "fixmate run again on its own output")
-    log(f"fixmate run again on its own output of the first {twin_pairs} pairs: the same {nb} "
-        f"bytes")
-    os.remove(out["fm_again"])
+    if fixmate_again:
+        timed_sort(out["fm_b"], out["fm_again"], "fixmate_bam(cuda, write gates off, one split, "
+                   "its own output)", device="cuda", **fm)
+        nb = same_bytes(out["fm_b"], out["fm_again"], "fixmate run again on its own output")
+        log(f"fixmate run again on its own output of the first {twin_pairs} pairs: the same {nb} "
+            f"bytes")
+        os.remove(out["fm_again"])
+    else:
+        log("fixmate run again on its own output: cut (it paid for the serve phase)")
     os.remove(paths["full"])
     log(f"collation phase: {time.perf_counter() - t_phase:.1f} s")
     # The twin file and its in-core outputs stay for the out-of-core phase.
@@ -3400,14 +3413,16 @@ def timed_ingest(paths, out: str, what: str, trace: bool = False, **kw):
     return st, wall, launches
 
 
-def ingest_phase(work: str, n_pairs: int, seed: int) -> dict:
+def ingest_phase(work: str, n_pairs: int, seed: int, cpu_run: bool = True) -> dict:
     """FASTQ ingest of ``n_pairs`` synthetic read pairs: (a) on the card with
     the default gates, (c) the port on the CPU; (a) decompresses to (c)'s
     bytes with (c)'s stats; then the port's ``ingest_oracle`` on a prefix
     of ``ORACLE_PAIRS`` equals the CPU run at that size.  (a) runs under
     ``torch.profiler`` for the card's busy time.  The card run with the
     deflate lanes off, byte-identical to (c), is cut (it paid for the
-    salvage phase)."""
+    salvage phase).  Without ``cpu_run`` (the default depth: it paid for the
+    serve phase) (c) is cut too, and the card's run on the prefix must
+    decompress to the CPU prefix run's bytes with its stats instead."""
     from hadoop_bam_tpu_torch.ingest import ingest_oracle
 
     t0 = time.perf_counter()
@@ -3429,16 +3444,20 @@ def ingest_phase(work: str, n_pairs: int, seed: int) -> dict:
         raise AssertionError(f"the card tiered down on clean input: {st_a.counts()}")
     if st_a.n_records != 2 * n_pairs or st_a.n_pairs != n_pairs or st_a.n_repacked == 0:
         raise AssertionError(f"ingest stats {st_a.counts()}")
-    st_c, _, _ = timed_ingest(paths, out["c"], "cpu", device="cpu")
-    cc_len = os.path.getsize(out["c"])
-    if bgzf_content(out["a"]) != bgzf_content(out["c"]):
-        raise AssertionError("ingest: default-gate output decompresses to other bytes than (c)")
-    ratio = os.path.getsize(out["a"]) / cc_len
-    log(f"ingest (a) decompresses to (c)'s bytes; size {os.path.getsize(out['a'])} = "
-        f"{ratio:.4f} x (c)")
-    for k in ("n_records", "n_pairs", "n_members", "n_repacked", "scan_chunks"):
-        if getattr(st_a, k) != getattr(st_c, k):
-            raise AssertionError(f"ingest stats differ between runs: {k}")
+    if cpu_run:
+        st_c, _, _ = timed_ingest(paths, out["c"], "cpu", device="cpu")
+        cc_len = os.path.getsize(out["c"])
+        if bgzf_content(out["a"]) != bgzf_content(out["c"]):
+            raise AssertionError("ingest: default-gate output decompresses to other bytes than (c)")
+        ratio = os.path.getsize(out["a"]) / cc_len
+        log(f"ingest (a) decompresses to (c)'s bytes; size {os.path.getsize(out['a'])} = "
+            f"{ratio:.4f} x (c)")
+        for k in ("n_records", "n_pairs", "n_members", "n_repacked", "scan_chunks"):
+            if getattr(st_a, k) != getattr(st_c, k):
+                raise AssertionError(f"ingest stats differ between runs: {k}")
+    else:
+        log("ingest (c), the CPU run of the whole corpus, cut (it paid for the serve phase): "
+            "the card's run of the prefix is held to the CPU's below")
     # The oracle on a prefix of the same corpus.
     n_or = min(ORACLE_PAIRS, n_pairs)
     cut1 = _pair_prefix(r1, n_or)
@@ -3456,6 +3475,17 @@ def ingest_phase(work: str, n_pairs: int, seed: int) -> dict:
         raise AssertionError("ingest_oracle differs from the cpu ingest on the prefix")
     log(f"ingest_oracle == ingest_fastq(cpu) on {n_or} pairs: {len(o)} bytes, "
         f"oracle {t_or:.1f} s")
+    if not cpu_run:
+        out["pa"] = os.path.join(work, "ingest.pa.bam")
+        st_pa, _, _ = timed_ingest(ppaths, out["pa"], f"cuda, default gates, {n_or}-pair prefix",
+                                   device="cuda")
+        fields = ("n_records", "n_pairs", "n_members", "n_repacked", "scan_chunks")
+        if bgzf_content(out["pa"]) != bgzf_content(out["pc"]) or any(
+                getattr(st_pa, k) != getattr(st_p, k) for k in fields):
+            raise AssertionError("ingest: the card's prefix run decompresses to other bytes or "
+                                 "stats than the CPU's")
+        log(f"ingest_fastq(cuda) on {n_or} pairs decompresses to ingest_fastq(cpu)'s bytes with "
+            f"its stats")
     return {"launches": launches, "stats": st_a, "wall": wall_a, "r1": r1}
 
 
@@ -3468,11 +3498,10 @@ def timed_variants(path: str, region: str, what: str, trace: bool = False, conf=
 
     import torch
 
-    from hadoop_bam_tpu_torch.device_stream import DeviceStream
-    from hadoop_bam_tpu_torch.serve.endpoints import variants_blob
-    from hadoop_bam_tpu_torch.utils.backend import resolve_device
+    from hadoop_bam_tpu_torch.serve.endpoints import ServeContext, variants_blob
 
-    stream = DeviceStream(resolve_device(device), conf=conf)
+    sctx = ServeContext.from_conf(conf, with_batcher=False, device=device)
+    stream = sctx.stream
     on_card = stream.device.type == "cuda"
     reset_counts()
     if on_card:
@@ -3482,7 +3511,7 @@ def timed_variants(path: str, region: str, what: str, trace: bool = False, conf=
     timings: dict = {}
     with ctx as prof:
         t0 = time.perf_counter()
-        blob = variants_blob(path, region, conf=conf, stream=stream, timings=timings)
+        blob = variants_blob(sctx, path, region, timings=timings)
         if on_card:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -3746,13 +3775,15 @@ def timed_vcf(path: str, what: str, conf=None):
     return cols[0], cols[1], cols[2], splits, wall, launches
 
 
-def text_phase(work: str, n: int, seed: int, var: dict, device: str = "cuda") -> dict:
+def text_phase(work: str, n: int, seed: int, var: dict, device: str = "cuda",
+               roundtrip: int = 100_000) -> dict:
     """The text formats on the card.  (a) The main path's ``n`` input rows
     as SAM text (:func:`sam_text` under :data:`BAM_TEXT`): ``sort_bam`` on
     the card with the default gates (host tokenizer, ``torch.sort``, parts
     through row 3) decompresses to the card sort of its BAM twin (the rows
     with the NM tag's type ``C`` made ``c``, the text encoder's narrowing);
-    the first sorted part goes through ``SamOutputWriter`` and back.  (b)
+    the first sorted part (at most ``roundtrip`` records of it) goes through
+    ``SamOutputWriter`` and back.  (b)
     The call set's sites as VCF text, plain, BGZF and a plain-gzip prefix
     (one split), read through ``VcfInputFormat``: keys, pos and end equal
     the card read of the ``.bcf`` (rows 1 and 5); a malformed line is
@@ -3821,7 +3852,7 @@ def text_phase(work: str, n: int, seed: int, var: dict, device: str = "cuda") ->
     # The first sorted part through the text writer and back.
     t0 = time.perf_counter()
     b = bam_batch(out_s)
-    k = n // st.n_splits
+    k = min(n // st.n_splits, roundtrip)
     back = os.path.join(work, "part0.sam")
     with open(back, "wb") as f:
         w = SamOutputWriter(f, bam.BamHeader(BAM_TEXT.rstrip("\n"), list(GRCH38)))
@@ -3832,7 +3863,7 @@ def text_phase(work: str, n: int, seed: int, var: dict, device: str = "cuda") ->
     s1 = int(b.soa["rec_off"][k - 1] + b.soa["rec_len"][k - 1])
     if got != np.asarray(b.data[s0:s1]).tobytes():
         raise AssertionError("the first sorted part does not read back through SamOutputWriter")
-    log(f"SamOutputWriter: the first sorted part's {k} records ({os.path.getsize(back)} bytes "
+    log(f"SamOutputWriter: the first sorted part's first {k} records ({os.path.getsize(back)} bytes "
         f"of SAM) read back to the same record bytes in {time.perf_counter() - t0:.1f} s")
     del b
     for x in (back, sam_path, out_s):
@@ -4244,8 +4275,9 @@ def cram_phase(work: str, n: int, seed: int) -> dict:
         raise AssertionError("the CRAM sort decompresses to other bytes than its BAM twin's")
     log(f"sort_bam(.cram) decompresses to sort_bam(BAM twin)'s bytes; {n_blocks} rANS blocks "
         f"all on the kernel in {n_cont} launches")
-    os.remove(bam_path)
-    return {"launches": launches, "wall": wall, "cram": cram_path, "twin_sorted": out_b}
+    # The BAM twin's input stays: the serve phase's sort job sorts it again.
+    return {"launches": launches, "wall": wall, "cram": cram_path, "twin_sorted": out_b,
+            "twin_src": bam_path}
 
 
 # ---------------------------------------------------------------------------
@@ -4444,17 +4476,19 @@ def blob_records(blob: bytes) -> np.ndarray:
 
 
 def timed_region(fn, what: str, device: str, trace: str = "", conf=None):
-    """One region call ``fn(stream, timings)`` with the launch counts zeroed
-    just before and read just after; with a ``trace`` path, under
-    ``torch.profiler`` (device activity only).  Returns ``(result, wall,
-    launches, counters)``."""
+    """One region call ``fn(ctx, timings)`` on a one-shot
+    ``ServeContext`` (cold: no batcher, an empty cache and arena) with the
+    launch counts zeroed just before and read just after; with a ``trace``
+    path, under ``torch.profiler`` (device activity only).  Returns
+    ``(result, wall, launches, counters)``."""
     import contextlib
 
     import torch
 
-    from hadoop_bam_tpu_torch.device_stream import DeviceStream
+    from hadoop_bam_tpu_torch.serve.endpoints import ServeContext
 
-    stream = DeviceStream(torch.device(device), conf=conf)
+    sctx = ServeContext.from_conf(conf, with_batcher=False, device=device)
+    stream = sctx.stream
     on_card = device == "cuda"
     reset_counts()
     if on_card:
@@ -4464,7 +4498,7 @@ def timed_region(fn, what: str, device: str, trace: str = "", conf=None):
     timings: dict = {}
     with ctx as prof:
         t0 = time.perf_counter()
-        out = fn(stream, timings)
+        out = fn(sctx, timings)
         if on_card:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -4517,11 +4551,12 @@ def overlap_device_time(path: str, view_cols) -> dict:
 
     from hadoop_bam_tpu_torch.device_stream import DeviceStream
     from hadoop_bam_tpu_torch.ops.kernels import overlap as kov
-    from hadoop_bam_tpu_torch.serve.endpoints import _cut_view, view_blob, view_records
+    from hadoop_bam_tpu_torch.serve.endpoints import (ServeContext, _cut_view, view_blob,
+                                                      view_records)
 
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        view_blob(path, REGIONS[1], device="cuda")
+        view_blob(ServeContext.from_conf(with_batcher=False), path, REGIONS[1])
         torch.cuda.synchronize()
     trace = path + ".row6.trace.json"
     prof.export_chrome_trace(trace)
@@ -4542,7 +4577,9 @@ def overlap_device_time(path: str, view_cols) -> dict:
     torch.cuda.synchronize()
     end = torch.from_numpy(wrapped_end(view_cols[1], view_cols[2])).cuda()
     yard = cuda_ms(lambda: torch.nonzero(kov.overlap_mask(iv, cols[0], cols[1], end)), iters=50)
-    batches = [bt for bt, _ in view_records(path, REGIONS[1], device="cpu")[1]]
+    batches = [bt for bt, _ in view_records(ServeContext.from_conf(with_batcher=False,
+                                                                   device="cpu"),
+                                            path, REGIONS[1])[1]]
     stream = DeviceStream(torch.device("cuda"))
     _cut_view(batches, *CHR21[0], stream)
     t0 = time.perf_counter()
@@ -4671,7 +4708,7 @@ def time_region_kernels(path: str, view_cols, checks: dict, launches: int,
 
 
 def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted: str,
-                 checks: dict) -> list:
+                 checks: dict, keep=None) -> list:
     """The region reads on the main path's sorted BAM (``census``: its
     generator's flagstat counts): build its ``.bai``; ``flagstat`` on the
     card (equal to the census); ``view_blob`` of :data:`REGIONS` on the card
@@ -4686,7 +4723,8 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
                                             INFLATE_LANES, WRITE_DEVICE, Configuration)
     from hadoop_bam_tpu_torch.io.bam import read_header
     from hadoop_bam_tpu_torch.ops import cigar
-    from hadoop_bam_tpu_torch.serve.endpoints import depth_stat, flagstat, view_blob, view_records
+    from hadoop_bam_tpu_torch.serve.endpoints import (ServeContext, depth_stat, flagstat,
+                                                      view_blob, view_records)
     from hadoop_bam_tpu_torch.spec import indices
     from hadoop_bam_tpu_torch.utils.intervals import MAX_END, parse_interval
 
@@ -4701,7 +4739,7 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
     # The CPU twins of flagstat and of the views past the first are cut
     # (the generator's census and the overlap oracle hold them).
     fs, _, launches, _ = timed_region(
-        lambda st, tm: flagstat(path, stream=st, timings=tm), "flagstat(cuda)", "cuda")
+        lambda st, tm: flagstat(st, path, timings=tm), "flagstat(cuda)", "cuda")
     if launches["inflate_members"] <= 0:
         raise AssertionError("flagstat(cuda) never launched the inflate kernel")
     if fs != census:
@@ -4712,13 +4750,13 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
     mask_launches = 0  # the mask form's launches in the phase's card calls: no path calls it
     for k, region in enumerate(REGIONS):
         blob, wall, launches, c = timed_region(
-            lambda st, tm: view_blob(path, region, stream=st, timings=tm),
+            lambda st, tm: view_blob(st, path, region, timings=tm),
             f"view_blob(cuda, {region})", "cuda",
             trace=os.path.join(work, "region.trace.json") if k == 0 else "")
         c_cpu = c
         if k == 0:
             blob_cpu, _, _, c_cpu = timed_region(
-                lambda st, tm: view_blob(path, region, stream=st, timings=tm),
+                lambda st, tm: view_blob(st, path, region, timings=tm),
                 f"view_blob(cpu, {region})", "cpu")
             if blob != blob_cpu:
                 raise AssertionError(f"view {region}: card and cpu blobs differ")
@@ -4742,13 +4780,15 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
             f"{launches['overlap_rows']} time(s) for {spans} chunk spans")
         if first is None:
             first = launches["overlap_rows"]
+    if keep is not None:  # the serve phase's overlap oracle
+        keep.update(recs=recs, vstart=vstart, header=header, bai=bai)
     del recs, vstart
     for region, kw in ((REGIONS[0], {"per_base": True}), (REGIONS[1], {})):
         res = {}
         # The binned chr21 profile's CPU twin is cut (the salvage phase's).
         for dev in ("cuda", "cpu") if kw else ("cuda",):
             res[dev], _, launches, c = timed_region(
-                lambda st, tm: depth_stat(path, region, stream=st, timings=tm, **kw),
+                lambda st, tm: depth_stat(st, path, region, timings=tm, **kw),
                 f"depth_stat({dev}, {region}, {kw})", dev)
             if dev == "cuda":
                 mask_launches += launches["overlap_mask"]
@@ -4781,13 +4821,13 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
     with open(twin_sorted + ".bai", "wb") as f:
         indices.build_bai(twin_sorted).save(f)
     cram_blob, _, launches, c = timed_region(
-        lambda st, tm: view_blob(cram_path, REGIONS[1], stream=st, timings=tm),
+        lambda st, tm: view_blob(st, cram_path, REGIONS[1], timings=tm),
         f"view_blob(cuda, .cram, {REGIONS[1]})", "cuda")
     mask_launches += launches["overlap_mask"]
     # A CRAM view reads every split and cuts each VIEW_CUT_BYTES of them.
     cram_splits = c.get("serve.view.overlap_device", 0)
     twin_blob, _, _, _ = timed_region(
-        lambda st, tm: view_blob(twin_sorted, REGIONS[1], stream=st, timings=tm),
+        lambda st, tm: view_blob(st, twin_sorted, REGIONS[1], timings=tm),
         f"view_blob(cuda, BAM twin, {REGIONS[1]})", "cuda")
     twin_recs, twin_v = file_records(twin_sorted)
     head = check_view(twin_blob, read_header_of_blob(bgzf_bytes(twin_blob)), twin_recs, twin_v,
@@ -4808,7 +4848,7 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
     budget, endpoints.VIEW_CUT_BYTES = endpoints.VIEW_CUT_BYTES, 16 << 20
     try:
         small_blob, _, launches, _ = timed_region(
-            lambda st, tm: view_blob(cram_path, REGIONS[1], stream=st, timings=tm),
+            lambda st, tm: view_blob(st, cram_path, REGIONS[1], timings=tm),
             f"view_blob(cuda, .cram, {REGIONS[1]}, 16 MiB held)", "cuda")
     finally:
         endpoints.VIEW_CUT_BYTES = budget
@@ -4819,13 +4859,331 @@ def region_phase(work: str, census: dict, path: str, cram_path: str, twin_sorted
     log(f"view of the CRAM cut each 16 MiB held: the same bytes, row 6 launched "
         f"{launches['overlap_rows']} times")
     # Row 6's inputs in the chr21 view: every record of the windows it read.
-    bs = [bt for bt, _ in view_records(path, REGIONS[1], device="cpu")[1]]
+    bs = [bt for bt, _ in view_records(ServeContext.from_conf(with_batcher=False, device="cpu"),
+                                       path, REGIONS[1])[1]]
     refid = np.concatenate([bt.soa["refid"] for bt in bs]).astype(np.int32)
     pos = np.concatenate([bt.soa["pos"] for bt in bs]).astype(np.int32)
     span = np.concatenate([cigar.reference_lengths_np(bt.data, bt.soa) for bt in bs])
     view_cols = (refid, pos, span.astype(np.int32))
     log(f"region phase: {time.perf_counter() - t_phase:.1f} s before the kernel timings")
     return time_region_kernels(path, view_cols, checks, first, mask_launches)
+
+
+# ---------------------------------------------------------------------------
+# The resident daemon: views, flagstat, depth, variants and a sort job served
+# from one process on the card
+# ---------------------------------------------------------------------------
+
+SERVE_VIEWS = 64  # seeded view windows of each pass
+SERVE_THREADS = 16  # client threads sending them
+SERVE_WINDOW_MS = 5  # the lane batcher's coalescing window in the phase
+
+
+def view_columns(recs: np.ndarray) -> dict:
+    """The overlap oracle's columns of every record, computed once:
+    refid, pos, the reference span and the unmapped flag."""
+    n_cig = recs[:, 16].astype(np.int64) | (recs[:, 17].astype(np.int64) << 8)
+    return {"refid": _i32(recs, 4), "pos": _i32(recs, 8),
+            "span": np.where(n_cig > 0, _i32(recs, 47) >> 4, 0),
+            "unmapped": (recs[:, 18] & 4) != 0}
+
+
+def check_view_linear(blob: bytes, header: bytes, recs, vstart, bai, region: str,
+                      cols: dict) -> np.ndarray:
+    """:func:`check_view` for any window, on :func:`view_columns`: the view
+    holds exactly, in file order, the records that overlap the region and
+    start inside the ``.bai``'s chunk spans of it; an overlapping record
+    outside every span must be unmapped, or start before the query's
+    linear-index offset (the reference's sort puts placed unmapped reads in
+    a hash-ordered tail, so a 16 kbp window whose only records are such
+    reads points the linear index into the tail, and the query clips the
+    mapped records of the next window away, in both packages).  Returns
+    ``[unmapped outside, mapped clipped by the linear index]``."""
+    from hadoop_bam_tpu_torch.utils.intervals import MAX_END, parse_interval
+
+    iv = parse_interval(region)
+    rid = [c for c, _ in GRCH38].index(iv.contig)
+    beg0, end0 = iv.start - 1, min(iv.end, MAX_END)
+    pos = cols["pos"]
+    rows = np.nonzero((cols["refid"] == rid) & (pos >= 0) & (pos < end0)
+                      & (pos + np.maximum(cols["span"], 1) > beg0))[0]
+    inc = in_chunks(vstart[rows], bai.query(rid, beg0, end0))
+    if bgzf_bytes(blob) != header + recs[rows[inc]].tobytes():
+        raise AssertionError(f"view {region}: the blob is not the oracle's records")
+    out = rows[~inc]
+    mapped = out[~cols["unmapped"][out]]
+    lin = bai.refs[rid].linear
+    min_off = lin[min(beg0 >> 14, len(lin) - 1)] if lin else 0
+    if np.any(vstart[mapped] >= min_off):
+        raise AssertionError(f"view {region}: a mapped overlapping record lies outside the "
+                             "chunks at or past the linear index's offset")
+    return np.asarray([len(out) - len(mapped), len(mapped)], dtype=np.int64)
+
+
+def serve_windows(n: int, seed: int, lo: int = 1_000, hi: int = 100_000):
+    """``n`` seeded view windows of ``lo``-``hi`` bases on chr1-chr22 and chrX."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        contig, length = GRCH38[int(rng.integers(0, 23))]
+        size = int(rng.integers(lo, hi + 1))
+        start = int(rng.integers(1, length - size))
+        out.append(f"{contig}:{start}-{start + size - 1}")
+    return out
+
+
+def serve_pass(sock: str, path: str, regions, threads: int):
+    """Every region of ``path`` viewed once through the daemon from
+    ``threads`` client threads: ``(replies, latencies in ms, wall s)``."""
+    import threading
+
+    from hadoop_bam_tpu_torch.serve import ServeClient
+
+    replies, lat, errors = {}, [], []
+    lock = threading.Lock()
+
+    def run(k: int) -> None:
+        c = ServeClient(socket_path=sock, timeout=300, retries=0)
+        for region in regions[k::threads]:
+            try:
+                t0 = time.perf_counter()
+                blob = c.view(path, region)
+                ms = (time.perf_counter() - t0) * 1e3
+            except Exception as e:  # noqa: BLE001 - raised below, after the join
+                with lock:
+                    errors.append(f"{region}: {type(e).__name__}: {e}")
+                return
+            with lock:
+                replies[region] = blob
+                lat.append(ms)
+
+    ts = [threading.Thread(target=run, args=(k,)) for k in range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in ts) or len(replies) != len(regions):
+        raise AssertionError(f"serve pass: {len(replies)} of {len(regions)} replies; {errors[:3]}")
+    return replies, lat, wall
+
+
+def serve_phase(work: str, path: str, census: dict, oracle: dict, bcf_path: str,
+                twin_src: str, twin_sorted: str, seed: int) -> dict:
+    """The resident daemon on the card (``serve.server.BamDaemon``, warm-up
+    on) over a UNIX socket, driven by ``serve.client.ServeClient``.
+    (a) Launch counts zeroed once both daemons are up; ``ping``.  (b)
+    :data:`SERVE_VIEWS` seeded 1-100 kbp views of the main path's sorted BAM
+    from :data:`SERVE_THREADS` threads, cold then warm: the cold pass
+    coalesces (``serve.batch.launches`` below ``serve.batch.requests``,
+    ``coalesced_requests`` above 0), the warm pass reads no header, index or
+    window and loads no kernel library; latencies and rates logged.  (c)
+    ``flagstat``, one ``depth`` window and the chr20 ``variants`` window.
+    (d) On a second daemon with 4 tokens and no queue: a ``sort`` job with a
+    ``part_dir`` of the CRAM phase's BAM twin input, polled to done, while
+    views get ``SHED``/``RETRY_AFTER`` with ``retry_after_ms``; then on the
+    first a 1 ms deadline (``DEADLINE_EXCEEDED``) and ``arena.oom:n=1``
+    (evict, retry) and ``arena.oom:n=2`` (host tier-down) views.  (e)
+    ``stats`` and ``metrics``; ``shutdown`` drains both.  Launch counts are
+    read then: rows 1, 5 and 6 launched, row 1 exactly the batchers'
+    launches plus the job's.  Only after that, every reply is held to the
+    one-shot endpoint on the card (and each view to the overlap oracle,
+    the job's bytes to the CRAM phase's sort of the same input)."""
+    import threading
+
+    from hadoop_bam_tpu_torch import faults
+    from hadoop_bam_tpu_torch.conf import (SERVE_ADMISSION_TOKENS, SERVE_BATCH_WINDOW_MS,
+                                            SERVE_MAX_QUEUE, Configuration)
+    from hadoop_bam_tpu_torch.serve import (BamDaemon, DeadlineExceededError, ServeClient,
+                                            ServeContext, ServeShedError, compile_count,
+                                            depth_stat, variants_blob, view_blob)
+    from hadoop_bam_tpu_torch.utils.tracing import delta, snapshot
+
+    t_phase = time.perf_counter()
+    sock_dir = work if len(work) < 90 else tempfile.mkdtemp(prefix="hbs")
+    socks = [os.path.join(sock_dir, f"serve{k}.sock") for k in (1, 2)]
+    confs = [Configuration({SERVE_BATCH_WINDOW_MS: str(SERVE_WINDOW_MS)}),
+             Configuration({SERVE_ADMISSION_TOKENS: "4", SERVE_MAX_QUEUE: "0"})]
+    daemons, threads = [], []
+    try:
+        for sock, conf in zip(socks, confs):
+            t0 = time.perf_counter()
+            d = BamDaemon(conf=conf, socket_path=sock, warmup=True)
+            ready = threading.Event()
+            t = threading.Thread(target=d.serve_forever, args=(ready,), daemon=True)
+            t.start()
+            daemons.append(d)
+            threads.append(t)
+            if not ready.wait(600):
+                raise AssertionError(f"daemon on {sock} did not come up")
+            log(f"BamDaemon(cuda) on {os.path.basename(sock)} up in "
+                f"{time.perf_counter() - t0:.3f} s; warm-up {json.dumps(d.warmup_report)}")
+        d1, d2 = daemons
+        c1, c2 = (ServeClient(socket_path=s, timeout=600) for s in socks)
+        c0 = compile_count()
+        reset_counts()
+        if not (c1.ping()["ok"] and c2.ping()["ok"]):
+            raise AssertionError("ping")
+
+        # (b) the view passes.
+        regions = serve_windows(SERVE_VIEWS, seed + 24)
+        passes = {}
+        for name in ("cold", "warm"):
+            s0 = snapshot(d1.metrics)
+            cc = compile_count()
+            replies, lat, wall = serve_pass(socks[0], path, regions, SERVE_THREADS)
+            dc = delta(s0, registry=d1.metrics)["counters"]
+            passes[name] = replies
+            lat = np.asarray(lat)
+            log(f"serve {name} pass: {len(regions)} views from {SERVE_THREADS} threads in "
+                f"{wall:.3f} s, {len(regions) / wall:.1f} requests/s, latency p50 "
+                f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms, max "
+                f"{lat.max():.3f} ms")
+            log("  counters: " + json.dumps({k: v for k, v in sorted(dc.items()) if k.startswith(
+                ("serve.batch.", "serve.cache.", "serve.arena.", "serve.view.", "serve.admission."))}))
+            if name == "cold":
+                if not (0 < dc.get("serve.batch.launches", 0) < dc.get("serve.batch.requests", 0)
+                        and dc.get("serve.batch.coalesced_requests", 0) > 0):
+                    raise AssertionError(f"cold pass did not coalesce: {dc}")
+            else:
+                if (dc.get("serve.cache.miss", 0) or dc.get("serve.arena.miss", 0)
+                        or dc.get("serve.batch.launches", 0) or compile_count() != cc
+                        or not dc.get("serve.cache.hit") or replies != passes["cold"]):
+                    raise AssertionError(f"warm pass re-read or reloaded: {dc}, compiles "
+                                         f"{compile_count() - cc}, same replies "
+                                         f"{replies == passes['cold']}")
+        log(f"serve warm pass: the cold pass's bytes, {dc['serve.cache.hit']} cache hits, no "
+            f"header or .bai re-read, no window read, no launch, no new kernel library")
+
+        # (c) flagstat, depth, variants.
+        t0 = time.perf_counter()
+        fs = c1.flagstat(path)
+        depth = c1.depth(path, REGIONS[0])
+        vblob = c1.variants(bcf_path, VARIANT_REGIONS[0])
+        log(f"serve flagstat, depth {REGIONS[0]} and variants {VARIANT_REGIONS[0]}: "
+            f"{time.perf_counter() - t0:.3f} s; depth {depth['n_records']} records, variants "
+            f"{len(vblob)} bytes")
+        if fs != census:
+            raise AssertionError(f"serve flagstat {fs}, census {census}")
+
+        # (d) the sort job and the shed views on the second daemon.
+        job_out = os.path.join(work, "serve.job.bam")
+        pdir = os.path.join(work, "serve.parts")
+        jl0 = launch_counts()
+        t0 = time.perf_counter()
+        jid = c2.sort(twin_src, job_out, part_dir=pdir)
+        shed = []
+        for region in regions[:4]:
+            try:
+                ServeClient(socket_path=socks[1], timeout=600, retries=0).view(path, region)
+            except ServeShedError as e:
+                shed.append((e.code, e.retry_after_ms))
+        st = c2.wait(jid, timeout=900)
+        job_wall = time.perf_counter() - t0
+        job_launches = {k: v - jl0[k] for k, v in launch_counts().items()}
+        if st["status"] != "done" or len(shed) != 4 or any(
+                code not in ("SHED", "RETRY_AFTER") or ms <= 0 for code, ms in shed):
+            raise AssertionError(f"serve job {st}, shed replies {shed}")
+        log(f"serve sort job {jid}: {st['stats']} in {job_wall:.3f} s (submit to done), "
+            f"launches {json.dumps({k: v for k, v in job_launches.items() if v})}; 4 views "
+            f"sent meanwhile refused {sorted({c for c, _ in shed})}, retry_after_ms "
+            f"{[ms for _, ms in shed]}")
+        try:  # chr21: about 1,500 chunk windows, a check before each
+            c1.view(path, REGIONS[1], deadline_ms=1)
+            raise AssertionError("a 1 ms view was answered")
+        except DeadlineExceededError as e:
+            dl_at_daemon = "client deadline" not in str(e)
+            log(f"serve view with deadline_ms 1: DEADLINE_EXCEEDED ({e})")
+        oom = {}
+        # chrY, which the passes never view: its windows miss the arena.
+        for n, region in ((1, "chrY:10000001-11000000"), (2, "chrY:20000001-21000000")):
+            s0 = snapshot(d1.metrics)
+            faults.arm(f"arena.oom:n={n}")
+            try:
+                oom[region] = c1.view(path, region)
+            finally:
+                faults.disarm()
+            dc = delta(s0, registry=d1.metrics)["counters"]
+            want = ({"serve.oom.evictions": 1} if n == 1
+                    else {"serve.oom.evictions": 1, "serve.oom.tierdowns": 1})
+            got = {k: v for k, v in dc.items() if k.startswith("serve.oom.")}
+            if got != want or dc.get("faults.fired.arena.oom") != n:
+                raise AssertionError(f"arena.oom:n={n}: {dc}")
+            log(f"serve view under arena.oom:n={n}: {json.dumps(got)}")
+
+        # (e) stats, metrics, drain.
+        stats = c1.stats()
+        n_views = 2 * SERVE_VIEWS + len(oom) + int(dl_at_daemon)
+        h = stats["metrics"]["histograms"]["serve.op.view.ms"]
+        text = c1.metrics()
+        prom = {}
+        for line in text.strip().splitlines():
+            if not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                prom[name] = float(value)
+        if h["count"] != n_views or prom["hbam_serve_op_view_ms_count"] != n_views or \
+                stats["metrics"]["counters"]["serve.op.view"] != n_views:
+            raise AssertionError(f"serve stats: {h['count']} views observed, {n_views} sent")
+        log(f"serve stats: view latency p50 {h['p50']} p95 {h['p95']} p99 {h['p99']} ms (log2 "
+            f"buckets), {n_views} views; Prometheus text {len(prom)} samples parsed; gauges "
+            + json.dumps({k: v for k, v in sorted(stats["gauges"].items()) if k.startswith(
+                ("serve.arena.", "serve.cache.", "serve.admission."))}))
+        batch_launches = [d.metrics.get("serve.batch.launches") for d in daemons]
+        for c in (c1, c2):
+            r = c.shutdown()
+            if not r.get("drained"):
+                raise AssertionError(f"shutdown {r}")
+        for t in threads:
+            t.join(120)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a daemon thread outlived its shutdown")
+        launches = launch_counts()
+    finally:
+        faults.disarm()
+        for d, t in zip(daemons, threads):
+            if t.is_alive():
+                d.stop()
+                t.join(120)
+        if sock_dir != work:
+            shutil.rmtree(sock_dir, ignore_errors=True)
+    t_served = time.perf_counter() - t_phase
+    want_row1 = sum(batch_launches) + job_launches["inflate_members"]
+    if (launches["inflate_members"] != want_row1 or launches["bcf_chain"] <= 0
+            or launches["overlap_rows"] <= 0):
+        raise AssertionError(f"serve launches {launches}: row 1 should be the batchers' "
+                             f"{batch_launches} plus the job's {job_launches['inflate_members']}")
+    log(f"serve launches: {json.dumps({k: v for k, v in launches.items() if v})}; row 1 = "
+        f"{batch_launches} batched + {job_launches['inflate_members']} of the job")
+
+    # The replies against the one-shot endpoints on the card and the oracle.
+    t0 = time.perf_counter()
+    ctx = ServeContext.from_conf(with_batcher=False)
+    cols = view_columns(oracle["recs"])
+    outside = np.zeros(2, dtype=np.int64)
+    try:
+        for region, blob in list(passes["cold"].items()) + list(oom.items()):
+            if blob != view_blob(ctx, path, region):
+                raise AssertionError(f"serve view {region}: not the one-shot view's bytes")
+            outside += check_view_linear(blob, oracle["header"], oracle["recs"],
+                                         oracle["vstart"], oracle["bai"], region, cols)
+        if depth != depth_stat(ctx, path, REGIONS[0]):
+            raise AssertionError("serve depth differs from the one-shot depth")
+        if vblob != variants_blob(ctx, bcf_path, VARIANT_REGIONS[0]):
+            raise AssertionError("serve variants differ from the one-shot variants")
+    finally:
+        ctx.close()
+    nb = same_bytes(job_out, twin_sorted, "the serve sort job and the CRAM phase's BAM twin sort")
+    log(f"serve replies == the one-shot card endpoints ({len(passes['cold']) + len(oom)} views, "
+        f"each == the overlap oracle within the .bai's chunks; {outside[0]} overlapping "
+        f"unmapped records and {outside[1]} mapped ones clipped by the linear index lie outside "
+        f"them; depth; variants); flagstat == the census; the job's {nb} bytes == "
+        f"sort_bam(cuda, BAM twin)'s; checks {time.perf_counter() - t0:.1f} s")
+    log(f"serve phase: {t_served:.1f} s served, {time.perf_counter() - t_phase:.1f} s with "
+        f"the checks")
+    os.remove(job_out)
+    shutil.rmtree(pdir, ignore_errors=True)
+    return {"launches": launches}
 
 
 def read_header_of_blob(content: bytes) -> bytes:
@@ -5776,11 +6134,19 @@ def sm_clocks() -> str:
 
 
 #: Each path's full depth; a run at another depth logs each cut.
+#: ``ingest_cpu`` (1: the ingest phase's CPU run of the whole corpus) and
+#: ``fixmate_again`` (1: fixmate run again on its own card output) are runs
+#: a cut depth leaves out (0); ``sam_roundtrip`` caps the records of the
+#: text phase's first sorted part that go through the SAM writer and back.
 FULL_DEPTH = {"records": 2_000_000, "dup_pairs": 1_000_000, "twin_pairs": TWIN_PAIRS,
-              "pairs": 250_000, "variants": 4_500_000, "cram_records": 300_000}
+              "pairs": 250_000, "variants": 4_500_000, "cram_records": 300_000,
+              "ingest_cpu": 1, "fixmate_again": 1, "sam_roundtrip": 100_000}
 #: The depths a run takes by default where they are cut below the full one
-#: to keep the run inside its time limit (logged as cuts).
-RUN_DEPTH = dict(FULL_DEPTH, dup_pairs=500_000, twin_pairs=100_000, variants=2_250_000)
+#: to keep the run inside its time limit (logged as cuts); the ingest's CPU
+#: run, fixmate's second pass, the SAM round trip's and the call set's cuts
+#: pay for the serve phase.
+RUN_DEPTH = dict(FULL_DEPTH, dup_pairs=500_000, twin_pairs=100_000, variants=1_500_000,
+                 ingest_cpu=0, fixmate_again=0, sam_roundtrip=20_000)
 
 
 def card_line() -> str:
@@ -5806,6 +6172,12 @@ def main() -> int:
                     help="sites of the variants phase's call set")
     ap.add_argument("--cram-records", type=int, default=RUN_DEPTH["cram_records"],
                     help="records of the CRAM phase's corpus")
+    ap.add_argument("--ingest-cpu", type=int, default=RUN_DEPTH["ingest_cpu"],
+                    help="1: the ingest phase's CPU run of the whole corpus")
+    ap.add_argument("--fixmate-again", type=int, default=RUN_DEPTH["fixmate_again"],
+                    help="1: the collation phase runs fixmate again on its own output")
+    ap.add_argument("--sam-roundtrip", type=int, default=RUN_DEPTH["sam_roundtrip"],
+                    help="records of the text phase's SAM writer round trip")
     ap.add_argument("--codec-mib", type=int, default=CODEC_MIB,
                     help="MiB of record bytes of the codec phase's round trip")
     ap.add_argument("--kernels-only", action="store_true",
@@ -5870,7 +6242,8 @@ def main() -> int:
         for k in ("cpu", "resident", "resident_host"):  # the region phase reads "zlib"
             os.remove(os.path.join(work, f"sorted.{k}.bam"))
         clock("the main path and the kernel timings")
-        col = collation_phase(work, args.dup_pairs, args.seed, args.twin_pairs)
+        col = collation_phase(work, args.dup_pairs, args.seed, args.twin_pairs,
+                              fixmate_again=bool(args.fixmate_again))
         clock("the collation phase")
         ext = external_phase(work, res, col, args.records, args.seed)
         clock("the out-of-core phase")
@@ -5880,7 +6253,7 @@ def main() -> int:
         clock("the fs phase")
         os.remove(res["src"])
         os.remove(res["lanes"])
-        ing = ingest_phase(work, args.pairs, args.seed)
+        ing = ingest_phase(work, args.pairs, args.seed, cpu_run=bool(args.ingest_cpu))
         rows.append(time_record_scan(ing["r1"], checks, ing["launches"]["record_scan"],
                                      "ingest_fastq(cuda), default gates"))
         del ing
@@ -5890,7 +6263,8 @@ def main() -> int:
         clock("the variants phase")
         rows.append(time_bcf_chain(var["path"], checks, var["launches"]["bcf_chain"],
                                    f"variants_blob(cuda), {VARIANT_REGIONS[0]}"))
-        txt = text_phase(work, args.records, args.seed, var)
+        txt = text_phase(work, args.records, args.seed, var, roundtrip=args.sam_roundtrip)
+        bcf_path = var["path"]
         del var
         clock("the text phase")
         cr = cram_phase(work, args.cram_records, args.seed)
@@ -5900,9 +6274,14 @@ def main() -> int:
         codec_rows, forced = codec_phase(work, args.seed, checks, args.codec_mib)
         clock("the codec phase")
         rows += codec_rows
+        oracle: dict = {}
         rows += region_phase(work, res["flagstat"], res["sorted"], cr["cram"], cr["twin_sorted"],
-                             checks)
+                             checks, keep=oracle)
         clock("the region phase")
+        srv = serve_phase(work, res["sorted"], res["flagstat"], oracle, bcf_path, cr["twin_src"],
+                          cr["twin_sorted"], args.seed)
+        del oracle
+        clock("the serve phase")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     salvage = dict(sal["launches"], variants=sal_var["launches"])
@@ -5915,6 +6294,7 @@ def main() -> int:
         row["salvage_launches"] = {job: n[row["name"]] for job, n in salvage.items()}
         row["text_launches"] = {job: n[row["name"]] for job, n in txt["launches"].items()}
         row["fs_launches"] = {job: n[row["name"]] for job, n in fsp["launches"].items()}
+        row["serve_launches"] = {"daemon": srv["launches"][row["name"]]}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,11 @@ CRC32 and the LZ77 + fixed-Huffman deflate run as hand-written CUDA kernels
 members and merges the parts; ``.cram`` input decodes its rANS 4x8
 blocks with a hand-written kernel too.  FASTQ ingest
 (:func:`ingest.ingest_fastq`) adds the FASTQ record-scan kernel and the
-name collation; the ranged BCF query (:func:`serve.endpoints.variants_blob`)
-the BCF record-chain kernel.
+name collation; the ranged BCF query (:func:`serve.endpoints.variants_blob`,
+which takes a :class:`serve.endpoints.ServeContext` first, as the region
+endpoints do) the BCF record-chain kernel.  The resident daemon
+(:class:`serve.server.BamDaemon`) answers those queries and sort and
+ingest jobs over a socket from one process on the card.
 Module names mirror the reference package, which the port never imports.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

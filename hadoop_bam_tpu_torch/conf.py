@@ -2,8 +2,8 @@
 
 Counterpart of ``hadoop_bam_tpu/conf.py`` with only the keys the in-core
 coordinate sort (of BAM and CRAM input, with interval traversal), the
-FASTQ ingest, the BCF variant plane, the region reads, the part executor
-and the fault plan read.  The key strings are the
+FASTQ ingest, the BCF variant plane, the region reads, the part executor,
+the fault plan and the resident daemon read.  The key strings are the
 reference's, so one dict drives both packages (:func:`from_reference_conf`).
 """
 
@@ -89,6 +89,44 @@ ANYSAM_OUTPUT_FORMAT = "hadoopbam.anysam.output-format"
 ANYSAM_WRITE_HEADER = "hadoopbam.anysam.write-header"
 SAMHEADERREADER_VALIDATION_STRINGENCY = "hadoopbam.samheaderreader.validation-stringency"
 
+#: The resident daemon (``serve/``): its UNIX socket or 127.0.0.1 TCP port
+#: (the socket wins; neither: a per-user socket under the temp dir), the
+#: byte budgets of the header/index cache and of the decoded-window arena,
+#: the lane batcher's coalescing window (milliseconds; 0: no coalescing),
+#: the job pool's size, the admission budget (tokens), queue depth and
+#: queue-wait p95 bound (milliseconds; 0: off), the job journal, the flight
+#: recorder (base path, cadence, bytes), request tracing (default true),
+#: the exemplar threshold (milliseconds; 0: outcome triggers only), store
+#: size and spill directory, the access log (base path, bytes), the SLO
+#: objectives and windows ("fast_s,slow_s") and the startup warm-up.
+SERVE_SOCKET = "hadoopbam.serve.socket"
+SERVE_PORT = "hadoopbam.serve.port"
+SERVE_CACHE_BYTES = "hadoopbam.serve.cache-bytes"
+SERVE_ARENA_BYTES = "hadoopbam.serve.arena-bytes"
+SERVE_BATCH_WINDOW_MS = "hadoopbam.serve.batch-window-ms"
+SERVE_MAX_INFLIGHT = "hadoopbam.serve.max-inflight"
+SERVE_ADMISSION_TOKENS = "hadoopbam.serve.admission-tokens"
+SERVE_MAX_QUEUE = "hadoopbam.serve.max-queue"
+SERVE_MAX_QUEUE_MS = "hadoopbam.serve.max-queue-ms"
+SERVE_JOURNAL = "hadoopbam.serve.journal"
+SERVE_FLIGHTREC = "hadoopbam.serve.flightrec"
+SERVE_FLIGHTREC_CADENCE_MS = "hadoopbam.serve.flightrec-cadence-ms"
+SERVE_FLIGHTREC_BYTES = "hadoopbam.serve.flightrec-bytes"
+SERVE_REQUEST_TRACING = "hadoopbam.serve.request-tracing"
+SERVE_EXEMPLAR_THRESHOLD_MS = "hadoopbam.serve.exemplar-threshold-ms"
+SERVE_EXEMPLARS_MAX = "hadoopbam.serve.exemplars-max"
+SERVE_EXEMPLAR_DIR = "hadoopbam.serve.exemplar-dir"
+SERVE_ACCESS_LOG = "hadoopbam.serve.access-log"
+SERVE_ACCESS_LOG_BYTES = "hadoopbam.serve.access-log-bytes"
+SERVE_SLO = "hadoopbam.serve.slo"
+SERVE_SLO_WINDOWS = "hadoopbam.serve.slo-windows"
+SERVE_WARMUP = "hadoopbam.serve.warmup"
+#: The fleet's shared directory: a daemon with it set joins a fleet
+#: (ROADMAP A.11b; the port's daemon refuses it at start).
+FLEET_DIR = "hadoopbam.fleet.dir"
+#: The timeline tracer's ring capacity (events; unset: 65536).
+TRACE_EVENTS = "hadoopbam.trace.events"
+
 _TRUE_WORDS = frozenset(("yes", "true", "t", "y", "1", "on", "enabled"))
 _FALSE_ENV = ("0", "false", "no", "off", "")
 _FALSE_WORDS = frozenset(("no", "false", "f", "n", "0", "off", "disabled"))
@@ -102,6 +140,12 @@ class Configuration:
 
     def set(self, key: str, value) -> None:
         self._props[key] = str(value)
+
+    def set_int(self, key: str, value: int) -> None:
+        self._props[key] = str(int(value))
+
+    def set_boolean(self, key: str, value: bool) -> None:
+        self._props[key] = "true" if value else "false"
 
     def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
         return self._props.get(key, default)

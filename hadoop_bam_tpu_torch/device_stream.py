@@ -9,7 +9,11 @@ part writer), ``deflate_stream`` (the BGZF seam of the ingest writer),
 ``walk_bcf_records`` (the BCF record-chain seam of the variant plane) and
 ``decompress_cram_blocks`` (the rANS seam of the CRAM reader).  The
 device is explicit; counters go to the stream's
-:class:`~.utils.tracing.Metrics`.
+:class:`~.utils.tracing.Metrics` (its own, or the ``metrics`` it is given:
+the serve daemon's registry).  A request's ``deadline`` is checked at the
+stage boundaries: before each split is taken (``stream_read``), before a
+split's parse (``stream_parse``) and before a part's encode
+(``stream_encode``).
 """
 
 from __future__ import annotations
@@ -90,12 +94,20 @@ class StreamPolicy:
 
 
 class DeviceStream:
-    def __init__(self, device: torch.device, conf=None) -> None:
+    def __init__(self, device: torch.device, conf=None, metrics: Optional[Metrics] = None,
+                 deadline=None) -> None:
         self.device = device
         self.policy = StreamPolicy.resolve(conf, device)
-        self.metrics = Metrics()
+        self.metrics = metrics if metrics is not None else Metrics()
+        self.deadline = deadline
         self.inflate_stats = flate.CodecTierStats()
         self._stats_lock = threading.Lock()
+
+    def check_deadline(self, seam: str) -> None:
+        """Raise ``DeadlineExceeded`` at a stage boundary once the
+        request's deadline has expired; one branch without a deadline."""
+        if self.deadline is not None:
+            self.deadline.check(seam, self.metrics)
 
     def default_device_parse(self) -> bool:
         """The device parse runs by default on a CUDA device."""
@@ -149,6 +161,7 @@ class DeviceStream:
 
         if d <= 1 or len(splits) <= 1:
             for s in splits:
+                self.check_deadline("stream_read")
                 yield read_one(s)
             return
         pool = ThreadPoolExecutor(max_workers=d)
@@ -156,6 +169,7 @@ class DeviceStream:
         nxt = d + 1
         try:
             for i in range(len(splits)):
+                self.check_deadline("stream_read")
                 b = futs[i].result()
                 futs[i] = None  # keep only ~depth + 1 batches alive
                 if nxt < len(splits):
@@ -180,6 +194,7 @@ class DeviceStream:
         n_i = b.n_records
         if n_i == 0:
             return None
+        self.check_deadline("stream_parse")
         rec_off = b.soa["rec_off"]
         s0 = int(rec_off[0]) - 4
         s1 = int(rec_off[-1] + b.soa["rec_len"][-1])
@@ -225,6 +240,7 @@ class DeviceStream:
             lens = lens[order]
         if len(src) == 0:
             return None  # an empty part: the host path writes its canonical form
+        self.check_deadline("stream_encode")
         dm = None
         if dup_mask is not None:
             dm = dup_mask[order] if order is not None else dup_mask

@@ -65,7 +65,6 @@ from .ops.kernels.record_scan import (
     scan_window_host,
     scan_window_py,
 )
-from .pipeline import _not_ported
 from .spec import bgzf
 from .spec.bam import BamHeader, build_record
 from .spec.fragment import (
@@ -685,10 +684,10 @@ def ingest_fastq(
     file decompresses to the same bytes as with them off.  ``memory_budget``
     bounds record assembly (rank-tagged spill runs, k-way merged: the same
     bytes).  ``errors="salvage"`` quarantines corrupt members and torn
-    frames.  ``deadline`` and ``resource_cache`` (the serve path) raise
-    ``NotImplementedError``."""
-    if deadline is not None or resource_cache is not None:
-        raise _not_ported("deadline / resource_cache (the serve ingest job)", "A.11")
+    frames.  ``deadline`` (the serve job's budget) rides the stream, as in
+    the reference, whose ingest reaches none of the stream's deadline
+    seams; ``resource_cache`` is taken and unused, as in the reference."""
+    del resource_cache
     r1_path, r2 = _input_paths(fastq, r2)
     errors, encoding, filter_failed, cget = _read_conf(conf, errors)
     if errors not in ("strict", "salvage"):
@@ -697,7 +696,7 @@ def ingest_fastq(
         chunk_bytes = int(cget(INGEST_CHUNK_BYTES, DEFAULT_CHUNK_BYTES) or DEFAULT_CHUNK_BYTES)
     if overlap is None:
         overlap = int(cget(INGEST_SCAN_OVERLAP, DEFAULT_SCAN_OVERLAP) or DEFAULT_SCAN_OVERLAP)
-    stream = DeviceStream(resolve_device(device), conf=conf)
+    stream = DeviceStream(resolve_device(device), conf=conf, deadline=deadline)
     metrics = stream.metrics
     dev_conf = str(cget(INGEST_DEVICE_SCAN, "") or "").lower()
     device_scan = (dev_conf == "true") if dev_conf in ("true", "false") \

@@ -380,6 +380,7 @@ class BamInputFormat:
         with_keys: bool = True,
         stream=None,
         errors: Optional[str] = None,
+        inflate_fn=None,
     ) -> RecordBatch:
         """Inflate the split's members and decode its records as one batch.
 
@@ -388,7 +389,10 @@ class BamInputFormat:
         With a :class:`~hadoop_bam_tpu_torch.device_stream.DeviceStream`
         whose policy has inflate on, members inflate on its device.  A
         split with ``interval_chunks`` keeps only the records that start
-        inside one of them.  ``errors`` (default :meth:`errors_mode`):
+        inside one of them.  ``inflate_fn(data, coffsets, csizes, usizes)
+        -> (out, offsets, window)`` replaces the stream's member inflate
+        (the serve daemon's lane batcher).  ``errors`` (default
+        :meth:`errors_mode`):
         "strict" raises on corrupt input, "salvage" quarantines corrupt
         members and unparseable records and returns what survived
         (``salvage.*`` counters, into the stream's metrics or
@@ -416,7 +420,7 @@ class BamInputFormat:
                     window, split.vstart - shift, split.vend - shift,
                     with_keys=with_keys, fields=fields, stream=stream,
                     interval_chunks=chunks, errors=errors, n_refs=n_refs,
-                    window_at_eof=at_eof, metrics=metrics,
+                    window_at_eof=at_eof, metrics=metrics, inflate_fn=inflate_fn,
                 )
             except (bam.BamError, bgzf.BgzfError):
                 if at_eof:
@@ -443,6 +447,7 @@ def read_virtual_range(
     n_refs: Optional[int] = None,
     window_at_eof: bool = True,
     metrics: Optional[Metrics] = None,
+    inflate_fn=None,
 ) -> RecordBatch:
     """Decode all records whose start voffset lies in ``[vstart, vend)``.
 
@@ -472,7 +477,8 @@ def read_virtual_range(
         m = stream.metrics if stream is not None else (metrics or Metrics())
         try:
             return read_virtual_range(data, vstart, vend, with_keys=with_keys, fields=fields,
-                                      stream=stream, interval_chunks=interval_chunks)
+                                      stream=stream, interval_chunks=interval_chunks,
+                                      inflate_fn=inflate_fn)
         except (bgzf.BgzfError, bam.BamError):
             m.count("salvage.strict_fallbacks", 1)
         return _read_virtual_range_salvage(
@@ -501,7 +507,9 @@ def read_virtual_range(
     spill_pos = pos
 
     dev = None
-    if stream is not None and stream.policy.inflate_lanes:
+    if inflate_fn is not None:
+        out, offs, dev = inflate_fn(data, co_l, cs_l, us_l)
+    elif stream is not None and stream.policy.inflate_lanes:
         out, offs, dev = stream.decode_members(data, co_l, cs_l, us_l)
     else:
         out, offs = bgzf.inflate_blocks(data, co_l, cs_l, us_l)
@@ -584,7 +592,7 @@ def read_virtual_range(
     )
     device_data = None
     if dev is not None and plen == len(out):
-        device_data = stream.attach_window(dev)
+        device_data = stream.attach_window(dev) if stream is not None else dev
     return RecordBatch(soa=soa, data=arr, keys=keys, device_data=device_data)
 
 

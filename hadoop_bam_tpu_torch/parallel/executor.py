@@ -28,8 +28,11 @@ contract for the part writers:
 Counters (``executor.attempts``, ``retried``, ``skipped_existing``,
 ``failed_parts``, ``attempt_timeouts``, ``invalid_part_redone``,
 ``deadline_exceeded``, ``salvage.parts_quarantined`` and the plan's
-``faults.fired.*``) go to the job's ``metrics``.  The serve job's request
-context is not ported (ROADMAP A.11).
+``faults.fired.*``) go to the job's ``metrics``.  A serve job's
+:class:`~..utils.tracing.RequestContext` (``request_ctx``, else the
+constructing thread's ambient one) is re-entered on every pool thread and
+gets one ``executor.part`` hop a written part and one
+``executor.attempt_failed`` hop a failed attempt, retries included.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 from .. import faults
 from ..utils import nio
 from ..utils.deadline import Deadline, DeadlineExceeded
-from ..utils.tracing import Metrics
+from ..utils.tracing import Metrics, RequestContext, current_request, request_scope
 
 
 class PartFailedError(RuntimeError):
@@ -97,6 +100,7 @@ class ElasticExecutor:
         validate_part: Optional[Callable[[str], bool]] = None,
         deadline: Optional[Deadline] = None,
         metrics: Optional[Metrics] = None,
+        request_ctx: Optional[RequestContext] = None,
     ) -> None:
         if max_attempts < 1:
             raise ValueError(f"max_attempts must be >= 1, got {max_attempts}")
@@ -113,6 +117,9 @@ class ElasticExecutor:
         # an expired deadline is terminal, not retried.
         self.deadline = deadline
         self.metrics = metrics if metrics is not None else Metrics()
+        # Attempts run on pool threads, where the ambient request does not
+        # follow: it is captured here and re-entered around each attempt.
+        self.request_ctx = request_ctx if request_ctx is not None else current_request()
 
     def _backoff(self, item: int, attempt: int) -> None:
         """Exponential backoff before retry ``attempt`` (>= 1) of ``item``,
@@ -215,11 +222,19 @@ class ElasticExecutor:
                         self.fault_hook(i, attempt)
                     if faults.ACTIVE is not None:
                         faults.ACTIVE.exec_attempt(i, attempt, tmp, self.metrics)
+                    t_att = time.perf_counter()
                     self._run_attempt(work_fn, items[i], tmp)
                     os.replace(tmp, final)
+                    if self.request_ctx is not None:
+                        self.request_ctx.annotate("executor.part",
+                                                  ms=(time.perf_counter() - t_att) * 1e3,
+                                                  part=i, attempt=attempt)
                     return
                 except Exception as e:  # noqa: BLE001 - the retry boundary
                     errs.append(f"attempt {attempt}: {type(e).__name__}: {e}")
+                    if self.request_ctx is not None:
+                        self.request_ctx.annotate("executor.attempt_failed", part=i,
+                                                  attempt=attempt, error=type(e).__name__)
                     # Sweep the tmp file and the side files derived from it
                     # (the part writer's tmp + ".sb" index).
                     base = os.path.basename(tmp)
@@ -234,8 +249,12 @@ class ElasticExecutor:
             with lock:
                 failures[i] = errs
 
+        def run_one_scoped(i: int) -> None:
+            with request_scope(self.request_ctx):
+                run_one(i)
+
         with ThreadPoolExecutor(max_workers=self.max_workers) as pool:
-            list(pool.map(run_one, range(n)))
+            list(pool.map(run_one_scoped, range(n)))
 
         self.metrics.count("executor.attempts", attempts)
         self.metrics.count("executor.retried", retried)

@@ -234,8 +234,15 @@ def sort_bam(
     ``ValueError`` outside their domains, then the queryname combinations,
     then ``memory_budget`` with a mesh or a true ``device_parse``.  Not
     ported yet (each raises ``NotImplementedError``): ``mesh`` /
-    ``distributed`` (coordinate order) and the serve job's
-    ``resource_cache`` / ``deadline`` (ROADMAP A.11)."""
+    ``distributed`` (coordinate order, ROADMAP A.10).
+
+    ``deadline`` (a :class:`~.utils.deadline.Deadline`, the serve job's
+    end-to-end budget) is checked at the stream's stage boundaries, at the
+    out-of-core sort's phase boundary (``pipeline``) and before every
+    part-write attempt (``executor``); expiry raises ``DeadlineExceeded``.
+    ``resource_cache`` (a :class:`~.serve.cache.ResourceCache`) serves the
+    input header from the daemon's identity-keyed cache instead of
+    reading it again."""
     if backend not in ("device", "host"):
         raise ValueError(f"backend must be 'device' or 'host', got {backend!r}")
     if errors is None:
@@ -285,16 +292,18 @@ def sort_bam(
     dev = resolve_device(device)
     if isinstance(in_paths, str):
         in_paths = [in_paths]
-    if resource_cache is not None or deadline is not None:
-        raise _not_ported("deadline / resource_cache (the serve sort job)", "A.11")
     if mesh is not None or distributed is not None:
         raise _not_ported("mesh / distributed sorting", "A.10")
-    stream = DeviceStream(dev, conf=conf)
+    stream = DeviceStream(dev, conf=conf, deadline=deadline)
     use_device_write = stream.policy.device_write
-    write = _WriteSettings(conf, max_attempts, errors, write_workers)
+    write = _WriteSettings(conf, max_attempts, errors, write_workers, deadline)
 
     fmt = _input_format(conf, in_paths, stream.metrics)
-    header = fmt.read_header(in_paths[0]).with_sort_order(sort_order)
+    if resource_cache is not None:
+        header = resource_cache.header(in_paths[0])[0]
+    else:
+        header = fmt.read_header(in_paths[0])
+    header = header.with_sort_order(sort_order)
     if memory_budget is not None:
         # A split is the memory floor (it inflates as one batch): keep its
         # compressed size well under the budget, as the reference does.
@@ -529,7 +538,8 @@ class _WriteSettings:
     deadline and backoff (from the conf keys, as the reference reads
     them), quarantine under salvage, and the writer threads."""
 
-    def __init__(self, conf, max_attempts: int, errors: str, workers: Optional[int]) -> None:
+    def __init__(self, conf, max_attempts: int, errors: str, workers: Optional[int],
+                 deadline=None) -> None:
         timeout_ms = conf.get_int(EXECUTOR_ATTEMPT_TIMEOUT_MS, 0) if conf is not None else 0
         self.attempt_timeout = timeout_ms / 1e3 if timeout_ms > 0 else None
         self.retry_backoff = (conf.get_int(EXECUTOR_BACKOFF_MS, 50) if conf is not None
@@ -537,13 +547,14 @@ class _WriteSettings:
         self.max_attempts = max_attempts
         self.errors = errors
         self.workers = workers
+        self.deadline = deadline
 
     def executor(self, td: str, metrics: Metrics, workers: Optional[int] = None):
         return ElasticExecutor(
             td, max_attempts=self.max_attempts, max_workers=workers or self.workers,
             validate_part=bgzf_part_valid, quarantine=self.errors == "salvage",
             attempt_timeout=self.attempt_timeout, retry_backoff=self.retry_backoff,
-            metrics=metrics)
+            deadline=self.deadline, metrics=metrics)
 
 
 def _write_job(out_path, header, part_dir, n_parts, part_of, level, write_splitting_bai,
@@ -778,7 +789,9 @@ def _sort_bam_external(fmt, splits, header, out_path: str, memory_budget: int, l
         if n_dup:
             metrics.count("sort_bam.duplicates", n_dup)
 
-        # Phase 2: the exact key-range merge.
+        # Phase 2: the exact key-range merge.  The runs just written are
+        # durable checkpoints: the cheapest place for a deadline to stop.
+        stream.check_deadline("pipeline")
         t_plan = time.perf_counter()
         runs = [Run.open(spill_dir, k) for k in range(run_count)]
         ranges = plan_ranges(runs, memory_budget) if runs else []

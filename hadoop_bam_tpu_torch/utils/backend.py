@@ -11,6 +11,8 @@ from typing import Optional, Union
 
 import torch
 
+from ..faults import InjectedResourceExhausted
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
@@ -25,5 +27,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 
 def is_resource_exhausted(e: BaseException) -> bool:
-    """Is ``e`` the card running out of memory?"""
-    return isinstance(e, torch.cuda.OutOfMemoryError)
+    """Is ``e`` the card running out of memory: a real
+    ``torch.cuda.OutOfMemoryError``, or the ``arena.oom`` fault
+    directive's :class:`~..faults.InjectedResourceExhausted`?  A plain
+    ``MemoryError`` (the host) or any other error (a kernel that fails to
+    build or launch) is not."""
+    from ..faults import InjectedResourceExhausted
+
+    return isinstance(e, (torch.cuda.OutOfMemoryError, InjectedResourceExhausted))

@@ -150,10 +150,12 @@ def test_fault_plan_parse_and_budget():
     assert m.counters() == {"faults.fired": 1, "faults.fired.flate.corrupt": 1}
 
 
-def test_seams_of_later_modules_fire_as_the_reference():
-    """The mesh, serve and arena seams wait for their modules (A.10, A.11);
-    their directives parse and their ``FaultPlan`` methods fire and count as
-    the reference's do."""
+def test_seams_of_later_modules_fire_as_the_reference(tmp_path):
+    """The mesh seams wait for their module (A.10); their directives parse
+    and their ``FaultPlan`` methods fire and count as the reference's do.
+    The ``serve.stall``, ``serve.drop`` and ``arena.oom`` directives fire at
+    the daemon's seams (the reply, the lane batcher's launch) with the
+    reference's ``faults.fired.*`` counts and the same replies."""
     spec = ("seed=5;mh.corrupt:members=1-2,n=2;mh.speculate.lose:ms=1;arena.oom:n=1;"
             "serve.stall:op=view,ms=7;flate.inflate.tierdown:members=3")
     p, q = FaultPlan.parse(spec), jfaults.FaultPlan.parse(spec)
@@ -170,6 +172,62 @@ def test_seams_of_later_modules_fire_as_the_reference():
     assert m.get("faults.fired") == sum(q.fired.values())
     assert isinstance(faults.InjectedResourceExhausted("x"), MemoryError)
     assert "RESOURCE_EXHAUSTED" in str(faults.InjectedResourceExhausted("x"))
+    assert _daemon_seams(tmp_path, "port") == _daemon_seams(tmp_path, "reference")
+
+
+def _daemon_seams(tmp_path, which):
+    """A daemon of ``which`` package armed (through its conf) with a stalled
+    view, a dropped flagstat and two out-of-memory launches, driven by its
+    own client: the replies and the ``faults.fired.*`` counters."""
+    import shutil
+    import tempfile
+    import threading
+
+    from hadoop_bam_tpu.serve import BamDaemon as JDaemon
+    from hadoop_bam_tpu.serve import client as jclient
+    from hadoop_bam_tpu_torch.serve import BamDaemon
+    from hadoop_bam_tpu_torch.serve import client as tclient
+    from test_serve import _write_unsorted_bam
+
+    work = tmp_path / which
+    work.mkdir()
+    src, path = str(work / "u.bam"), str(work / "s.bam")
+    _write_unsorted_bam(src, n=120)
+    pipeline.sort_bam(src, path, device="cpu", level=1)
+    plan = {"hadoopbam.faults.plan": "seed=2;serve.stall:op=view,ms=5,n=1;"
+                                     "serve.drop:op=flagstat,n=1;arena.oom:n=2"}
+    sock_dir = tempfile.mkdtemp(prefix="hbf")
+    sock = os.path.join(sock_dir, "d.sock")
+    if which == "port":
+        d, cmod = BamDaemon(conf=Configuration(plan), socket_path=sock, warmup=False,
+                            device="cpu"), tclient
+    else:
+        d, cmod = JDaemon(conf=JConf(plan), socket_path=sock, warmup=False), jclient
+    before = snapshot()
+    ready = threading.Event()
+    t = threading.Thread(target=d.serve_forever, args=(ready,), daemon=True)
+    t.start()
+    try:
+        assert ready.wait(60)
+        c = cmod.ServeClient(socket_path=sock, timeout=60, retry_backoff=0.01)
+        out = {"view": c.view(path, "chr1:1-1000000", level=1), "flagstat": c.flagstat(path),
+               "view2": c.view(path, "chr2", level=1)}
+        counters = c.stats()["metrics"]["counters"] if which == "port" else \
+            delta(before)["counters"]
+        out["fired"] = {k: v for k, v in counters.items() if k.startswith("faults.fired")}
+        out["oom"] = {k: v for k, v in counters.items() if k.startswith("serve.oom.")}
+        c.shutdown()
+    finally:
+        faults.disarm()
+        jfaults.disarm()
+        if t.is_alive():
+            d.stop()
+        t.join(timeout=60)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    assert not t.is_alive()
+    assert out["fired"]["faults.fired.serve.drop"] == 1
+    assert out["fired"]["faults.fired.arena.oom"] == 2
+    return out
 
 
 def test_offset_pinned_bitflip_is_persistent():
@@ -849,8 +907,8 @@ def test_bcf_salvage_window_query_equals_the_reference(tmp_path):
     ctx = jend.ServeContext.from_conf(JConf(conf), with_batcher=False)
     want = jend.variants_blob(ctx, bad_path, "chr1")
     for gates in ({}, {"hadoopbam.bcf.chain": "true", "hadoopbam.inflate.lanes": "true"}):
-        stream = DeviceStream(CPU, Configuration(dict(conf, **gates)))
-        got = tend.variants_blob(bad_path, "chr1", conf=Configuration(dict(conf, **gates)),
-                                 stream=stream)
+        tctx = tend.ServeContext.from_conf(Configuration(dict(conf, **gates)),
+                                           with_batcher=False, device="cpu")
+        got = tend.variants_blob(tctx, bad_path, "chr1")
         assert got == want
-        assert stream.metrics.get("salvage.members_quarantined") == 1
+        assert tctx.metrics.get("salvage.members_quarantined") == 1

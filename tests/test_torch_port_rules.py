@@ -50,6 +50,28 @@ print("ok", len(names))
     assert r.stdout.startswith("ok")
 
 
+SERVE_MODULES = ("server", "client", "admission", "batching", "arena", "cache", "journal",
+                 "flightrec", "exemplars", "slo", "endpoints", "warmup")
+
+
+@pytest.mark.parametrize("name", SERVE_MODULES)
+def test_serve_modules_import_neither_jax_nor_the_jax_package(name):
+    """Each module of the port's serve layer, read as source: no import of
+    ``jax`` or of the JAX package anywhere in it, lazy imports inside
+    functions included (the import test above sees only what loading runs)."""
+    import ast
+
+    tree = ast.parse((REPO / "hadoop_bam_tpu_torch" / "serve" / f"{name}.py").read_text())
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            found.append(node.module)
+    bad = [m for m in found if m.split(".")[0] in ("jax", "jaxlib", "hadoop_bam_tpu")]
+    assert not bad, bad
+
+
 def test_smoke_and_tools_import_only_names_the_port_has():
     """Every ``from hadoop_bam_tpu_torch... import name`` in ``chip_smoke.py``
     and ``tools/*.py``, inside functions and in the pair tools' ``ONE_RUN``
@@ -378,14 +400,36 @@ def test_ingest_fastq_without_device_raises_when_no_card(tmp_path, monkeypatch):
         ingest.ingest_fastq(str(p), str(tmp_path / "out.bam"), device="cuda")
 
 
-@pytest.mark.parametrize("kwargs", [{"deadline": 1.0}, {"resource_cache": object()}],
-                         ids=["deadline", "resource_cache"])
-def test_ingest_serve_options_raise(tmp_path, kwargs):
-    from hadoop_bam_tpu_torch import ingest
+@pytest.mark.parametrize("what", ["live_deadline", "resource_cache", "expired_deadline"])
+def test_ingest_serve_options_match_the_reference(tmp_path, what):
+    """The serve ingest job's ``deadline`` and ``resource_cache`` are taken
+    as the reference takes them: the reference's bytes and stats.  The
+    reference's ingest reaches none of the stream's deadline seams, so an
+    expired deadline raises in neither package."""
+    import dataclasses
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        ingest.ingest_fastq(str(tmp_path / "r.fastq"), str(tmp_path / "out.bam"),
-                            device="cpu", **kwargs)
+    from hadoop_bam_tpu import ingest as jing
+    from hadoop_bam_tpu.serve.cache import ResourceCache as JCache
+    from hadoop_bam_tpu.utils.deadline import Deadline as JDeadline
+    from hadoop_bam_tpu_torch import ingest
+    from hadoop_bam_tpu_torch.serve.cache import ResourceCache
+    from hadoop_bam_tpu_torch.utils.deadline import Deadline
+    from test_ingest import _gz_members, make_fastq
+
+    paths = []
+    for k in (1, 2):
+        p = tmp_path / f"r{k}.fastq.gz"
+        p.write_bytes(_gz_members(make_fastq(30, seed=k, qual_at_every=5, name="q")))
+        paths.append(str(p))
+    ms = {"live_deadline": 600_000, "expired_deadline": 0}.get(what)
+    if what == "resource_cache":
+        jkw, tkw = {"resource_cache": JCache()}, {"resource_cache": ResourceCache()}
+    else:
+        jkw, tkw = {"deadline": JDeadline.after_ms(ms)}, {"deadline": Deadline.after_ms(ms)}
+    sj = jing.ingest_fastq(paths, str(tmp_path / "want.bam"), level=4, **jkw)
+    st = ingest.ingest_fastq(paths, str(tmp_path / "got.bam"), level=4, device="cpu", **tkw)
+    assert (tmp_path / "got.bam").read_bytes() == (tmp_path / "want.bam").read_bytes()
+    assert st.counts() == dataclasses.asdict(sj) and st.n_records == 60
 
 
 def test_record_scan_that_cannot_build_raises(tmp_path, monkeypatch):
@@ -491,12 +535,14 @@ def test_variant_and_collate_entry_points_raise_when_no_card(tmp_path, monkeypat
     the card unless the caller asks for the CPU."""
     from hadoop_bam_tpu_torch.collate import device as cdev
     from hadoop_bam_tpu_torch.collate import host as chost
-    from hadoop_bam_tpu_torch.serve.endpoints import variants_blob
+    from hadoop_bam_tpu_torch.serve.endpoints import ServeContext, variants_blob
 
     cols = {k: np.arange(4, dtype=np.int32) for k in ("qh1", "qh2", "flag", "pos")}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for call in (lambda: variants_blob(str(tmp_path / "x.bcf"), "chr1:1-10"),
-                 lambda: variants_blob(str(tmp_path / "x.bcf"), "chr1", device="cuda"),
+    for call in (lambda: variants_blob(ServeContext.from_conf(), str(tmp_path / "x.bcf"),
+                                       "chr1:1-10"),
+                 lambda: variants_blob(ServeContext.from_conf(device="cuda"),
+                                       str(tmp_path / "x.bcf"), "chr1"),
                  lambda: cdev.collate_by_name(cols),
                  lambda: chost.queryname_perm(cols)):
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -36,7 +36,6 @@ from hadoop_bam_tpu.utils import intervals as jiv
 from hadoop_bam_tpu.utils.tracing import delta, snapshot
 from hadoop_bam_tpu_torch import pipeline as tpipeline
 from hadoop_bam_tpu_torch.conf import Configuration, from_reference_conf
-from hadoop_bam_tpu_torch.device_stream import DeviceStream
 from hadoop_bam_tpu_torch.io import bam as tio
 from hadoop_bam_tpu_torch.ops import cigar as tcigar
 from hadoop_bam_tpu_torch.ops import pileup as tpileup
@@ -401,19 +400,24 @@ def _jctx():
     return jend.ServeContext.from_conf(JConf(), with_batcher=False)
 
 
+def _tctx(conf=None):
+    """The port's one-shot context on the CPU (cold cache and arena)."""
+    return tend.ServeContext.from_conf(conf, with_batcher=False, device="cpu")
+
+
 @pytest.mark.parametrize("which", ["bai", "nobai"])
 def test_view_blob_writes_the_reference_bytes(corpus, which):
     path = corpus[which]
     ctx = _jctx()
     for region in VIEW_REGIONS:
-        stream = DeviceStream(CPU)
+        tctx = _tctx()
         t = {}
-        got = tend.view_blob(path, region, level=1, device="cpu", stream=stream, timings=t)
+        got = tend.view_blob(tctx, path, region, level=1, timings=t)
         before = snapshot()
         want = jend.view_blob(ctx, path, region, level=1)
         d = delta(before)["counters"]
         assert got == want, region
-        c = stream.metrics.counters()
+        c = tctx.metrics.counters()
         for k in ("serve.view.requests", "serve.view.records", "serve.view.overlap_device"):
             assert c.get(k, 0) == d.get(k, 0), (region, k)
         assert set(t) == {"index", "read", "overlap", "encode"}
@@ -421,7 +425,7 @@ def test_view_blob_writes_the_reference_bytes(corpus, which):
         with pytest.raises(jiv.FormatError):
             jend.view_blob(ctx, path, bad)
         with pytest.raises(tiv.FormatError):
-            tend.view_blob(path, bad, device="cpu")
+            tend.view_blob(_tctx(), path, bad)
 
 
 @pytest.mark.parametrize("region", ["chr1:1000000-1100000", "chr2", "chr1"])
@@ -436,25 +440,25 @@ def test_a_view_across_many_chunk_spans_is_one_cut(corpus, region):
     rid = tio.read_header_voffset(path)[0].ref_index(iv.contig)
     chunks = tidx.Bai.load(path + ".bai").query(rid, iv.start - 1, min(iv.end, tiv.MAX_END))
     assert len(chunks) >= 4
-    stream = DeviceStream(CPU)
+    tctx = _tctx()
     t = {}
-    got = tend.view_blob(path, region, level=1, stream=stream, timings=t)
+    got = tend.view_blob(tctx, path, region, level=1, timings=t)
     before = snapshot()
     want = jend.view_blob(_jctx(), path, region, level=1)
     d = delta(before)["counters"]
     assert got == want
-    c = stream.metrics.counters()
+    c = tctx.metrics.counters()
     for k in ("serve.view.requests", "serve.view.records", "serve.view.overlap_device"):
         assert c.get(k, 0) == d.get(k, 0), k
     assert c["serve.view.overlap_device"] >= 4
     assert set(t) == {"index", "read", "overlap", "encode"}
-    stream = DeviceStream(CPU)
-    got = tend.depth_stat(path, region, bin_size=1000, stream=stream)
+    tctx = _tctx()
+    got = tend.depth_stat(tctx, path, region, bin_size=1000)
     before = snapshot()
     want = jend.depth_stat(_jctx(), path, region, bin_size=1000)
     d = delta(before)["counters"]
     assert got == want and got["n_records"] > 0
-    c = stream.metrics.counters()
+    c = tctx.metrics.counters()
     for k in ("serve.view.overlap_device", "serve.depth.requests"):
         assert c.get(k, 0) == d.get(k, 0), k
 
@@ -465,18 +469,25 @@ def test_a_many_split_cram_view_drops_each_batch_without_a_hit(corpus, monkeypat
     cuts its held batches each time they reach ``VIEW_CUT_BYTES``: at each
     cut every batch of the earlier cuts without a hit is gone, the held
     batches but the last stay under the budget, and the bytes and dict are
-    the reference's."""
+    the reference's.  The context's arena keeps what its budget allows (a
+    1-byte budget: the newest window, and windows of no bytes), so a
+    dropped batch must be gone or held by the arena: the view holds none."""
     from hadoop_bam_tpu_torch.io import anysam as tany
 
     splits = tany.AnySamInputFormat.get_splits
     monkeypatch.setattr(tany.AnySamInputFormat, "get_splits",
                         lambda self, paths, split_size=0: splits(self, paths, 4096))
     monkeypatch.setattr(tend, "VIEW_CUT_BYTES", budget)
-    cut, dropped, sizes = tend._cut_view, [], []
+    cut, dropped, sizes, ctxs = tend._cut_view, [], [], []
+
+    def one_window_ctx():
+        ctxs.append(_tctx(Configuration({"hadoopbam.serve.arena-bytes": "1"})))
+        return ctxs[-1]
 
     def watch(batches, *args):
         gc.collect()
-        assert all(r() is None for r in dropped)
+        kept = [e[1] for c in ctxs for e in c.arena._entries.values()]
+        assert all(r() is None or any(r() is b for b in kept) for r in dropped)
         assert sum(b.data.nbytes for b in batches[:-1]) < budget
         sizes.append(len(batches))
         rows = cut(batches, *args)
@@ -488,43 +499,43 @@ def test_a_many_split_cram_view_drops_each_batch_without_a_hit(corpus, monkeypat
     for region in ("chr3", "chr1:100,001-300,000"):
         sizes.clear()
         dropped.clear()
-        stream = DeviceStream(CPU)
-        assert tend.view_blob(corpus["cram"], region, stream=stream) == \
+        tctx = one_window_ctx()
+        assert tend.view_blob(tctx, corpus["cram"], region) == \
             jend.view_blob(ctx, corpus["cram"], region), region
         assert sum(sizes) == 8 and len(sizes) == (8 if budget == 1 else 3), sizes
-        assert stream.metrics.counters()["serve.view.overlap_device"] == 8
+        assert tctx.metrics.counters()["serve.view.overlap_device"] == 8
         assert len(dropped) >= 5
-        assert tend.depth_stat(corpus["cram"], region, bin_size=1000, device="cpu") == \
+        assert tend.depth_stat(one_window_ctx(), corpus["cram"], region, bin_size=1000) == \
             jend.depth_stat(ctx, corpus["cram"], region, bin_size=1000), region
 
 
 def test_view_blob_through_the_inflate_gate(corpus):
     conf = Configuration(LANES)
     for region in VIEW_REGIONS[:3]:
-        stream = DeviceStream(CPU, conf)
-        got = tend.view_blob(corpus["bai"], region, level=1, stream=stream)
+        tctx = _tctx(conf)
+        got = tend.view_blob(tctx, corpus["bai"], region, level=1)
         assert got == jend.view_blob(_jctx(), corpus["bai"], region, level=1)
-        assert stream.inflate_stats.lanes > 0
+        assert tctx.stream.inflate_stats.lanes > 0
 
 
 def test_view_blob_of_a_cram_writes_the_reference_bytes(corpus):
     ctx = _jctx()
     for region in ("chr1:100,001-300,000", "chr2", "chr3"):
-        assert tend.view_blob(corpus["cram"], region, device="cpu") == \
+        assert tend.view_blob(_tctx(), corpus["cram"], region) == \
             jend.view_blob(ctx, corpus["cram"], region), region
     with pytest.raises(tiv.FormatError):
-        tend.view_blob(corpus["cram"], "chrZ", device="cpu")
+        tend.view_blob(_tctx(), corpus["cram"], "chrZ")
 
 
 @pytest.mark.parametrize("which", ["bai", "cram"])
 def test_flagstat_equals_the_reference(corpus, which):
-    stream = DeviceStream(CPU)
+    tctx = _tctx()
     t = {}
-    got = tend.flagstat(corpus[which], stream=stream, timings=t)
+    got = tend.flagstat(tctx, corpus[which], timings=t)
     before = snapshot()
     want = jend.flagstat(_jctx(), corpus[which])
     assert got == want and got["total"] == 2400
-    assert stream.metrics.get("serve.flagstat.requests") == delta(before)["counters"]["serve.flagstat.requests"]
+    assert tctx.metrics.get("serve.flagstat.requests") == delta(before)["counters"]["serve.flagstat.requests"]
     assert set(t) == {"index", "read"}
 
 
@@ -536,10 +547,8 @@ def test_depth_stat_equals_the_reference(corpus, which):
              ("chr2:1-20000", 1000, True), ("chr1:2999001-3100000", 64, True)]
     for region, bin_size, per_base in cases:
         for gate in ("false", "true"):
-            conf = Configuration({"hadoopbam.bcf.chain": gate})
-            stream = DeviceStream(CPU, conf)
-            got = tend.depth_stat(path, region, bin_size=bin_size, per_base=per_base,
-                                  stream=stream)
+            tctx = _tctx(Configuration({"hadoopbam.bcf.chain": gate}))
+            got = tend.depth_stat(tctx, path, region, bin_size=bin_size, per_base=per_base)
             before = snapshot()
             want = jend.depth_stat(jend.ServeContext.from_conf(JConf({"hadoopbam.bcf.chain": gate}),
                                                                with_batcher=False),
@@ -547,18 +556,20 @@ def test_depth_stat_equals_the_reference(corpus, which):
             d = delta(before)["counters"]
             assert got == want, (region, gate)
             for k in ("serve.depth.requests", "pileup.device_chunks"):
-                assert stream.metrics.get(k) == d.get(k, 0), (region, gate, k)
+                assert tctx.metrics.get(k) == d.get(k, 0), (region, gate, k)
     for region, kw in (("chr1", {"per_base": True}), ("chr3:300000-400000", {})):
         with pytest.raises(jiv.FormatError):
             jend.depth_stat(ctx, path, region, **kw)
         with pytest.raises(tiv.FormatError):
-            tend.depth_stat(path, region, device="cpu", **kw)
+            tend.depth_stat(_tctx(), path, region, **kw)
 
 
 def test_region_entry_points_raise_when_no_card(corpus, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for call in (lambda: tend.view_blob(corpus["bai"], "chr1"),
-                 lambda: tend.flagstat(corpus["bai"]),
-                 lambda: tend.depth_stat(corpus["bai"], "chr1:1-100", device="cuda")):
+    for call in (lambda: tend.view_blob(tend.ServeContext.from_conf(), corpus["bai"], "chr1"),
+                 lambda: tend.flagstat(tend.ServeContext.from_conf(with_batcher=False),
+                                       corpus["bai"]),
+                 lambda: tend.depth_stat(tend.ServeContext.from_conf(device="cuda"),
+                                         corpus["bai"], "chr1:1-100")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

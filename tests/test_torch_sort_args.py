@@ -7,7 +7,8 @@ order raises the reference's ``ValueError`` (class and message) with
 ``mark_duplicates``, a mesh and ``device_parse``, before any other check,
 and so does ``memory_budget`` with a mesh or ``device_parse``; the
 out-of-core forms write the reference's bytes; the serve job's
-``resource_cache`` and ``deadline`` are not ported yet and say so."""
+``resource_cache`` and ``deadline`` write the reference's bytes and raise
+the reference's ``DeadlineExceeded`` at the same seam."""
 
 import os
 
@@ -71,12 +72,57 @@ def test_domain_is_checked_before_the_device(tmp_path, monkeypatch, kwargs):
         tpipeline.sort_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"), **kwargs)
 
 
-@pytest.mark.parametrize("kwargs", [{"resource_cache": object()}, {"deadline": object()}],
-                         ids=["resource_cache", "deadline"])
-def test_serve_job_arguments_cite_a11(tmp_path, kwargs):
-    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A\.11\)$"):
-        tpipeline.sort_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"), device="cpu",
-                           **kwargs)
+SERVE_JOB = [
+    ("resource_cache", {}),
+    ("deadline", {}),
+    ("expired_deadline", {}),
+    ("expired_deadline", {"memory_budget": 1 << 16}),
+]
+
+
+@pytest.mark.parametrize("what,kwargs", SERVE_JOB, ids=[
+    "resource_cache", "live_deadline", "expired_deadline", "expired_deadline_out_of_core"])
+def test_serve_job_arguments_match_the_reference(src, tmp_path, what, kwargs):
+    """The serve job's ``resource_cache`` (the header from the daemon's
+    cache: one header miss in each package's cache, the reference's bytes)
+    and ``deadline`` (a live one: the reference's bytes; an expired one:
+    the reference's ``DeadlineExceeded`` at the same seam, counted the
+    same)."""
+    from hadoop_bam_tpu.serve.cache import ResourceCache as JCache
+    from hadoop_bam_tpu.utils.deadline import Deadline as JDeadline
+    from hadoop_bam_tpu.utils.deadline import DeadlineExceeded as JDeadlineExceeded
+    from hadoop_bam_tpu.utils.tracing import delta, snapshot
+    from hadoop_bam_tpu_torch.serve.cache import ResourceCache
+    from hadoop_bam_tpu_torch.utils.deadline import Deadline, DeadlineExceeded
+    from hadoop_bam_tpu_torch.utils.tracing import MetricsRegistry
+
+    reg = MetricsRegistry()
+    if what == "resource_cache":
+        jkw, tkw = {"resource_cache": JCache()}, {"resource_cache": ResourceCache(metrics=reg)}
+    elif what == "deadline":
+        jkw = {"deadline": JDeadline.after_ms(600_000)}
+        tkw = {"deadline": Deadline.after_ms(600_000, metrics=reg)}
+    else:
+        jkw, tkw = {"deadline": JDeadline.after_ms(0)}, {"deadline": Deadline.after_ms(0, metrics=reg)}
+    j_out, t_out = str(tmp_path / "ref.bam"), str(tmp_path / "port.bam")
+    before = snapshot()
+    if what == "expired_deadline":
+        with pytest.raises(JDeadlineExceeded) as je:
+            jpipeline.sort_bam(src, j_out, level=1, split_size=1024, **kwargs, **jkw)
+        with pytest.raises(DeadlineExceeded) as te:
+            tpipeline.sort_bam(src, t_out, device="cpu", level=1, split_size=1024, **kwargs,
+                               **tkw)
+        assert te.value.seam == je.value.seam
+        assert str(te.value).split(" (")[0] == str(je.value).split(" (")[0]
+    else:
+        jpipeline.sort_bam(src, j_out, level=1, split_size=1024, **kwargs, **jkw)
+        tpipeline.sort_bam(src, t_out, device="cpu", level=1, split_size=1024, **kwargs, **tkw)
+        assert _read(t_out) == _read(j_out)
+    want = {k: v for k, v in delta(before)["counters"].items()
+            if k.startswith(("serve.cache.", "serve.deadline."))}
+    assert reg.counters() == want
+    if what == "resource_cache":
+        assert want == {"serve.cache.miss": 1, "serve.cache.miss.header": 1}
 
 
 @pytest.mark.parametrize("gates,device_parse", [(HOST, None), (LANES, True)],

@@ -525,12 +525,14 @@ def test_variants_blob_equals_the_reference(corpus, region):
         want = jend.variants_blob(ctx, corpus["path"], text)
     finally:
         ctx.close()
-    stream = DeviceStream(CPU, conf=tconf.Configuration(dict(GATES_ON)))
+    tctx = tend.ServeContext.from_conf(tconf.Configuration(dict(GATES_ON)), with_batcher=False,
+                                       device="cpu")
     timings = {}
-    got = tend.variants_blob(corpus["path"], text, stream=stream, timings=timings)
+    got = tend.variants_blob(tctx, corpus["path"], text, timings=timings)
     assert got == want
-    assert got == tend.variants_blob(corpus["path"], text, device="cpu")  # the gates off
-    m = stream.metrics
+    off = tend.ServeContext.from_conf(with_batcher=False, device="cpu")
+    assert got == tend.variants_blob(off, corpus["path"], text)  # the gates off
+    m = tctx.metrics
     n_splits = len(tio.BcfInputFormat().get_splits([corpus["path"]]))
     assert m.get("bcf.chain.device_walks") == m.get("variants.join_device") == n_splits
     assert set(timings) == {"plan", "read", "join", "encode"}
@@ -555,7 +557,8 @@ def test_unknown_contig_raises_format_error_in_both(corpus):
     finally:
         ctx.close()
     with pytest.raises(tiv.FormatError, match="unknown contig"):
-        tend.variants_blob(corpus["path"], "chr9:1-100", device="cpu")
+        tend.variants_blob(tend.ServeContext.from_conf(with_batcher=False, device="cpu"),
+                           corpus["path"], "chr9:1-100")
 
 
 @pytest.mark.cuda

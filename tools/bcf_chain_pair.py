@@ -12,7 +12,7 @@ runs, in turns other, this, this, other, one process per run in the tree's
 own root: the tree builds its kernels, times ``walk_chain_device`` over the
 first split of the call set (CUDA events, the mean of 20 after 3 warm-ups),
 and queries the first region of ``chip_smoke.VARIANT_REGIONS`` with
-``variants_blob(device="cuda")`` twice (a warm-up, then the measured query
+``variants_blob`` on a one-shot card context twice (a warm-up, then the measured query
 with the launch counts zeroed just before it).  Each run prints one JSON
 line: the kernel's ms, the query's wall and phases, its ``bcf_chain``
 launches and a digest of its blob; the card's name and power limit come
@@ -40,7 +40,7 @@ sys.path.insert(0, os.getcwd())
 from hadoop_bam_tpu_torch import _build
 from hadoop_bam_tpu_torch.io.bcf import BcfInputFormat, _read_bcf_split_local
 from hadoop_bam_tpu_torch.ops.kernels import bcf_chain as kb
-from hadoop_bam_tpu_torch.serve.endpoints import variants_blob
+from hadoop_bam_tpu_torch.serve.endpoints import ServeContext, variants_blob
 
 path, region = sys.argv[1], sys.argv[2]
 _build.build(force=True)
@@ -59,12 +59,12 @@ b.record()
 torch.cuda.synchronize()
 kernel_ms = a.elapsed_time(b) / 20
 records = int(walk()[1][0])
-variants_blob(path, region, device="cuda")
+variants_blob(ServeContext.from_conf(with_batcher=False), path, region)
 torch.cuda.synchronize()
 kb.LAUNCHES.reset()
 timings = {}
 t0 = time.perf_counter()
-blob = variants_blob(path, region, device="cuda", timings=timings)
+blob = variants_blob(ServeContext.from_conf(with_batcher=False), path, region, timings=timings)
 torch.cuda.synchronize()
 wall = time.perf_counter() - t0
 print(json.dumps({"kernel_ms": kernel_ms, "split_records": records, "split_bytes": end - p,

@@ -14,7 +14,7 @@ region phase, and builds its ``.bai``; the chr21 view of that file reads
 about 800 ``.bai`` chunk spans.  Then it runs, in turns other, this, this,
 other, one process per run in the tree's own root: the tree builds its
 kernels and, for each region (default: ``chip_smoke.REGIONS[:2]``, the
-chr20 window and chr21), calls ``view_blob(device="cuda")`` twice, a
+chr20 window and chr21), calls ``view_blob`` on a one-shot card context twice, a
 warm-up and the measured call with the launch counts zeroed just before
 it.  Each run prints one JSON line with each view's wall and phases, its
 row-6 launches (``overlap_mask`` and, where the tree has it,
@@ -41,27 +41,26 @@ import hashlib, json, os, sys, time
 import torch
 sys.path.insert(0, os.getcwd())
 from hadoop_bam_tpu_torch import _build
-from hadoop_bam_tpu_torch.device_stream import DeviceStream
 from hadoop_bam_tpu_torch.ops.kernels import LaunchCounter
 from hadoop_bam_tpu_torch.ops.kernels import overlap as kov
-from hadoop_bam_tpu_torch.serve.endpoints import view_blob
+from hadoop_bam_tpu_torch.serve.endpoints import ServeContext, view_blob
 
 path, regions = sys.argv[1], json.loads(sys.argv[2])
 _build.build(["inflate", "region"], force=True)
 counters = [v for v in vars(kov).values() if isinstance(v, LaunchCounter)]
 row = {}
 for region in regions:
-    view_blob(path, region, device="cuda")
+    view_blob(ServeContext.from_conf(with_batcher=False), path, region)
     torch.cuda.synchronize()
     for c in counters:
         c.reset()
-    stream = DeviceStream(torch.device("cuda"))
+    ctx = ServeContext.from_conf(with_batcher=False)
     timings = {}
     t0 = time.perf_counter()
-    blob = view_blob(path, region, stream=stream, timings=timings)
+    blob = view_blob(ctx, path, region, timings=timings)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got = stream.metrics.counters()
+    got = ctx.metrics.counters()
     row[region] = {
         "wall_s": wall, "phases_s": timings, "launches": {c.name: c.value for c in counters},
         "counters": {k: v for k, v in sorted(got.items())
