@@ -5,6 +5,7 @@ Run on a machine with one NVIDIA H100:
     python3 chip_smoke.py [--records N] [--dup-pairs N] [--pairs N] [--variants N]
                           [--cram-records N] [--codec-mib N] [--seed S]
                           [--ingest-cpu 0|1] [--fixmate-again 0|1] [--sam-roundtrip N]
+                          [--variants-cpu 0|1]
 
 Phases: print the card; build the CUDA kernels from ``csrc/``; hold each
 kernel against its plain PyTorch version on the card (exact equality);
@@ -48,8 +49,8 @@ card against ``join_counts_np``); drive
 with ``--ingest-cpu 1``), and hold ``ingest_oracle`` and the card's run to
 the CPU run on a prefix; query three regions of a synthetic
 1,500,000-site BCF call set (cut from 4,500,000) with ``variants_blob`` on the card (each
-equal to the generator's records; the first on the CPU too,
-byte-identical); sort a
+equal to the generator's records; the first on the CPU too, byte-identical,
+only with ``--variants-cpu 1``); sort a
 synthetic no-ref rANS CRAM of 300,000 records on the card (its rANS blocks
 through the decode kernel) to the
 content of the sort of its BAM twin; read regions of the sorted BAM
@@ -61,6 +62,12 @@ phase: 64 seeded views from 16 client threads cold then warm, coalesced
 into shared inflate launches, flagstat, depth, the chr20 variants window,
 a sort job, typed deadline, shed and out-of-memory replies, stats and
 Prometheus text, each reply equal to the one-shot endpoint on the card);
+run a fleet of them behind the router (the fleet phase, after the serve
+phase: a member in this process and one in a child process, 32 views
+placed by the ring, a sort job on the child killed -9 after its first part
+and adopted by the survivor with the uninterrupted sort's bytes, and the
+survivor drained with its warm windows migrated to a third member that
+then serves them without a cold read);
 run the device codec's
 literal-only round trip on 64 MiB of record bytes (``bgzf_compress_device``
 with ``use_lanes=False``, then ``bgzf_decompress_device`` with the inflate
@@ -75,6 +82,7 @@ as JSON.  Imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import base64
 import hashlib
 import json
 import os
@@ -3529,14 +3537,14 @@ def timed_variants(path: str, region: str, what: str, trace: bool = False, conf=
     return blob, wall, launches, c
 
 
-def variants_phase(work: str, n_sites: int, seed: int) -> dict:
+def variants_phase(work: str, n_sites: int, seed: int, cpu_twin: bool = True) -> dict:
     """Ranged queries of a synthetic call set of ``n_sites`` sites: per
     region of :data:`VARIANT_REGIONS`, ``variants_blob`` on the card with the
     default gates (inflate, chain walk and join on the card; the first
-    region under ``torch.profiler``, and on the CPU with the walk and
-    inflate gates on, the plain versions, byte-identical), each blob
-    decoding to exactly the generator's records of the region.  Returns the
-    call set and its generator's columns for :func:`salvage_variants`."""
+    region under ``torch.profiler``, and with ``cpu_twin`` on the CPU with
+    the walk and inflate gates on, the plain versions, byte-identical), each
+    blob decoding to exactly the generator's records of the region.  Returns
+    the call set and its generator's columns for :func:`salvage_variants`."""
     from hadoop_bam_tpu_torch.conf import BCF_CHAIN, INFLATE_LANES, Configuration
     from hadoop_bam_tpu_torch.utils.intervals import MAX_END, parse_interval
 
@@ -3558,7 +3566,7 @@ def variants_phase(work: str, n_sites: int, seed: int) -> dict:
         if c.get("bcf.chain.host_walks", 0) or c.get("flate.lanes_tierdown", 0) \
                 or c.get("variants.join_host", 0):
             raise AssertionError(f"the card tiered down on clean input: {c}")
-        if k == 0:  # the other regions are held to the generator alone
+        if k == 0 and cpu_twin:  # the other regions are held to the generator alone
             blob_cpu, _, _, _ = timed_variants(path, region, f"cpu, {region}", conf=cpu_conf,
                                                device="cpu")
             if blob != blob_cpu:
@@ -3567,7 +3575,8 @@ def variants_phase(work: str, n_sites: int, seed: int) -> dict:
         keep = (contig == names.index(iv.contig)) & (pos >= iv.start) & (pos <= min(iv.end, MAX_END))
         if bgzf_bytes(blob) != head + rows[keep].tobytes():
             raise AssertionError(f"variants {region}: blob differs from the generator's records")
-        log(f"variants {region}: {'cuda == cpu' if k == 0 else 'cuda'} ({len(blob)} bytes), "
+        log(f"variants {region}: {'cuda == cpu' if k == 0 and cpu_twin else 'cuda'} "
+            f"({len(blob)} bytes), "
             f"decodes to the generator's {int(keep.sum())} records")
         if first is None:
             first = {"launches": launches, "wall": wall}
@@ -3575,13 +3584,13 @@ def variants_phase(work: str, n_sites: int, seed: int) -> dict:
             "rows": rows, "head": head}
 
 
-def salvage_variants(work: str, var: dict) -> dict:
+def salvage_variants(work: str, var: dict, cpu_twin: bool = True) -> dict:
     """The salvage phase's BCF read (d): a copy of the call set with one
     member inside :data:`VARIANT_REGIONS`' first window flipped, queried
     with ``hadoopbam.errors=salvage`` on the card (row 5 on every split but
-    the torn one) and on the CPU: equal blobs, one member quarantined, and
-    exactly the generator's records of the window that lie wholly outside
-    the member."""
+    the torn one) and, with ``cpu_twin``, on the CPU: equal blobs, one
+    member quarantined, and exactly the generator's records of the window
+    that lie wholly outside the member."""
     from hadoop_bam_tpu_torch.conf import BCF_CHAIN, ERRORS_MODE, INFLATE_LANES, Configuration
     from hadoop_bam_tpu_torch.spec import bgzf
     from hadoop_bam_tpu_torch.utils.intervals import MAX_END, parse_interval
@@ -3614,11 +3623,13 @@ def salvage_variants(work: str, var: dict) -> dict:
     salvage = {ERRORS_MODE: "salvage"}
     blob, _, launches, cnt = timed_variants(path, region, f"cuda, salvage, {region}",
                                             conf=Configuration(salvage))
-    blob_cpu, _, _, cnt_cpu = timed_variants(
-        path, region, f"cpu, salvage, {region}", device="cpu",
-        conf=Configuration(dict(salvage, **{BCF_CHAIN: "true", INFLATE_LANES: "true"})))
     _counted(cnt, {"salvage.members_quarantined": 1}, "variants salvage, cuda")
-    _counted(cnt_cpu, {"salvage.members_quarantined": 1}, "variants salvage, cpu")
+    blob_cpu = blob
+    if cpu_twin:
+        blob_cpu, _, _, cnt_cpu = timed_variants(
+            path, region, f"cpu, salvage, {region}", device="cpu",
+            conf=Configuration(dict(salvage, **{BCF_CHAIN: "true", INFLATE_LANES: "true"})))
+        _counted(cnt_cpu, {"salvage.members_quarantined": 1}, "variants salvage, cpu")
     walks = cnt.get("bcf.chain.device_walks", 0)
     if blob != blob_cpu or launches["bcf_chain"] < 1 or walks != launches["bcf_chain"]:
         raise AssertionError(f"variants salvage: blobs equal {blob == blob_cpu}, row 5 "
@@ -3628,8 +3639,8 @@ def salvage_variants(work: str, var: dict) -> dict:
     whole = (start + BCF_RECORD <= lo) | (start >= hi)
     if bgzf_bytes(blob) != head + rows[keep & whole].tobytes():
         raise AssertionError("variants salvage: other records than the generator's survivors")
-    log(f"variants salvage: cuda == cpu ({len(blob)} bytes), the generator's "
-        f"{int((keep & whole).sum())} of {int(keep.sum())} records; row 5 launched "
+    log(f"variants salvage: {'cuda == cpu' if cpu_twin else 'cuda'} ({len(blob)} bytes), the "
+        f"generator's {int((keep & whole).sum())} of {int(keep.sum())} records; row 5 launched "
         f"{launches['bcf_chain']} times (the torn split took the salvage walk) in "
         f"{time.perf_counter() - t0:.1f} s")
     os.remove(path)
@@ -4932,9 +4943,9 @@ def serve_windows(n: int, seed: int, lo: int = 1_000, hi: int = 100_000):
     return out
 
 
-def serve_pass(sock: str, path: str, regions, threads: int):
-    """Every region of ``path`` viewed once through the daemon from
-    ``threads`` client threads: ``(replies, latencies in ms, wall s)``."""
+def serve_pass(sock: str, jobs, threads: int, send):
+    """``send(client, job)`` for every job, from ``threads`` client threads
+    on ``sock``: ``({job: reply}, latencies in ms, wall s)``."""
     import threading
 
     from hadoop_bam_tpu_torch.serve import ServeClient
@@ -4944,17 +4955,17 @@ def serve_pass(sock: str, path: str, regions, threads: int):
 
     def run(k: int) -> None:
         c = ServeClient(socket_path=sock, timeout=300, retries=0)
-        for region in regions[k::threads]:
+        for job in jobs[k::threads]:
             try:
                 t0 = time.perf_counter()
-                blob = c.view(path, region)
+                reply = send(c, job)
                 ms = (time.perf_counter() - t0) * 1e3
             except Exception as e:  # noqa: BLE001 - raised below, after the join
                 with lock:
-                    errors.append(f"{region}: {type(e).__name__}: {e}")
+                    errors.append(f"{job}: {type(e).__name__}: {e}")
                 return
             with lock:
-                replies[region] = blob
+                replies[job] = reply
                 lat.append(ms)
 
     ts = [threading.Thread(target=run, args=(k,)) for k in range(threads)]
@@ -4964,8 +4975,8 @@ def serve_pass(sock: str, path: str, regions, threads: int):
     for t in ts:
         t.join(600)
     wall = time.perf_counter() - t0
-    if errors or any(t.is_alive() for t in ts) or len(replies) != len(regions):
-        raise AssertionError(f"serve pass: {len(replies)} of {len(regions)} replies; {errors[:3]}")
+    if errors or any(t.is_alive() for t in ts) or len(replies) != len(jobs):
+        raise AssertionError(f"serve pass: {len(replies)} of {len(jobs)} replies; {errors[:3]}")
     return replies, lat, wall
 
 
@@ -5032,7 +5043,8 @@ def serve_phase(work: str, path: str, census: dict, oracle: dict, bcf_path: str,
         for name in ("cold", "warm"):
             s0 = snapshot(d1.metrics)
             cc = compile_count()
-            replies, lat, wall = serve_pass(socks[0], path, regions, SERVE_THREADS)
+            replies, lat, wall = serve_pass(socks[0], regions, SERVE_THREADS,
+                                            lambda c, region: c.view(path, region))
             dc = delta(s0, registry=d1.metrics)["counters"]
             passes[name] = replies
             lat = np.asarray(lat)
@@ -5183,6 +5195,383 @@ def serve_phase(work: str, path: str, census: dict, oracle: dict, bcf_path: str,
         f"the checks")
     os.remove(job_out)
     shutil.rmtree(pdir, ignore_errors=True)
+    return {"launches": launches}
+
+
+FLEET_VIEWS = 32  # seeded views through the router, half to each member's file
+FLEET_THREADS = 8  # client threads sending them (the router's per-file cap is 8 tokens)
+FLEET_HEARTBEAT_MS = 200
+#: The router's heartbeat timeout, the reference's default: a death is seen
+#: 3-3.75 s after it.  A member's beat fsyncs its record, and after the
+#: earlier phases' writes one fsync can take over a second: 1 s once
+#: buried the live member of this process.
+FLEET_TIMEOUT_MS = 3000
+FLEET_DRAIN_STALL_MS = 5000  # how long the drained member's shutdown reply is held
+FLEET_NAMES = ("fleet-in", "fleet-child")  # the in-process member, the child process
+FLEET_CHILD = (
+    "import sys; sys.path.insert(0, {repo!r})\n"
+    "from hadoop_bam_tpu_torch.conf import Configuration\n"
+    "from hadoop_bam_tpu_torch.serve import BamDaemon\n"
+    "d = BamDaemon(conf=Configuration({conf!r}), socket_path={sock!r}, warmup=True,\n"
+    "              journal_path={journal!r}, flightrec_path={flight!r}, device={device!r})\n"
+    "assert d.ctx.stream.device.type == {device!r}, d.ctx.stream.device\n"
+    "d.serve_forever()\n"
+)
+
+
+def linked_to(ring, src: str, stem: str, member: str, work: str) -> str:
+    """A hard link of ``src`` (and its ``.bai``) under a name whose file key
+    the ring gives to ``member``: the same bytes, another routing key."""
+    from hadoop_bam_tpu_torch.serve import fleet as fleet_mod
+
+    for k in range(256):
+        dst = os.path.join(work, f"{stem}.{k}.bam")
+        if os.path.exists(dst):
+            continue  # another member's link
+        os.link(src, dst)
+        if ring.owner(fleet_mod.file_key(dst)) == member:
+            if os.path.exists(src + ".bai"):
+                os.link(src + ".bai", dst + ".bai")
+            return dst
+        os.remove(dst)
+    raise AssertionError(f"256 names of {src} never hashed to {member}")
+
+
+def routed_view(client, job):
+    """One view of ``job`` = ``(path, region)`` through the router:
+    ``(member, blob)``."""
+    path, region = job
+    r = client._request({"op": "view", "path": path, "region": region, "level": 6},
+                        idempotent=True)
+    return r["member"], base64.b64decode(r["data_b64"])
+
+
+def _lat(lat) -> str:
+    a = np.asarray(lat)
+    return (f"latency p50 {np.percentile(a, 50):.3f} ms, p99 {np.percentile(a, 99):.3f} ms, "
+            f"max {a.max():.3f} ms")
+
+
+def fleet_phase(work: str, path: str, twin_src: str, twin_sorted: str, seed: int,
+                device: str = "cuda") -> dict:
+    """The fleet on the card: a ``serve.router.FleetRouter`` over the UNIX
+    sockets of port daemons on ``device`` (warm-up on, fleet directory,
+    200 ms heartbeat, flight recorder, journal), one in this process and one
+    a child process.  (a) Launch counts zeroed once both are up; the
+    ``fleet`` op shows both and their shares.  (b) :data:`FLEET_VIEWS`
+    seeded views of the main path's sorted BAM through the router, half of
+    them of each of two hard links of it that the ring gives one to each
+    member: each reply's ``member`` is the smoke's own ring's owner; rows 1
+    and 6 launch here.  (c) A ``sort`` job with a ``part_dir`` of the CRAM
+    phase's BAM twin input (a link the ring gives the child) through the
+    router; the child holds its second part (``exec.delay``) and is killed
+    -9 once its first is written; the router's monitor finds an unclean
+    death, the survivor adopts the journal and the job's fleet id follows
+    the alias to done, with rows 1-3 launched here and the CRAM phase's
+    sort's bytes.  (d) The survivor's file viewed again (warm), a third
+    daemon joins, the survivor drains (its reply held by ``serve.stall``,
+    so the drain stays open) and with ``hadoopbam.fleet.migrate-warmth``
+    its windows are exported and installed on the new owner through row 1;
+    the same views there read no window cold and launch no batch.  (e) The
+    ``fleet.*`` and ``serve.adopt.*`` counters, the hand-offs and the
+    latencies are logged.  Every view is then held to the one-shot
+    ``view_blob`` on the card."""
+    import signal
+    import threading
+
+    from hadoop_bam_tpu_torch import faults
+    from hadoop_bam_tpu_torch.conf import (FLEET_DIR, FLEET_MIGRATE_WARMTH, FLEET_NAME,
+                                            SERVE_FLIGHTREC_CADENCE_MS, Configuration)
+    from hadoop_bam_tpu_torch.conf import FLEET_HEARTBEAT_MS as HB_KEY
+    from hadoop_bam_tpu_torch.serve import (BamDaemon, FleetRouter, HashRing, ServeClient,
+                                            ServeContext, ServeError, view_blob)
+    from hadoop_bam_tpu_torch.serve import fleet as fleet_mod
+    from hadoop_bam_tpu_torch.utils.tracing import delta, snapshot
+
+    t_phase = time.perf_counter()
+    sock_dir = work if len(work) < 80 else tempfile.mkdtemp(prefix="hbf")
+    fdir = os.path.join(work, "fleet")
+    name_in, name_child = FLEET_NAMES
+
+    def member_conf(name: str) -> dict:
+        return {FLEET_DIR: fdir, FLEET_NAME: name, HB_KEY: str(FLEET_HEARTBEAT_MS),
+                SERVE_FLIGHTREC_CADENCE_MS: "100"}
+
+    def files(name: str) -> dict:
+        return {"sock": os.path.join(sock_dir, f"{name}.sock"),
+                "journal": os.path.join(work, f"{name}.jsonl"),
+                "flight": os.path.join(work, f"{name}.flight")}
+
+    daemons, threads, child, child_log = {}, {}, None, os.path.join(work, "fleet-child.log")
+    router = router_thread = None
+
+    def start_member(name: str) -> None:
+        f = files(name)
+        d = BamDaemon(conf=Configuration(member_conf(name)), socket_path=f["sock"], warmup=True,
+                      journal_path=f["journal"], flightrec_path=f["flight"], device=device)
+        if d.ctx.stream.device.type != device:
+            raise AssertionError(f"{name} came up on {d.ctx.stream.device}")
+        ready = threading.Event()
+        t = threading.Thread(target=d.serve_forever, args=(ready,), daemon=True)
+        t.start()
+        daemons[name], threads[name] = d, t
+        if not ready.wait(600):
+            raise AssertionError(f"{name} did not come up")
+
+    def counters(reg, s0, prefixes) -> dict:
+        return {k: v for k, v in sorted(delta(s0, registry=reg)["counters"].items())
+                if k.startswith(prefixes)}
+
+    launches: dict = {}
+    try:
+        # (a) Two members and the router.
+        t0 = time.perf_counter()
+        fc = files(name_child)
+        env = dict(os.environ, HBAM_FAULTS="exec.delay:items=1,attempts=*,ms=60000,n=*")
+        with open(child_log, "wb") as logf:
+            child = subprocess.Popen(
+                [sys.executable, "-c", FLEET_CHILD.format(
+                    repo=REPO, conf=member_conf(name_child), sock=fc["sock"],
+                    journal=fc["journal"], flight=fc["flight"], device=device)],
+                env=env, cwd=REPO, stdout=logf, stderr=subprocess.STDOUT)
+        start_member(name_in)
+        t_in = time.perf_counter() - t0
+        c_child = ServeClient(socket_path=fc["sock"], timeout=600, retries=0)
+        while True:
+            if child.poll() is not None:
+                raise AssertionError(f"the child member exited rc={child.returncode}: "
+                                     + open(child_log, "rb").read()[-2000:].decode("utf-8",
+                                                                                   "replace"))
+            try:
+                if c_child.ping()["ok"]:
+                    break
+            except (OSError, ServeError):
+                pass
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("the child member never came up")
+            time.sleep(0.1)
+        t_child = time.perf_counter() - t0
+        router = FleetRouter(conf=Configuration({FLEET_MIGRATE_WARMTH: "true"}), fleet_dir=fdir,
+                             socket_path=os.path.join(sock_dir, "router.sock"),
+                             heartbeat_timeout_ms=FLEET_TIMEOUT_MS)
+        ready = threading.Event()
+        router_thread = threading.Thread(target=router.serve_forever, args=(ready,), daemon=True)
+        router_thread.start()
+        if not ready.wait(60):
+            raise AssertionError("the router did not come up")
+        router.scan_members()
+        client = ServeClient(socket_path=router.socket_path, timeout=600)
+        view = client.fleet()
+        ring = HashRing(FLEET_NAMES)
+        want_shares = {m: round(s, 4) for m, s in ring.shares().items()}
+        if set(view["members"]) != set(FLEET_NAMES) or view["ring"]["shares"] != want_shares:
+            raise AssertionError(f"fleet view {view['members']}, shares {view['ring']}")
+        reset_counts()
+        r0 = snapshot(router.metrics)
+        log(f"fleet: {name_in} (this process) up in {t_in:.3f} s, {name_child} (a child process) "
+            f"answering in {t_child:.3f} s; router over {sorted(view['members'])}, ring shares "
+            f"{view['ring']['shares']}, {view['ring']['vnodes']} vnodes a member")
+
+        # (b) Placed views.
+        own = {name_in: linked_to(ring, path, "fleet.view", name_in, work),
+               name_child: linked_to(ring, path, "fleet.view", name_child, work)}
+        regions = serve_windows(FLEET_VIEWS, seed + 25)
+        jobs = [(own[FLEET_NAMES[k % 2]], region) for k, region in enumerate(regions)]
+        s_in = snapshot(daemons[name_in].metrics)
+        replies, lat, wall = serve_pass(router.socket_path, jobs, FLEET_THREADS, routed_view)
+        launches["views"] = launch_counts()
+        misplaced = [(j, m) for j, (m, _) in replies.items()
+                     if m != ring.owner(fleet_mod.file_key(j[0]))]
+        if misplaced:
+            fv = router.fleet_view()
+            raise AssertionError(f"views placed off the ring: {misplaced[:3]}; members "
+                                 f"{fv['members']}, hand-offs {fv['handoffs']}")
+        child_st = c_child.stats()["metrics"]["counters"]
+        in_st = counters(daemons[name_in].metrics, s_in, ("serve.batch.launches",
+                                                          "serve.view.overlap_device",
+                                                          "serve.arena.miss"))
+        if device == "cuda" and (launches["views"]["inflate_members"] <= 0
+                                 or launches["views"]["overlap_rows"] <= 0):
+            raise AssertionError(f"fleet views: rows 1 and 6 launched {launches['views']}")
+        log(f"fleet views: {len(jobs)} through the router from {FLEET_THREADS} threads in "
+            f"{wall:.3f} s, {len(jobs) / wall:.1f} requests/s, {_lat(lat)}; each on its ring "
+            f"owner ({sum(m == name_in for m, _ in replies.values())} on {name_in}, "
+            f"{sum(m == name_child for m, _ in replies.values())} on {name_child}); "
+            f"{name_in}: {json.dumps(in_st)}, launches here "
+            f"{json.dumps({k: v for k, v in launches['views'].items() if v})}; {name_child}: "
+            f"serve.batch.launches {child_st.get('serve.batch.launches', 0)}, "
+            f"serve.view.overlap_device {child_st.get('serve.view.overlap_device', 0)}")
+
+        # (c) A sort job on the child, killed -9 after its first part, adopted.
+        src = linked_to(ring, twin_src, "fleet.sortin", name_child, work)
+        out = os.path.join(work, "fleet.job.bam")
+        pdir = os.path.join(work, "fleet.parts")
+        r = client._request({"op": "sort", "bam": [src], "output": out, "part_dir": pdir})
+        jid = r["job"]
+        if r["member"] != name_child or jid != f"{name_child}:job-0001":
+            raise AssertionError(f"sort job placed {r}")
+        part0 = os.path.join(pdir, "part-r-00000")
+        t0 = time.perf_counter()
+        while not os.path.exists(part0):
+            if time.perf_counter() - t0 > 300 or child.poll() is not None:
+                raise AssertionError("the child never wrote its first part")
+            time.sleep(0.02)
+        t_part = time.perf_counter() - t0
+        l_kill = launch_counts()
+        child.send_signal(signal.SIGKILL)
+        if child.wait(timeout=60) != -signal.SIGKILL:
+            raise AssertionError(f"the child exited {child.returncode}")
+        t_kill = time.perf_counter()
+        t_dead = st = None
+        while True:
+            if t_dead is None and name_child in router.fleet_view()["dead"]:
+                t_dead = time.perf_counter() - t_kill
+            try:
+                st = client._request({"op": "job", "id": jid}, idempotent=True)
+                if st["status"] in ("done", "failed", "lost"):
+                    break
+            except ServeError:
+                pass  # JOB_LOST until the adoption re-homes the id
+            if time.perf_counter() - t_kill > 300:
+                raise AssertionError(f"the adopted job never ended: {st}")
+            time.sleep(0.05)
+        t_done = time.perf_counter() - t_kill
+        launches["adopted_sort"] = {k: v - l_kill[k] for k, v in launch_counts().items()}
+        view = client.fleet()
+        dead = view["dead"].get(name_child, {})
+        hand = [h for h in view["handoffs"] if h["member"] == name_child]
+        adopted = dead.get("adopted") or {}
+        if (st["status"] != "done" or st["member"] != name_in
+                or dead.get("forensics", {}).get("verdict") != "unclean"
+                or dead.get("adopter") != name_in or list(adopted) != ["job-0001"]
+                or view["job_aliases"] != {jid: f"{name_in}:{adopted['job-0001']}"}
+                or not hand or hand[-1].get("lost") != []):
+            raise AssertionError(f"fleet adoption: job {st}, dead {dead}, hand-offs {hand}")
+        if device == "cuda" and any(launches["adopted_sort"][k] <= 0 for k in
+                                    ("inflate_members", "record_chain", "deflate_members")):
+            raise AssertionError(f"the adopted sort launched {launches['adopted_sort']}")
+        nb = same_bytes(out, twin_sorted, "the adopted fleet sort and the CRAM phase's BAM "
+                                          "twin sort")
+        log(f"fleet kill -9: {name_child}'s first part written {t_part:.3f} s after the submit; "
+            f"the death seen {t_dead:.3f} s after the kill ({dead['forensics']['reason']}), "
+            f"adopted by {name_in} as {adopted['job-0001']}; {jid} polled to done "
+            f"{t_done:.3f} s after the kill: {st['stats']}; launches here "
+            f"{json.dumps({k: v for k, v in launches['adopted_sort'].items() if v})}; the "
+            f"output's {nb} bytes == sort_bam(cuda, BAM twin)'s")
+        os.remove(out)
+        shutil.rmtree(pdir, ignore_errors=True)
+
+        # (d) Warmth migration on a planned drain.
+        d_in = daemons[name_in]
+        mine = [j for j in jobs if j[0] == own[name_in]]
+        s0 = snapshot(d_in.metrics)
+        warm, _, _ = serve_pass(router.socket_path, mine, FLEET_THREADS, routed_view)
+        dw = counters(d_in.metrics, s0, ("serve.arena.", "serve.batch.launches"))
+        listed = ServeClient(socket_path=files(name_in)["sock"], timeout=600).warmth(
+            own[name_in])["windows"]
+        if dw.get("serve.arena.miss") or any(warm[j] != replies[j] for j in mine):
+            raise AssertionError(f"the survivor's file was not warm: {dw}")
+        if len(listed) > fleet_mod.DEFAULT_MAX_WINDOWS:
+            raise AssertionError(f"{len(listed)} windows: more than one export ships")
+        name_new = "fleet-new"
+        start_member(name_new)
+        router.scan_members()
+        if set(router.fleet_view()["members"]) != {name_in, name_new}:
+            raise AssertionError(f"{name_new} did not join: {router.fleet_view()['members']}")
+        d_new = daemons[name_new]
+        s_new, r1, l_mig = snapshot(d_new.metrics), snapshot(router.metrics), launch_counts()
+        faults.arm(f"serve.stall:op=shutdown,ms={FLEET_DRAIN_STALL_MS},n=1")
+        drained = {}
+        c_in = ServeClient(socket_path=files(name_in)["sock"], timeout=600, retries=0)
+        drain = threading.Thread(target=lambda: drained.update(c_in.shutdown()))
+        t0 = time.perf_counter()
+        drain.start()
+        while not any(h["member"] == name_in and h["kind"] == "leave"
+                      for h in router.fleet_view()["handoffs"]):
+            if time.perf_counter() - t0 > FLEET_DRAIN_STALL_MS / 1e3:
+                raise AssertionError(f"{name_in}'s drain was not seen while it lasted")
+            time.sleep(0.01)
+        t_leave = time.perf_counter() - t0
+        drain.join(120)
+        faults.disarm()
+        threads[name_in].join(120)
+        if drain.is_alive() or threads[name_in].is_alive() or not drained.get("drained"):
+            raise AssertionError(f"{name_in} did not drain: {drained}")
+        launches["warmth_import"] = {k: v - l_mig[k] for k, v in launch_counts().items()}
+        mig = counters(router.metrics, r1, ("fleet.migrat", "fleet.member_leaves"))
+        imp = counters(d_new.metrics, s_new, ("fleet.migrate.", "device_stream.decodes"))
+        if (mig != {"fleet.member_leaves": 1, "fleet.migrations": 1}
+                or imp.get("fleet.migrate.imported") != len(listed)
+                or imp.get("fleet.migrate.import_errors")
+                or (device == "cuda"
+                    and launches["warmth_import"]["inflate_members"] != len(listed))):
+            raise AssertionError(f"fleet migration: router {mig}, {name_new} {imp}, "
+                                 f"launches {launches['warmth_import']}")
+        log(f"fleet drain of {name_in}: left the ring {t_leave:.3f} s after its shutdown was "
+            f"sent (the reply held {FLEET_DRAIN_STALL_MS} ms); {len(listed)} windows exported "
+            f"and installed on {name_new}: {json.dumps(imp)}; router {json.dumps(mig)}; row 1 "
+            f"launched {launches['warmth_import']['inflate_members']} times for the import")
+        s1 = snapshot(d_new.metrics)
+        l_after = launch_counts()
+        after, lat_after, wall_after = serve_pass(router.socket_path, mine, FLEET_THREADS,
+                                                  routed_view)
+        launches["views_after"] = {k: v - l_after[k] for k, v in launch_counts().items()}
+        da = counters(d_new.metrics, s1, ("serve.arena.", "serve.batch.", "serve.cache."))
+        if (any(m != name_new for m, _ in after.values())
+                or any(after[j][1] != replies[j][1] for j in mine)
+                or da.get("serve.arena.miss") or not da.get("serve.arena.hit")
+                or da.get("serve.batch.launches")):
+            raise AssertionError(f"after the migration: {da}")
+        log(f"fleet views after the migration: {len(mine)} on {name_new} in {wall_after:.3f} s, "
+            f"{_lat(lat_after)}; {json.dumps(da)}: no window read cold, no batch launched, the "
+            f"survivor's bytes")
+
+        # (e) What the fleet counted.
+        log("fleet router counters: " + json.dumps(counters(router.metrics, r0, "fleet.")))
+        log("fleet member counters: " + json.dumps({
+            name: {k: v for k, v in sorted(d.metrics.counters().items())
+                   if k.startswith(("fleet.", "serve.adopt."))} for name, d in daemons.items()}))
+        log("fleet hand-offs: " + json.dumps(client.fleet()["handoffs"]))
+        for name in (name_new,):
+            ServeClient(socket_path=files(name)["sock"], timeout=600).shutdown()
+            threads[name].join(120)
+        client.shutdown()
+        router_thread.join(60)
+        if any(t.is_alive() for t in list(threads.values()) + [router_thread]):
+            raise AssertionError("a fleet thread outlived its shutdown")
+    finally:
+        faults.disarm()
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait(60)
+        for name, d in daemons.items():
+            if threads[name].is_alive():
+                d.stop()
+                threads[name].join(120)
+        if router is not None and router_thread is not None and router_thread.is_alive():
+            router.stop()
+            router_thread.join(60)
+        if sock_dir != work:
+            shutil.rmtree(sock_dir, ignore_errors=True)
+    t_served = time.perf_counter() - t_phase
+
+    # Every view against the one-shot endpoint on the card.
+    t0 = time.perf_counter()
+    ctx = ServeContext.from_conf(with_batcher=False, device=device)
+    try:
+        for (p, region), (_, blob) in replies.items():
+            if blob != view_blob(ctx, p, region):
+                raise AssertionError(f"fleet view {region} of {p}: not the one-shot view's bytes")
+    finally:
+        ctx.close()
+    log(f"fleet replies == the one-shot card views ({len(replies)}); checks "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"fleet phase: {t_served:.1f} s served, {time.perf_counter() - t_phase:.1f} s with the "
+        f"checks")
+    for p in own.values():
+        os.remove(p)
+        os.remove(p + ".bai")
+    os.remove(src)
     return {"launches": launches}
 
 
@@ -6136,17 +6525,20 @@ def sm_clocks() -> str:
 #: Each path's full depth; a run at another depth logs each cut.
 #: ``ingest_cpu`` (1: the ingest phase's CPU run of the whole corpus) and
 #: ``fixmate_again`` (1: fixmate run again on its own card output) are runs
-#: a cut depth leaves out (0); ``sam_roundtrip`` caps the records of the
-#: text phase's first sorted part that go through the SAM writer and back.
+#: a cut depth leaves out (0), and so is ``variants_cpu`` (1: the variants
+#: phase's first query and the salvaged query also run on the CPU);
+#: ``sam_roundtrip`` caps the records of the text phase's first sorted part
+#: that go through the SAM writer and back.
 FULL_DEPTH = {"records": 2_000_000, "dup_pairs": 1_000_000, "twin_pairs": TWIN_PAIRS,
               "pairs": 250_000, "variants": 4_500_000, "cram_records": 300_000,
-              "ingest_cpu": 1, "fixmate_again": 1, "sam_roundtrip": 100_000}
+              "ingest_cpu": 1, "fixmate_again": 1, "sam_roundtrip": 100_000, "variants_cpu": 1}
 #: The depths a run takes by default where they are cut below the full one
 #: to keep the run inside its time limit (logged as cuts); the ingest's CPU
 #: run, fixmate's second pass, the SAM round trip's and the call set's cuts
-#: pay for the serve phase.
+#: pay for the serve phase, the variants queries' CPU twins for the fleet
+#: phase.
 RUN_DEPTH = dict(FULL_DEPTH, dup_pairs=500_000, twin_pairs=100_000, variants=1_500_000,
-                 ingest_cpu=0, fixmate_again=0, sam_roundtrip=20_000)
+                 ingest_cpu=0, fixmate_again=0, sam_roundtrip=20_000, variants_cpu=0)
 
 
 def card_line() -> str:
@@ -6178,6 +6570,8 @@ def main() -> int:
                     help="1: the collation phase runs fixmate again on its own output")
     ap.add_argument("--sam-roundtrip", type=int, default=RUN_DEPTH["sam_roundtrip"],
                     help="records of the text phase's SAM writer round trip")
+    ap.add_argument("--variants-cpu", type=int, default=RUN_DEPTH["variants_cpu"],
+                    help="1: the variants query and the salvaged one also run on the CPU")
     ap.add_argument("--codec-mib", type=int, default=CODEC_MIB,
                     help="MiB of record bytes of the codec phase's round trip")
     ap.add_argument("--kernels-only", action="store_true",
@@ -6258,8 +6652,8 @@ def main() -> int:
                                      "ingest_fastq(cuda), default gates"))
         del ing
         clock("the ingest phase")
-        var = variants_phase(work, args.variants, args.seed)
-        sal_var = salvage_variants(work, var)
+        var = variants_phase(work, args.variants, args.seed, cpu_twin=bool(args.variants_cpu))
+        sal_var = salvage_variants(work, var, cpu_twin=bool(args.variants_cpu))
         clock("the variants phase")
         rows.append(time_bcf_chain(var["path"], checks, var["launches"]["bcf_chain"],
                                    f"variants_blob(cuda), {VARIANT_REGIONS[0]}"))
@@ -6282,6 +6676,8 @@ def main() -> int:
                           cr["twin_sorted"], args.seed)
         del oracle
         clock("the serve phase")
+        fl = fleet_phase(work, res["sorted"], cr["twin_src"], cr["twin_sorted"], args.seed)
+        clock("the fleet phase")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     salvage = dict(sal["launches"], variants=sal_var["launches"])
@@ -6295,6 +6691,7 @@ def main() -> int:
         row["text_launches"] = {job: n[row["name"]] for job, n in txt["launches"].items()}
         row["fs_launches"] = {job: n[row["name"]] for job, n in fsp["launches"].items()}
         row["serve_launches"] = {"daemon": srv["launches"][row["name"]]}
+        row["fleet_launches"] = {step: n[row["name"]] for step, n in fl["launches"].items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -121,9 +121,26 @@ SERVE_ACCESS_LOG_BYTES = "hadoopbam.serve.access-log-bytes"
 SERVE_SLO = "hadoopbam.serve.slo"
 SERVE_SLO_WINDOWS = "hadoopbam.serve.slo-windows"
 SERVE_WARMUP = "hadoopbam.serve.warmup"
-#: The fleet's shared directory: a daemon with it set joins a fleet
-#: (ROADMAP A.11b; the port's daemon refuses it at start).
+#: The fleet (``serve/fleet.py``, ``serve/router.py``): with the shared
+#: directory set, a daemon publishes its member record there under its name
+#: (default ``daemon-<pid>``) every heartbeat (milliseconds; default 500);
+#: the router declares a member dead after the heartbeat timeout
+#: (milliseconds; default 3000), spreads ownership over the vnodes a member
+#: (default 64), listens on its own socket or 127.0.0.1 port (default a
+#: per-user ``hbam-fleet-<uid>.sock`` in the temporary directory), admits
+#: at most the fleet's tokens in flight (default 32) and the file tokens for
+#: one routing key (default 8), and with migrate-warmth (default false)
+#: ships a draining member's warm windows to their new owners.
 FLEET_DIR = "hadoopbam.fleet.dir"
+FLEET_NAME = "hadoopbam.fleet.member-name"
+FLEET_HEARTBEAT_MS = "hadoopbam.fleet.heartbeat-ms"
+FLEET_HEARTBEAT_TIMEOUT_MS = "hadoopbam.fleet.heartbeat-timeout-ms"
+FLEET_VNODES = "hadoopbam.fleet.vnodes"
+FLEET_SOCKET = "hadoopbam.fleet.socket"
+FLEET_PORT = "hadoopbam.fleet.port"
+FLEET_TOKENS = "hadoopbam.fleet.tokens"
+FLEET_FILE_TOKENS = "hadoopbam.fleet.file-tokens"
+FLEET_MIGRATE_WARMTH = "hadoopbam.fleet.migrate-warmth"
 #: The timeline tracer's ring capacity (events; unset: 65536).
 TRACE_EVENTS = "hadoopbam.trace.events"
 

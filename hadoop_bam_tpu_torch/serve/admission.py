@@ -11,7 +11,7 @@ with code ``SHED``, a recent queue-wait p95 over
 ``retry_after_ms`` hint; a queued request whose deadline expires fails
 with ``DEADLINE_EXCEEDED`` in the queue.  A ``sort`` holds its tokens for
 its job's lifetime.  :class:`FleetLedger` is the router's fleet-wide pool
-and per-file cap (pure Python; the router itself is ROADMAP A.11b).
+and per-file cap (:mod:`.router`).
 Counters and the ``serve.admission.queue_wait.ms`` histogram go to
 ``metrics``.
 """

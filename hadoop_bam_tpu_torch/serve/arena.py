@@ -87,6 +87,12 @@ class HbmArena:
                 self.metrics.count(f"{self.name}.evict", 1)
             self._publish_gauges()
 
+    def keys(self) -> list:
+        """The held keys, least recently used first (a copy: the warmth
+        export walks it without the lock)."""
+        with self._lock:
+            return list(self._entries.keys())
+
     def evict_stale(self, path: str, current_identity: tuple) -> int:
         """Drop every window of ``path`` decoded under another identity (a
         file rewritten in place); counts ``serve.cache.stale_evict``."""

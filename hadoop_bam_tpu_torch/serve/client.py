@@ -466,6 +466,12 @@ class ServeClient:
             req["level"] = level
         return self._request(req, idempotent=True)
 
+    def fleet(self) -> dict:
+        """The router's fleet view: ring shares, members and their
+        liveness, deaths, hand-offs and job aliases.  Only a router answers
+        it; a daemon replies unknown-op."""
+        return self._request({"op": "fleet"}, idempotent=True)
+
     def metrics(self) -> str:
         """The daemon's metrics in Prometheus text exposition format
         (cumulative counters/histograms + live gauges) — what a scraping

@@ -15,9 +15,12 @@ daemon's device with the daemon's resource cache and the request's
 deadline, in a bounded pool); ``job`` {id}; ``stats`` (the registry's
 delta since start, per-op latency histograms, gauges, the SLO judgment);
 ``metrics`` (Prometheus text); ``exemplars`` [trace_id]; ``shutdown``
-(drain: refuse new jobs, finish the running ones, reply, stop).
-``adopt`` and ``warmth`` are the fleet's (ROADMAP A.11b) and answer an
-error naming it.
+(drain: refuse new jobs, finish the running ones, reply, stop);
+``adopt`` {journal, source} (resume a dead peer's journaled jobs here) and
+``warmth`` {path, export, windows, level} (list, export or install
+decoded windows), the fleet's hand-offs.  With ``hadoopbam.fleet.dir`` set
+the daemon is a fleet member: it heartbeats its record there
+(:class:`~.fleet.Heartbeater`) for the router (:mod:`.router`).
 
 The daemon's warm state is one :class:`~.endpoints.ServeContext` on the
 card (``device``, default cuda): the kernels warmed before the socket
@@ -52,6 +55,8 @@ from typing import Dict, List, Optional, Tuple
 from .. import faults
 from ..conf import (
     FLEET_DIR,
+    FLEET_HEARTBEAT_MS,
+    FLEET_NAME,
     SERVE_ACCESS_LOG,
     SERVE_ACCESS_LOG_BYTES,
     SERVE_ADMISSION_TOKENS,
@@ -85,6 +90,7 @@ from ..utils.tracing import (
     transfers_report,
 )
 from . import exemplars as exemplars_mod
+from . import fleet as fleet_mod
 from . import flightrec as flightrec_mod
 from . import journal as journal_mod
 from . import slo as slo_mod
@@ -112,9 +118,6 @@ KNOWN_OPS = (
 #: Data-plane ops whose completions feed the tail sampler and the access
 #: log (control-plane ops run under a RequestContext too, unrecorded).
 TRACED_OPS = ("view", "flagstat", "variants", "depth", "sort", "ingest")
-
-#: What a fleet op or a fleet conf names: the slice that ports it.
-FLEET_NOT_PORTED = "not ported: ROADMAP A.11 (fleet)"
 
 
 def default_socket_path() -> str:
@@ -242,6 +245,8 @@ class BamDaemon:
             if access_log_path else None
         )
         self.fleet_dir = self.conf.get(FLEET_DIR)
+        self.fleet_name = self.conf.get(FLEET_NAME) or f"daemon-{os.getpid()}"
+        self._heartbeater: Optional[fleet_mod.Heartbeater] = None
         self._drain_requested = threading.Event()
         self._started_snapshot = snapshot(self.metrics)
 
@@ -259,8 +264,6 @@ class BamDaemon:
         recovered jobs answerable."""
         if self._listener is not None:
             return
-        if self.fleet_dir:
-            raise NotImplementedError(f"{FLEET_DIR} (a fleet member) is {FLEET_NOT_PORTED}")
         if self.request_tracing and not TRACER.armed:
             TRACER.start(capacity=self.conf.get_int(TRACE_EVENTS, DEFAULT_TRACE_EVENTS))
             self._owns_tracer = True
@@ -286,7 +289,23 @@ class BamDaemon:
         self._listener = lst
         if self._flightrec is not None:
             self._flightrec.start()
+        if self.fleet_dir:
+            # After the bind: the first record the router reads is routable.
+            self._heartbeater = fleet_mod.Heartbeater(
+                self.fleet_dir, self._fleet_member_record,
+                period_s=self.conf.get_int(FLEET_HEARTBEAT_MS,
+                                           fleet_mod.DEFAULT_HEARTBEAT_MS) / 1e3,
+                metrics=self.metrics,
+            )
+            self._heartbeater.start()
         self.metrics.count("serve.daemon_starts", 1)
+
+    def _fleet_member_record(self) -> dict:
+        """The heartbeat's record: what a router needs to route here or
+        to recover this daemon's jobs."""
+        return {"name": self.fleet_name, "endpoint": self.endpoint,
+                "journal": self.journal_path, "flightrec": self.flightrec_path,
+                "pid": os.getpid(), "draining": self._draining.is_set()}
 
     def _recover_journal(self) -> None:
         """Replay the journal: terminal states restored, ``part_dir`` jobs
@@ -371,6 +390,11 @@ class BamDaemon:
         self._stop.set()
 
     def _shutdown_cleanup(self) -> None:
+        if self._heartbeater is not None:
+            # The final beat carries the drain flag: the router reads a
+            # drained daemon's silence as a planned exit.
+            self._heartbeater.stop()
+            self._heartbeater = None
         for h in list(self._handlers):
             h.join(timeout=5.0)
         self._job_pool.shutdown(wait=True)
@@ -523,14 +547,68 @@ class BamDaemon:
                      "text": prometheus_text(snapshot(self.metrics), gauges=self._gauges())},
                     False)
         if op == "adopt":
-            return ({"ok": False, "error": f"adopt (journal hand-off) is {FLEET_NOT_PORTED}"},
-                    False)
+            return (self._adopt(req), False)
         if op == "warmth":
-            return ({"ok": False, "error": f"warmth (arena export) is {FLEET_NOT_PORTED}"},
-                    False)
+            return (self._warmth(req), False)
         if op == "shutdown":
             return (self._drain(), True)
         return ({"ok": False, "error": f"unknown op {op!r}"}, False)
+
+    # -- fleet hand-offs ------------------------------------------------------------
+
+    def _adopt(self, req: dict) -> dict:
+        """Adopt a dead peer's journal: replay it, plan recovery as the
+        peer's restart would, and resubmit each resumable job under a fresh
+        local id, journaled here before the pool sees it.  Returns
+        ``{"adopted": {peer id: local id}, "lost": [...], "jobs_seen"}``."""
+        jpath = req.get("journal")
+        if not jpath:
+            return {"ok": False, "error": "adopt needs a journal path"}
+        try:
+            jobs = journal_mod.replay(jpath, self.metrics)
+        except (ValueError, OSError) as e:
+            self.metrics.count("serve.adopt.journal_errors", 1)
+            return {"ok": False, "error": f"peer journal {jpath!r} unreadable: {e}"}
+        plan = journal_mod.recovery_plan(jobs, self.metrics)
+        adopted: Dict[str, str] = {}
+        lost: List[str] = []
+        for peer_jid, action in sorted(plan.items()):
+            if action != "resume":
+                lost.append(peer_jid)
+                self.metrics.count("serve.adopt.lost", 1)
+                continue
+            peer_req = dict(jobs[peer_jid]["req"])
+            with self._jobs_lock:
+                self._job_seq += 1
+                jid = f"job-{self._job_seq:04d}"
+                self._jobs[jid] = {"status": "queued", "output": peer_req.get("output"),
+                                   "adopted_from": {"job": peer_jid, "source": req.get("source")}}
+            if self._journal is not None:
+                # Durable here first: the adopter's own crash is recoverable.
+                self._journal.submit(jid, peer_req, jobs[peer_jid].get("inputs"))
+                self._journal.state(jid, "adopted", source=req.get("source"))
+            self._job_pool.submit(self._run_job, jid, peer_req)
+            adopted[peer_jid] = jid
+            self.metrics.count("serve.adopt.resumed", 1)
+        self.metrics.count("serve.adoptions", 1)
+        return {"ok": True, "adopted": adopted, "lost": lost, "jobs_seen": len(jobs)}
+
+    def _warmth(self, req: dict) -> dict:
+        """List this daemon's windows of a path, export them as BGZF
+        members, or install windows a peer shipped (inflated on the card)."""
+        path = req.get("path")
+        if not path:
+            return {"ok": False, "error": "warmth needs a path"}
+        arena = self.ctx.arena
+        if req.get("windows") is not None:
+            installed = fleet_mod.unpack_windows(arena, path, req["windows"], self.ctx.stream,
+                                                 metrics=self.metrics)
+            return {"ok": True, "installed": installed}
+        if not req.get("export"):
+            return {"ok": True, "windows": [{"kind": k[0], "span": [int(k[2]), int(k[3])]}
+                                            for k in fleet_mod._arena_keys_for(arena, path)]}
+        return {"ok": True, "windows": fleet_mod.pack_windows(
+            arena, path, level=int(req.get("level", 1)), metrics=self.metrics)}
 
     # -- sort / ingest jobs -------------------------------------------------------
 

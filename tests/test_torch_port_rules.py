@@ -51,7 +51,7 @@ print("ok", len(names))
 
 
 SERVE_MODULES = ("server", "client", "admission", "batching", "arena", "cache", "journal",
-                 "flightrec", "exemplars", "slo", "endpoints", "warmup")
+                 "flightrec", "exemplars", "slo", "endpoints", "warmup", "fleet", "router")
 
 
 @pytest.mark.parametrize("name", SERVE_MODULES)

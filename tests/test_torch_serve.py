@@ -488,25 +488,6 @@ def test_daemon_rejects_sort_while_draining(sorted_bam, tmp_path):
             client.sort(sorted_bam, str(tmp_path / "x.bam"))
 
 
-def test_daemon_fleet_ops_and_fleet_dir_are_refused(tmp_path):
-    """``adopt``, ``warmth`` and a ``hadoopbam.fleet.dir`` belong to the
-    fleet (ROADMAP A.11b): the ops answer the reference's error shape
-    naming it, and a daemon with the key refuses to start."""
-    with _daemon() as (d, t, client):
-        for call in (lambda: client.adopt(str(tmp_path / "j.jsonl")),
-                     lambda: client.warmth(str(tmp_path / "x.bam"))):
-            with pytest.raises(ServeError, match=r"not ported: ROADMAP A\.11 \(fleet\)"):
-                call()
-        assert client.ping()["ok"]
-    d2 = BamDaemon(conf=Configuration({"hadoopbam.fleet.dir": str(tmp_path)}),
-                   socket_path=str(tmp_path / "f.sock"), warmup=False, device="cpu")
-    try:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.11 \(fleet\)"):
-            d2.start()
-    finally:
-        d2.ctx.close()
-
-
 def test_daemon_runs_on_the_card_unless_told(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -552,7 +533,7 @@ def test_admission_queued_deadline_expires_in_queue():
 
 
 def test_fleet_ledger_file_cap_pool_and_control_plane():
-    """The router's ledger (pure Python; the router is ROADMAP A.11b): the
+    """The router's ledger (``serve/router.py`` admits through it): the
     per-file cap sheds a hot file only, the pool sheds when full, and an
     op without a cost passes."""
     led = FleetLedger(tokens=64, file_tokens=2)
