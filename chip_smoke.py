@@ -7,6 +7,7 @@ Run on a machine with one NVIDIA H100:
                           [--ingest-cpu 0|1] [--fixmate-again 0|1] [--sam-roundtrip N]
                           [--variants-cpu 0|1] [--region-cpu 0|1] [--sam-records N]
                           [--drain-hold-ms N] [--front-bai-twin 0|1]
+                          [--mh-budget-records N]
     python3 chip_smoke.py --cli-instruments [--records N]
 
 Phases: print the card; build the CUDA kernels from ``csrc/``; hold each
@@ -27,11 +28,21 @@ no row 2; ``python -m hadoop_bam_tpu_torch sort --devices 1`` as a
 process to the same bytes; ``DistributedSort`` on 2,000,000 seeded keys,
 the card's columns against the CPU's, and a 4-value input that retries
 once; and, in the collation phase, markdup on the mesh to the card's
-markdup bytes); mark duplicates, sort by name and fixmate
+markdup bytes); sort in two processes on the one card (the multihost
+phase: ``sort_bam_multihost`` of the main path's input in core on the
+fs byte plane, one shard a process, the key plane on gloo through pinned
+host memory, the compressed wire through rows 1 and 3, to the main path's
+record stream, each process's sent keys and bytes equal to its peer's
+received; the pair again on the http byte plane under a 128 MiB budget,
+eight shards a process, on the first 500,000 records
+(``--mh-budget-records``; 2,000,000 at full depth), ``mh.peak_bytes``
+under the budget; beside it one process in a one-rank NCCL group whose
+``DistributedSort`` of the shuffle check's keys equals the in-process
+one-shard sort's); mark duplicates, sort by name and fixmate
 synthetic read pairs on the card and on the CPU (the collation phase:
-markdup of 250,000 pairs with the default gates, cut from 1,000,000; byte-identical with the
+markdup of 100,000 pairs with the default gates, cut from 1,000,000; byte-identical with the
 write gates off, the markdup, queryname and fixmate twins, and the
-default-gate queryname sort and fixmate, on the first 100,000 pairs (cut from 250,000); the duplicate decision against
+default-gate queryname sort and fixmate, on the first 50,000 pairs (cut from 250,000); the duplicate decision against
 its per-record oracle on the first 50,000 pairs, the mask through the
 device write of one resident split; fixmate run again on its own output
 only with ``--fixmate-again 1``);
@@ -39,7 +50,7 @@ sort out of core (the out-of-core phase: the main path's input under a
 128 MiB ``memory_budget`` on the card, its content the in-core sort's, card
 against CPU byte-identical with the write gates off on 500,000 records at
 32 MiB (cut from the main path's 2,000,000), and markdup, the
-queryname sort and fixmate of those 100,000 pairs under 12.8 MiB, each
+queryname sort and fixmate of those 50,000 pairs under 6.4 MiB, each
 decompressing to its in-core twin's bytes); salvage (the salvage phase: a
 copy of the main path's input with four damaged members, where the strict
 sort raises and the salvage sort on the card, under injected part-write
@@ -52,7 +63,7 @@ on the card from a loopback HTTP server, from ``mem://`` and from
 ``file://`` under two injected read errors, each to the local sort's
 bytes with the same launches, then FASTQ, QSEQ and FASTA input and FASTQ
 output on the host against the generators); the text formats (the text phase, after the variants phase: the
-main path's first 1,000,000 input rows (``--sam-records``; 2,000,000 at full depth)
+main path's first 250,000 input rows (``--sam-records``; 2,000,000 at full depth)
 as SAM text sorted on the card to the content of
 its BAM twin's sort, the first 20,000 records of a sorted part through
 ``SamOutputWriter`` and back (``--sam-roundtrip``);
@@ -60,11 +71,11 @@ the call set's sites as plain, BGZF and plain-gzip VCF text read through
 ``VcfInputFormat`` to the card BCF read's keys, positions and ends, with
 a malformed line under LENIENT and STRICT; ``join_counts_device`` on the
 card against ``join_counts_np``); drive
-``ingest_fastq`` on 250,000 synthetic read pairs with the default gates
+``ingest_fastq`` on 125,000 synthetic read pairs (250,000 at full depth) with the default gates
 (the CPU run of them, whose bytes the card's output decompresses to, only
 with ``--ingest-cpu 1``), and hold ``ingest_oracle`` and the card's run to
 the CPU run on a prefix; query three regions of a synthetic
-1,500,000-site BCF call set (cut from 4,500,000) with ``variants_blob`` on the card (each
+750,000-site BCF call set (cut from 4,500,000) with ``variants_blob`` on the card (each
 equal to the generator's records; the first on the CPU too, byte-identical,
 only with ``--variants-cpu 1``); sort a
 synthetic no-ref rANS CRAM of 300,000 records on the card (its rANS blocks
@@ -2400,6 +2411,18 @@ def card_mesh(shards: int = MESH_SHARDS):
     return make_mesh(devices=[torch.device("cuda")] * shards)
 
 
+def shuffle_keys(rng, n: int) -> np.ndarray:
+    """``n`` BAM-like int64 keys: 25 contigs, a tenth unmapped (the hash
+    keys), 5% one tie mass."""
+    keys = (rng.integers(0, 25, n, dtype=np.int64) << 32) | rng.integers(
+        0, 250_000_000, n, dtype=np.int64)
+    unmapped = rng.random(n) < 0.1
+    keys[unmapped] = (np.int64(0x7FFFFFFF) << 32) | rng.integers(
+        0, 1 << 32, int(unmapped.sum()), dtype=np.int64)
+    keys[rng.random(n) < 0.05] = keys[0]  # a tie mass on one key
+    return keys
+
+
 def check_shuffle(seed: int, n: int = SHUFFLE_KEYS) -> dict:
     """``DistributedSort`` over ``MESH_SHARDS`` shards on ``n`` seeded
     BAM-like keys (25 contigs, a tenth unmapped, heavy ties), placed as
@@ -2419,12 +2442,7 @@ def check_shuffle(seed: int, n: int = SHUFFLE_KEYS) -> dict:
     from hadoop_bam_tpu_torch.utils.tracing import Metrics
 
     rng = np.random.default_rng(seed)
-    keys = (rng.integers(0, 25, n, dtype=np.int64) << 32) | rng.integers(
-        0, 250_000_000, n, dtype=np.int64)
-    unmapped = rng.random(n) < 0.1
-    keys[unmapped] = (np.int64(0x7FFFFFFF) << 32) | rng.integers(
-        0, 1 << 32, int(unmapped.sum()), dtype=np.int64)
-    keys[rng.random(n) < 0.05] = keys[0]  # a tie mass on one key
+    keys = shuffle_keys(rng, n)
     rows = -(-n // MESH_SHARDS)
     card = DistributedSort(card_mesh(), rows)
     host = DistributedSort(make_mesh(MESH_SHARDS, device="cpu"), rows)
@@ -2526,6 +2544,253 @@ def mesh_phase(work: str, mp: dict, seed: int) -> dict:
     seconds = time.perf_counter() - t_phase
     log(f"mesh phase: {seconds:.1f} s")
     return {"launches": launches, "seconds": seconds, "shuffle": shuffle}
+
+
+MH_BUDGET = 128 << 20  # the budget pair's memory_budget: the out-of-core cell's
+MH_BUDGET_SHARDS = 8  # shards a process in the budget pair: a shard's output twice under it
+MH_TIMEOUT_S = 600  # each worker's communicate() limit
+#: One process of the multi-process sorts on the card: joins the pair's
+#: ``file://`` rendezvous once, then runs each leg (tag, input, output,
+#: shards, ``sort_bam_multihost``'s keyword arguments) with the launch
+#: counts zeroed just before its sort and read just after, and prints one
+#: ``MH {...}`` line a leg.  Arguments: the repo, pid, rendezvous, the legs
+#: as JSON.
+MH_WORKER = r"""
+import json, sys, time
+repo, pid, rdv, legs = sys.argv[1], int(sys.argv[2]), sys.argv[3], json.loads(sys.argv[4])
+sys.path.insert(0, repo)
+sys.modules["jax"] = None  # the port never loads JAX
+import torch
+import chip_smoke as cs
+from hadoop_bam_tpu_torch.parallel import Mesh, MultihostContext, multihost
+from hadoop_bam_tpu_torch.utils.hbm import LEDGER
+from hadoop_bam_tpu_torch.utils.tracing import MetricsRegistry
+t_start = time.perf_counter()
+ctx = multihost.initialize(init_method="file://" + rdv, num_processes=2, process_id=pid,
+                           device="cuda", timeout_s=cs.MH_TIMEOUT_S)
+for tag, src, out, shards, kw in legs:
+    # The same group, this leg's shards of the card.
+    leg = MultihostContext(pid, 2, Mesh([ctx.mesh[0]] * shards, layout=ctx.mesh.layout))
+    m = MetricsRegistry()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cs.reset_counts()
+    t0 = time.perf_counter()
+    n = multihost.sort_bam_multihost(src, out, ctx=leg, level=1, metrics=m, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cs.launch_counts()
+    leaked = LEDGER.assert_drained()["leaked_entries"]
+    c = m.counters()
+    print("MH " + json.dumps({
+        "tag": tag, "pid": pid, "n": n, "wall": wall, "start": t0 - t_start,
+        "launches": launches, "transport": leg.mesh.layout.transport,
+        "shards": leg.global_device_count,
+        "mh": {k: v for k, v in sorted(c.items()) if k.startswith("mh.") and v},
+        "transfers": {k: v for k, v in sorted(c.items()) if k.startswith("transfers.")},
+        "gauges": {k: v for k, v in m.gauges().items() if k.startswith("mh.")},
+        "card_peak": torch.cuda.max_memory_allocated(), "leaked": leaked,
+        "seconds": {k: round(v, 3) for k, v in m.report()["span_seconds"].items()}}),
+        flush=True)
+ctx.close()
+"""
+#: One process in a one-rank group on the card: the key plane on NCCL
+#: (``all_to_all_single``), ``DistributedSort`` on the shuffle check's
+#: seeded keys against the in-process one-shard sort.  Arguments: the
+#: repo, rendezvous, seed, key count.
+NCCL_WORKER = r"""
+import json, sys
+repo, rdv, seed, n = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+sys.path.insert(0, repo)
+sys.modules["jax"] = None
+import numpy as np
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+from hadoop_bam_tpu_torch.ops.keys import split_keys_np
+from hadoop_bam_tpu_torch.parallel import DistributedSort, make_mesh, multihost
+from hadoop_bam_tpu_torch.parallel.shuffle import placement
+ctx = multihost.initialize(init_method="file://" + rdv, num_processes=1, process_id=0,
+                           device="cuda", timeout_s=cs.MH_TIMEOUT_S)
+lay = ctx.mesh.layout
+calls = []
+a2a = dist.all_to_all_single
+def counted(*a, **k):
+    calls.append(dist.get_backend(k.get("group")))
+    return a2a(*a, **k)
+dist.all_to_all_single = counted
+keys = cs.shuffle_keys(np.random.default_rng(seed), n)
+key, valid, orig = placement(keys, n)
+cols = split_keys_np(key) + (valid, orig.astype(np.int32))
+group = DistributedSort(ctx.mesh, n)
+alone = DistributedSort(make_mesh(devices=[torch.device("cuda")]), n)
+got, want = group(*cols), alone(*cols)
+same = [f for f in got._fields if getattr(got, f).dtype == getattr(want, f).dtype
+        and np.array_equal(getattr(got, f).cpu().numpy(), getattr(want, f).cpu().numpy())]
+resident = [torch.from_numpy(c).cuda() for c in cols]
+ms, alone_ms = cs.cuda_ms(lambda: group(*resident), iters=10), cs.cuda_ms(lambda: alone(*resident), iters=10)
+print("NCCL " + json.dumps({"transport": lay.transport, "backends": sorted(set(calls)),
+                            "calls": len(calls), "fields": list(got._fields), "same": same,
+                            "valid": int(got.valid.sum()), "overflow": int(got.overflow),
+                            "ms": ms, "alone_ms": alone_ms}), flush=True)
+ctx.close()
+"""
+
+
+def _workers(jobs, what: str) -> list:
+    """Start one process a ``(argv, prefix)`` job (the port's root on
+    PYTHONPATH, the byte plane on loopback), wait for each in turn with its
+    own timeout, kill them all if one expires or fails, and return each
+    one's parsed ``prefix`` lines and the seconds until it was reaped."""
+    env = dict(os.environ, PYTHONPATH=REPO, HBAM_SHUFFLE_HOST="127.0.0.1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for argv, _ in jobs]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=MH_TIMEOUT_S) + (time.perf_counter() - t0,))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{what}: a worker ran past {MH_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    got = []
+    for i, (p, (_, prefix), (out, err, done)) in enumerate(zip(procs, jobs, outs)):
+        lines = [json.loads(ln[len(prefix) + 1:]) for ln in out.splitlines()
+                 if ln.startswith(prefix + " ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"{what}: worker {i} rc {p.returncode}\n{out[-2000:]}\n"
+                                 f"{err[-4000:]}")
+        got.append((lines, done))
+    return got
+
+
+def check_pair(tag: str, lines: list) -> None:
+    """Log one leg of the pair (each process's wall, launches, ``mh.*``
+    counters and gauges, transfers, seconds) and hold it: rows 1 and 3
+    launched in each process, no ledger leak, equal record counts, and each
+    process's keys and wire bytes sent equal to its peer's received."""
+    rows = ("inflate_members", "deflate_members")
+    for me, peer in ((lines[0], lines[1]), (lines[1], lines[0])):
+        p, q = me["pid"], peer["pid"]
+        log(f"sort_bam_multihost({tag}, process {p} of 2, {me['shards']} shards in all, key plane "
+            f"{me['transport']}): {me['n']} records, wall {me['wall']:.3f} s (started "
+            f"{me['start']:.3f} s after the worker's imports), card peak {me['card_peak']} "
+            f"bytes")
+        log(f"  launches: {json.dumps(me['launches'])}")
+        log(f"  mh: {json.dumps(me['mh'])}")
+        log(f"  gauges: {json.dumps(me['gauges'])}; transfers: {json.dumps(me['transfers'])}")
+        log(f"  seconds: {json.dumps(me['seconds'])}")
+        bad = [k for k in rows if me["launches"][k] <= 0]
+        if bad or me["leaked"] or me["n"] != peer["n"]:
+            raise AssertionError(f"{tag}, process {p}: rows never launched {bad}, "
+                                 f"{me['leaked']} ledger leaks, {me['n']} records")
+        for plane in ("keys", "shuffle"):
+            if me["mh"].get(f"mh.{plane}.sent.{q}", 0) != peer["mh"].get(f"mh.{plane}.recv.{p}", 0):
+                raise AssertionError(f"{tag}: mh.{plane}.sent.{q} of process {p} != "
+                                     f"mh.{plane}.recv.{p} of process {q}")
+    sent = sum(v for ln in lines for k, v in ln["mh"].items() if k.startswith("mh.shuffle.sent."))
+    raw = sum(v for ln in lines for k, v in ln["mh"].items()
+              if k.startswith("mh.shuffle.sent_raw."))
+    log(f"  {tag}: the wire {sent} bytes for {raw} raw ({sent / raw:.4f}); mh.keys.sent of each "
+        f"== mh.keys.recv of the other")
+
+
+def mh_pair(work: str, legs, beside=()) -> tuple:
+    """Two worker processes (:data:`MH_WORKER`) on the one card, one
+    rendezvous, running ``legs`` (``(tag, input, shards, keyword
+    arguments)``) in turn, and the ``(argv, prefix)`` jobs of ``beside``
+    started with them: ``{tag: (the two processes' lines, output)}``, the
+    pair's seconds with the processes' start, and the lines of ``beside``."""
+    rdv = os.path.join(work, "mh.rendezvous")
+    spec = [(tag, src, os.path.join(work, f"mh.{tag}.bam"), shards, kw)
+            for tag, src, shards, kw in legs]
+    pair = [([sys.executable, "-c", MH_WORKER, REPO, str(pid), rdv, json.dumps(spec)], "MH")
+            for pid in range(2)]
+    got = _workers(pair + list(beside), "sort_bam_multihost")
+    by_tag = {}
+    for tag, _, out, _, _ in spec:
+        lines = [ln for ln_pid, _ in got[:2] for ln in ln_pid if ln["tag"] == tag]
+        if len(lines) != 2:
+            raise AssertionError(f"{tag}: {len(lines)} process lines")
+        check_pair(tag, lines)
+        by_tag[tag] = (lines, out)
+    return by_tag, got[1][1], [lines for lines, _ in got[2:]]
+
+
+def multihost_phase(work: str, mp: dict, seed: int, budget_records: int) -> dict:
+    """``sort_bam_multihost`` in two processes on the one H100 (each a
+    mesh of the card; the card cannot host two NCCL ranks, so the key
+    plane runs on gloo through pinned host memory), one pair of processes
+    for both legs: (1) the main path's input in core on the fs byte plane,
+    one shard a process, the compressed wire and the default gates; (2)
+    the http byte plane under ``MH_BUDGET``, ``MH_BUDGET_SHARDS`` shards a
+    process (twice a shard's output under the budget), on the first
+    ``budget_records`` records, ``mh.peak_bytes`` at or under the budget in
+    each process.  In each leg rows 1 and 3 launch in each process, each
+    process's keys and wire bytes sent equal its peer's received, and no
+    ledger entry leaks; (1) writes the main path's record stream, (2) its
+    input's single-process sort's (the main path's at full depth).  Beside
+    the pair, :data:`NCCL_WORKER`: one process in a one-rank NCCL group,
+    ``DistributedSort`` on the shuffle check's 2,000,000 keys through
+    ``all_to_all_single``, every column the in-process one-shard sort's.
+    Returns the launches and the phase's seconds."""
+    t_phase = time.perf_counter()
+    src = mp["src"]
+    if budget_records != mp["stats"].n_records:
+        src = os.path.join(work, "mh.budget.in.bam")
+        synth_bam(src, budget_records, seed)
+        log(f"the budget leg's input cut from {mp['stats'].n_records} to {budget_records} records")
+    nccl_job = ([sys.executable, "-c", NCCL_WORKER, REPO, os.path.join(work, "nccl.rendezvous"),
+                 str(seed), str(SHUFFLE_KEYS)], "NCCL")
+    legs, pair_s, ((nc,),) = mh_pair(work, [
+        ("in_core_fs", mp["src"], 1, {}),
+        ("budget_http", src, MH_BUDGET_SHARDS, {"byte_plane": "http",
+                                                 "memory_budget": MH_BUDGET})], beside=[nccl_job])
+    (core, core_out), (budget, budget_out) = legs["in_core_fs"], legs["budget_http"]
+    main_stream = bgzf_content(mp["lanes"])
+    if bgzf_content(core_out) != main_stream or any(ln["n"] != mp["stats"].n_records
+                                                    for ln in core):
+        raise AssertionError("the in-core leg's record stream differs from the main path's")
+    log("  the in-core leg's output decompresses to the main path's record stream")
+    os.remove(core_out)
+    for ln in budget:
+        if not 0 < ln["gauges"]["mh.peak_bytes"] <= MH_BUDGET:
+            raise AssertionError(f"budget leg, process {ln['pid']}: mh.peak_bytes "
+                                 f"{ln['gauges']['mh.peak_bytes']} against {MH_BUDGET}")
+    log(f"  mh.peak_bytes {[ln['gauges']['mh.peak_bytes'] for ln in budget]} at or under the "
+        f"budget {MH_BUDGET}")
+    if src == mp["src"]:
+        same = bgzf_content(budget_out) == main_stream
+        what = "the main path's record stream"
+    else:
+        oracle = os.path.join(work, "mh.budget.oracle.bam")
+        timed_sort(src, oracle, "cuda, the budget leg's input", device="cuda")
+        same = bgzf_content(budget_out) == bgzf_content(oracle)
+        what = "its single-process sort's record stream"
+        os.remove(oracle)
+        os.remove(src)
+    if not same:
+        raise AssertionError(f"the budget leg's output differs from {what}")
+    log(f"  the budget leg's output decompresses to {what}")
+    os.remove(budget_out)
+    if nc["transport"] != "nccl" or nc["backends"] != ["nccl"] or nc["calls"] < 1 or \
+            nc["same"] != nc["fields"] or nc["valid"] != SHUFFLE_KEYS or nc["overflow"]:
+        raise AssertionError(f"the one-rank NCCL group: {nc}")
+    log(f"DistributedSort over a one-rank NCCL group ({nc['calls']} all_to_all_single on "
+        f"{nc['backends']}): the {len(nc['fields'])} columns == the in-process one-shard sort's "
+        f"on {SHUFFLE_KEYS} keys; {nc['ms']:.3f} ms against {nc['alone_ms']:.3f} ms in process "
+        f"(inputs resident, CUDA events)")
+    seconds = time.perf_counter() - t_phase
+    log(f"multihost phase: {seconds:.1f} s (the pair {pair_s:.1f} s with its processes' start, "
+        f"both legs, beside the NCCL process)")
+    return {"launches": {tag: [ln["launches"] for ln in lines]
+                         for tag, (lines, _) in legs.items()},
+            "seconds": seconds, "nccl": nc}
 
 
 CLI_INSTRUMENT_ORDER = ("plain", "trace", "trace_dir", "both", "both", "trace_dir", "trace",
@@ -6945,23 +7210,33 @@ def sm_clocks() -> str:
 #: is the text phase's SAM input, the main path's first rows;
 #: ``drain_hold_ms`` is how long the fleet phase holds the drained member's
 #: shutdown reply, and ``front_bai_twin`` (1: the front door's ``bai-index``
-#: held to ``build_bai`` of the same file) a run a cut depth leaves out (0).
+#: held to ``build_bai`` of the same file) a run a cut depth leaves out (0);
+#: ``mh_budget_records`` is the multihost phase's budget pair's input, the
+#: main path's first rows.
 FULL_DEPTH = {"records": 2_000_000, "dup_pairs": 1_000_000, "twin_pairs": TWIN_PAIRS,
               "pairs": 250_000, "variants": 4_500_000, "cram_records": 300_000,
               "ingest_cpu": 1, "fixmate_again": 1, "sam_roundtrip": 100_000, "variants_cpu": 1,
               "region_cpu": 1, "sam_records": 2_000_000, "drain_hold_ms": FLEET_DRAIN_STALL_MS,
-              "front_bai_twin": 1}
+              "front_bai_twin": 1, "mh_budget_records": 2_000_000}
 #: The depths a run takes by default where they are cut below the full one
 #: to keep the run inside its time limit (logged as cuts); the ingest's CPU
 #: run, fixmate's second pass, the SAM round trip's and the call set's cuts
 #: pay for the serve phase, the variants queries' CPU twins for the fleet
 #: phase, the region phase's CPU twins, half the collation corpus
 #: (500,000 → 250,000 pairs) and half the text phase's SAM input for the
-#: front-door phase, and half the fleet drain's hold and the front door's
-#: ``build_bai`` twin for the mesh phase.
-RUN_DEPTH = dict(FULL_DEPTH, dup_pairs=250_000, twin_pairs=100_000, variants=1_500_000,
+#: front-door phase, half the fleet drain's hold and the front door's
+#: ``build_bai`` twin for the mesh phase, and half the ingest corpus, a
+#: quarter of the text phase's SAM input (1,000,000 → 250,000 rows), 150,000
+#: pairs of the collation corpus (250,000 → 100,000), half its twins
+#: (100,000 → 50,000 pairs) and half the call set (1,500,000 → 750,000
+#: sites) for the multihost phase, whose budget pair takes the out-of-core
+#: phase's 500,000 records.  The CRAM corpus is not cut: the
+#: serve and fleet phases run on its BAM twin, and the fleet's adopted sort
+#: needs its second part.
+RUN_DEPTH = dict(FULL_DEPTH, dup_pairs=100_000, twin_pairs=50_000, variants=750_000,
                  ingest_cpu=0, fixmate_again=0, sam_roundtrip=20_000, variants_cpu=0,
-                 region_cpu=0, sam_records=1_000_000, drain_hold_ms=2500, front_bai_twin=0)
+                 region_cpu=0, sam_records=250_000, drain_hold_ms=2500, front_bai_twin=0,
+                 pairs=125_000, mh_budget_records=EXTERNAL_PAIR_RECORDS)
 
 
 def card_line() -> str:
@@ -7004,6 +7279,8 @@ def main() -> int:
                     help="ms the fleet phase holds the drained member's shutdown reply")
     ap.add_argument("--front-bai-twin", type=int, default=RUN_DEPTH["front_bai_twin"],
                     help="1: the front door holds bai-index through the CLI to build_bai")
+    ap.add_argument("--mh-budget-records", type=int, default=RUN_DEPTH["mh_budget_records"],
+                    help="the main path's records the multihost phase's budget pair sorts")
     ap.add_argument("--codec-mib", type=int, default=CODEC_MIB,
                     help="MiB of record bytes of the codec phase's round trip")
     ap.add_argument("--kernels-only", action="store_true",
@@ -7076,6 +7353,8 @@ def main() -> int:
         clock("the front-door phase")
         msh = mesh_phase(work, res, args.seed)
         clock("the mesh phase")
+        mhp = multihost_phase(work, res, args.seed, min(args.mh_budget_records, args.records))
+        clock("the multihost phase")
         rows = time_kernels(res["src"], checks, res["launches"], res["launches_resident"],
                             args.seed)
         for k in ("cpu", "resident", "resident_host"):  # the region phase reads "zlib"
@@ -7142,6 +7421,8 @@ def main() -> int:
         row["front_door_launches"] = {"cli_sort": front["launches"][row["name"]]}
         row["mesh_launches"] = {"sort": msh["launches"][row["name"]],
                                 "markdup": col["mesh_launches"][row["name"]]}
+        row["multihost_launches"] = {pair: [ln[row["name"]] for ln in lines]
+                                     for pair, lines in mhp["launches"].items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

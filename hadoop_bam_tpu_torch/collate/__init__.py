@@ -7,9 +7,9 @@ tie-breaks), host verification of every bucket against the actual names
 (``pipeline.sort_bam(sort_order="queryname")``), fixmate
 (``pipeline.fixmate_bam``, :mod:`.fixmate`) and markdup's pair collation
 (:mod:`hadoop_bam_tpu_torch.dedup.device`).  :mod:`.oracle` holds the
-per-record oracles.  The reference's ``group_representatives`` and
-``global_name_ranks`` serve its multi-host runner and come with it
-(ROADMAP A.10b).
+per-record oracles.  ``group_representatives`` and ``global_name_ranks``
+are the multi-process rank pass of the queryname sort
+(:mod:`hadoop_bam_tpu_torch.parallel.multihost`).
 """
 
 from .device import Collation, collate_by_name, collate_core
@@ -17,6 +17,8 @@ from .fixmate import FIXMATE_FIELDS, FixmateEdits, apply_fixmate, compute_fixmat
 from .host import (
     QuerynameStats,
     collation_counts,
+    global_name_ranks,
+    group_representatives,
     natural_compare,
     natural_sort_key,
     queryname_perm,
@@ -47,6 +49,8 @@ __all__ = [
     "compute_fixmate_edits",
     "concat_collation",
     "fixmate_oracle",
+    "global_name_ranks",
+    "group_representatives",
     "mc_tag_of",
     "name_hash_pair",
     "natural_compare",

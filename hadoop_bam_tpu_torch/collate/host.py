@@ -229,6 +229,26 @@ def queryname_perm(cols: Dict[str, np.ndarray], device=None,
     return perm, QuerynameStats(n, col.n_groups, n_coll)
 
 
+def group_representatives(cols: Dict[str, np.ndarray], col: Collation) -> List[bytes]:
+    """One name (bytes) a verified bucket, by group id: after
+    :func:`verify_and_repair` every bucket holds one name, so its first
+    collated row speaks for it.  The per-process half of the multi-process
+    rank pass, which gathers one name a group, never one a record."""
+    bounds = col.bucket_bounds()
+    return [_name_bytes(cols, int(col.order[int(bounds[g])])) for g in range(col.n_groups)]
+
+
+def global_name_ranks(rep_lists) -> Dict[bytes, int]:
+    """The dense rank of every distinct name of the lists, in samtools'
+    natural order.  Every process ranks the same gathered lists, so the
+    ranks agree without a coordinator; two different names whose hashes
+    collide are two names here."""
+    union = sorted(set().union(*rep_lists)) if rep_lists else []
+    keys = natural_keys(union)
+    ordered = sorted(range(len(union)), key=keys.__getitem__)
+    return {union[i]: r for r, i in enumerate(ordered)}
+
+
 def collation_counts(cols: Dict[str, np.ndarray], col: Collation,
                      metrics: Optional[Metrics] = None) -> Dict[str, int]:
     """The census: ``pairs`` (mated pairs), ``singletons`` (records with

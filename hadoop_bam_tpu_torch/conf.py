@@ -143,6 +143,30 @@ FLEET_FILE_TOKENS = "hadoopbam.fleet.file-tokens"
 FLEET_MIGRATE_WARMTH = "hadoopbam.fleet.migrate-warmth"
 #: The timeline tracer's ring capacity (events; unset: 65536).
 TRACE_EVENTS = "hadoopbam.trace.events"
+#: The multi-process sort's wire (``parallel/multihost.py``): record bytes
+#: cross processes as BGZF members (default "true"; "false" ships the raw
+#: record stream), members of at most member-bytes of payload (default and
+#: cap ``DEV_MAX_PAYLOAD``, 57088), fetched from the peers by fetch-threads
+#: workers (default 8, at most the peer count).  Each has its ``HBAM_*``
+#: env twin (``HBAM_SHUFFLE_COMPRESS``, ``..._MEMBER_BYTES``,
+#: ``..._FETCH_THREADS``), read when the key is unset.
+SHUFFLE_COMPRESS = "hadoopbam.shuffle.compress"
+SHUFFLE_MEMBER_BYTES = "hadoopbam.shuffle.member-bytes"
+SHUFFLE_FETCH_THREADS = "hadoopbam.shuffle.fetch-threads"
+#: The multi-process sort's skew healing: a routed round whose records a
+#: destination shard, max over mean, pass skew-bound (default 1.5; 0
+#: disables) re-cuts its splitters once from repartition-samples keys a
+#: process (default 4096).  Env twins ``HBAM_MESH_SKEW_BOUND``,
+#: ``HBAM_MESH_REPARTITION_SAMPLES``.
+MESH_SKEW_BOUND = "hadoopbam.mesh.skew-bound"
+MESH_REPARTITION_SAMPLES = "hadoopbam.mesh.repartition-samples"
+#: Speculative re-execution (speculate-factor > 0) and the mesh trace
+#: (trace, trace-dir) of the multi-process sort are not ported (ROADMAP
+#: A.10c): arming one raises ``NotImplementedError``.  Env twins
+#: ``HBAM_MESH_SPECULATE_FACTOR``, ``HBAM_MESH_TRACE``, ``HBAM_MESH_TRACE_DIR``.
+MESH_SPECULATE_FACTOR = "hadoopbam.mesh.speculate-factor"
+MESH_TRACE = "hadoopbam.mesh.trace"
+MESH_TRACE_DIR = "hadoopbam.mesh.trace-dir"
 
 _TRUE_WORDS = frozenset(("yes", "true", "t", "y", "1", "on", "enabled"))
 _FALSE_ENV = ("0", "false", "no", "off", "")

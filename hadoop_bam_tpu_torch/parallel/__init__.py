@@ -1,12 +1,15 @@
 """Distributed execution: the elastic part executor (:mod:`.executor`), the
-device mesh (:mod:`.mesh`) and the range-partitioned shuffle sort
-(:mod:`.shuffle`).
+device mesh (:mod:`.mesh`), the range-partitioned shuffle sort
+(:mod:`.shuffle`) and the multi-process sort (:mod:`.multihost`).
 
 Counterpart of ``hadoop_bam_tpu/parallel``: data parallelism over file
 splits becomes shards of a :class:`~.mesh.Mesh`, and the MapReduce sort
 shuffle a range-partitioned exchange between them, keyed by the same
-64-bit ``(refIdx<<32|pos0)`` packing.  The multi-host runner is not
-ported (ROADMAP A.10b)."""
+64-bit ``(refIdx<<32|pos0)`` packing; across processes the exchange is
+``torch.distributed``'s ``all_to_all_single`` and the record bytes move
+through the byte plane of :func:`~.multihost.sort_bam_multihost`.  The
+multi-process fixmate, speculation and the mesh trace are not ported
+(ROADMAP A.10c)."""
 
 from .executor import (
     AttemptTimeout,
@@ -15,8 +18,10 @@ from .executor import (
     PartFailedError,
     bgzf_part_valid,
 )
-from .mesh import data_axis, make_mesh
+from .mesh import Mesh, ProcessLayout, data_axis, make_mesh
+from .multihost import MultihostContext, initialize, sort_bam_multihost
 from .shuffle import DistributedSort
 
-__all__ = ["AttemptTimeout", "DistributedSort", "ElasticExecutor", "ExecutionReport",
-           "PartFailedError", "bgzf_part_valid", "data_axis", "make_mesh"]
+__all__ = ["AttemptTimeout", "DistributedSort", "ElasticExecutor", "ExecutionReport", "Mesh",
+           "MultihostContext", "PartFailedError", "ProcessLayout", "bgzf_part_valid",
+           "data_axis", "initialize", "make_mesh", "sort_bam_multihost"]

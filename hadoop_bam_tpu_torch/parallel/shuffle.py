@@ -27,10 +27,14 @@ order is the reference's (hi int32, lo uint32) pair order; the payload is
 afterwards.  The shards that sit on one device run each step batched over
 a leading shard axis, so the launches do not grow with the shard count,
 and their exchange is one ``[D, D, cap]`` transpose on that device; shards
-on different devices exchange by a copy to each peer.  Every step is a
-torch op: the reference's are plain XLA programs (``lax.sort``,
-``argsort``, ``searchsorted``, a scatter, ``all_to_all``), not Pallas
-kernels.
+on different devices exchange by a copy to each peer.  On a mesh whose
+shards live in several processes (a :class:`~.mesh.ProcessLayout`) every
+process runs the steps on its own shards: the samples are gathered from
+every process, so all cut the same splitters, the buckets cross in one
+``all_to_all_single`` regrouped by destination process, and the overflow
+is summed over the processes.  Every step is a torch op: the reference's
+are plain XLA programs (``lax.sort``, ``argsort``, ``searchsorted``, a
+scatter, ``all_to_all``), not Pallas kernels.
 """
 
 from __future__ import annotations
@@ -70,13 +74,17 @@ class ShuffleCapacityError(RuntimeError):
 
 
 class ShuffleResult(NamedTuple):
-    hi: torch.Tensor  # int32[D*D*C] sorted within+across shards
-    lo: torch.Tensor  # uint32[D*D*C]
-    valid: torch.Tensor  # bool[D*D*C]
-    src_dev: torch.Tensor  # int32[D*D*C]
-    src_row: torch.Tensor  # int32[D*D*C]
-    overflow: torch.Tensor  # int32[] — rows that did not fit (must be 0)
-    dest: torch.Tensor  # int32[D*rows] — destination shard of each INPUT row
+    """The columns of this process's shards (every shard on a one-process
+    mesh), in global shard order from ``mesh.first_shard``: ``L`` shards,
+    ``D*C`` rows each."""
+
+    hi: torch.Tensor  # int32[L*D*C] sorted within+across shards
+    lo: torch.Tensor  # uint32[L*D*C]
+    valid: torch.Tensor  # bool[L*D*C]
+    src_dev: torch.Tensor  # int32[L*D*C]
+    src_row: torch.Tensor  # int32[L*D*C]
+    overflow: torch.Tensor  # int32[] — rows that did not fit, every process's (must be 0)
+    dest: torch.Tensor  # int32[L*rows] — destination shard of each INPUT row
     # (-1 for an invalid row: the sender-side routing table that the
     # multi-host byte shuffle ships record payloads by)
 
@@ -93,6 +101,27 @@ class _Routed(NamedTuple):
     dest: torch.Tensor
 
 
+def _exchange_processes(buffers: Sequence[Sequence[torch.Tensor]],
+                        mesh: Mesh) -> List[List[torch.Tensor]]:
+    """:func:`_exchange` across the processes of ``mesh.layout``: this
+    process's ``L`` shards (one device group) send their ``[L, D, C]``
+    buckets, every column's bytes side by side, regrouped by destination
+    process into one ``all_to_all_single``."""
+    lay = mesh.layout
+    L, P = len(mesh), lay.num_processes
+    cols = [col[0] for col in buffers]
+    parts = [c.contiguous().view(torch.uint8).view(L, P, L, -1) for c in cols]
+    widths = [p.shape[-1] for p in parts]
+    send = torch.cat(parts, dim=3).transpose(0, 1)  # [P (dst), L (src), L (dst), bytes]
+    recv = lay.all_to_all(send)  # [P (src), L (src), L (dst), bytes]
+    recv = recv.permute(2, 0, 1, 3).reshape(L, P * L, -1)  # [L (dst), D (src), bytes]
+    out, at = [], 0
+    for c, w in zip(cols, widths):
+        out.append([recv[..., at : at + w].contiguous().view(c.dtype)])
+        at += w
+    return out
+
+
 def _exchange(buffers: Sequence[Sequence[torch.Tensor]], mesh: Mesh) -> List[List[torch.Tensor]]:
     """The shuffle's data plane.  ``buffers`` holds one entry per column;
     a column holds one ``[k, D, C]`` send buffer per device group of
@@ -100,7 +129,10 @@ def _exchange(buffers: Sequence[Sequence[torch.Tensor]], mesh: Mesh) -> List[Lis
     shard i bound for shard j.  Returns the columns as received: per
     group ``[k, D, C]``, bucket i of shard j from shard i.  One group is
     one transpose on its device; otherwise each group takes its shards'
-    buckets from every group, a copy to the peer's device."""
+    buckets from every group, a copy to the peer's device; across
+    processes, :func:`_exchange_processes`."""
+    if mesh.layout is not None:
+        return _exchange_processes(buffers, mesh)
     groups = mesh.groups()
     out: List[List[torch.Tensor]] = []
     for col in buffers:
@@ -203,9 +235,9 @@ class DistributedSort:
 
     def _elect(self, placed) -> torch.Tensor:
         """The ``[D-1]`` splitters (sorted int64) on the first group's
-        device: the given ones, else the quantiles of every shard's samples.
-        A shard with no valid row contributes pad samples flagged invalid,
-        so they cannot poison the cuts."""
+        device: the given ones, else the quantiles of every shard's samples
+        (of every process's shards).  A shard with no valid row contributes
+        pad samples flagged invalid, so they cannot poison the cuts."""
         d, S = self.n_devices, self.samples
         dev0 = self.mesh.groups()[0][0]
         if self.splitters is not None:
@@ -223,8 +255,12 @@ class DistributedSort:
             ok = (nvalid > 0)[:, None].expand(-1, S)
             samples.append(torch.where(ok, srt.gather(1, pos), _KEY_PAD).reshape(-1).to(dev0))
             oks.append(ok.reshape(-1).to(dev0))
-        all_ok = torch.cat(oks)
-        g = torch.sort(torch.where(all_ok, torch.cat(samples), _KEY_PAD)).values
+        all_ok, all_samples = torch.cat(oks), torch.cat(samples)
+        lay = self.mesh.layout
+        if lay is not None:
+            all_ok = lay.all_gather(all_ok).reshape(-1)
+            all_samples = lay.all_gather(all_samples).reshape(-1)
+        g = torch.sort(torch.where(all_ok, all_samples, _KEY_PAD)).values
         n_ok = all_ok.sum()
         # Quantile cuts over the valid sample prefix only.
         cut = torch.clamp(torch.arange(1, d, device=dev0) * n_ok // d, 0, d * S - 1)
@@ -235,6 +271,7 @@ class DistributedSort:
         valid, orig and key2 (or None) on the group's device)."""
         d, rows, cap = self.n_devices, self.rows, self.capacity
         groups = self.mesh.groups()
+        first = self.mesh.first_shard
         sp = self._elect(placed)
         send: List[List[torch.Tensor]] = [[] for _ in range(6 if self.key_words == 2 else 5)]
         overflow, dests = [], []
@@ -263,7 +300,7 @@ class DistributedSort:
                 buf.scatter_(0, slot, col.reshape(-1))
                 return buf[:-1].view(k, d, cap)  # the last slot takes the dropped rows
 
-            shard = torch.arange(s0, s1, dtype=torch.int32, device=dev)[:, None]
+            shard = torch.arange(first + s0, first + s1, dtype=torch.int32, device=dev)[:, None]
             cols = [scatter(key, _KEY_PAD), scatter(valid, False),
                     scatter(shard.expand(k, rows), -1),
                     scatter(torch.arange(rows, dtype=torch.int32, device=dev).expand(k, rows), -1),
@@ -286,11 +323,11 @@ class DistributedSort:
         return out
 
     def _place(self, key, valid, orig, key2) -> list:
-        """``[D*rows]`` columns → per device group ``[k, rows]`` tensors on
-        the group's device."""
-        total = self.n_devices * self.rows
+        """``[L*rows]`` columns (this process's ``L`` shards) → per device
+        group ``[k, rows]`` tensors on the group's device."""
+        total = len(self.mesh) * self.rows
         if key.numel() != total:
-            raise ValueError(f"inputs must be [{total}] (D*rows), got {tuple(key.shape)}")
+            raise ValueError(f"inputs must be [{total}] (L*rows), got {tuple(key.shape)}")
         placed = []
         for dev, s0, s1 in self.mesh.groups():
             a, b, k = s0 * self.rows, s1 * self.rows, s1 - s0
@@ -302,9 +339,14 @@ class DistributedSort:
                            None if key2 is None else part(key2)))
         return placed
 
-    @staticmethod
-    def _overflow(routed: List[_Routed]) -> int:
-        return sum(int(r.overflow) for r in routed)
+    def _overflow(self, routed: List[_Routed]) -> torch.Tensor:
+        """The rows past a pair's capacity, summed over every process
+        (int64, on the first group's device)."""
+        dev0 = self.mesh.groups()[0][0]
+        ovf = torch.stack([r.overflow.to(dev0) for r in routed]).sum()
+        if self.mesh.layout is not None:
+            ovf = self.mesh.layout.all_gather(ovf.reshape(1)).sum()
+        return ovf
 
     # -- host-facing API ----------------------------------------------------
 
@@ -317,7 +359,8 @@ class DistributedSort:
         hi2=None,
         lo2=None,
     ) -> ShuffleResult:
-        """Inputs are [D*rows] tensors or arrays (any device; each shard's
+        """Inputs are [L*rows] tensors or arrays of this process's ``L``
+        shards (all ``D`` on a one-process mesh; any device, each shard's
         rows move to its device).
 
         ``orig`` (int32 global input ordinals) makes tie order
@@ -347,7 +390,7 @@ class DistributedSort:
             return torch.cat([getattr(r, field).reshape(-1).to(dev0) for r in routed])
 
         s_key = cat("key")
-        ovf = torch.stack([r.overflow.to(dev0) for r in routed]).sum().to(torch.int32)
+        ovf = self._overflow(routed).to(torch.int32)
         return ShuffleResult((s_key >> 32).to(torch.int32),
                              (s_key & 0xFFFFFFFF).to(torch.uint32), cat("valid"),
                              cat("src_dev"), cat("src_row"), ovf, cat("dest"))
@@ -370,6 +413,9 @@ class DistributedSort:
         :class:`ShuffleCapacityError`.  The key upload (key, valid and
         orig columns) and the download of the sorted keys and positions
         count into ``metrics``' ``transfers.*`` on a card."""
+        if self.mesh.layout is not None and self.mesh.layout.num_processes > 1:
+            raise ValueError("sort_global sorts one process's keys; a multi-process "
+                             "mesh sorts through __call__")
         n = len(keys)
         total = self.n_devices * self.rows
         if n > total:
@@ -386,7 +432,7 @@ class DistributedSort:
         if metrics is not None and cuda_rows:
             metrics.count_h2d(cuda_rows * _UPLOAD_ROW_BYTES, "keys")
         routed = self._step(placed)
-        ovf = self._overflow(routed)
+        ovf = int(self._overflow(routed))
         if ovf > 0:
             if metrics is not None:
                 metrics.count("mh.shuffle.capacity_retry", 1)
@@ -397,7 +443,7 @@ class DistributedSort:
                 samples_per_device=self.samples,
             )
             routed = retry._step(placed)
-            ovf = self._overflow(routed)
+            ovf = int(self._overflow(routed))
             if ovf > 0:
                 raise ShuffleCapacityError(
                     f"shuffle capacity exceeded by {ovf} "

@@ -198,9 +198,9 @@ REFS = [("c1", 1 << 24), ("c2", 1 << 24)]
 
 
 def test_exports_are_the_reference_s():
-    """All of the reference's exports but the multi-host runner's two (ROADMAP A.10b)."""
-    mesh = {"global_name_ranks", "group_representatives"}
-    assert tcollate.__all__ == [k for k in jcollate.__all__ if k not in mesh]
+    """All of the reference's exports, the multi-process rank pass's two
+    (``group_representatives``, ``global_name_ranks``) included."""
+    assert tcollate.__all__ == jcollate.__all__
     assert tcollate.COLLATE_EXTRA_FIELDS == jcollate.COLLATE_EXTRA_FIELDS
     assert tcollate.FIXMATE_FIELDS == jcollate.FIXMATE_FIELDS
     assert tsig._BLOB_COLS == jsig._BLOB_COLS

@@ -61,10 +61,16 @@ FRONT_DOOR_SOURCES = ("hadoop_bam_tpu_torch/cli.py", "hadoop_bam_tpu_torch/__mai
                       "hadoop_bam_tpu_torch/utils/hbm.py", "hadoop_bam_tpu_torch/utils/tracing.py",
                       "examples/torch_sort_bam.py", "examples/torch_fastq_quality.py",
                       "examples/torch_vcf_allele_freq.py")
+#: The multi-process sort and the mesh it runs on (collectives and the
+#: byte plane's servers are imported inside functions).
+PARALLEL_SOURCES = ("hadoop_bam_tpu_torch/parallel/multihost.py",
+                    "hadoop_bam_tpu_torch/parallel/mesh.py",
+                    "hadoop_bam_tpu_torch/parallel/shuffle.py")
 
 
 @pytest.mark.parametrize("name", [pytest.param(f"hadoop_bam_tpu_torch/serve/{m}.py", id=m)
-                                  for m in SERVE_MODULES] + list(FRONT_DOOR_SOURCES))
+                                  for m in SERVE_MODULES] + list(FRONT_DOOR_SOURCES)
+                         + list(PARALLEL_SOURCES))
 def test_serve_modules_import_neither_jax_nor_the_jax_package(name):
     """Each module of the port's serve layer, the CLI, the ledger, the
     tracer and the port's examples, read as source: no import of ``jax`` or
@@ -121,6 +127,36 @@ def test_sort_bam_without_device_raises_when_no_card(tmp_path, monkeypatch):
         pipeline.sort_bam(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"), device="cuda")
 
 
+def test_multihost_module_loads_with_jax_blocked():
+    """``parallel/multihost.py`` and what it pulls in load with ``jax``
+    blocked and bring in no module of the JAX package."""
+    code = r"""
+import sys
+sys.modules["jax"] = None
+from hadoop_bam_tpu_torch.parallel import multihost
+assert callable(multihost.sort_bam_multihost) and callable(multihost.initialize)
+bad = [m for m in sys.modules if m == "hadoop_bam_tpu" or m.startswith("hadoop_bam_tpu.")]
+assert not bad, bad
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.startswith("ok"), r.stderr
+
+
+def test_sort_bam_multihost_without_device_raises_when_no_card(tmp_path, monkeypatch):
+    """The multi-process sort runs on the card unless the caller asks for
+    the CPU: with no card, no ``device`` (and no context) raises."""
+    from hadoop_bam_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.sort_bam_multihost(str(tmp_path / "in.bam"), str(tmp_path / "out.bam"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.initialize()
+
+
 def test_constant_tables_equal_the_reference():
     from hadoop_bam_tpu.ops import flate as jflate
     from hadoop_bam_tpu.ops.pallas.crc32 import CRC_TABLES
@@ -143,11 +179,16 @@ def test_reference_conf_dict_drives_both_packages():
     from hadoop_bam_tpu_torch import conf as tconf
 
     d = {jconf.INFLATE_LANES: "on", jconf.BAM_WRITE_SPLITTING_BAI: "yes",
-         jconf.READ_DEPTH: "3", jconf.DEFLATE_LANES: "off"}
+         jconf.READ_DEPTH: "3", jconf.DEFLATE_LANES: "off", jconf.SHUFFLE_COMPRESS: "false",
+         jconf.SHUFFLE_MEMBER_BYTES: "2048", jconf.SHUFFLE_FETCH_THREADS: "3",
+         jconf.MESH_REPARTITION_SAMPLES: "512", jconf.MESH_TRACE: "on"}
     a, b = jconf.Configuration(d), tconf.from_reference_conf(d)
     for key in ("INFLATE_LANES", "BAM_WRITE_SPLITTING_BAI", "DEFLATE_LANES",
                 "WRITE_DEVICE", "READ_DEPTH", "BAM_MARK_DUPLICATES", "BAM_SORT_ORDER",
-                "ERRORS_MODE", "BAM_BOUNDED_TRAVERSAL", "BAM_ENABLE_BAI_SPLITTER"):
+                "ERRORS_MODE", "BAM_BOUNDED_TRAVERSAL", "BAM_ENABLE_BAI_SPLITTER",
+                "SHUFFLE_COMPRESS", "SHUFFLE_MEMBER_BYTES", "SHUFFLE_FETCH_THREADS",
+                "MESH_SKEW_BOUND", "MESH_REPARTITION_SAMPLES", "MESH_SPECULATE_FACTOR",
+                "MESH_TRACE", "MESH_TRACE_DIR"):
         k = getattr(tconf, key)
         assert k == getattr(jconf, key)
         assert a.get_boolean(k) == b.get_boolean(k)

@@ -714,9 +714,11 @@ def test_request_report_cli_runs_on_a_spilled_exemplar(sorted_bam, tmp_path):
 #: Files that emit stage/queue ring events without the request API
 #: themselves (their callers hold the scope): the reference's list, the
 #: split reader, the collation and fixmate cores and the CRAM spec layer,
-#: whose serve callers run them under the request scope.
+#: whose serve callers run them under the request scope, and the
+#: multi-process sort, a batch job of one process group that no serve
+#: request dispatches (no request to attribute its ``mh.*`` events to).
 _AMBIENT_EXEMPT = ("utils/tracing.py", "io/bam.py", "collate/fixmate.py", "collate/host.py",
-                   "spec/cram.py", "spec/cram_codecs.py")
+                   "spec/cram.py", "spec/cram_codecs.py", "parallel/multihost.py")
 _EMIT = re.compile(r'category="(?:stage|queue)"|\.emit\(\s*[^,()]+,\s*"(?:stage|queue)"')
 
 

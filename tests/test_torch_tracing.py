@@ -8,8 +8,10 @@ the port's source (a name the port counts through an f-string matches
 with its placeholder as any component).
 
 Left out: ``test_bench_finalize_round_flags_cpu_fallback`` (the port's
-bench entry is ROADMAP A.12b) and ``test_skew_healing_metric_literals_present``
-(the multi-host runner's names, ROADMAP A.10b)."""
+bench entry is ROADMAP A.12b).  ``test_skew_healing_metric_literals_present``
+is the "skew_healing" family below, less the ``mh.speculate.*`` names
+(ROADMAP A.10c) and ``pipeline.auto_rtt_ms``/``effective_rtt_ms`` (the
+reference's read-depth gauges, which the port's jobs do not set)."""
 
 import importlib.util
 import io
@@ -458,6 +460,13 @@ _LITERALS = {
                       "serve.variants.ms", "serve.depth.requests", "serve.depth.ms",
                       "salvage.members_quarantined", "salvage.bytes_quarantined",
                       "salvage.records_dropped"),
+    "skew_healing": ("mh.rank.names", "mh.repartition.triggered", "mh.repartition.sample_keys",
+                     "mh.repartition.ratio_before", "mh.repartition.ratio_after",
+                     "mh.shuffle.capacity_retry", "mh.shuffle.store_fallback", "mh.records",
+                     "mh.skew_ratio", "mh.peak_bytes", "mh.keys.sent.0", "mh.keys.recv.1",
+                     "mh.shuffle.sent.0", "mh.shuffle.recv_raw.1", "mh.http.requests",
+                     "mh.http.range_requests", "mh.http.bytes_served",
+                     "mh.byte_shuffle.deflate", "mh.byte_shuffle.inflate", "mh.range_merge"),
     "batch_tracer": ("bam.stage.read", "bam.stage.inflate", "bam.stage.parse", "bam.stage.key",
                      "bam.stage.gather", "bam.stage.deflate", "bam.stage.write",
                      "pipeline.stage.read_split", "pipeline.stage.device_parse",
@@ -473,7 +482,8 @@ _LITERALS = {
 @pytest.mark.parametrize("family", sorted(_LITERALS))
 def test_metric_literals_present(family):
     """The names the reference's drills read (its ``test_*_metric_literals``
-    cases: the CRAM codec family, the ingest plane, the variant plane) and
+    cases: the CRAM codec family, the ingest plane, the variant plane, the
+    multi-process sort's skew healing and byte plane) and
     the batch tracer's stage and ledger names exist in the port's source."""
     missing = _present(_LITERALS[family])
     assert not missing, f"metric names missing from the port: {missing}"
