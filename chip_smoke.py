@@ -36,9 +36,14 @@ record stream, each process's sent keys and bytes equal to its peer's
 received; the pair again on the http byte plane under a 128 MiB budget,
 eight shards a process, on the first 500,000 records
 (``--mh-budget-records``; 2,000,000 at full depth), ``mh.peak_bytes``
-under the budget; beside it one process in a one-rank NCCL group whose
-``DistributedSort`` of the shuffle check's keys equals the in-process
-one-shard sort's); mark duplicates, sort by name and fixmate
+under the budget; the pair again on that input in core, mesh-traced, with
+speculation armed and process 1's parts stage delayed, process 0's copy
+winning through row 1 on its card, the trace reduced by
+``tools/mesh_report.py`` to host 1 as the straggler; then
+``fixmate_bam_multihost`` of 50,000 synthetic pairs against the
+single-process fixmate on the card; beside it one process in a one-rank
+NCCL group whose ``DistributedSort`` of the shuffle check's keys equals
+the in-process one-shard sort's); mark duplicates, sort by name and fixmate
 synthetic read pairs on the card and on the CPU (the collation phase:
 markdup of 100,000 pairs with the default gates, cut from 1,000,000; byte-identical with the
 write gates off, the markdup, queryname and fixmate twins, and the
@@ -2549,12 +2554,20 @@ def mesh_phase(work: str, mp: dict, seed: int) -> dict:
 MH_BUDGET = 128 << 20  # the budget pair's memory_budget: the out-of-core cell's
 MH_BUDGET_SHARDS = 8  # shards a process in the budget pair: a shard's output twice under it
 MH_TIMEOUT_S = 600  # each worker's communicate() limit
-#: One process of the multi-process sorts on the card: joins the pair's
+#: The speculation leg: the factor, and the delay of each of process 1's
+#: parts (its one shard's), at least twice process 0's parts stage plus its
+#: speculative copy, so that the copy wins with seconds to spare.
+MH_SPEC_FACTOR = "1.5"
+MH_SPEC_DELAY_MS = 8000
+#: The fixmate leg's read pairs.
+MH_FIXMATE_PAIRS = 50_000
+#: One process of the multi-process jobs on the card: joins the pair's
 #: ``file://`` rendezvous once, then runs each leg (tag, input, output,
-#: shards, ``sort_bam_multihost``'s keyword arguments) with the launch
-#: counts zeroed just before its sort and read just after, and prints one
-#: ``MH {...}`` line a leg.  Arguments: the repo, pid, rendezvous, the legs
-#: as JSON.
+#: shards, keyword arguments, extras: ``job`` "sort" or "fixmate",
+#: ``conf``, ``faults`` as ``[pid, plan]`` pairs) with the launch counts
+#: zeroed just before its job and read just after (and read around each
+#: speculative copy, ``spec_launches``), and prints one ``MH {...}`` line a
+#: leg.  Arguments: the repo, pid, rendezvous, the legs as JSON.
 MH_WORKER = r"""
 import json, sys, time
 repo, pid, rdv, legs = sys.argv[1], int(sys.argv[2]), sys.argv[3], json.loads(sys.argv[4])
@@ -2562,36 +2575,63 @@ sys.path.insert(0, repo)
 sys.modules["jax"] = None  # the port never loads JAX
 import torch
 import chip_smoke as cs
+from hadoop_bam_tpu_torch import cli, faults
+from hadoop_bam_tpu_torch.conf import Configuration
 from hadoop_bam_tpu_torch.parallel import Mesh, MultihostContext, multihost
 from hadoop_bam_tpu_torch.utils.hbm import LEDGER
 from hadoop_bam_tpu_torch.utils.tracing import MetricsRegistry
 t_start = time.perf_counter()
+spec_launches = {}
+stage = multihost._speculate_stage
+def counted_stage(*a, **k):
+    before = cs.launch_counts()
+    try:
+        return stage(*a, **k)
+    finally:
+        for name, v in cs.launch_counts().items():
+            spec_launches[name] = spec_launches.get(name, 0) + v - before.get(name, 0)
+multihost._speculate_stage = counted_stage
 ctx = multihost.initialize(init_method="file://" + rdv, num_processes=2, process_id=pid,
                            device="cuda", timeout_s=cs.MH_TIMEOUT_S)
-for tag, src, out, shards, kw in legs:
+for tag, src, out, shards, kw, extra in legs:
     # The same group, this leg's shards of the card.
     leg = MultihostContext(pid, 2, Mesh([ctx.mesh[0]] * shards, layout=ctx.mesh.layout))
+    job = (multihost.fixmate_bam_multihost if extra.get("job") == "fixmate"
+           else multihost.sort_bam_multihost)
+    plan = dict(extra.get("faults", [])).get(pid)
     m = MetricsRegistry()
+    spec_launches.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    if plan:
+        faults.arm(plan)
     cs.reset_counts()
     t0 = time.perf_counter()
-    n = multihost.sort_bam_multihost(src, out, ctx=leg, level=1, metrics=m, **kw)
+    got = job(src, out, ctx=leg, conf=Configuration(extra.get("conf", {})), level=1, metrics=m,
+              **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = cs.launch_counts()
+    faults.disarm()
     leaked = LEDGER.assert_drained()["leaked_entries"]
     c = m.counters()
-    print("MH " + json.dumps({
-        "tag": tag, "pid": pid, "n": n, "wall": wall, "start": t0 - t_start,
-        "launches": launches, "transport": leg.mesh.layout.transport,
-        "shards": leg.global_device_count,
+    line = {
+        "tag": tag, "pid": pid, "wall": wall, "start": t0 - t_start,
+        "n": got if isinstance(got, int) else got.n_records,
+        "launches": launches, "spec_launches": dict(spec_launches),
+        "transport": leg.mesh.layout.transport, "shards": leg.global_device_count,
         "mh": {k: v for k, v in sorted(c.items()) if k.startswith("mh.") and v},
+        "faults": {k: v for k, v in sorted(c.items()) if k.startswith("faults.") and v},
         "transfers": {k: v for k, v in sorted(c.items()) if k.startswith("transfers.")},
         "gauges": {k: v for k, v in m.gauges().items() if k.startswith("mh.")},
         "card_peak": torch.cuda.max_memory_allocated(), "leaked": leaked,
-        "seconds": {k: round(v, 3) for k, v in m.report()["span_seconds"].items()}}),
-        flush=True)
+        "seconds": {k: round(v, 3) for k, v in m.report()["span_seconds"].items()}}
+    if not isinstance(got, int):
+        line["census"] = [got.n_pairs, got.n_singletons, got.n_orphans, got.backend]
+        line["splits"] = got.n_splits
+    if kw.get("mesh_trace") and pid == 0:
+        line["report_cluster_manifest"] = "cluster_manifest" in cli.with_cluster_manifest({})
+    print("MH " + json.dumps(line), flush=True)
 ctx.close()
 """
 #: One process in a one-rank group on the card: the key plane on NCCL
@@ -2703,55 +2743,153 @@ def check_pair(tag: str, lines: list) -> None:
 def mh_pair(work: str, legs, beside=()) -> tuple:
     """Two worker processes (:data:`MH_WORKER`) on the one card, one
     rendezvous, running ``legs`` (``(tag, input, shards, keyword
-    arguments)``) in turn, and the ``(argv, prefix)`` jobs of ``beside``
-    started with them: ``{tag: (the two processes' lines, output)}``, the
-    pair's seconds with the processes' start, and the lines of ``beside``."""
+    arguments, extras)``) in turn, and the ``(argv, prefix)`` jobs of
+    ``beside`` started with them: ``{tag: (the two processes' lines,
+    output)}``, the pair's seconds with the processes' start, and the lines
+    of ``beside``.  Each sort leg is held by :func:`check_pair`."""
     rdv = os.path.join(work, "mh.rendezvous")
-    spec = [(tag, src, os.path.join(work, f"mh.{tag}.bam"), shards, kw)
-            for tag, src, shards, kw in legs]
+    spec = [(tag, src, os.path.join(work, f"mh.{tag}.bam"), shards, kw, extra)
+            for tag, src, shards, kw, extra in legs]
     pair = [([sys.executable, "-c", MH_WORKER, REPO, str(pid), rdv, json.dumps(spec)], "MH")
             for pid in range(2)]
-    got = _workers(pair + list(beside), "sort_bam_multihost")
+    got = _workers(pair + list(beside), "the multi-process jobs")
     by_tag = {}
-    for tag, _, out, _, _ in spec:
+    for tag, _, out, _, _, extra in spec:
         lines = [ln for ln_pid, _ in got[:2] for ln in ln_pid if ln["tag"] == tag]
         if len(lines) != 2:
             raise AssertionError(f"{tag}: {len(lines)} process lines")
-        check_pair(tag, lines)
+        if extra.get("job") != "fixmate":
+            check_pair(tag, lines)
         by_tag[tag] = (lines, out)
     return by_tag, got[1][1], [lines for lines, _ in got[2:]]
 
 
+def _mesh_report_module():
+    """``tools/mesh_report.py``, unchanged, as a module."""
+    import importlib.util
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    spec = importlib.util.spec_from_file_location("mesh_report",
+                                                  os.path.join(REPO, "tools", "mesh_report.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_spec_trace(lines: list, trace_dir: str) -> dict:
+    """Hold the speculation leg: process 0 launched one speculative copy,
+    won a part and inflated the straggler's members through row 1 in it;
+    process 1's late copy is the waste; ``tools/mesh_report.py`` reduces
+    the trace directory to host 1 as the straggler, a balanced byte matrix
+    and a clean cluster manifest with the speculation block; the CLI's
+    report carries the cluster manifest.  Returns the report."""
+    p0, p1 = sorted(lines, key=lambda ln: ln["pid"])
+    for me in (p0, p1):
+        spec = {k: v for k, v in me["mh"].items() if k.startswith("mh.speculate.")}
+        log(f"  process {me['pid']}: mh.speculate {json.dumps(spec)}, faults "
+            f"{json.dumps(me['faults'])}, launches in the speculative copy "
+            f"{json.dumps(me['spec_launches'])}")
+    spec0 = p0["spec_launches"]
+    # More row-1 launches than its own fetch needs: those of the copy.
+    if p0["mh"].get("mh.speculate.launched") != 1 or p0["mh"].get("mh.speculate.won", 0) < 1 or \
+            spec0.get("inflate_members", 0) < 1:
+        raise AssertionError(f"speculation, process 0: {p0['mh']}, {spec0}")
+    log(f"  process 0: {p0['launches']['inflate_members']} row-1 launches, "
+        f"{spec0['inflate_members']} of them in the speculative copy of process 1's fetch")
+    if p1["mh"].get("mh.speculate.wasted_bytes", 0) <= 0 or p1["mh"].get("mh.speculate.launched"):
+        raise AssertionError(f"speculation, process 1: {p1['mh']}")
+    if not p0.get("report_cluster_manifest"):
+        raise AssertionError("the CLI's --metrics report carries no cluster_manifest")
+    mr = _mesh_report_module()
+    rep = mr.mesh_report(trace_dir)
+    text = mr.format_report(rep)
+    log("  tools/mesh_report.py " + trace_dir + ":")
+    for ln in text.splitlines():
+        log("    " + ln)
+    st, mx, cm = rep["straggler_table"], rep["matrix"], rep["cluster_manifest"] or {}
+    if st["straggler"]["host"] != 1 or not mx["balanced"] or cm.get("degraded", True) or \
+            not cm.get("speculation") or not cm.get("edges_balanced"):
+        raise AssertionError(f"mesh report: straggler {st['straggler']}, balanced "
+                             f"{mx['balanced']}, cluster manifest degraded "
+                             f"{cm.get('degraded')} {cm.get('reasons')}, speculation "
+                             f"{cm.get('speculation')}")
+    log(f"  straggler host 1 (blamed {st['straggler']['blame_ms']} ms), byte matrix balanced, "
+        f"cluster manifest clean with speculation {json.dumps(cm['speculation'])}; the CLI's "
+        f"report carries it")
+    return rep
+
+
+def check_fixmate(lines: list, single, single_out: str, out: str) -> None:
+    """Hold the fixmate leg: the single-process fixmate's record stream
+    and census in each process, pairs across the processes."""
+    for me in sorted(lines, key=lambda ln: ln["pid"]):
+        log(f"fixmate_bam_multihost(process {me['pid']} of 2, {me['shards']} shards in all): "
+            f"{me['n']} records in {me['splits']} splits, wall {me['wall']:.3f} s, card peak "
+            f"{me['card_peak']} bytes, census {me['census']}")
+        log(f"  launches: {json.dumps(me['launches'])}; mh: {json.dumps(me['mh'])}")
+        log(f"  seconds: {json.dumps(me['seconds'])}")
+        want = [single.n_pairs, single.n_singletons, single.n_orphans, "collate-fixmate[mesh]"]
+        if me["census"] != want or me["n"] != single.n_records or me["leaked"] or \
+                me["mh"].get("mh.fixmate.half_open", 0) <= 0 or me["splits"] < 4:
+            raise AssertionError(f"fixmate leg, process {me['pid']}: {me['census']} against "
+                                 f"{want}, {me['n']} records, mh {me['mh']}")
+    if bgzf_content(out) != bgzf_content(single_out):
+        raise AssertionError("the fixmate leg's record stream differs from fixmate_bam's")
+    log("  the fixmate leg's output decompresses to pipeline.fixmate_bam(device='cuda')'s; "
+        "half-open pairs in each process")
+
+
 def multihost_phase(work: str, mp: dict, seed: int, budget_records: int) -> dict:
-    """``sort_bam_multihost`` in two processes on the one H100 (each a
+    """The multi-process jobs in two processes on the one H100 (each a
     mesh of the card; the card cannot host two NCCL ranks, so the key
     plane runs on gloo through pinned host memory), one pair of processes
-    for both legs: (1) the main path's input in core on the fs byte plane,
+    for every leg: (1) the main path's input in core on the fs byte plane,
     one shard a process, the compressed wire and the default gates; (2)
     the http byte plane under ``MH_BUDGET``, ``MH_BUDGET_SHARDS`` shards a
     process (twice a shard's output under the budget), on the first
     ``budget_records`` records, ``mh.peak_bytes`` at or under the budget in
-    each process.  In each leg rows 1 and 3 launch in each process, each
-    process's keys and wire bytes sent equal its peer's received, and no
-    ledger entry leaks; (1) writes the main path's record stream, (2) its
-    input's single-process sort's (the main path's at full depth).  Beside
-    the pair, :data:`NCCL_WORKER`: one process in a one-rank NCCL group,
-    ``DistributedSort`` on the shuffle check's 2,000,000 keys through
-    ``all_to_all_single``, every column the in-process one-shard sort's.
-    Returns the launches and the phase's seconds."""
+    each process; (3) ``spec_trace``: that input in core on the fs plane,
+    one shard a process, mesh-traced, speculate-factor
+    ``MH_SPEC_FACTOR`` and process 1's parts delayed ``MH_SPEC_DELAY_MS``
+    (:func:`check_spec_trace`); (4) ``fixmate``: ``fixmate_bam_multihost``
+    of ``MH_FIXMATE_PAIRS`` synthetic pairs in at least 4 splits
+    (:func:`check_fixmate`).  In legs 1-3 rows 1 and 3 launch in each
+    process, each process's keys and wire bytes sent equal its peer's
+    received, and no ledger entry leaks; (1) writes the main path's record
+    stream, (2) and (3) their input's single-process sort's (the main
+    path's at full depth).  Beside the pair, :data:`NCCL_WORKER`: one
+    process in a one-rank NCCL group, ``DistributedSort`` on the shuffle
+    check's 2,000,000 keys through ``all_to_all_single``, every column the
+    in-process one-shard sort's.  Returns the launches and the phase's
+    seconds."""
+    from hadoop_bam_tpu_torch.conf import MESH_SPECULATE_FACTOR
+    from hadoop_bam_tpu_torch.pipeline import fixmate_bam
+
     t_phase = time.perf_counter()
     src = mp["src"]
     if budget_records != mp["stats"].n_records:
         src = os.path.join(work, "mh.budget.in.bam")
         synth_bam(src, budget_records, seed)
         log(f"the budget leg's input cut from {mp['stats'].n_records} to {budget_records} records")
+    fm_src = os.path.join(work, "mh.fixmate.in.bam")
+    streams, _ = synth_pairs(MH_FIXMATE_PAIRS, seed)
+    fm_size = write_pairs_bam(fm_src, streams, level=1)
+    del streams
+    fm_split = max(64 << 10, fm_size // 6)
+    trace_dir = os.path.join(work, "mh.trace")
     nccl_job = ([sys.executable, "-c", NCCL_WORKER, REPO, os.path.join(work, "nccl.rendezvous"),
                  str(seed), str(SHUFFLE_KEYS)], "NCCL")
+    spec_plan = f"exec.delay:items=1,attempts=1000-1999,ms={MH_SPEC_DELAY_MS},n=*"
     legs, pair_s, ((nc,),) = mh_pair(work, [
-        ("in_core_fs", mp["src"], 1, {}),
+        ("in_core_fs", mp["src"], 1, {}, {}),
         ("budget_http", src, MH_BUDGET_SHARDS, {"byte_plane": "http",
-                                                 "memory_budget": MH_BUDGET})], beside=[nccl_job])
+                                                 "memory_budget": MH_BUDGET}, {}),
+        ("spec_trace", src, 1, {"mesh_trace": True, "mesh_trace_dir": trace_dir},
+         {"conf": {MESH_SPECULATE_FACTOR: MH_SPEC_FACTOR}, "faults": [[1, spec_plan]]}),
+        ("fixmate", fm_src, 1, {"split_size": fm_split}, {"job": "fixmate"})],
+        beside=[nccl_job])
     (core, core_out), (budget, budget_out) = legs["in_core_fs"], legs["budget_http"]
+    (spec, spec_out), (fm, fm_out) = legs["spec_trace"], legs["fixmate"]
     main_stream = bgzf_content(mp["lanes"])
     if bgzf_content(core_out) != main_stream or any(ln["n"] != mp["stats"].n_records
                                                     for ln in core):
@@ -2765,19 +2903,31 @@ def multihost_phase(work: str, mp: dict, seed: int, budget_records: int) -> dict
     log(f"  mh.peak_bytes {[ln['gauges']['mh.peak_bytes'] for ln in budget]} at or under the "
         f"budget {MH_BUDGET}")
     if src == mp["src"]:
-        same = bgzf_content(budget_out) == main_stream
+        want = main_stream
         what = "the main path's record stream"
     else:
+        # The oracle of both legs on the cut input, built once.
         oracle = os.path.join(work, "mh.budget.oracle.bam")
-        timed_sort(src, oracle, "cuda, the budget leg's input", device="cuda")
-        same = bgzf_content(budget_out) == bgzf_content(oracle)
+        timed_sort(src, oracle, "cuda, the budget and speculation legs' input", device="cuda")
+        want = bgzf_content(oracle)
         what = "its single-process sort's record stream"
         os.remove(oracle)
         os.remove(src)
-    if not same:
-        raise AssertionError(f"the budget leg's output differs from {what}")
-    log(f"  the budget leg's output decompresses to {what}")
-    os.remove(budget_out)
+    for tag, out in (("budget", budget_out), ("speculation", spec_out)):
+        if bgzf_content(out) != want:
+            raise AssertionError(f"the {tag} leg's output differs from {what}")
+        log(f"  the {tag} leg's output decompresses to {what}")
+        os.remove(out)
+    log(f"speculation leg: speculate-factor {MH_SPEC_FACTOR}, process 1's parts delayed "
+        f"{MH_SPEC_DELAY_MS} ms")
+    report = check_spec_trace(spec, trace_dir)
+    single_out = os.path.join(work, "mh.fixmate.single.bam")
+    single, _, single_launches = timed_sort(fm_src, single_out, "fixmate_bam(cuda, the fixmate "
+                                            "leg's input)", job=fixmate_bam, device="cuda")
+    check_fixmate(fm, single, single_out, fm_out)
+    for p in (fm_src, fm_out, single_out):
+        os.remove(p)
+    shutil.rmtree(trace_dir, ignore_errors=True)
     if nc["transport"] != "nccl" or nc["backends"] != ["nccl"] or nc["calls"] < 1 or \
             nc["same"] != nc["fields"] or nc["valid"] != SHUFFLE_KEYS or nc["overflow"]:
         raise AssertionError(f"the one-rank NCCL group: {nc}")
@@ -2787,9 +2937,11 @@ def multihost_phase(work: str, mp: dict, seed: int, budget_records: int) -> dict
         f"(inputs resident, CUDA events)")
     seconds = time.perf_counter() - t_phase
     log(f"multihost phase: {seconds:.1f} s (the pair {pair_s:.1f} s with its processes' start, "
-        f"both legs, beside the NCCL process)")
+        f"four legs, beside the NCCL process)")
     return {"launches": {tag: [ln["launches"] for ln in lines]
                          for tag, (lines, _) in legs.items()},
+            "spec_launches": [ln["spec_launches"] for ln in spec],
+            "straggler": report["straggler_table"]["straggler"],
             "seconds": seconds, "nccl": nc}
 
 
@@ -7423,6 +7575,7 @@ def main() -> int:
                                 "markdup": col["mesh_launches"][row["name"]]}
         row["multihost_launches"] = {pair: [ln[row["name"]] for ln in lines]
                                      for pair, lines in mhp["launches"].items()}
+        row["multihost_spec_launches"] = [d.get(row["name"], 0) for d in mhp["spec_launches"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

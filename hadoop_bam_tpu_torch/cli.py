@@ -321,8 +321,20 @@ def _cmd_sort(args, mark_duplicates: bool = False) -> int:
         }
         report["run_manifest"] = run_manifest(
             backend=stats.backend, conf=conf, counters=counters, device=stats.device).as_dict()
+        with_cluster_manifest(report)
         print(json.dumps(report, indent=2, sort_keys=True))
     return 0
+
+
+def with_cluster_manifest(report: dict) -> dict:
+    """Add ``cluster_manifest`` to a ``--metrics`` report when a
+    mesh-traced multi-process sort folded one in this process (process 0
+    of it): the cluster's verdict and byte matrix beside the run
+    manifest."""
+    mh = sys.modules.get("hadoop_bam_tpu_torch.parallel.multihost")
+    if mh is not None and mh.LAST_CLUSTER_MANIFEST:
+        report["cluster_manifest"] = mh.LAST_CLUSTER_MANIFEST
+    return report
 
 
 def _cmd_markdup(args) -> int:

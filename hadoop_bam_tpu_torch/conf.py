@@ -160,10 +160,11 @@ SHUFFLE_FETCH_THREADS = "hadoopbam.shuffle.fetch-threads"
 #: ``HBAM_MESH_REPARTITION_SAMPLES``.
 MESH_SKEW_BOUND = "hadoopbam.mesh.skew-bound"
 MESH_REPARTITION_SAMPLES = "hadoopbam.mesh.repartition-samples"
-#: Speculative re-execution (speculate-factor > 0) and the mesh trace
-#: (trace, trace-dir) of the multi-process sort are not ported (ROADMAP
-#: A.10c): arming one raises ``NotImplementedError``.  Env twins
-#: ``HBAM_MESH_SPECULATE_FACTOR``, ``HBAM_MESH_TRACE``, ``HBAM_MESH_TRACE_DIR``.
+#: The multi-process sort's speculative re-execution of a straggler's
+#: parts stage (speculate-factor > 0; default 0, off) and its mesh trace
+#: (trace, default off; trace-dir, default ``<out>.mesh-trace``, which
+#: alone arms nothing).  Env twins ``HBAM_MESH_SPECULATE_FACTOR``,
+#: ``HBAM_MESH_TRACE``, ``HBAM_MESH_TRACE_DIR``.
 MESH_SPECULATE_FACTOR = "hadoopbam.mesh.speculate-factor"
 MESH_TRACE = "hadoopbam.mesh.trace"
 MESH_TRACE_DIR = "hadoopbam.mesh.trace-dir"

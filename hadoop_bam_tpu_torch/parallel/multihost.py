@@ -1,10 +1,11 @@
 """The multi-process sort: one process a host (or a card), SPMD over one mesh.
 
-Counterpart of ``hadoop_bam_tpu/parallel/multihost.py`` (its coordinate
-and queryname sort; the straggler speculation, the mesh trace and
-``fixmate_bam_multihost`` are not ported, ROADMAP A.10c).  The reference's
-scale-out runtime is the Hadoop cluster: one mapper a split, record bytes
-through the MapReduce shuffle's spill and fetch.  Here:
+Counterpart of ``hadoop_bam_tpu/parallel/multihost.py``: the coordinate
+and queryname sort with its skew healing (the repartition, speculative
+re-execution of a straggler's parts stage), the mesh trace and
+:func:`fixmate_bam_multihost`.  The reference's scale-out runtime is the
+Hadoop cluster: one mapper a split, record bytes through the MapReduce
+shuffle's spill and fetch.  Here:
 
 - **control plane**: ``torch.distributed`` over a gloo group
   (:func:`initialize`); every process plans the same splits and owns
@@ -38,6 +39,17 @@ reads and the part writes run on the host, as in the reference.
 
 :func:`sort_bam_multihost` writes one part a global shard, and process 0
 merges them: the record stream of the single-process sort of the input.
+
+- **speculation** (``hadoopbam.mesh.speculate-factor`` > 0): every process
+  publishes its parts' routes before its writes and a done marker after
+  them; the lowest finished process re-runs a straggler's fetch and
+  writes from the byte plane, and ``os.link`` lets the first copy of a
+  part win (the bytes are a function of the route, so either copy is
+  the same).
+- **the mesh trace** (``mesh_trace``): each process records a trace shard
+  and a host manifest, anchored at one barrier; process 0 collects them
+  and folds a :class:`~..utils.tracing.ClusterManifest`, which
+  ``tools/mesh_report.py`` reduces.
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ import contextlib
 import datetime
 import hmac
 import io
+import json
 import os
 import secrets
 import shutil
@@ -63,8 +76,12 @@ import torch
 
 from .. import faults
 from ..collate import (
+    FIXMATE_FIELDS,
+    Collation,
+    apply_fixmate,
     collate_by_name,
     collation_columns,
+    compute_fixmate_edits,
     concat_collation,
     global_name_ranks,
     group_representatives,
@@ -80,6 +97,7 @@ from ..conf import (
     SHUFFLE_COMPRESS,
     SHUFFLE_FETCH_THREADS,
     SHUFFLE_MEMBER_BYTES,
+    TRACE_EVENTS,
 )
 from ..device_stream import DeviceStream
 from ..io import runs as runs_mod
@@ -90,10 +108,21 @@ from ..io.merger import merge_bam_parts
 from ..ops.flate import DEV_MAX_PAYLOAD
 from ..ops.keys import split_keys_np
 from ..spec import bgzf
+from ..spec.bam import FLAG_PAIRED
 from ..utils import nio
 from ..utils.backend import resolve_device
 from ..utils.hbm import LEDGER
-from ..utils.tracing import TRACER, MetricsRegistry, span, trace_ctx
+from ..utils.tracing import (
+    DEFAULT_TRACE_EVENTS,
+    TRACER,
+    MetricsRegistry,
+    cluster_manifest,
+    delta,
+    run_manifest,
+    snapshot,
+    span,
+    trace_ctx,
+)
 from .mesh import Mesh, ProcessLayout, choose_transport, device_ident, make_mesh, process_of_device
 from .shuffle import DistributedSort
 
@@ -109,11 +138,13 @@ WIRE_ERRORS = (bgzf.BgzfError, zlib.error)
 @dataclass
 class MultihostContext:
     """Process identity and the mesh (this process's shards, with the
-    process layout when the run spans processes)."""
+    process layout when the run spans processes); ``timeout_s`` bounds a
+    wait on a peer (the group's collectives, the speculation's poll)."""
 
     process_id: int
     num_processes: int
     mesh: Mesh
+    timeout_s: float = DEFAULT_TIMEOUT_S
 
     @property
     def local_device_count(self) -> int:
@@ -210,7 +241,7 @@ def initialize(
         key_group = dist.new_group(backend="nccl", timeout=timeout)
     layout = ProcessLayout(process_id, num_processes, key_group=key_group, transport=transport)
     return MultihostContext(process_id, num_processes,
-                            Mesh([dev] * (shards or 1), layout=layout))
+                            Mesh([dev] * (shards or 1), layout=layout), timeout_s)
 
 
 #: The last :func:`sort_bam_multihost` of this process: ``peak_bytes``
@@ -307,24 +338,34 @@ def _resolve_repartition_samples(conf) -> int:
     return v if v > 0 else 4096
 
 
-def _unported_switch(conf, mesh_trace: Optional[bool], mesh_trace_dir: Optional[str]):
-    """The name of an armed switch of speculation or the mesh trace (a
-    parameter, a conf key or an env var), or None."""
-    if _conf_float(conf, MESH_SPECULATE_FACTOR, "HBAM_MESH_SPECULATE_FACTOR", 0.0) > 0:
-        return MESH_SPECULATE_FACTOR
+def _resolve_speculate_factor(conf) -> float:
+    """The straggler trigger: ``hadoopbam.mesh.speculate-factor`` →
+    HBAM_MESH_SPECULATE_FACTOR → 0 (off).  A finished process re-runs a
+    straggler's parts stage once it has run longer than the factor times
+    the median finished stage."""
+    return _conf_float(conf, MESH_SPECULATE_FACTOR, "HBAM_MESH_SPECULATE_FACTOR", 0.0)
+
+
+def _resolve_mesh_trace(conf, mesh_trace: Optional[bool]) -> bool:
+    """The argument → ``hadoopbam.mesh.trace`` → HBAM_MESH_TRACE.  A trace
+    directory alone names a place and arms nothing."""
     if mesh_trace is not None:
-        trace = bool(mesh_trace)
-    elif conf is not None and conf.get(MESH_TRACE) is not None:
-        trace = conf.get_boolean(MESH_TRACE, False)
-    else:
-        trace = os.environ.get("HBAM_MESH_TRACE", "").strip().lower() not in (
-            "", "0", "false", "off", "no")
-    if trace:
-        return MESH_TRACE
-    if mesh_trace_dir or (conf is not None and conf.get(MESH_TRACE_DIR)) or \
-            os.environ.get("HBAM_MESH_TRACE_DIR"):
-        return MESH_TRACE_DIR
-    return None
+        return bool(mesh_trace)
+    if conf is not None and conf.get(MESH_TRACE) is not None:
+        return conf.get_boolean(MESH_TRACE, False)
+    return os.environ.get("HBAM_MESH_TRACE", "").strip().lower() not in (
+        "", "0", "false", "off", "no")
+
+
+def _resolve_mesh_trace_dir(conf, mesh_trace_dir: Optional[str], out_path: str) -> str:
+    """The argument → ``hadoopbam.mesh.trace-dir`` → HBAM_MESH_TRACE_DIR →
+    ``<out_path>.mesh-trace``."""
+    if mesh_trace_dir:
+        return mesh_trace_dir
+    got = conf.get(MESH_TRACE_DIR) if conf is not None else None
+    if got:
+        return got
+    return os.environ.get("HBAM_MESH_TRACE_DIR") or os.path.abspath(out_path) + ".mesh-trace"
 
 
 # ---------------------------------------------------------------------------
@@ -670,17 +711,22 @@ class _ByteFetcher:
     ``fetch_threads``; on the compressed plane each fetch inflates its
     members inside its thread, so one source's inflate overlaps another's
     fetch.  ``errors="salvage"`` quarantines corrupt members; their
-    records are dropped at :meth:`gather`."""
+    records are dropped at :meth:`gather`.
+
+    ``dest_pid`` (speculation) fetches another process's share: redundant
+    bytes, counted ``mh.speculate.fetch_bytes`` and never in the recv
+    matrix, which must keep balancing against what the senders sent."""
 
     def __init__(self, sources: List, ctx: MultihostContext, rows_per_device: int,
                  dstream: DeviceStream, compress: bool = False, fetch_threads: int = 8,
-                 errors: Optional[str] = None):
+                 errors: Optional[str] = None, dest_pid: Optional[int] = None):
         metrics = dstream.metrics
         self.rows = rows_per_device
         self.ctx = ctx
         self.metrics = metrics
         P_ = ctx.num_processes
-        dest = ctx.process_id
+        dest = ctx.process_id if dest_pid is None else dest_pid
+        speculative = dest != ctx.process_id
         #: Per source: the quarantined raw intervals (salvage only).
         self.bad: List[List[Tuple[int, int]]] = [[] for _ in range(P_)]
 
@@ -708,15 +754,19 @@ class _ByteFetcher:
                 offs = np.load(p + ".offs")
                 mtab = np.load(p + _MTAB_SUFFIX) if compress else None
             # The receiver's side of the byte matrix, from what arrived.
-            metrics.count(f"mh.shuffle.recv.{s}", int(len(wire_buf)))
-            TRACER.counter("mh.shuffle.recv", {str(s): float(len(wire_buf))})
+            if speculative:
+                metrics.count("mh.speculate.fetch_bytes", int(len(wire_buf)))
+            else:
+                metrics.count(f"mh.shuffle.recv.{s}", int(len(wire_buf)))
+                TRACER.counter("mh.shuffle.recv", {str(s): float(len(wire_buf))})
             if compress:
                 with span("mh.byte_shuffle.inflate", registry=metrics, category="stage"):
                     raw, bad = _inflate_member_stream(wire_buf, mtab, dstream, errors)
                 self.bad[s] = bad
             else:
                 raw = wire_buf
-            metrics.count(f"mh.shuffle.recv_raw.{s}", int(len(raw)))
+            if not speculative:
+                metrics.count(f"mh.shuffle.recv_raw.{s}", int(len(raw)))
             if len(offs) and int(offs[-1]) != len(raw):
                 raise RuntimeError(f"byte shuffle sidecar desync from process {s}: offs "
                                    f"address {int(offs[-1])} raw bytes, stream carries {len(raw)}")
@@ -1020,8 +1070,9 @@ def _budget_byte_plane(ctx: MultihostContext, td: str, sources: List, n_splits: 
                 perm = None
                 batch = _empty_batch()
             out_counts.append(int(batch.n_records))
-            _promote_part(td, g, lambda f, b=batch, o=perm: write_part_fast(f, b, order=o,
-                                                                            level=level))
+            _promote_part(td, ctx.process_id, g,
+                          lambda f, b=batch, o=perm: write_part_fast(f, b, order=o, level=level),
+                          first_wins=False)
             del batch
     for s in range(P_):
         metrics.count(f"mh.shuffle.recv.{s}", int(recv_bytes[s]))
@@ -1112,11 +1163,349 @@ def _reservoir_splitters(ctx: MultihostContext, keys: np.ndarray, n_reservoir: i
     return split_keys_np(pool[cut]), int(pool.size)
 
 
-def _promote_part(td: str, g_dev: int, write_fn) -> None:
-    """Write part ``g_dev`` through a temporary and rename it into place
-    (the reference's ``first_wins=False`` promotion; the first-wins race of
-    speculation is not ported)."""
-    _atomic_write(os.path.join(td, f"part-r-{g_dev:05d}"), write_fn)
+def _promote_part(td: str, writer_pid: int, g_dev: int, write_fn,
+                  first_wins: bool) -> Tuple[bool, int]:
+    """Write part ``g_dev`` through a temporary and promote it:
+    ``(won, bytes of a losing copy)``.  Without ``first_wins``, a rename
+    into place.  With it, the temporary carries the writer's process id and
+    the promotion is ``os.link``, the filesystem's compare-and-swap: the
+    first copy of the part wins, a later one gets ``FileExistsError``, is
+    unlinked and is reported with its size (the speculation's waste).  The
+    parts directory must be one filesystem."""
+    final = os.path.join(td, f"part-r-{g_dev:05d}")
+    if not first_wins:
+        _atomic_write(final, write_fn)
+        return True, 0
+    tmp = os.path.join(td, f"_tmp-h{writer_pid:03d}.part-r-{g_dev:05d}")
+    with open(tmp, "wb") as f:
+        write_fn(f)
+    size = int(os.path.getsize(tmp))
+    try:
+        os.link(tmp, final)
+        won = True
+    except FileExistsError:
+        won = False
+    os.unlink(tmp)
+    return won, size
+
+
+# ---------------------------------------------------------------------------
+# Speculative re-execution of a straggler's parts stage.  Route sidecars
+# (which source rows feed each part) and done markers (each process's stage
+# duration) live in the parts directory, which every process and the merge
+# reach.
+# ---------------------------------------------------------------------------
+
+
+def _route_sidecar(td: str, g_dev: int) -> str:
+    return os.path.join(td, f"_route-d{g_dev:05d}.npy")
+
+
+def _write_route_sidecar(td: str, g_dev: int, sd: np.ndarray, sr: np.ndarray) -> None:
+    _atomic_write(_route_sidecar(td, g_dev),
+                  lambda f: np.save(f, np.stack([sd.astype(np.int64), sr.astype(np.int64)])))
+
+
+def _done_marker(td: str, pid: int) -> str:
+    return os.path.join(td, f"_done-h{pid:03d}.json")
+
+
+def _write_done_marker(td: str, pid: int, dur_s: float) -> None:
+    _atomic_write(_done_marker(td, pid),
+                  lambda f: f.write(json.dumps({"pid": pid, "dur_s": dur_s}).encode()))
+
+
+def _try_read_json(path: str) -> Optional[dict]:
+    """A poll loop's read: a marker that is absent, torn or mid-rename
+    reads as None."""
+    try:
+        with open(path, "rb") as f:
+            return json.loads(f.read().decode())
+    except (OSError, ValueError):
+        return None
+
+
+def _gather_part(fetcher: "_ByteFetcher", sd: np.ndarray, sr: np.ndarray) -> RecordBatch:
+    """The records of one part, in its route's order, as a batch for the
+    part writer (which uses no keys)."""
+    data, rec_off, rec_len = fetcher.gather(sd, sr)
+    return RecordBatch(soa={"rec_off": rec_off, "rec_len": rec_len}, data=data,
+                       keys=np.zeros(len(rec_off), dtype=np.int64))
+
+
+def _speculate_stage(ctx: MultihostContext, td: str, sources: List, rows: int,
+                     dstream: DeviceStream, compress: bool, fetch_threads: int,
+                     errors: Optional[str], target: int, level: int) -> dict:
+    """Re-run process ``target``'s fetch and part writes from the byte
+    plane: every sender wrote its runs for ``target`` before the
+    ``byte_shuffle_written`` barrier, and ``target`` published its routes
+    before its writes.  The copy fetches with ``dest_pid=target`` (inflated
+    through the job's stream: row 1 on the card) and races the original
+    through :func:`_promote_part`.  A route not yet published is skipped."""
+    metrics = dstream.metrics
+    L = ctx.local_device_count
+    plan = faults.ACTIVE
+    with span("mh.speculate", registry=metrics, category="stage"):
+        metrics.count("mh.speculate.launched", 1)
+        fetcher = _ByteFetcher(sources, ctx, rows, dstream, compress=compress,
+                               fetch_threads=fetch_threads, errors=errors, dest_pid=target)
+        won_parts = wasted = 0
+        for g_dev in range(target * L, (target + 1) * L):
+            try:
+                route = np.load(_route_sidecar(td, g_dev))
+            except (OSError, ValueError):
+                continue
+            batch = _gather_part(fetcher, route[0], route[1])
+            if plan is not None:
+                plan.mh_speculate_lose(metrics)
+            won, size = _promote_part(
+                td, ctx.process_id, g_dev,
+                lambda f, b=batch: write_part_fast(f, b, order=None, level=level),
+                first_wins=True)
+            if won:
+                won_parts += 1
+                metrics.count("mh.speculate.won", 1)
+            else:
+                wasted += size
+                metrics.count("mh.speculate.wasted_bytes", size)
+    return {"launched": 1, "target": target, "won_parts": won_parts, "wasted_bytes": wasted}
+
+
+#: The poll loop's period, seconds.
+SPECULATE_POLL_S = 0.05
+
+
+def _maybe_speculate(ctx: MultihostContext, td: str, sources: List, rows: int,
+                     dstream: DeviceStream, compress: bool, fetch_threads: int,
+                     errors: Optional[str], factor: float, my_dur: float, level: int) -> dict:
+    """The loop every process runs after its own parts: read the done
+    markers; once the stage has run longer than ``factor`` times the
+    median finished duration, the lowest finished process (one speculator)
+    re-runs the first missing process's stage.  Returns when every marker
+    is present: the wait the ``parts_written`` barrier imposes anyway.  A
+    marker still missing after ``ctx.timeout_s`` (a dead peer) raises
+    ``TimeoutError``, as a collective would."""
+    P_ = ctx.num_processes
+    t0 = time.perf_counter()
+    info: dict = {}
+    speculated: set = set()
+    while True:
+        done = {}
+        for p in range(P_):
+            blob = _try_read_json(_done_marker(td, p))
+            if blob is not None:
+                done[p] = float(blob.get("dur_s", 0.0))
+        missing = [p for p in range(P_) if p not in done]
+        if not missing:
+            return info
+        if time.perf_counter() - t0 > ctx.timeout_s:
+            raise TimeoutError(f"speculation: no done marker from processes {missing} after "
+                               f"{ctx.timeout_s} s")
+        cand = [p for p in missing if p not in speculated]
+        if cand and min(done) == ctx.process_id:
+            durs = sorted(done.values())
+            med = max(durs[len(durs) // 2], 1e-3)
+            if my_dur + (time.perf_counter() - t0) > factor * med:
+                speculated.add(cand[0])
+                got = _speculate_stage(ctx, td, sources, rows, dstream, compress,
+                                       fetch_threads, errors, cand[0], level)
+                info = {k: v if k == "target" else info.get(k, 0) + v for k, v in got.items()}
+        time.sleep(SPECULATE_POLL_S)
+
+
+# ---------------------------------------------------------------------------
+# The mesh trace: a trace shard and a host manifest a process, folded by
+# process 0 into the cluster manifest.
+# ---------------------------------------------------------------------------
+
+#: This process's host manifest of the last mesh-traced run ({} until one
+#: completes): the run manifest, its rows of the byte and key matrices,
+#: the barrier waits.
+LAST_MANIFEST: dict = {}
+
+#: Process 0 only: the folded cluster manifest of the last mesh-traced run
+#: ({} elsewhere); the CLI's ``--metrics`` report carries it.
+LAST_CLUSTER_MANIFEST: dict = {}
+
+
+def _shard_name(pid: int) -> str:
+    return f"trace-h{pid:03d}.json"
+
+
+def _manifest_name(pid: int) -> str:
+    return f"manifest-h{pid:03d}.json"
+
+
+def _read_from_source(source, name: str, metrics: Optional[MetricsRegistry] = None) -> bytes:
+    """One flat file of a byte-plane source: a directory, or an ``(url,
+    token)`` endpoint read as the ``shufbytes-*`` runs are."""
+    if isinstance(source, tuple):
+        url, token = source
+        f = HttpFilesystem(headers={"X-Hbam-Token": token}, retry_metric="mh.http.fetch_retries")
+        return f.read_all(f"{url.rstrip('/')}/{name}", metrics=metrics)
+    with open(os.path.join(source, name), "rb") as fh:
+        return fh.read()
+
+
+class _MeshObservability:
+    """The mesh trace of one :func:`sort_bam_multihost` call.
+
+    Armed, every process arms the process-wide :data:`TRACER` unless it is
+    armed already, stamps its clock right after a ``trace_sync`` barrier
+    (the anchors, gathered over the control group, go into each shard's
+    ``otherData.mesh`` so that ``tools/mesh_report.py`` can put every shard
+    on one timeline), and after its parts exports ``trace-h<pid>.json`` and
+    ``manifest-h<pid>.json`` into its byte-plane directory.  Process 0
+    fetches every peer's through the byte plane's sources into
+    ``trace_dir`` and, after the merge, folds the manifests into
+    ``cluster_manifest.json`` and :data:`LAST_CLUSTER_MANIFEST`.  The
+    manifests read the job's registry (``metrics``): its counters, spans
+    and ``mh.barrier.*`` waits since :meth:`arm`.
+
+    Disarmed, every method returns at once: no barrier, no export, no
+    trace event, the same bytes."""
+
+    def __init__(self, ctx: MultihostContext, enabled: bool, trace_dir: str, byte_plane: str,
+                 conf, budget: bool, compressed: bool, fetch_threads: int,
+                 metrics: MetricsRegistry, device: torch.device):
+        self.ctx = ctx
+        self.enabled = enabled
+        self.trace_dir = trace_dir
+        self.byte_plane = byte_plane
+        self.conf = conf
+        self.budget = budget
+        self.compressed = compressed
+        self.fetch_threads = fetch_threads
+        self.metrics = metrics
+        self.device = device
+        self._started = False
+        self.anchor_us = 0.0
+        self.anchors: List[float] = []
+        self._peer_manifests: dict = {}
+        self._mesh_meta: dict = {}
+        self._before: Optional[dict] = None
+        #: The skew healing's blocks, set by the sort before :meth:`publish`.
+        self.repartition: dict = {}
+        self.speculation: dict = {}
+
+    def arm(self) -> None:
+        if not self.enabled:
+            return
+        self._before = snapshot(self.metrics)
+        if not TRACER.armed:
+            cap = (self.conf.get_int(TRACE_EVENTS, DEFAULT_TRACE_EVENTS) if self.conf is not None
+                   else DEFAULT_TRACE_EVENTS)
+            TRACER.start(capacity=cap)
+            self._started = True
+        # Every process leaves this barrier at about one instant: shifting
+        # each shard so that the anchors meet aligns the timelines.
+        self.ctx.barrier("trace_sync", self.metrics)
+        self.anchor_us = float(TRACER.now_us())
+        gathered = self.ctx.allgather_array(np.array([self.anchor_us], np.float64))
+        self.anchors = [float(a) for a in gathered.reshape(-1)]
+
+    def stage_barrier(self, name: str) -> None:
+        """A barrier that measures a stage's skew at a named point (armed
+        only)."""
+        if self.enabled:
+            self.ctx.barrier(name, self.metrics)
+
+    def host_manifest(self, peak_bytes: int, n_local: int, out_counts: List[int],
+                      skew_ratio: float) -> dict:
+        d = delta(self._before, registry=self.metrics)
+        counters = d["counters"]
+        spans = d["span_seconds"]
+
+        def edges(prefix: str) -> dict:
+            return {k[len(prefix):]: int(v) for k, v in counters.items() if k.startswith(prefix)}
+
+        return {
+            "host": self.ctx.process_id,
+            "num_processes": self.ctx.num_processes,
+            "byte_plane": self.byte_plane,
+            "memory_budget": self.budget,
+            "peak_bytes": int(peak_bytes),
+            "records_local": int(n_local),
+            "records_out": [int(c) for c in out_counts],
+            "skew_ratio": float(skew_ratio),
+            "shuffle_compressed": self.compressed,
+            "fetch_threads": int(self.fetch_threads),
+            "shuffle_sent_bytes": edges("mh.shuffle.sent."),
+            "shuffle_recv_bytes": edges("mh.shuffle.recv."),
+            "shuffle_sent_raw_bytes": edges("mh.shuffle.sent_raw."),
+            "shuffle_recv_raw_bytes": edges("mh.shuffle.recv_raw."),
+            "keys_sent_bytes": edges("mh.keys.sent."),
+            "keys_recv_bytes": edges("mh.keys.recv."),
+            "barrier_wait_ms": {k[len("mh.barrier."):]: round(v * 1e3, 3)
+                                for k, v in spans.items() if k.startswith("mh.barrier.")},
+            "http": {k[len("mh.http."):]: int(v) for k, v in counters.items()
+                     if k.startswith("mh.http.")},
+            "anchor_us": self.anchor_us,
+            "repartition": dict(self.repartition),
+            "speculation": dict(self.speculation),
+            "run_manifest": run_manifest(backend="multihost", conf=self.conf, counters=counters,
+                                         device=self.device).as_dict(),
+        }
+
+    def publish(self, serve_dir: str, sources: List, peak_bytes: int, n_local: int,
+                out_counts: List[int], skew_ratio: float) -> None:
+        """Export this process's shard and manifest into ``serve_dir``;
+        process 0 then collects every peer's into ``trace_dir``.  Runs
+        before the byte-plane directories are removed."""
+        if not self.enabled:
+            return
+        global LAST_MANIFEST
+        pid = self.ctx.process_id
+        self._mesh_meta = {"mesh": {"host": pid, "num_hosts": self.ctx.num_processes,
+                                    "anchor_us": self.anchor_us, "anchors_us": self.anchors,
+                                    "byte_plane": self.byte_plane}}
+        LAST_MANIFEST = self.host_manifest(peak_bytes, n_local, out_counts, skew_ratio)
+        TRACER.export_chrome(os.path.join(serve_dir, _shard_name(pid)), other=self._mesh_meta)
+        with open(os.path.join(serve_dir, _manifest_name(pid)), "w") as f:
+            json.dump(LAST_MANIFEST, f)
+        self.ctx.barrier("trace_published", self.metrics)
+        if pid == 0:
+            os.makedirs(self.trace_dir, exist_ok=True)
+            for s in range(1, self.ctx.num_processes):
+                for name in (_shard_name(s), _manifest_name(s)):
+                    blob = _read_from_source(sources[s], name, self.metrics)
+                    with open(os.path.join(self.trace_dir, name), "wb") as f:
+                        f.write(blob)
+                self._peer_manifests[s] = json.loads(blob.decode())  # the manifest, read last
+        # The peers keep their directories until process 0 has their files.
+        self.ctx.barrier("trace_collected", self.metrics)
+
+    def finalize(self, peak_bytes: int, n_local: int, out_counts: List[int],
+                 skew_ratio: float) -> None:
+        """After the merge: process 0 exports its own shard again (now with
+        ``mh.merge``) into ``trace_dir`` and folds the cluster manifest;
+        every process stops the tracer that it started."""
+        if not self.enabled:
+            return
+        global LAST_MANIFEST, LAST_CLUSTER_MANIFEST
+        try:
+            if self.ctx.process_id == 0:
+                os.makedirs(self.trace_dir, exist_ok=True)
+                own = self.host_manifest(peak_bytes, n_local, out_counts, skew_ratio)
+                LAST_MANIFEST = own
+                TRACER.export_chrome(os.path.join(self.trace_dir, _shard_name(0)),
+                                     other=self._mesh_meta)
+                with open(os.path.join(self.trace_dir, _manifest_name(0)), "w") as f:
+                    json.dump(own, f)
+                manifests = [own] + [self._peer_manifests[s] for s in sorted(self._peer_manifests)]
+                LAST_CLUSTER_MANIFEST = cluster_manifest(manifests,
+                                                         byte_plane=self.byte_plane).as_dict()
+                with open(os.path.join(self.trace_dir, "cluster_manifest.json"), "w") as f:
+                    json.dump(LAST_CLUSTER_MANIFEST, f, indent=2, sort_keys=True)
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        """Stop the tracer if this plane started it (once; also the
+        failure path's callback)."""
+        if self._started:
+            self._started = False
+            TRACER.stop()
 
 
 # ---------------------------------------------------------------------------
@@ -1191,24 +1580,32 @@ def sort_bam_multihost(
     (``mh.repartition.*``); a bucket overflow then retries once at the
     measured capacity (``mh.shuffle.capacity_retry``).  ``mh.*`` counters
     and gauges go to ``metrics`` (a fresh registry by default).
-    Speculation (``hadoopbam.mesh.speculate-factor``) and the mesh trace
-    (``mesh_trace``, ``mesh_trace_dir``, ``hadoopbam.mesh.trace[-dir]``)
-    raise ``NotImplementedError`` (ROADMAP A.10c)."""
-    armed = _unported_switch(conf, mesh_trace, mesh_trace_dir)
-    if armed is not None:
-        raise NotImplementedError(f"{armed} of the multi-process sort is not ported "
-                                  "(ROADMAP A.10c)")
+
+    ``hadoopbam.mesh.speculate-factor`` (HBAM_MESH_SPECULATE_FACTOR; 0,
+    off, by default) arms speculation in core: once a process's parts
+    stage has run longer than the factor times the median finished one,
+    the lowest finished process re-runs it from the byte plane and the
+    first copy of each part wins (``mh.speculate.launched``, ``.won``,
+    ``.wasted_bytes``, ``.fetch_bytes``).
+
+    ``mesh_trace`` (default ``hadoopbam.mesh.trace``, then HBAM_MESH_TRACE;
+    off) arms the mesh trace: a trace shard and a host manifest a process,
+    collected by process 0 into ``mesh_trace_dir`` (default
+    ``hadoopbam.mesh.trace-dir``, HBAM_MESH_TRACE_DIR, else
+    ``<out_path>.mesh-trace``) with ``cluster_manifest.json``; reduce it
+    with ``tools/mesh_report.py``.  A directory alone arms nothing."""
     with contextlib.ExitStack() as stack:
         return _sort_bam_multihost_impl(
             in_paths, out_path, ctx, conf, split_size, level, samples_per_device,
-            memory_budget, byte_plane, stack, errors, sort_order, device,
-            metrics if metrics is not None else MetricsRegistry())
+            memory_budget, byte_plane, stack, mesh_trace, mesh_trace_dir, errors, sort_order,
+            device, metrics if metrics is not None else MetricsRegistry())
 
 
 def _sort_bam_multihost_impl(in_paths, out_path: str, ctx: Optional[MultihostContext], conf,
                              split_size: int, level: int, samples_per_device: int,
                              memory_budget: Optional[int], byte_plane: str,
-                             stack: contextlib.ExitStack, errors: Optional[str],
+                             stack: contextlib.ExitStack, mesh_trace: Optional[bool],
+                             mesh_trace_dir: Optional[str], errors: Optional[str],
                              sort_order: str, device, metrics: MetricsRegistry) -> int:
     if isinstance(in_paths, str):
         in_paths = [in_paths]
@@ -1231,6 +1628,7 @@ def _sort_bam_multihost_impl(in_paths, out_path: str, ctx: Optional[MultihostCon
     member_bytes = _resolve_member_bytes(conf)
     fetch_threads = _resolve_fetch_threads(conf)
     skew_bound = _resolve_skew_bound(conf)
+    spec_factor = _resolve_speculate_factor(conf)
     n_reservoir = _resolve_repartition_samples(conf)
     # The wire's codec seams resolve once, here: every deflate and inflate
     # of the shuffle rides this stream.
@@ -1238,6 +1636,12 @@ def _sort_bam_multihost_impl(in_paths, out_path: str, ctx: Optional[MultihostCon
     if ctx.mesh.layout is not None:
         ctx.mesh.layout.metrics = metrics  # the key plane's staged bytes
         stack.callback(setattr, ctx.mesh.layout, "metrics", None)
+    obs = _MeshObservability(ctx, _resolve_mesh_trace(conf, mesh_trace),
+                             _resolve_mesh_trace_dir(conf, mesh_trace_dir, out_path), byte_plane,
+                             conf, memory_budget is not None, compress, fetch_threads, metrics,
+                             dev)
+    obs.arm()
+    stack.callback(obs.close)
     if memory_budget is not None:
         # A split inflates as one batch: well under the budget.
         split_size = max(64 << 10, min(split_size, memory_budget // 16))
@@ -1313,6 +1717,10 @@ def _sort_bam_multihost_impl(in_paths, out_path: str, ctx: Optional[MultihostCon
                 own_counts.append(b.n_records)
                 del b
         n_local = int(sum(own_counts))
+    # Armed, the processes align here, so that the read's skew is measured
+    # at a named barrier and not blamed on whoever is late to the next
+    # collective.
+    obs.stage_barrier("read_done")
 
     # Global record ordinals: every process derives the same exclusive
     # scan over the splits in plan order from the gathered counts; they
@@ -1385,8 +1793,9 @@ def _sort_bam_multihost_impl(in_paths, out_path: str, ctx: Optional[MultihostCon
     dev_of_slot = np.arange(L * rows, dtype=np.int64) // rows
     cap = None
     splitters = None
-    repartitioned = measured_after = False
+    repartitioned = False
     cap_resolved = False
+    repart_info: dict = {}
     with span("mh.key_shuffle", registry=metrics, category="stage"):
         while True:
             ds = DistributedSort(ctx.mesh, rows_per_device=rows, capacity_per_pair=cap,
@@ -1406,8 +1815,8 @@ def _sort_bam_multihost_impl(in_paths, out_path: str, ctx: Optional[MultihostCon
             need = int(all_stats[:, D].max())
             mean = float(per_dev.mean())
             ratio = float(per_dev.max()) / mean if mean > 0 else 0.0
-            if repartitioned and not measured_after:
-                measured_after = True
+            if repartitioned and "ratio_after" not in repart_info:
+                repart_info["ratio_after"] = ratio
                 metrics.set_gauge("mh.repartition.ratio_after", ratio)
             skewed = skew_bound > 0 and ratio > skew_bound
             if overflow == 0 and (not skewed or repartitioned):
@@ -1418,6 +1827,7 @@ def _sort_bam_multihost_impl(in_paths, out_path: str, ctx: Optional[MultihostCon
                 # would only make room for).
                 repartitioned = True
                 splitters, n_pool = _reservoir_splitters(ctx, keys_local, n_reservoir, D, rng)
+                repart_info.update(triggered=1, sample_keys=n_pool, ratio_before=ratio)
                 metrics.count("mh.repartition.triggered", 1)
                 metrics.count("mh.repartition.sample_keys", n_pool)
                 metrics.set_gauge("mh.repartition.ratio_before", ratio)
@@ -1432,6 +1842,7 @@ def _sort_bam_multihost_impl(in_paths, out_path: str, ctx: Optional[MultihostCon
                 raise RuntimeError("shuffle overflow persists after repartition and the "
                                    "measured-capacity retry")
             break  # skewed, but the repartition is disabled
+    obs.repartition = repart_info
     metrics.count("mh.records", n_total)
 
     # The byte plane labels global rows pid*L*rows + slot, right only when
@@ -1478,28 +1889,57 @@ def _sort_bam_multihost_impl(in_paths, out_path: str, ctx: Optional[MultihostCon
         del local, dest_of_record, row_of_record
         ctx.barrier("byte_shuffle_written", metrics)
 
+        # Armed, this stage can be re-run: the routes published below are
+        # what a finished peer needs to redo a straggler's gather.
+        speculate = spec_factor > 0.0
         out_counts: List[int] = []
+        spec_info: dict = {}
+        t_parts0 = time.perf_counter()
         with span("mh.byte_shuffle.fetch", registry=metrics, category="stage"):
             v_sh = res.valid.cpu().numpy().reshape(L, -1)
             sd_sh = res.src_dev.cpu().numpy().reshape(L, -1)
             sr_sh = res.src_row.cpu().numpy().reshape(L, -1)
+            first = ctx.mesh.first_shard
+            if speculate:
+                for k in range(L):
+                    v = v_sh[k]
+                    _write_route_sidecar(td, first + k, sd_sh[k][v], sr_sh[k][v])
             fetcher = _ByteFetcher(sources, ctx, rows, dstream, compress=compress,
                                    fetch_threads=fetch_threads, errors=errors)
             for k in range(L):
-                g_dev = ctx.mesh.first_shard + k
                 # The parts stage's seam, offset by 1000 from the read's.
                 if plan is not None:
                     plan.exec_attempt(ctx.process_id, 1000 + k, torn, metrics)
                 v = v_sh[k]
-                data, rec_off, rec_len = fetcher.gather(sd_sh[k][v], sr_sh[k][v])
                 # Fewer records than routed only under salvage.
-                batch = RecordBatch(soa={"rec_off": rec_off, "rec_len": rec_len}, data=data,
-                                    keys=np.zeros(len(rec_off), dtype=np.int64))
-                out_counts.append(int(len(rec_off)))
-                _promote_part(td, g_dev, lambda f, b=batch: write_part_fast(f, b, order=None,
-                                                                            level=level))
+                batch = _gather_part(fetcher, sd_sh[k][v], sr_sh[k][v])
+                out_counts.append(batch.n_records)
+                won, size = _promote_part(
+                    td, ctx.process_id, first + k,
+                    lambda f, b=batch: write_part_fast(f, b, order=None, level=level),
+                    first_wins=speculate)
+                if not won:
+                    # A speculative copy linked first: the part on disk has
+                    # the same bytes, and this copy is the waste.
+                    spec_info["lost_parts"] = spec_info.get("lost_parts", 0) + 1
+                    spec_info["wasted_bytes"] = spec_info.get("wasted_bytes", 0) + size
+                    metrics.count("mh.speculate.wasted_bytes", size)
             del fetcher
+        if speculate:
+            my_dur = time.perf_counter() - t_parts0
+            _write_done_marker(td, ctx.process_id, my_dur)
+            # The poll is a barrier over the done markers: timed as one, so
+            # that the mesh trace blames its wait on the straggler.
+            t_poll = time.perf_counter()
+            with span("mh.barrier.parts_done", registry=metrics, category="stage"):
+                got = _maybe_speculate(ctx, td, sources, rows, dstream, compress, fetch_threads,
+                                       errors, spec_factor, my_dur, level)
+            metrics.observe("mh.barrier.parts_done", (time.perf_counter() - t_poll) * 1e3)
+            for key, val in got.items():
+                spec_info[key] = val if key == "target" else spec_info.get(key, 0) + val
+        obs.speculation = spec_info
         ctx.barrier("parts_written", metrics)
+        serve_dir = write_dir
         cleanup_dir = write_dir if byte_plane == "http" else None
     else:
         if byte_plane == "http":
@@ -1509,6 +1949,7 @@ def _sort_bam_multihost_impl(in_paths, out_path: str, ctx: Optional[MultihostCon
         peak_bytes, out_counts = _budget_byte_plane(
             ctx, td, sources, len(splits), own_counts, dest_of_record, level, D, peak_bytes,
             dstream, compress=compress)
+        serve_dir = spill_dir
         cleanup_dir = spill_dir if byte_plane == "http" else None
 
     # The partition skew: output records a shard, gathered so that every
@@ -1517,9 +1958,13 @@ def _sort_bam_multihost_impl(in_paths, out_path: str, ctx: Optional[MultihostCon
     oc[: len(out_counts)] = out_counts
     all_oc = ctx.allgather_array(oc).reshape(-1)
     mean_oc = float(all_oc.mean()) if all_oc.size else 0.0
-    metrics.set_gauge("mh.skew_ratio", float(all_oc.max()) / mean_oc if mean_oc > 0 else 0.0)
+    skew_ratio = float(all_oc.max()) / mean_oc if mean_oc > 0 else 0.0
+    metrics.set_gauge("mh.skew_ratio", skew_ratio)
     metrics.set_gauge("mh.peak_bytes", float(peak_bytes))
     LAST_STATS["peak_bytes"] = peak_bytes
+    # The trace's files leave through the byte plane, before its
+    # directories go.
+    obs.publish(serve_dir, sources, peak_bytes, n_local, out_counts, skew_ratio)
     if cleanup_dir is not None:
         # Every process has its share: the outgoing directory goes now
         # (the stack's callback stays the failure path's).
@@ -1530,5 +1975,211 @@ def _sort_bam_multihost_impl(in_paths, out_path: str, ctx: Optional[MultihostCon
             nio.write_success(td)
             merge_bam_parts(td, out_path, header)
             shutil.rmtree(td, ignore_errors=True)
+    obs.finalize(peak_bytes, n_local, out_counts, skew_ratio)
     ctx.barrier("merged", metrics)
     return n_total
+
+
+# ---------------------------------------------------------------------------
+# Fixmate across processes.
+# ---------------------------------------------------------------------------
+
+
+def fixmate_bam_multihost(
+    in_paths: Union[Sequence[str], str],
+    out_path: str,
+    ctx: Optional[MultihostContext] = None,
+    conf=None,
+    split_size: int = 32 << 20,
+    level: int = 6,
+    errors: Optional[str] = None,
+    device: Optional[Union[str, torch.device]] = None,
+    metrics: Optional[MetricsRegistry] = None,
+):
+    """Fixmate across every process of ``ctx`` (default :func:`initialize`
+    on ``device``): the record stream of the single-process
+    ``pipeline.fixmate_bam`` of the input, written by process 0.
+
+    Fixmate keeps the record order, so no record crosses the processes;
+    the pairing decision does:
+
+    1. each process reads its round-robin splits on the host and collates
+       the names on ``device`` (None: the first shard of ``ctx``'s mesh),
+       verified against the name bytes;
+    2. the distributed rank pass gives every record its name's global rank;
+    3. the candidates a rank are gathered: a local pair survives only when
+       its name has exactly two candidates in all, and a rank with one
+       candidate here and two in all is a half-open pair, whose
+       mate-facing columns (flag, refid, pos, span, the CIGAR ops) are
+       gathered over the control group, never whole records;
+    4. each process appends the remote mates as virtual rows, runs the
+       edit pass over the extended columns and applies it to its own rows;
+    5. one part a split, on the host; process 0 merges them under the
+       input's header.
+
+    Returns a ``pipeline.FixmateStats`` of mesh-wide counts (the same in
+    every process; a pair across processes is counted by the process that
+    owns its lower ordinal), backend ``collate-fixmate[mesh]``.  Counts
+    ``mh.fixmate.records``, ``.half_open`` and ``.virtual_mates`` into
+    ``metrics`` (a fresh registry by default)."""
+    from ..pipeline import FixmateStats
+
+    if isinstance(in_paths, str):
+        in_paths = [in_paths]
+    if ctx is None:
+        ctx = initialize(device=device)
+    dev = resolve_device(device) if device is not None else ctx.mesh[0]
+    metrics = metrics if metrics is not None else MetricsRegistry()
+    if errors is None and conf is not None:
+        errors = conf.get(ERRORS_MODE)
+    fmt = BamInputFormat(conf, metrics)
+    header = read_header(in_paths[0], metrics)  # fixmate changes no order
+    with span("mh.plan", registry=metrics, category="stage"):
+        splits = fmt.get_splits(in_paths, split_size=split_size)
+    mine = ctx.owned(splits)
+    P_ = ctx.num_processes
+    plan = faults.ACTIVE
+    out_dir_pre = os.path.dirname(os.path.abspath(out_path)) or "."
+    torn = os.path.join(out_dir_pre, f"_mh_torn_{ctx.process_id:03d}.tmp")
+
+    batches: List[RecordBatch] = []
+    cols_parts: List[dict] = []
+    with span("mh.read", registry=metrics, category="stage"):
+        for j, s in enumerate(mine):
+            if plan is not None:
+                plan.exec_attempt(ctx.process_id, j, torn, metrics)
+            with trace_ctx(split=ctx.process_id + j * P_):
+                b = fmt.read_split(s, fields=FIXMATE_FIELDS, with_keys=False, errors=errors)
+            cols_parts.append(collation_columns(b.data, b.soa, with_cigars=True))
+            batches.append(b)
+    own_counts = [b.n_records for b in batches]
+    row_bases = np.concatenate([[0], np.cumsum(own_counts)]).astype(np.int64)
+    n = int(row_bases[-1])
+
+    # Global ordinals (the sort's padded gather): they decide which process
+    # counts a pair that straddles two.
+    max_owned = max(1, -(-len(splits) // P_))
+    cm = np.zeros(max_owned, dtype=np.int64)
+    cm[: len(own_counts)] = own_counts
+    M = ctx.allgather_array(cm)
+    counts_by_split = np.zeros(max(1, len(splits)), dtype=np.int64)
+    for k in range(len(splits)):
+        counts_by_split[k] = M[k % P_][k // P_]
+    split_base = np.concatenate([[0], np.cumsum(counts_by_split)]).astype(np.int64)
+    n_total = int(split_base[len(splits)])
+    org_local = (np.concatenate([split_base[ctx.process_id + j * P_] + np.arange(c)
+                                 for j, c in enumerate(own_counts)]).astype(np.int64)
+                 if own_counts else np.empty(0, np.int64))
+    metrics.count("mh.fixmate.records", n_total)
+
+    with span("mh.rank", registry=metrics, category="stage"):
+        cols = concat_collation(cols_parts)
+        cols_parts = []
+        col = collate_by_name(cols, device=dev, metrics=metrics)
+        col, _ = verify_and_repair(col, cols, metrics)
+        rk, n_names = _global_name_rank_pass(ctx, cols, col, metrics)
+
+    with span("mh.fixmate.pair", registry=metrics, category="stage"):
+        cand_mask = cols["cand"] != 0
+        local_cand = np.bincount(rk[cand_mask], minlength=max(1, n_names)).astype(np.int64)
+        global_cand = ctx.allgather_array(local_cand).sum(axis=0)
+        # A third candidate on another process breaks a local pair, as a
+        # third local one would.
+        mate_loc = col.mate.astype(np.int64).copy()
+        lp = np.flatnonzero(mate_loc >= 0)
+        if len(lp):
+            mate_loc[lp[global_cand[rk[lp]] != 2]] = -1
+        half_rows = np.flatnonzero(cand_mask & (local_cand[rk] == 1) & (global_cand[rk] == 2))
+        n_half = len(half_rows)
+        metrics.count("mh.fixmate.half_open", n_half)
+        tab = np.zeros((n_half, 7), np.int64)
+        if n_half:
+            tab[:, 0] = rk[half_rows]
+            tab[:, 1] = org_local[half_rows]
+            for c, name in enumerate(("flag", "refid", "pos", "span", "n_cig"), start=2):
+                tab[:, c] = cols[name][half_rows]
+        chunks = [cols["cigs"][int(cols["cig_off"][r]) : int(cols["cig_off"][r])
+                               + 4 * int(cols["n_cig"][r])] for r in half_rows]
+        blob = np.concatenate(chunks) if chunks else np.empty(0, np.uint8)
+        sizes = ctx.allgather_array(np.array([n_half, len(blob)], np.int64))
+        tab_pad = np.zeros((max(1, int(sizes[:, 0].max())), 7), np.int64)
+        tab_pad[:n_half] = tab
+        blob_pad = np.zeros(max(1, int(sizes[:, 1].max())), np.uint8)
+        blob_pad[: len(blob)] = blob
+        all_tab = ctx.allgather_array(tab_pad)
+        all_blob = ctx.allgather_array(blob_pad)
+
+        # Virtual rows: each remote half-open candidate whose rank is one of
+        # ours (two candidates in all: exactly one match).
+        rank_to_row = {int(rk[r]): int(r) for r in half_rows}
+        v_local: List[int] = []
+        v_tab: List[np.ndarray] = []
+        v_cig: List[np.ndarray] = []
+        straddle_owned = 0
+        for p in range(P_):
+            if p == ctx.process_id:
+                continue
+            tp = all_tab[p][: int(sizes[p, 0])]
+            offs = np.concatenate([[0], np.cumsum(4 * tp[:, 6])]).astype(np.int64)
+            for i in range(len(tp)):
+                r = rank_to_row.get(int(tp[i, 0]))
+                if r is None:
+                    continue
+                v_local.append(r)
+                v_tab.append(tp[i])
+                v_cig.append(all_blob[p][int(offs[i]) : int(offs[i + 1])])
+                if int(org_local[r]) < int(tp[i, 1]):
+                    straddle_owned += 1
+        n_virt = len(v_local)
+        metrics.count("mh.fixmate.virtual_mates", n_virt)
+        vt = np.stack(v_tab) if n_virt else np.zeros((0, 7), np.int64)
+        v_cig_off = (np.concatenate([[0], np.cumsum(4 * vt[:, 6])[:-1]]) if n_virt
+                     else np.empty(0, np.int64)).astype(np.int64) + len(cols["cigs"])
+        cols_ext = {
+            "flag": np.concatenate([cols["flag"], vt[:, 2]]).astype(cols["flag"].dtype),
+            "refid": np.concatenate([cols["refid"], vt[:, 3]]).astype(np.int32),
+            "pos": np.concatenate([cols["pos"], vt[:, 4]]).astype(np.int32),
+            "span": np.concatenate([cols["span"], vt[:, 5]]).astype(np.int32),
+            "cand": np.concatenate([cols["cand"], np.ones(n_virt, cols["cand"].dtype)]),
+            "n_cig": np.concatenate([cols["n_cig"], vt[:, 6]]).astype(np.int32),
+            "cig_off": np.concatenate([cols["cig_off"], v_cig_off]).astype(np.int64),
+            "cigs": np.concatenate([cols["cigs"]] + v_cig),
+        }
+        mate_ext = np.concatenate([mate_loc, np.full(n_virt, -1, np.int64)]).astype(np.int32)
+        for k, r in enumerate(v_local):
+            mate_ext[r] = n + k
+            mate_ext[n + k] = r
+        n_ext = n + n_virt
+        col_ext = Collation(order=np.arange(n_ext, dtype=np.int64),
+                            group=np.zeros(n_ext, np.int32), n_groups=0, mate=mate_ext,
+                            n_pairs=int((mate_ext >= 0).sum()) // 2)
+
+    with span("mh.fixmate.edits", registry=metrics, category="stage"):
+        edits = compute_fixmate_edits(cols_ext, col_ext, metrics)
+
+    # Singletons and orphans are facts of a process's own rows.
+    own_pairs = int((mate_loc >= 0).sum()) // 2 + straddle_owned
+    singles = int(((cols["flag"] & FLAG_PAIRED) == 0).sum())
+    orphans = int((cand_mask & (mate_ext[:n] < 0)).sum())
+    totals = ctx.allgather_array(np.array([own_pairs, singles, orphans], np.int64)).sum(axis=0)
+
+    td = os.path.join(out_dir_pre, f"_mh_{os.path.basename(out_path)}.parts")
+    if ctx.process_id == 0:
+        os.makedirs(td, exist_ok=True)
+    ctx.barrier("fixmate_mkdirs", metrics)
+    os.makedirs(td, exist_ok=True)
+    with span("mh.fixmate.write", registry=metrics, category="stage"):
+        for j, b in enumerate(batches):
+            patched = apply_fixmate(b, edits, int(row_bases[j]))
+            _promote_part(td, ctx.process_id, ctx.process_id + j * P_,
+                          lambda f, pb=patched: write_part_fast(f, pb, order=None, level=level),
+                          first_wins=False)
+    ctx.barrier("fixmate_parts_written", metrics)
+    if ctx.process_id == 0:
+        with span("mh.merge", registry=metrics, category="stage"):
+            nio.write_success(td)
+            merge_bam_parts(td, out_path, header)
+            shutil.rmtree(td, ignore_errors=True)
+    ctx.barrier("fixmate_merged", metrics)
+    return FixmateStats(n_total, len(splits), int(totals[0]), int(totals[1]), int(totals[2]),
+                        "collate-fixmate[mesh]", metrics.counters())

@@ -9,7 +9,8 @@ counter tracks), the request half (:class:`RequestContext`,
 :func:`current_request`, :func:`request_scope`, :func:`span`), the batch
 half (:func:`trace_ctx`, :func:`stage`, :func:`device_trace`,
 :class:`Progress`) and run provenance (:class:`RunManifest`,
-:func:`run_manifest`).  Counter names are the reference's, so the two
+:func:`run_manifest`; a multi-process run's :class:`ClusterManifest`,
+:func:`cluster_manifest`).  Counter names are the reference's, so the two
 packages' counts can be compared.
 
 Counters are passed, not global: a :class:`Metrics` belongs to the job
@@ -330,6 +331,14 @@ class Tracer:
             if a.get("trace") == trace_id or trace_id in a.get("traces", ()):
                 out.append(e)
         return out
+
+    def now_us(self) -> float:
+        """The armed ring's clock, microseconds since :meth:`start` (0.0
+        disarmed): the mesh trace shards' anchor, stamped by every process
+        right after one shared barrier."""
+        if not self.armed:
+            return 0.0
+        return (time.perf_counter() - self._epoch) * 1e6
 
     def drops_snapshot(self) -> Tuple[int, Dict[str, int]]:
         with self._lock:
@@ -698,6 +707,131 @@ def run_manifest(
     return RunManifest(backend=backend, platform=platform, tier_decisions=tiers, modes=modes,
                        conf_deltas=conf_deltas, degraded=bool(reasons), reasons=reasons,
                        device=name)
+
+
+class ClusterManifest:
+    """Provenance of one multi-process run: every process's host manifest
+    (its :class:`RunManifest` and byte-plane accounting) folded into one
+    verdict.  ``degraded`` when any host's manifest is, when an edge of
+    the shuffle byte matrix does not balance (the sender's bytes against
+    the receiver's), or when a host never published."""
+
+    def __init__(
+        self,
+        hosts: List[dict],
+        byte_plane: Optional[str] = None,
+        degraded: bool = False,
+        reasons: Optional[List[str]] = None,
+        edges_balanced: bool = True,
+        skew_ratio: Optional[float] = None,
+        shuffle_bytes: int = 0,
+        keys_bytes: int = 0,
+        records: int = 0,
+        shuffle_raw_bytes: int = 0,
+        shuffle_ratio: Optional[float] = None,
+        repartition: Optional[dict] = None,
+        speculation: Optional[dict] = None,
+    ) -> None:
+        self.hosts = hosts
+        self.byte_plane = byte_plane
+        self.degraded = degraded
+        self.reasons = reasons or []
+        self.edges_balanced = edges_balanced
+        self.skew_ratio = skew_ratio
+        self.shuffle_bytes = shuffle_bytes
+        self.keys_bytes = keys_bytes
+        self.records = records
+        self.shuffle_raw_bytes = shuffle_raw_bytes
+        self.shuffle_ratio = shuffle_ratio
+        self.repartition = repartition
+        self.speculation = speculation
+
+    def as_dict(self) -> dict:
+        return {
+            "num_hosts": len(self.hosts),
+            "hosts": [dict(h) for h in self.hosts],
+            "byte_plane": self.byte_plane,
+            "edges_balanced": self.edges_balanced,
+            "skew_ratio": self.skew_ratio,
+            "shuffle_bytes": self.shuffle_bytes,
+            "shuffle_raw_bytes": self.shuffle_raw_bytes,
+            "shuffle_ratio": self.shuffle_ratio,
+            "keys_bytes": self.keys_bytes,
+            "records": self.records,
+            "repartition": dict(self.repartition) if self.repartition else None,
+            "speculation": dict(self.speculation) if self.speculation else None,
+            "degraded": self.degraded,
+            "reasons": list(self.reasons),
+        }
+
+
+def cluster_manifest(host_manifests: List[dict],
+                     byte_plane: Optional[str] = None) -> ClusterManifest:
+    """Fold host manifests (``parallel/multihost.py``'s: ``host``,
+    ``num_processes``, ``run_manifest``, ``records_local``,
+    ``records_out``, the byte and key matrices' rows, ``skew_ratio``, the
+    ``repartition`` and ``speculation`` blocks) into a
+    :class:`ClusterManifest`; a pure function of its inputs."""
+    hosts = sorted((dict(h) for h in host_manifests), key=lambda h: h.get("host", 0))
+    reasons: List[str] = []
+    n_expect = max([len(hosts)] + [int(h.get("num_processes", 0)) for h in hosts])
+    seen = {int(h.get("host", -1)) for h in hosts}
+    for p in range(n_expect):
+        if p not in seen:
+            reasons.append(f"host {p} never published a manifest")
+    for h in hosts:
+        rm = h.get("run_manifest") or {}
+        if rm.get("degraded"):
+            why = "; ".join(rm.get("reasons", [])) or "unspecified"
+            reasons.append(f"host {h.get('host')} degraded: {why}")
+    # What host s measured writing for q must equal what q measured
+    # fetching from s, edge by edge.
+    edges_balanced = True
+    shuffle_bytes = 0
+    for hs in hosts:
+        s = hs.get("host")
+        sent = hs.get("shuffle_sent_bytes") or {}
+        for hq in hosts:
+            q = hq.get("host")
+            b_sent = int(sent.get(str(q), 0))
+            b_recv = int((hq.get("shuffle_recv_bytes") or {}).get(str(s), 0))
+            shuffle_bytes += b_sent
+            if b_sent != b_recv:
+                edges_balanced = False
+                reasons.append(f"shuffle byte matrix imbalanced on edge {s}->{q}: "
+                               f"sent {b_sent} != received {b_recv}")
+    keys_bytes = sum(int(b) for h in hosts for b in (h.get("keys_sent_bytes") or {}).values())
+    shuffle_raw_bytes = sum(int(b) for h in hosts
+                            for b in (h.get("shuffle_sent_raw_bytes") or {}).values())
+    shuffle_ratio = (round(shuffle_raw_bytes / shuffle_bytes, 4)
+                     if shuffle_bytes and shuffle_raw_bytes else None)
+    records = sum(int(h.get("records_local", 0)) for h in hosts)
+    skews = [h["skew_ratio"] for h in hosts if h.get("skew_ratio")]
+    # The repartition is collective (one census, one decision), so any
+    # host's block speaks for the round; speculation differs by host (the
+    # speculator's launches and wins, the straggler's lost parts).
+    repartition = next((dict(h["repartition"]) for h in hosts if h.get("repartition")), None)
+    spec_events: List[dict] = []
+    spec_launched = spec_won = spec_wasted = 0
+    for h in hosts:
+        sp = h.get("speculation") or {}
+        if not sp:
+            continue
+        spec_launched += int(sp.get("launched", 0))
+        spec_won += int(sp.get("won_parts", 0))
+        spec_wasted += int(sp.get("wasted_bytes", 0))
+        if sp.get("launched"):
+            spec_events.append({"by": h.get("host"), "target": sp.get("target"),
+                                "won_parts": int(sp.get("won_parts", 0))})
+    speculation = ({"launched": spec_launched, "won_parts": spec_won,
+                    "wasted_bytes": spec_wasted, "events": spec_events}
+                   if spec_launched or spec_wasted else None)
+    return ClusterManifest(
+        hosts=hosts, byte_plane=byte_plane or (hosts[0].get("byte_plane") if hosts else None),
+        degraded=bool(reasons), reasons=reasons, edges_balanced=edges_balanced,
+        skew_ratio=max(skews) if skews else None, shuffle_bytes=shuffle_bytes,
+        keys_bytes=keys_bytes, records=records, shuffle_raw_bytes=shuffle_raw_bytes,
+        shuffle_ratio=shuffle_ratio, repartition=repartition, speculation=speculation)
 
 
 class Progress:

@@ -154,7 +154,8 @@ def test_seams_of_later_modules_fire_as_the_reference(tmp_path):
     """The mesh seams' directives parse and their ``FaultPlan`` methods fire
     and count as the reference's do (``mh.corrupt`` fires in the
     multi-process sort's wire, ``test_torch_multihost.py``;
-    ``mh.speculate.lose`` waits for its module, A.10c).
+    ``mh.speculate.lose`` before a speculative copy's promotion,
+    ``test_torch_multihost_skew.py``).
     The ``serve.stall``, ``serve.drop`` and ``arena.oom`` directives fire at
     the daemon's seams (the reply, the lane batcher's launch) with the
     reference's ``faults.fired.*`` counts and the same replies."""

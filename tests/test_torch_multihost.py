@@ -19,7 +19,9 @@ drill (``test_mesh_shuffle.py``):
     equal counters a process (both place with ``0x5EED + pid``);
 (d) ``_RemoteNpy``'s ranged slices; (e) the http server's counters and
     the fetch retries, counted into the port's registry; (f)
-    ``errors="salvage"`` under ``mh.corrupt``; (g) the A.10c switches.
+    ``errors="salvage"`` under ``mh.corrupt``; (g) the speculation and
+    mesh-trace switches: each arms its piece, a trace directory alone arms
+    nothing, and the argument beats the conf key and the env var.
 
 Every spawned worker has its own ``communicate(timeout=…)``; on expiry
 every worker of the pair is killed."""
@@ -500,7 +502,7 @@ def test_shuffle_conf_resolution(monkeypatch):
 
     for var in ("HBAM_SHUFFLE_COMPRESS", "HBAM_SHUFFLE_FETCH_THREADS",
                 "HBAM_SHUFFLE_MEMBER_BYTES", "HBAM_MESH_SKEW_BOUND",
-                "HBAM_MESH_REPARTITION_SAMPLES"):
+                "HBAM_MESH_REPARTITION_SAMPLES", "HBAM_MESH_SPECULATE_FACTOR"):
         monkeypatch.delenv(var, raising=False)
     cases = [
         ("_resolve_shuffle_compress", {}, {}),
@@ -519,6 +521,9 @@ def test_shuffle_conf_resolution(monkeypatch):
         ("_resolve_skew_bound", {}, {"HBAM_MESH_SKEW_BOUND": "2.5"}),
         ("_resolve_repartition_samples", {}, {}),
         ("_resolve_repartition_samples", {}, {"HBAM_MESH_REPARTITION_SAMPLES": "64"}),
+        ("_resolve_speculate_factor", {}, {}),
+        ("_resolve_speculate_factor", {MESH_SPECULATE_FACTOR: "1.5"}, {}),
+        ("_resolve_speculate_factor", {}, {"HBAM_MESH_SPECULATE_FACTOR": "2"}),
     ]
     for fn, conf, env in cases:
         for k, v in env.items():
@@ -600,29 +605,95 @@ def test_salvage_does_not_catch_a_kernel_failure(src, tmp_path, monkeypatch, cor
         _port(src, str(tmp_path / "x.bam"), errors="salvage")
 
 
-@pytest.mark.parametrize("how", [
+#: Each switch of speculation or the mesh trace: (name, keyword arguments,
+#: conf, env); "TRACE" stands for a trace directory under the test's own.
+SWITCHES = [
     ("param", {"mesh_trace": True}, {}, {}),
-    ("param_dir", {"mesh_trace_dir": "trace"}, {}, {}),
+    ("param_dir", {"mesh_trace": True, "mesh_trace_dir": "TRACE"}, {}, {}),
     ("conf_trace", {}, {MESH_TRACE: "true"}, {}),
-    ("conf_trace_dir", {}, {MESH_TRACE_DIR: "trace"}, {}),
+    ("conf_trace_dir", {}, {MESH_TRACE: "true", MESH_TRACE_DIR: "TRACE"}, {}),
     ("conf_speculate", {}, {MESH_SPECULATE_FACTOR: "3.0"}, {}),
     ("env_trace", {}, {}, {"HBAM_MESH_TRACE": "1"}),
-    ("env_trace_dir", {}, {}, {"HBAM_MESH_TRACE_DIR": "trace"}),
+    ("env_trace_dir", {}, {}, {"HBAM_MESH_TRACE": "1", "HBAM_MESH_TRACE_DIR": "TRACE"}),
     ("env_speculate", {}, {}, {"HBAM_MESH_SPECULATE_FACTOR": "2"}),
-], ids=lambda h: h[0])
-def test_a10c_switches_raise(src, tmp_path, monkeypatch, how):
-    """(g) Speculation and the mesh trace are not ported: arming either,
-    by a parameter, a conf key or an env var, raises and names A.10c;
-    disarmed values run."""
-    _, kw, conf, env = how
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="A.10c"):
-        tm.sort_bam_multihost(src, str(tmp_path / "x.bam"), conf=Configuration(conf),
-                              device="cpu", **kw)
+]
+
+
+def _arm(tmp_path, monkeypatch, kw, conf, env):
+    trace = str(tmp_path / "trace")
+    fill = {k: trace if v == "TRACE" else v for k, v in {**kw, **conf, **env}.items()}
     for k in env:
-        monkeypatch.delenv(k)
-    n = tm.sort_bam_multihost(src, str(tmp_path / "y.bam"), mesh_trace=False, device="cpu",
-                              conf=Configuration({MESH_SPECULATE_FACTOR: "0"}),
-                              split_size=SPLIT, level=1)
-    assert n == N
+        monkeypatch.setenv(k, fill[k])
+    return ({k: fill[k] for k in kw}, Configuration({k: fill[k] for k in conf}), trace)
+
+
+@pytest.mark.parametrize("how", SWITCHES, ids=lambda h: h[0])
+def test_speculation_and_trace_switches_arm(src, oracle, tmp_path, monkeypatch, how):
+    """(g) Each switch, by a parameter, a conf key or an env var, arms its
+    piece: a trace switch writes the shard, the manifest and the cluster
+    manifest (into the named directory, else beside the output), a
+    speculate factor times the done markers' barrier; the output stays the
+    single-host sort's."""
+    name, kw, conf, env = how
+    for var in ("HBAM_MESH_TRACE", "HBAM_MESH_TRACE_DIR", "HBAM_MESH_SPECULATE_FACTOR"):
+        monkeypatch.delenv(var, raising=False)
+    kw, conf, trace = _arm(tmp_path, monkeypatch, kw, conf, env)
+    out = str(tmp_path / "x.bam")
+    m = MetricsRegistry()
+    n = tm.sort_bam_multihost(src, out, conf=conf, split_size=SPLIT, level=1, device="cpu",
+                              metrics=m, **kw)
+    assert n == N and _stream(out) == oracle
+    spans = m.report()["span_seconds"]
+    where = trace if name.endswith("_dir") else out + ".mesh-trace"
+    if name.endswith("speculate"):
+        assert "mh.barrier.parts_done" in spans
+        assert not os.path.exists(where)
+    else:
+        assert "mh.barrier.parts_done" not in spans
+        assert sorted(os.listdir(where)) == ["cluster_manifest.json", "manifest-h000.json",
+                                             "trace-h000.json"]
+
+
+@pytest.mark.parametrize("where", ["param", "conf", "env"])
+def test_a_trace_dir_alone_arms_nothing(src, tmp_path, monkeypatch, where):
+    """(g) A trace directory names a place and arms nothing, as in the
+    reference: no directory, no trace, no done-marker barrier."""
+    monkeypatch.delenv("HBAM_MESH_TRACE", raising=False)
+    trace = str(tmp_path / "trace")
+    kw, conf = {}, {}
+    if where == "param":
+        kw["mesh_trace_dir"] = trace
+    elif where == "conf":
+        conf[MESH_TRACE_DIR] = trace
+    else:
+        monkeypatch.setenv("HBAM_MESH_TRACE_DIR", trace)
+    m = MetricsRegistry()
+    tm.sort_bam_multihost(src, str(tmp_path / "x.bam"), conf=Configuration(conf),
+                          split_size=SPLIT, level=1, device="cpu", metrics=m, **kw)
+    assert not os.path.exists(trace) and not os.path.exists(str(tmp_path / "x.bam.mesh-trace"))
+    assert not any(k.startswith("mh.barrier.trace") for k in m.report()["span_seconds"])
+    assert tm._resolve_mesh_trace(Configuration(conf), None) is False
+    assert jm._resolve_mesh_trace(JConf(conf), None) is False
+
+
+def test_explicit_argument_beats_the_env_var(src, tmp_path, monkeypatch):
+    """(g) The argument beats the conf key, which beats the env var, as the
+    reference resolves them."""
+    monkeypatch.setenv("HBAM_MESH_TRACE", "1")
+    out = str(tmp_path / "n.bam")
+    tm.sort_bam_multihost(src, out, mesh_trace=False, split_size=SPLIT, level=1, device="cpu")
+    assert not os.path.exists(out + ".mesh-trace")
+    off = Configuration({MESH_TRACE: "false"})
+    tm.sort_bam_multihost(src, out, conf=off, split_size=SPLIT, level=1, device="cpu")
+    assert not os.path.exists(out + ".mesh-trace")
+    for conf, arg in (({}, None), ({}, False), ({MESH_TRACE: "false"}, None),
+                      ({MESH_TRACE: "false"}, True), ({MESH_TRACE: "yes"}, None)):
+        assert tm._resolve_mesh_trace(Configuration(conf), arg) == \
+            jm._resolve_mesh_trace(JConf(conf), arg), (conf, arg)
+    monkeypatch.setenv("HBAM_MESH_TRACE_DIR", "/env/dir")
+    for conf, arg in (({}, None), ({MESH_TRACE_DIR: "/conf/dir"}, None),
+                      ({MESH_TRACE_DIR: "/conf/dir"}, "/arg/dir")):
+        assert tm._resolve_mesh_trace_dir(Configuration(conf), arg, out) == \
+            jm._resolve_mesh_trace_dir(JConf(conf), arg, out)
+    monkeypatch.delenv("HBAM_MESH_TRACE_DIR")
+    assert tm._resolve_mesh_trace_dir(None, None, out) == os.path.abspath(out) + ".mesh-trace"

@@ -9,9 +9,9 @@ with its placeholder as any component).
 
 Left out: ``test_bench_finalize_round_flags_cpu_fallback`` (the port's
 bench entry is ROADMAP A.12b).  ``test_skew_healing_metric_literals_present``
-is the "skew_healing" family below, less the ``mh.speculate.*`` names
-(ROADMAP A.10c) and ``pipeline.auto_rtt_ms``/``effective_rtt_ms`` (the
-reference's read-depth gauges, which the port's jobs do not set)."""
+is the "skew_healing" family below, less ``pipeline.auto_rtt_ms``/
+``effective_rtt_ms`` (the reference's read-depth gauges, which the port's
+jobs do not set)."""
 
 import importlib.util
 import io
@@ -466,7 +466,9 @@ _LITERALS = {
                      "mh.skew_ratio", "mh.peak_bytes", "mh.keys.sent.0", "mh.keys.recv.1",
                      "mh.shuffle.sent.0", "mh.shuffle.recv_raw.1", "mh.http.requests",
                      "mh.http.range_requests", "mh.http.bytes_served",
-                     "mh.byte_shuffle.deflate", "mh.byte_shuffle.inflate", "mh.range_merge"),
+                     "mh.byte_shuffle.deflate", "mh.byte_shuffle.inflate", "mh.range_merge",
+                     "mh.speculate.launched", "mh.speculate.won", "mh.speculate.wasted_bytes",
+                     "mh.speculate.fetch_bytes"),
     "batch_tracer": ("bam.stage.read", "bam.stage.inflate", "bam.stage.parse", "bam.stage.key",
                      "bam.stage.gather", "bam.stage.deflate", "bam.stage.write",
                      "pipeline.stage.read_split", "pipeline.stage.device_parse",
