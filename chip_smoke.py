@@ -15,7 +15,14 @@ kernel against its plain PyTorch version on the card (exact equality);
 drive ``sort_bam`` at full size on a synthetic BAM with the default gates
 (every kernel on), with the write side's gates off (byte-identical to the
 port's CPU run) and with one resident split (byte-identical to the host
-gather + deflate lanes); drive the same sort through the front door (the
+gather + deflate lanes); drive the reference's last public entry points
+on the card (the surface phase: ``parse_stream_device`` on the main
+path's first split through row 2 against the host decode and keys,
+``apply_permutation``, ``record_scan`` of the ingest generator's first
+chunks through row 4, ``quality_histogram_auto``, ``unpack_nibbles_auto``
+and ``overlap_mask_auto`` on the sorted file's first split through rows
+8, 9 and 6 against their plain versions, and ``BamOutputWriter`` writing
+that split with its ``.splitting-bai``); drive the same sort through the front door (the
 front-door phase: ``python -m hadoop_bam_tpu_torch sort`` in this process
 with ``--trace``, ``--trace-dir`` and ``--metrics``, the main path's
 bytes, a clean run manifest that names the card, the trace reduced by
@@ -2209,6 +2216,15 @@ def main_path(work: str, n: int, seed: int) -> dict:
         raise AssertionError(f"device write did not take every part: {cr}")
     if min(launches_r[k] for k in ("gather_stream", "crc32", "deflate_members")) <= 0:
         raise AssertionError(f"device write kernels never launched: {launches_r}")
+    from hadoop_bam_tpu_torch.spec.bgzf import scan_blocks
+
+    with open(src, "rb") as f:
+        members = len(scan_blocks(f.read())[0])
+    log(f"  A.15 (ROADMAP C, a standing deviation): the one split of {members} members keeps "
+        f"its window, no 128-member cap: bam.device_write_parts "
+        f"{cr.get('bam.device_write_parts', 0)}, bam.device_write_tierdown.no_residency "
+        f"{cr.get('bam.device_write_tierdown.no_residency', 0)} (the reference gathers such a "
+        "split on the host)")
     host_lanes = Configuration({WRITE_DEVICE: "false", DEFLATE_LANES: "true"})
     timed_sort(src, out["resident_host"], "cuda, host gather + lanes, one split",
                conf=host_lanes, device="cuda", split_size=whole)
@@ -2222,6 +2238,157 @@ def main_path(work: str, n: int, seed: int) -> dict:
     return {"src": src, "launches": launches, "launches_resident": launches_r, "wall": wall,
             "stats": st, "cpu": st_cpu, "ratio": ratio, "sorted": out["zlib"],
             "lanes": out["lanes"], "card_peak": card_peak, "flagstat": flagstat_oracle(rows)}
+
+
+SURFACE_PAIRS = 8_000  # the ingest generator's pairs the surface phase scans
+SURFACE_CHUNKS = 16  # of their chunks at the ingest's geometry, one record_scan call
+
+
+def surface_phase(work: str, mp: dict, seed: int) -> dict:
+    """The reference's last public entry points on the card, with the launch
+    counts zeroed just before and read just after: (1) ``parse_stream_device``
+    of the main path's first split's inflated record stream (host input,
+    uploaded): row 2 once, the SoA equal to the host ``soa_decode``, the
+    count to the split's records, the mapped rows' keys to the host keys
+    the sort uses; (2) ``apply_permutation`` of those columns through their
+    sort permutation on the card, equal to NumPy; (3) ``record_scan`` of the
+    ingest generator's first :data:`SURFACE_CHUNKS` chunks: row 4 once, each
+    table equal to ``scan_window_host``; (4) ``quality_histogram_auto``,
+    ``unpack_nibbles_auto`` and ``overlap_mask_auto`` on the sorted file's
+    first split (host input): rows 8, 9 and 6 once each, each equal to its
+    plain version; (5) ``BamOutputWriter`` writes that split with
+    ``write_splitting_bai=True``: it re-reads to the same records and its
+    index equals ``build_splitting_bai`` of the written file.  Then the
+    parse is timed alone (CUDA events, the stream resident)."""
+    import io
+
+    import torch
+
+    from hadoop_bam_tpu_torch.io.bam import (BamInputFormat, BamOutputWriter,
+                                              gather_record_bytes, read_header)
+    from hadoop_bam_tpu_torch.ops import kernels
+    from hadoop_bam_tpu_torch.ops.cigar import reference_lengths_np
+    from hadoop_bam_tpu_torch.ops.decode import parse_stream_device
+    from hadoop_bam_tpu_torch.ops.keys import pack_keys_np, unmapped_mask
+    from hadoop_bam_tpu_torch.ops.sort import apply_permutation
+    from hadoop_bam_tpu_torch.spec import bam, indices
+
+    t_phase = time.perf_counter()
+    fmt = BamInputFormat()
+    first = fmt.read_split(fmt.get_splits([mp["src"]], split_size=SALVAGE_SPLIT)[0])
+    soa_h = first.soa
+    s0 = int(soa_h["rec_off"][0]) - 4
+    s1 = int(soa_h["rec_off"][-1] + soa_h["rec_len"][-1])
+    stream = np.ascontiguousarray(first.data[s0:s1])
+    sorted_split = fmt.read_split(fmt.get_splits([mp["sorted"]], split_size=SALVAGE_SPLIT)[0],
+                                  with_keys=False)
+    sq = sorted_split.soa
+    if not np.all(sq["l_seq"] == 150):
+        raise AssertionError("the sorted split holds a record that is not 150 bp")
+    seq_off = sq["rec_off"].astype(np.int64) + 32 + sq["l_read_name"] + 4 * sq["n_cigar_op"]
+    seq = sorted_split.data[seq_off[:, None] + np.arange(75)]
+    qual = sorted_split.data[seq_off[:, None] + 75 + np.arange(150)].astype(np.int32)
+    valid = np.ones(qual.shape, bool)
+    refid, pos = sq["refid"].astype(np.int32), sq["pos"].astype(np.int32)
+    end = wrapped_end(pos, reference_lengths_np(sorted_split.data, sq).astype(np.int32))
+    iv = np.asarray([CHR21[0], [19, 10_000_000, 11_000_000], [0, 0, 1_000_000]], np.int32)
+    r1, _ = fastq_pairs(SURFACE_PAIRS, seed)
+    starts, lens, cl, al, fi = (c[:SURFACE_CHUNKS] for c in scan_chunks_of(r1))
+    chunks = [(r1[int(a): int(a) + int(n)], int(c), bool(x), bool(y))
+              for a, n, c, x, y in zip(starts, lens, cl, al, fi)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    soa, hi, lo, ok_rows, ok = parse_stream_device(stream)
+    n = first.n_records
+    card_keys = hi[:n].to(torch.int64) * (1 << 32) + (lo[:n].view(torch.int32).to(torch.int64)
+                                                      & 0xFFFFFFFF)
+    permuted = apply_permutation({k: soa[k][:n] for k in ("refid", "pos", "flag")},
+                                 torch.sort(card_keys, stable=True)[1])
+    tables, scan_stats = kernels.record_scan(chunks)
+    hist = kernels.quality_histogram_auto(qual, valid)
+    codes = kernels.unpack_nibbles_auto(seq)
+    mask = kernels.overlap_mask_auto(iv, refid, pos, end)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    for name in ("record_chain", "record_scan", "quality_histogram", "unpack_nibbles",
+                 "overlap_mask"):
+        if launches[name] != 1:
+            raise AssertionError(f"surface phase: {name} launched {launches[name]} times, "
+                                 f"want 1: {launches}")
+    # (1) The parse against the host decode and keys.
+    if int(ok_rows.sum()) != n or not bool(ok):
+        raise AssertionError(f"parse_stream_device: {int(ok_rows.sum())} rows, ok {bool(ok)}; "
+                             f"the split holds {n} records")
+    offs = soa_h["rec_off"].astype(np.int64) - 4 - s0
+    host = bam.soa_decode(stream, offs)
+    for k in bam.SOA_FIELDS:
+        got = soa[k][:n].cpu().numpy()
+        if got.dtype != np.int32 or not np.array_equal(got.astype(np.int64),
+                                                       host[k].astype(np.int64)):
+            raise AssertionError(f"parse_stream_device column {k} differs from the host decode")
+    keys = pack_keys_np(hi[:n].cpu().numpy(), lo[:n].cpu().numpy())
+    mapped = ~unmapped_mask(*(torch.from_numpy(host[k]) for k in ("refid", "pos", "flag"))).numpy()
+    if not np.array_equal(keys[mapped], first.keys[mapped]):
+        raise AssertionError("parse_stream_device keys differ from the sort's on mapped rows")
+    # (2) The permutation against NumPy.
+    perm = np.argsort(keys, kind="stable")
+    for k, v in permuted.items():
+        col = soa[k][:n].cpu().numpy()
+        if v.device.type != "cuda" or not np.array_equal(v.cpu().numpy(), col[perm]):
+            raise AssertionError(f"apply_permutation column {k} differs from NumPy")
+    # (3) The scan against the host scan.
+    if scan_stats.lanes != len(chunks) or scan_stats.launches != 1:
+        raise AssertionError(f"record_scan: {scan_stats}")
+    for k, (c, t) in enumerate(zip(chunks, tables)):
+        if not np.array_equal(t, kernels.scan_window_host(*c)):
+            raise AssertionError(f"record_scan chunk {k} differs from scan_window_host")
+    # (4) Rows 8, 9 and 6 against their plain versions.
+    cpu = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    want_hist = kernels.histogram.quality_histogram_plain(cpu(qual), cpu(valid.astype(np.int32)),
+                                                          128)
+    want_codes = kernels.unpack.unpack_nibbles_plain(cpu(seq))
+    want_mask = kernels.overlap.overlap_mask_plain(cpu(iv), cpu(refid), cpu(pos), cpu(end))
+    for what, got, want in (("quality_histogram_auto", hist, want_hist),
+                            ("unpack_nibbles_auto", codes, want_codes),
+                            ("overlap_mask_auto", mask, want_mask)):
+        if got.device.type != "cuda" or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{what} differs from its plain version")
+    # (5) The record writer and its index.
+    out = os.path.join(work, "surface.bam")
+    t_w = time.perf_counter()
+    with open(out, "wb") as f, open(out + indices.SPLITTING_BAI_EXT, "wb") as sbf:
+        with BamOutputWriter(f, read_header(mp["sorted"]), write_splitting_bai=True,
+                             splitting_bai_stream=sbf, level=1) as w:
+            w.write_batch(sorted_split)
+    wall_w = time.perf_counter() - t_w
+    again = bam_batch(out, fields=bam.SOA_FIELDS)
+    if gather_record_bytes(again) != gather_record_bytes(sorted_split):
+        raise AssertionError("BamOutputWriter's file re-reads to other records")
+    want_sb = io.BytesIO()
+    indices.build_splitting_bai(out).save(want_sb)
+    with open(out + indices.SPLITTING_BAI_EXT, "rb") as f:
+        if f.read() != want_sb.getvalue():
+            raise AssertionError("BamOutputWriter's .splitting-bai differs from build_splitting_bai")
+    # The parse alone, its stream resident.
+    card = torch.from_numpy(stream).cuda()
+    parse_ms = cuda_ms(lambda: parse_stream_device(card), iters=10)
+    log(f"surface phase: parse_stream_device of the first split ({n} records, {len(stream)} "
+        f"bytes): row 2 once, the SoA == soa_decode, mapped keys == the sort's "
+        f"({int(mapped.sum())} rows); {parse_ms:.4f} ms with the stream resident; "
+        f"apply_permutation == NumPy; record_scan of {len(chunks)} chunks: row 4 once, each == "
+        f"scan_window_host; on the sorted split ({sorted_split.n_records} records) "
+        f"quality_histogram_auto, unpack_nibbles_auto, overlap_mask_auto ({int(mask.sum())} "
+        f"hits, K = {len(iv)}) == plain, rows 8, 9, 6 once each; the entry points took "
+        f"{wall:.3f} s with their uploads")
+    log(f"surface phase: BamOutputWriter wrote the sorted split in {wall_w:.3f} s "
+        f"({os.path.getsize(out)} bytes at level 1), re-read to its records, .splitting-bai == "
+        f"build_splitting_bai; launches {json.dumps({k: v for k, v in launches.items() if v})}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    os.remove(out)
+    os.remove(out + indices.SPLITTING_BAI_EXT)
+    return {"launches": launches, "parse_ms": parse_ms}
 
 
 def front_door_phase(work: str, mp: dict, bai_twin: bool = True) -> dict:
@@ -2774,6 +2941,24 @@ def _mesh_report_module():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def fleet_report(fleet_dir: str) -> dict:
+    """``tools/torch_fleet_report.py --fleet-dir <fleet_dir> --json``, in
+    this process: the offline view of the fleet directory."""
+    import contextlib
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_fleet_report", os.path.join(REPO, "tools", "torch_fleet_report.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        if mod.main(["--fleet-dir", fleet_dir, "--json"]) != 0:
+            raise AssertionError("tools/torch_fleet_report.py failed")
+    return json.loads(out.getvalue())
 
 
 def check_spec_trace(lines: list, trace_dir: str) -> dict:
@@ -6194,6 +6379,16 @@ def fleet_phase(work: str, path: str, twin_src: str, twin_sorted: str, seed: int
         want_shares = {m: round(s, 4) for m, s in ring.shares().items()}
         if set(view["members"]) != set(FLEET_NAMES) or view["ring"]["shares"] != want_shares:
             raise AssertionError(f"fleet view {view['members']}, shares {view['ring']}")
+        report = fleet_report(fdir)
+        rebuilt = HashRing(tuple(report["members"]), vnodes=report["ring"]["vnodes"])
+        keys = [fleet_mod.file_key(p) for p in (path, twin_src, twin_sorted)]
+        if (sorted(report["members"]) != sorted(view["members"])
+                or report["ring"]["shares"] != view["ring"]["shares"]
+                or [rebuilt.owner(k) for k in keys] != [ring.owner(k) for k in keys]):
+            raise AssertionError(f"tools/torch_fleet_report.py sees {report['members']}, "
+                                 f"{report['ring']}; the router {view['ring']}")
+        log(f"fleet: tools/torch_fleet_report.py --fleet-dir --json: {sorted(report['members'])} "
+            f"live, {sorted(report['dead'])} dead, the router's shares and ring owners")
         reset_counts()
         r0 = snapshot(router.metrics)
         log(f"fleet: {name_in} (this process) up in {t_in:.3f} s, {name_child} (a child process) "
@@ -7501,6 +7696,8 @@ def main() -> int:
     try:
         res = main_path(work, args.records, args.seed)
         clock("the main path")
+        surf = surface_phase(work, res, args.seed)
+        clock("the surface phase")
         front = front_door_phase(work, res, bai_twin=bool(args.front_bai_twin))
         clock("the front-door phase")
         msh = mesh_phase(work, res, args.seed)
@@ -7576,6 +7773,11 @@ def main() -> int:
         row["multihost_launches"] = {pair: [ln[row["name"]] for ln in lines]
                                      for pair, lines in mhp["launches"].items()}
         row["multihost_spec_launches"] = [d.get(row["name"], 0) for d in mhp["spec_launches"]]
+        row["surface_launches"] = {"surface": surf["launches"][row["name"]]}
+        if row["name"] in ("quality_histogram", "unpack_nibbles"):
+            row["launches"] = surf["launches"][row["name"]]
+            row["launches_from"] = (f"surface_phase: {row['name']}_auto on the sorted file's "
+                                    "first split (no other path calls it, as in the reference)")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

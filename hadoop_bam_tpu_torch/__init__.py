@@ -19,3 +19,5 @@ ledger (:mod:`utils.hbm`).
 Module names mirror the reference package, which the port never imports.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
+
+from .conf import Configuration  # noqa: E402,F401

@@ -10,8 +10,9 @@ the host chain walk, the split's resident window), ``RecordBatch``,
 ``ChunkedRecords`` (with the write path's flat resident stream), the
 chunk-span cut of interval traversal (``_voffset_mask``),
 ``gather_record_array``, ``patch_flags``, ``rebuild_record_stream`` (the
-fixmate rewrite) and ``write_part_fast`` (device-resident assembly, host
-gather + deflate lanes, host gather + zlib).
+fixmate rewrite), ``write_part_fast`` (device-resident assembly, host
+gather + deflate lanes, host gather + zlib) and ``BamOutputWriter`` (the
+record-at-a-time writer with its inline ``.splitting-bai``).
 Every read goes through the filesystem seam (:mod:`.fs`), so a path may be
 any registered scheme (``file://``, ``mem://``, ``http://``, ``gs://``);
 each read is retried on a transient ``OSError`` into the job's metrics.
@@ -20,6 +21,7 @@ each read is retried on a transient ``OSError`` into the job's metrics.
 from __future__ import annotations
 
 import os
+import struct
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -902,6 +904,11 @@ def gather_record_array(batch, order: Optional[np.ndarray] = None) -> np.ndarray
     return out
 
 
+def gather_record_bytes(batch, order: Optional[np.ndarray] = None) -> bytes:
+    """:func:`gather_record_array` as ``bytes``."""
+    return gather_record_array(batch, order).tobytes()
+
+
 def patch_flags(stream: np.ndarray, rec_starts: np.ndarray, bits: int = 0x400) -> None:
     """OR ``bits`` into the flag field (bytes 18/19 past the size word) of
     the records whose size words sit at ``rec_starts`` of a gathered stream,
@@ -1047,3 +1054,67 @@ def write_part_fast(
         b.count = n
         b.finish(len(blob)).save(splitting_bai_stream)
     return len(blob)
+
+
+# ---------------------------------------------------------------------------
+# Writer (BAMRecordWriter.java semantics)
+
+
+class BamOutputWriter:
+    """BGZF BAM writer with an optional header, a terminator-less part mode
+    and an inline ``.splitting-bai`` (BAMRecordWriter.java:69-89, 131-167).
+    Records are framed on the host, one member every
+    :data:`~..spec.bgzf.MAX_PAYLOAD` bytes, as the reference's writer."""
+
+    def __init__(
+        self,
+        stream,
+        header: bam.BamHeader,
+        write_header: bool = True,
+        append_terminator: bool = True,
+        write_splitting_bai: bool = False,
+        splitting_bai_stream=None,
+        granularity: int = indices.DEFAULT_GRANULARITY,
+        level: int = 6,
+    ):
+        self._w = bgzf.BgzfWriter(stream, level=level, append_terminator=append_terminator)
+        self.header = header
+        self._sb = indices.SplittingBaiBuilder(granularity) if write_splitting_bai else None
+        self._sb_stream = splitting_bai_stream
+        self._stream = stream
+        if write_header:
+            self._w.write(header.encode())
+
+    def write_record(self, rec: bam.BamRecord) -> None:
+        self.write_raw(rec.raw)
+
+    def write_raw(self, body: bytes) -> None:
+        if self._sb is not None:
+            self._sb.process_alignment(self._w.tell_voffset())
+        self._w.write(struct.pack("<I", len(body)) + body)
+
+    def write_batch(self, batch, order: Optional[np.ndarray] = None) -> None:
+        """The records of a :class:`RecordBatch` or :class:`ChunkedRecords`,
+        in ``order`` when given, without building record objects."""
+        soa = batch.soa
+        if isinstance(batch, ChunkedRecords):
+            views, cid = [memoryview(c) for c in batch.chunks], batch.chunk_id
+        else:
+            views, cid = [memoryview(batch.data)], None
+        idx = range(batch.n_records) if order is None else order
+        for i in idx:
+            off, ln = int(soa["rec_off"][i]), int(soa["rec_len"][i])
+            view = views[0 if cid is None else int(cid[i])]
+            self.write_raw(bytes(view[off : off + ln]))
+
+    def close(self, file_size_for_index: Optional[int] = None) -> None:
+        self._w.close()
+        if self._sb is not None and self._sb_stream is not None:
+            size = file_size_for_index if file_size_for_index is not None else self._stream.tell()
+            self._sb.finish(size).save(self._sb_stream)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

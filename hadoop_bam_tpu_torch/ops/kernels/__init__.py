@@ -3,13 +3,17 @@
 A wrapper takes the plain PyTorch version only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises.  Each wrapper counts its
 launches (:class:`LaunchCounter`), so a run can show which kernels it went
-through.
+through.  The package exports the names of the reference's
+``ops/pallas/__init__.py``; its ``*_auto`` entry points put host input on
+the card (or on ``device=``) and call the wrappers.
 """
 
 from __future__ import annotations
 
 import threading
+from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -64,3 +68,28 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
 
 def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(x, dtype: torch.dtype,
+              device: Optional[Union[str, torch.device]] = None) -> torch.Tensor:
+    """``x`` as a contiguous ``dtype`` tensor for a wrapper: a tensor stays
+    on its device unless ``device`` names another; host input goes to the
+    card unless ``device="cpu"`` (without a card that raises)."""
+    from ...utils.backend import resolve_device
+
+    if isinstance(x, torch.Tensor):
+        dev = x.device if device is None else resolve_device(device)
+        return x.to(device=dev, dtype=dtype).contiguous()
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=resolve_device(device)).contiguous()
+
+
+from .histogram import quality_histogram, quality_histogram_auto  # noqa: E402,F401
+from .overlap import overlap_mask, overlap_mask_auto  # noqa: E402,F401
+from . import record_scan  # noqa: E402,F401  the module, callable as the function
+from .record_scan import (  # noqa: E402,F401
+    RecordScanStats,
+    WindowOverrun,
+    scan_window_host,
+    scan_window_py,
+)
+from .unpack import unpack_nibbles, unpack_nibbles_auto  # noqa: E402,F401

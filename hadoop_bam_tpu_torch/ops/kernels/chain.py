@@ -95,6 +95,16 @@ def record_chain(stream: torch.Tensor, n_bytes: int):
     return offs, meta
 
 
+def record_chain_device(stream: torch.Tensor, n_bytes=None):
+    """The reference's entry point over :func:`record_chain`: ``(offs,
+    count, ok)`` of ``stream[:n_bytes]`` (all of it by default), with
+    ``count`` an int64 and ``ok`` a bool 0-d tensor on the stream's device
+    and ``offs[:count]`` the record offsets (int64; the reference's are
+    int32).  Nothing is synchronised."""
+    offs, meta = record_chain(stream, stream.numel() if n_bytes is None else int(n_bytes))
+    return offs, meta[0], meta[1] != 0
+
+
 def record_chain_keys(stream: torch.Tensor, n_bytes: int, n_rows: int):
     """The walk of :func:`record_chain` with the sort keys of
     :func:`stream_keys`: ``(offs, meta, keys, unmapped)``, the keys and the

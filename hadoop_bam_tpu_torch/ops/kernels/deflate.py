@@ -16,18 +16,20 @@ geometry; the function they compute is sequential per member, and only
 ``chunk_bytes`` leaks into the result, through the hash width ``H`` and
 the ``vmem`` decline rule, which are kept.  Its per-step wave budget
 (``2 * chunk_bytes + 96``) cannot bind for ``chunk_bytes >= 162``; smaller
-chunks are refused here.
+chunks are refused here.  The reference's two bench probes follow:
+:func:`bench_deflate_marginal` (card only) and :func:`bench_deflate_ratio`.
 """
 
 from __future__ import annotations
 
+import zlib
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ... import _build
-from . import LaunchCounter, check_tensor, stream_handle, use_plain
+from . import LaunchCounter, check_tensor, on_device, stream_handle, use_plain
 
 LAUNCHES = LaunchCounter("deflate_members")
 
@@ -361,3 +363,101 @@ def deflate_lanes(
         payload.contiguous().reshape(-1), lens, offs=np.arange(B, dtype=np.int64) * W,
         max_clen=max_clen, chunk_bytes=chunk_bytes,
     )
+
+
+# ---------------------------------------------------------------------------
+# Bench probes
+
+
+def bench_deflate_marginal(p_small: int = 1024, p_big: int = 4096, device=None) -> dict:
+    """The kernel's marginal cost per byte of a member on the card, by a
+    two-point fit: one geometry (sized for ``p_big``), :data:`LANES`
+    members of random bytes at two lengths, each timed with CUDA events
+    over three launches after a warm-up.  Random bytes are all literals,
+    so this is the literal path's cost.  Returns the reference's keys:
+    ``fixed_ms`` (the intercept), ``ns_per_wave`` (the slope: one byte of
+    every member), ``bytes_per_s``, ``projected_mb_s``, ``t_small_ms`` and
+    ``t_big_ms``.  Run it with the card otherwise idle."""
+    from ...utils.backend import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("bench_deflate_marginal times the card: pass a CUDA device")
+    P = round_up(p_big, DEFAULT_CHUNK)
+    rng = np.random.default_rng(0)
+    stream = torch.from_numpy(rng.integers(0, 256, LANES * P, dtype=np.uint8)).to(dev)
+    offs = torch.arange(LANES, dtype=torch.int64, device=dev) * P
+
+    def timed(n_bytes: int) -> float:
+        lens = torch.full((LANES,), n_bytes, dtype=torch.int32, device=dev)
+        args = (stream, offs, lens, n_bytes, hash_bits(P), out_bytes(P))
+        deflate_members(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            deflate_members(*args)
+        end.record()
+        torch.cuda.synchronize(dev)
+        return start.elapsed_time(end) / 3 / 1e3
+
+    dt_s = timed(p_small)
+    dt_b = timed(p_big)
+    per_wave = (dt_b - dt_s) / (p_big - p_small)
+    bytes_per_s = LANES / per_wave if per_wave > 0 else float("inf")
+    return {
+        "fixed_ms": (dt_s - per_wave * p_small) * 1e3,
+        "ns_per_wave": per_wave * 1e9,
+        "bytes_per_s": bytes_per_s,
+        "projected_mb_s": bytes_per_s / 1e6,
+        "t_small_ms": dt_s * 1e3,
+        "t_big_ms": dt_b * 1e3,
+    }
+
+
+def _bam_like_corpus(n_members: int, member: int) -> np.ndarray:
+    """The reference's synthetic BAM-like member payloads: a record
+    template tiled, with each record's position and name bytes varied."""
+    rng = np.random.default_rng(11)
+    rec = bytearray(168)
+    rec[0:4] = (164).to_bytes(4, "little")
+    rec[12:36] = b"\x08\x00\x60\x12\x08\x00\x00\x00" * 3
+    rec[36:45] = b"read0000\x00"
+    rec[45:100] = bytes([7] * 55)
+    rec[100:168] = (b"ACGT" * 17)[:68]
+    n_rec = (n_members * member) // len(rec) + 1
+    stream = np.tile(np.frombuffer(bytes(rec), np.uint8), n_rec)
+    base = np.arange(n_rec, dtype=np.int64) * len(rec)
+    pos = rng.integers(0, 1 << 26, n_rec, dtype=np.int64)
+    for k in range(4):
+        stream[base + 4 + k] = ((pos >> (8 * k)) & 0xFF).astype(np.uint8)
+    idx = np.arange(n_rec, dtype=np.int64)
+    for k in range(4):
+        stream[base + 40 + k] = (48 + ((idx >> (4 * k)) & 0xF)).astype(np.uint8)
+    return stream[: n_members * member].reshape(n_members, member)
+
+
+def bench_deflate_ratio(n_members: int = 32, member: int = 4096, device=None) -> dict:
+    """Compressed size of :func:`deflate_lanes` against zlib level 1 on the
+    reference's BAM-like corpus, member for member (the card unless
+    ``device="cpu"``).  Returns ``device_ratio``, ``zlib1_ratio``,
+    ``rel_zlib1``, ``n_ok`` and ``n_members``, as the reference."""
+    mat = _bam_like_corpus(n_members, member)
+    _, clens, ok = deflate_lanes(on_device(mat, torch.uint8, device),
+                                 np.full(n_members, member, dtype=np.int64))
+    clens, ok = clens.cpu().numpy(), ok.cpu().numpy()
+    dev_bytes = int(clens[ok].sum())
+    z_bytes = orig = 0
+    for i in np.flatnonzero(ok).tolist():
+        co = zlib.compressobj(1, zlib.DEFLATED, -15)
+        z_bytes += len(co.compress(mat[i].tobytes()) + co.flush())
+        orig += member
+    device_ratio = dev_bytes / orig if orig else float("inf")
+    zlib1_ratio = z_bytes / orig if orig else float("inf")
+    return {
+        "device_ratio": device_ratio,
+        "zlib1_ratio": zlib1_ratio,
+        "rel_zlib1": device_ratio / zlib1_ratio if z_bytes else float("inf"),
+        "n_ok": int(ok.sum()),
+        "n_members": n_members,
+    }

@@ -5,11 +5,13 @@ plain version.
 Counterpart of ``hadoop_bam_tpu/ops/pallas/gather_stream.py``
 (``gather_stream_device``): a part's records, in sorted order, are copied
 out of the resident split payloads into one stream on the device, so the
-uncompressed part never visits the host.
+uncompressed part never visits the host.  :func:`bench_write_marginal` is
+the reference's bench probe of the gather and the CRC32 (card only).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -148,3 +150,55 @@ def gather_stream_plain(stream, src, dst, lens, dup, bits: int) -> torch.Tensor:
         out[d[mark & (n > 18)] + 18] |= np.uint8(bits & 0xFF)
         out[d[mark & (n > 19)] + 19] |= np.uint8((bits >> 8) & 0xFF)
     return torch.from_numpy(out)
+
+
+def bench_write_marginal(n_small: int = 1 << 20, n_big: int = 4 << 20, device=None) -> dict:
+    """The write front end's marginal throughput on the card (the sorted
+    gather with the flag patch, then the member CRC32s), by the
+    reference's two-point fit: one resident stream of 168-byte records,
+    two output sizes, each the best of three timed calls after a warm-up
+    (host clock, the card synchronised).  Returns ``fixed_ms``,
+    ``bytes_per_s``, ``projected_mb_s``, ``t_small_ms`` and ``t_big_ms``."""
+    from ...utils.backend import resolve_device
+    from .crc32 import crc32_device
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("bench_write_marginal times the card: pass a CUDA device")
+    rng = np.random.default_rng(3)
+    rec_len = 168
+    n_rec = n_big // rec_len + 1
+    stream = torch.from_numpy(rng.integers(0, 256, n_rec * rec_len, dtype=np.uint8)).to(dev)
+    src = (rng.permutation(n_rec) * rec_len).astype(np.int64)
+    lens = np.full(n_rec, rec_len, dtype=np.int64)
+    dup = rng.random(n_rec) < 0.1
+
+    def timed(nbytes: int) -> float:
+        k = nbytes // rec_len
+        offs = np.arange(0, k * rec_len, 57088, dtype=np.int64)
+        mlens = np.minimum(57088, k * rec_len - offs)
+
+        def once():
+            out, _ = gather_stream_device(stream, src[:k], lens[:k], dup_mask=dup[:k])
+            crc32_device(out, offs, mlens)
+            torch.cuda.synchronize(dev)
+
+        once()
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            once()
+            ts.append(time.perf_counter() - t0)
+        return min(ts)
+
+    dt_s = timed(n_small)
+    dt_b = timed(n_big)
+    per_byte = (dt_b - dt_s) / (n_big - n_small)
+    bytes_per_s = 1.0 / per_byte if per_byte > 0 else float("inf")
+    return {
+        "fixed_ms": (dt_s - per_byte * n_small) * 1e3,
+        "bytes_per_s": bytes_per_s,
+        "projected_mb_s": bytes_per_s / 1e6,
+        "t_small_ms": dt_s * 1e3,
+        "t_big_ms": dt_b * 1e3,
+    }

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ... import _build
-from . import LaunchCounter, check_tensor, stream_handle, use_plain
+from . import LaunchCounter, check_tensor, on_device, stream_handle, use_plain
 
 LAUNCHES = LaunchCounter("quality_histogram")
 _LANES = 128  # the reference's bins come in lane-width chunks
@@ -44,6 +44,13 @@ def quality_histogram(values: torch.Tensor, valid: torch.Tensor, nbins: int = 12
     _build.check(rc, "quality_histogram")
     LAUNCHES.add()
     return out
+
+
+def quality_histogram_auto(values, valid, nbins: int = 128, device=None) -> torch.Tensor:
+    """:func:`quality_histogram` of host or device input: host input goes
+    to the card unless ``device="cpu"``; ``valid`` may be bool."""
+    values = on_device(values, torch.int32, device)
+    return quality_histogram(values, on_device(valid, torch.int32, values.device), nbins=nbins)
 
 
 def quality_histogram_plain(values: torch.Tensor, valid: torch.Tensor, nbins: int) -> torch.Tensor:

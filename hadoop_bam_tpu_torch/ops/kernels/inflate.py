@@ -3,18 +3,23 @@
 Counterpart of ``hadoop_bam_tpu/ops/pallas/inflate_lanes.py``.  Both
 versions take the same tensors and return the same ``[n_out, ok]`` meta per
 member; the bytes of a member with ``ok = 1`` are its exact payload.
+:func:`inflate_lanes` and :func:`inflate_lanes_ex` are the reference's
+entry points over padded member rows, one launch a call; the reference's
+lane geometry (``max_blocks``, ``max_far``, ``far_dist``, ``chunk_bytes``)
+has no counterpart, since the card's kernel decodes any member.
 """
 
 from __future__ import annotations
 
 import zlib
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ... import _build
-from . import LaunchCounter, check_tensor, stream_handle, use_plain
+from . import LaunchCounter, check_tensor, on_device, stream_handle, use_plain
 
 LAUNCHES = LaunchCounter("inflate_members")
 
@@ -69,6 +74,43 @@ def inflate_members(
     _build.check(rc, "inflate_members")
     LAUNCHES.add()
     return meta
+
+
+def inflate_lanes_ex(comp, clens, isizes, device=None, keep_device: bool = False,
+                     ) -> Tuple[np.ndarray, np.ndarray, Optional[torch.Tensor]]:
+    """Inflate padded member rows: ``comp`` uint8 ``[B, C]`` (member i is
+    ``comp[i, :clens[i]]``), host input on the card unless
+    ``device="cpu"``.  Returns ``(out uint8 [B, max(isizes)], ok bool [B])``
+    on the host and, with ``keep_device``, ``dev``: the same rows as a
+    tensor on the device, or None when any member is not ok (its bytes
+    would not be exact).  Unlike the reference's view, ``dev`` has no
+    128-member cap (ROADMAP C, A.15)."""
+    rows = on_device(comp, torch.uint8, device)
+    if rows.dim() != 2:
+        raise ValueError("comp must be [members, bytes]")
+    dev = rows.device
+    b, c = rows.shape
+    cl = np.asarray(clens, dtype=np.int32).reshape(-1)
+    isz = np.asarray(isizes, dtype=np.int32).reshape(-1)
+    if not (len(cl) == len(isz) == b):
+        raise ValueError("comp, clens and isizes differ in members")
+    width = int(isz.max()) if b else 0
+    flat = torch.zeros(b * c + COMP_PAD, dtype=torch.uint8, device=dev)
+    flat[: b * c] = rows.reshape(-1)
+    out = torch.zeros(b * width, dtype=torch.uint8, device=dev)
+    cols = [torch.from_numpy(a).to(dev) for a in (
+        np.arange(b, dtype=np.int64) * c, cl, np.arange(b, dtype=np.int64) * width, isz)]
+    meta = inflate_members(flat, cols[0], cols[1], cols[2], cols[3], out,
+                           max_clen=int(cl.max()) if b else 0).cpu().numpy()
+    ok = (meta[:, 1] == 1) & (meta[:, 0] == isz)
+    out = out.reshape(b, width)
+    keep = out if keep_device and bool(ok.all()) else None
+    return out.cpu().numpy(), ok, keep
+
+
+def inflate_lanes(comp, clens, isizes, device=None) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`inflate_lanes_ex` without the device rows: ``(out, ok)``."""
+    return inflate_lanes_ex(comp, clens, isizes, device=device)[:2]
 
 
 def _inflate_one(raw: memoryview, start: int, clen: int, isize: int):

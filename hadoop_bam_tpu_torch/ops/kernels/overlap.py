@@ -9,7 +9,8 @@ records to ``[8, 128]`` tiles with refid -2; the card needs no padding.
 reference length) to the hit rows, compacted and in order, behind their
 count, in three launches (count, scan, scatter; ``csrc/region_core.cuh``)
 counted once by :data:`ROWS_LAUNCHES`.  :func:`overlap_mask` keeps the
-reference kernel's mask form over (refid, start, end).
+reference kernel's mask form over (refid, start, end).  The reference
+module's ragged joins live in :mod:`..overlap` and are re-exported here.
 """
 
 from __future__ import annotations
@@ -17,7 +18,15 @@ from __future__ import annotations
 import torch
 
 from ... import _build
-from . import LaunchCounter, check_tensor, stream_handle, use_plain
+from ..overlap import (  # noqa: F401  the reference module's ragged joins
+    intervals_to_array,
+    join_counts_device,
+    join_counts_np,
+    join_mask_device,
+    join_mask_np,
+    ragged_overlap_mask,
+)
+from . import LaunchCounter, check_tensor, on_device, stream_handle, use_plain
 
 LAUNCHES = LaunchCounter("overlap_mask")
 ROWS_LAUNCHES = LaunchCounter("overlap_rows")
@@ -56,6 +65,15 @@ def overlap_mask(intervals: torch.Tensor, refid: torch.Tensor, start: torch.Tens
     _build.check(rc, "overlap_mask")
     LAUNCHES.add()
     return out
+
+
+def overlap_mask_auto(intervals, refid, start, end, device=None) -> torch.Tensor:
+    """:func:`overlap_mask` of host or device input: host input goes to
+    the card unless ``device="cpu"``."""
+    refid = on_device(refid, torch.int32, device)
+    dev = refid.device
+    return overlap_mask(on_device(intervals, torch.int32, dev).reshape(-1, 3), refid,
+                        on_device(start, torch.int32, dev), on_device(end, torch.int32, dev))
 
 
 def overlap_mask_plain(intervals: torch.Tensor, refid: torch.Tensor, start: torch.Tensor,

@@ -26,6 +26,8 @@ place from one flat byte tensor.
 
 from __future__ import annotations
 
+import sys
+import types
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -35,7 +37,7 @@ import torch
 from ... import _build
 from ...spec.fragment import FormatException
 from ...utils.tracing import Metrics
-from . import LaunchCounter, check_tensor, stream_handle, use_plain
+from . import LaunchCounter, check_tensor, on_device, stream_handle, use_plain
 
 LAUNCHES = LaunchCounter("record_scan")
 
@@ -366,6 +368,22 @@ def record_scan_windows(
     return outs, stats
 
 
+def record_scan(chunks, rec_cap: Optional[int] = None, device=None,
+                metrics: Optional[Metrics] = None,
+                ) -> Tuple[List[Optional[np.ndarray]], RecordScanStats]:
+    """The reference's ``record_scan``: ``chunks`` of ``(window,
+    chunk_len, aligned, final)``, packed back to back into one upload (to
+    the card unless ``device="cpu"``) and scanned by
+    :func:`record_scan_windows`, one launch a call.  Returns ``(tables,
+    stats)`` as that does."""
+    wins = [bytes(c[0]) for c in chunks]
+    lens = np.array([len(w) for w in wins], np.int64)
+    data = on_device(np.frombuffer(bytearray(b"".join(wins)), np.uint8), torch.uint8, device)
+    return record_scan_windows(data, np.cumsum(lens) - lens, lens, [c[1] for c in chunks],
+                               [c[2] for c in chunks], [c[3] for c in chunks],
+                               rec_cap=rec_cap, metrics=metrics)
+
+
 # ---------------------------------------------------------------------------
 # Host tiers: the NumPy scan is the reference for every chunk the kernel
 # reports ok; the walker beneath it carries the salvage semantics.  Both
@@ -532,3 +550,15 @@ def scan_window_py(
             and li is not None and li >= len(lines):
         raise WindowOverrun("fastq: claimed record overruns window")
     return (np.asarray(recs, np.int32).reshape(len(recs), _REC_W), n_quar)
+
+
+class _ScanModule(types.ModuleType):
+    """The package exports :func:`record_scan` under this module's name, as
+    the reference's does; calling the module calls the function, so that
+    ``kernels.record_scan`` is both the module and the entry point."""
+
+    def __call__(self, *args, **kwargs):
+        return record_scan(*args, **kwargs)
+
+
+sys.modules[__name__].__class__ = _ScanModule

@@ -9,10 +9,11 @@ checked by ``chip_smoke.py``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ... import _build
-from . import LaunchCounter, stream_handle, use_plain
+from . import LaunchCounter, on_device, stream_handle, use_plain
 
 LAUNCHES = LaunchCounter("unpack_nibbles")
 
@@ -41,6 +42,15 @@ def unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
     _build.check(rc, "unpack_nibbles")
     LAUNCHES.add()
     return out
+
+
+def unpack_nibbles_auto(packed, device=None) -> torch.Tensor:
+    """:func:`unpack_nibbles` of host or device input: host input goes to
+    the card unless ``device="cpu"``; a dtype other than uint8 is taken as
+    int32."""
+    u8 = (packed.dtype == torch.uint8 if isinstance(packed, torch.Tensor)
+          else np.asarray(packed).dtype == np.uint8)
+    return unpack_nibbles(on_device(packed, torch.uint8 if u8 else torch.int32, device))
 
 
 def unpack_nibbles_plain(packed: torch.Tensor) -> torch.Tensor:

@@ -52,3 +52,17 @@ def split_keys_np(keys):
         (keys >> np.int64(32)).astype(np.int32),
         (keys & np.int64(0xFFFFFFFF)).astype(np.uint32),
     )
+
+
+def pack_hash64_np(qh1, qh2) -> np.ndarray:
+    """The collation's 64-bit name hash as one int64 column: ``qh1`` in the
+    high word, ``qh2`` zero-extended in the low, so that signed int64 order
+    is the (int32, uint32) pair's order."""
+    return (np.asarray(qh1).astype(np.int64) << np.int64(32)) | (
+        np.asarray(qh2).astype(np.uint32).astype(np.int64))
+
+
+def split_hash64_np(h) -> tuple:
+    """Inverse of :func:`pack_hash64_np`: int64 → ``(qh1 int32, qh2 int32)``."""
+    h = np.asarray(h, dtype=np.int64)
+    return (h >> np.int64(32)).astype(np.int32), (h & np.int64(0xFFFFFFFF)).astype(np.int32)

@@ -61,7 +61,6 @@ import io
 import json
 import os
 import secrets
-import shutil
 import socket
 import tempfile
 import threading
@@ -1661,7 +1660,7 @@ def _sort_bam_multihost_impl(in_paths, out_path: str, ctx: Optional[MultihostCon
             # Spill runs on local disk, served over HTTP; the stack
             # removes them on every outcome.
             spill_dir = tempfile.mkdtemp(prefix="hbam_spill_")
-            stack.callback(shutil.rmtree, spill_dir, True)
+            stack.callback(nio.delete_recursive, spill_dir)
         else:
             os.makedirs(spill_dir, exist_ok=True)
 
@@ -1877,7 +1876,7 @@ def _sort_bam_multihost_impl(in_paths, out_path: str, ctx: Optional[MultihostCon
         write_dir = shuffle_dir
         if byte_plane == "http":
             write_dir = tempfile.mkdtemp(prefix="hbam_shuf_")
-            stack.callback(shutil.rmtree, write_dir, True)
+            stack.callback(nio.delete_recursive, write_dir)
         with span("mh.byte_shuffle.write", registry=metrics, category="stage"):
             _write_byte_runs(write_dir, ctx, local, dest_of_record, row_of_record, rows,
                              dstream, compress=compress, member_bytes=member_bytes, level=level)
@@ -1968,13 +1967,13 @@ def _sort_bam_multihost_impl(in_paths, out_path: str, ctx: Optional[MultihostCon
     if cleanup_dir is not None:
         # Every process has its share: the outgoing directory goes now
         # (the stack's callback stays the failure path's).
-        shutil.rmtree(cleanup_dir, ignore_errors=True)
+        nio.delete_recursive(cleanup_dir)
 
     if ctx.process_id == 0:
         with span("mh.merge", registry=metrics, category="stage"):
             nio.write_success(td)
             merge_bam_parts(td, out_path, header)
-            shutil.rmtree(td, ignore_errors=True)
+            nio.delete_recursive(td)
     obs.finalize(peak_bytes, n_local, out_counts, skew_ratio)
     ctx.barrier("merged", metrics)
     return n_total
@@ -2179,7 +2178,7 @@ def fixmate_bam_multihost(
         with span("mh.merge", registry=metrics, category="stage"):
             nio.write_success(td)
             merge_bam_parts(td, out_path, header)
-            shutil.rmtree(td, ignore_errors=True)
+            nio.delete_recursive(td)
     ctx.barrier("fixmate_merged", metrics)
     return FixmateStats(n_total, len(splits), int(totals[0]), int(totals[1]), int(totals[2]),
                         "collate-fixmate[mesh]", metrics.counters())

@@ -45,6 +45,7 @@ SOA_FIELDS = (
     "refid", "pos", "flag", "mapq", "bin", "n_cigar_op", "l_read_name",
     "l_seq", "next_refid", "next_pos", "tlen", "rec_off", "rec_len",
 )
+SOA_NCOLS = len(SOA_FIELDS)
 
 
 class BamError(IOError):

@@ -16,6 +16,7 @@ import os
 import struct
 import zlib
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 from typing import BinaryIO, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -49,6 +50,15 @@ def has_eof_terminator(data) -> bool:
 
 def default_threads() -> int:
     return max(1, os.cpu_count() or 1)
+
+
+@dataclass(frozen=True)
+class BlockInfo:
+    """One BGZF block: compressed extent and inflated size."""
+
+    coffset: int  # compressed file offset of the block's start
+    csize: int  # whole compressed block (header + deflate + footer)
+    usize: int  # inflated payload size (ISIZE)
 
 
 def make_voffset(coffset: int, uoffset: int) -> int:
@@ -199,6 +209,12 @@ def scan_blocks(data) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         np.asarray(cs, dtype=np.int32),
         np.asarray(us, dtype=np.int32),
     )
+
+
+def scan_block_infos(data) -> List[BlockInfo]:
+    """The reference's list form of :func:`scan_blocks`: one
+    :class:`BlockInfo` a block of the back-to-back chain."""
+    return [BlockInfo(int(c), int(s), int(u)) for c, s, u in zip(*scan_blocks(data))]
 
 
 def decompress_all(data) -> bytes:
@@ -369,6 +385,7 @@ class BgzfWriter:
         self._level = level
         self._append_terminator = append_terminator
         self._buf = bytearray()
+        self._coffset = 0  # compressed bytes written so far
         self._closed = False
 
     def write(self, data: bytes) -> None:
@@ -380,6 +397,11 @@ class BgzfWriter:
         block = compress_block(bytes(self._buf[:n]), self._level)
         del self._buf[:n]
         self._stream.write(block)
+        self._coffset += len(block)
+
+    def tell_voffset(self) -> int:
+        """Virtual offset where the next byte written will land."""
+        return make_voffset(self._coffset, len(self._buf))
 
     def flush(self) -> None:
         while self._buf:
@@ -392,3 +414,9 @@ class BgzfWriter:
         if self._append_terminator:
             self._stream.write(TERMINATOR)
         self._closed = True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

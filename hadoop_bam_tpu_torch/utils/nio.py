@@ -2,20 +2,22 @@
 
 Counterpart of ``hadoop_bam_tpu/utils/nio.py`` (util/NIOFileUtil.java): the
 sorted ``part-[mr]-NNNNN`` listing without companion index files, the
-``_SUCCESS`` completeness check of the mergers (util/SAMFileMerger.java:50-54)
-and the byte concat of a merge.  The part file is the restart unit of
-:class:`~..parallel.executor.ElasticExecutor`.
+``_SUCCESS`` completeness check of the mergers (util/SAMFileMerger.java:50-54),
+the byte concat of a merge, the part glob and the recursive delete.  The
+part file is the restart unit of :class:`~..parallel.executor.ElasticExecutor`.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import shutil
 from pathlib import Path
 from typing import List, Union
 
 PathLike = Union[str, os.PathLike]
 
+PARTS_GLOB = "part-[mr]-*"  # reference util/NIOFileUtil.java:24
 _PART_RE = re.compile(r"^part-[mr]-\d{5}.*$")
 SUCCESS_MARKER = "_SUCCESS"
 
@@ -43,6 +45,11 @@ def check_success(directory: PathLike) -> None:
 
 def write_success(directory: PathLike) -> None:
     (as_path(directory) / SUCCESS_MARKER).touch()
+
+
+def delete_recursive(directory: PathLike) -> None:
+    """Remove a directory tree; a missing one is no error."""
+    shutil.rmtree(as_path(directory), ignore_errors=True)
 
 
 def concat_files(sources: List[PathLike], out_stream) -> int:

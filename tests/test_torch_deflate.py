@@ -214,3 +214,34 @@ def test_kernel_matches_plain_on_card():
     p = kd.deflate_lanes(torch.from_numpy(mat), lens)
     for x, y in zip(k, p):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n_members,member", [(4, 1024), (3, 4096)])
+def test_bench_deflate_ratio_equals_the_reference(n_members, member):
+    """The reference's bench probe of the coding ratio: the same corpus and
+    the same compressed sizes, so every field is equal."""
+    np.testing.assert_array_equal(kd._bam_like_corpus(n_members, member),
+                                  jdl._bam_like_corpus(n_members, member))
+    got = kd.bench_deflate_ratio(n_members, member, device="cpu")
+    want = jdl.bench_deflate_ratio(n_members, member, interpret=True)
+    assert got == want and got["n_ok"] == n_members
+
+
+def test_bench_marginals_time_only_the_card():
+    from hadoop_bam_tpu_torch.ops.kernels import gather as kg
+
+    for bench in (kd.bench_deflate_marginal, kg.bench_write_marginal):
+        with pytest.raises(ValueError, match="times the card"):
+            bench(device="cpu")
+
+
+@pytest.mark.cuda
+def test_bench_marginals_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from hadoop_bam_tpu_torch.ops.kernels import gather as kg
+
+    d = kd.bench_deflate_marginal()
+    w = kg.bench_write_marginal()
+    for r in (d, w):
+        assert r["t_big_ms"] > 0 and r["t_small_ms"] > 0 and r["projected_mb_s"] > 0

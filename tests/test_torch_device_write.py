@@ -338,3 +338,40 @@ def test_write_kernels_match_plain_on_card():
     cl = np.minimum(1000, len(p) - offs)
     assert np.array_equal(_u32(kcrc.crc32_device(g, offs, cl).cpu()),
                           _u32(kcrc.crc32_device(p, offs, cl)))
+
+
+# --------------------------------------------------------------------------
+# A.15: the port keeps a split's window past 128 members (ROADMAP C)
+# --------------------------------------------------------------------------
+
+
+def test_one_split_past_128_members_writes_from_residency_where_the_reference_gathers(tmp_path):
+    """A one-split sort of a BAM of more than 128 members and no spill, every
+    gate on, through both packages: the same bytes; the reference drops the
+    window (one 128-lane launch cannot hold the split) and gathers on the
+    host, the port writes the part from the resident window (row 1 has no
+    lane cap).  The pin of the standing deviation."""
+    from hadoop_bam_tpu.utils.tracing import delta, snapshot
+    from test_torch_sort_bam import _write_bam
+
+    src = str(tmp_path / "in.bam")
+    _write_bam(src, n=140, block_payload=32, seed=17)
+    with open(src, "rb") as f:
+        members = len(bgzf.scan_block_infos(f.read()))
+    assert members > 129  # the header's member and the EOF besides
+    t_out, j_out = str(tmp_path / "port.bam"), str(tmp_path / "ref.bam")
+    st = tpipeline.sort_bam(src, t_out, conf=from_reference_conf(ALL_ON), device="cpu",
+                            device_parse=True, level=1, split_size=1 << 24,
+                            write_splitting_bai=True)
+    before = snapshot()
+    jpipeline.sort_bam(src, j_out, conf=JConf(ALL_ON), device_parse=True, level=1,
+                       split_size=1 << 24, write_splitting_bai=True)
+    jc = delta(before)["counters"]
+    for suffix in ("", ".splitting-bai"):
+        with open(t_out + suffix, "rb") as a, open(j_out + suffix, "rb") as b:
+            assert a.read() == b.read(), suffix
+    assert st.n_splits == 1 and st.n_records == 140
+    assert jc.get("bam.device_write_tierdown.no_residency", 0) == 1
+    assert jc.get("bam.device_write_parts", 0) == 0
+    assert st.counters.get("bam.device_write_parts", 0) == 1
+    assert st.counters.get("bam.device_write_tierdown.no_residency", 0) == 0

@@ -138,14 +138,20 @@ def _pack(names):
     return comps, clens, isz
 
 
+def _rows(names):
+    comps, clens, isz = _pack(names)
+    mat = np.zeros((len(comps), int(clens.max())), np.uint8)
+    for i, x in enumerate(comps):
+        mat[i, : len(x)] = np.frombuffer(x, np.uint8)
+    return mat, clens, isz
+
+
 @pytest.fixture(scope="module")
 def both():
     """One reference launch (interpret mode) and one port call over the
     whole corpus."""
-    comps, clens, isz = _pack(NAMES)
-    mat = np.zeros((len(comps), int(clens.max())), np.uint8)
-    for i, x in enumerate(comps):
-        mat[i, : len(x)] = np.frombuffer(x, np.uint8)
+    comps = [CORPUS[n][0] for n in NAMES]
+    mat, clens, isz = _rows(NAMES)
     j_out, j_ok = inflate_lanes(mat, clens, isz, interpret=True)
 
     comp_off = np.concatenate([[0], np.cumsum(clens[:-1])]).astype(np.int64)
@@ -252,3 +258,31 @@ def test_kernel_matches_plain_on_card():
     for i in np.nonzero(pm[:, 1])[0]:
         o = int(out_off[i])
         assert np.array_equal(ko[o : o + isz[i]], po[o : o + isz[i]])
+
+
+def test_inflate_lanes_entry_point_equals_the_reference(both):
+    """The reference-named ``inflate_lanes`` over padded rows, host input
+    on the CPU: the same ``ok`` and the same bytes of every ok member."""
+    j_out, j_ok = both[:2]
+    mat, clens, isz = _rows(NAMES)
+    out, ok = kin.inflate_lanes(mat, clens, isz, device="cpu")
+    assert out.shape == (len(NAMES), int(isz.max())) and out.dtype == np.uint8
+    np.testing.assert_array_equal(ok, j_ok)
+    for i in np.flatnonzero(ok):
+        assert out[i, : isz[i]].tobytes() == j_out[i, : isz[i]].tobytes(), NAMES[i]
+
+
+def test_inflate_lanes_ex_keeps_device_rows_only_when_every_member_is_ok():
+    good = [n for n in NAMES if CORPUS[n][2] is not None]
+    bad = [n for n in NAMES if CORPUS[n][2] is None]
+    assert good and bad
+    mat, clens, isz = _rows(good)
+    out, ok, dev = kin.inflate_lanes_ex(torch.from_numpy(mat), clens, isz, keep_device=True)
+    assert ok.all() and dev is not None and dev.device.type == "cpu"
+    assert np.array_equal(dev.numpy(), out)
+    for i, n in enumerate(good):
+        assert out[i, : isz[i]].tobytes() == CORPUS[n][2]
+    assert kin.inflate_lanes_ex(torch.from_numpy(mat), clens, isz)[2] is None
+    mat, clens, isz = _rows(good + bad)
+    out, ok, dev = kin.inflate_lanes_ex(mat, clens, isz, device="cpu", keep_device=True)
+    assert dev is None and not ok.all()

@@ -19,7 +19,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, ``chip_smoke.py``, ``tools/write_pair.py``,
     ``tools/chain_pair.py``, ``tools/region_pair.py`` and
     ``tools/inflate_probe_pair.py`` (and the run each hands a tree),
-    ``tools/inflate_probe_chain.py`` and the port's examples
+    ``tools/inflate_probe_chain.py``, ``tools/torch_fleet_report.py`` and the port's examples
     (``examples/torch_*.py``) load with ``jax`` blocked and pull in no
     module of the JAX package; importing ``__main__`` runs no CLI."""
     code = r"""
@@ -32,7 +32,7 @@ for n in names:
 import chip_smoke
 import importlib.util
 for tool in ("write_pair", "chain_pair", "region_pair", "inflate_probe_pair",
-             "inflate_probe_chain"):
+             "inflate_probe_chain", "torch_fleet_report"):
     spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)

@@ -39,16 +39,10 @@ def chunks_of(run, aligned=True, chunk=CHUNK, overlap=OVERLAP):
 
 
 def port_record_scan(chunks, rec_cap=None, device="cpu"):
-    """The reference's ``record_scan`` interface on the port: ``(window,
-    chunk_len, aligned, final)`` chunks packed back to back into one tensor
-    on ``device`` and scanned by ``record_scan_windows``."""
-    wins = [bytes(c[0]) for c in chunks]
-    lens = np.array([len(w) for w in wins], np.int64)
-    starts = np.concatenate(([0], np.cumsum(lens)[:-1])).astype(np.int64)
-    data = torch.from_numpy(np.frombuffer(b"".join(wins), np.uint8).copy()).to(device)
-    return trs.record_scan_windows(data, starts, lens, [c[1] for c in chunks],
-                                   [c[2] for c in chunks], [c[3] for c in chunks],
-                                   rec_cap=rec_cap)
+    """The port's ``record_scan``: ``(window, chunk_len, aligned, final)``
+    chunks packed back to back into one tensor on ``device`` and scanned by
+    ``record_scan_windows``."""
+    return trs.record_scan(chunks, rec_cap=rec_cap, device=device)
 
 
 def ref_meta(chunks, rec_cap=REC_CAP):
@@ -256,3 +250,46 @@ def test_kernel_equals_plain_on_the_card():
                 assert (a is None) == (b is None)
                 if a is not None:
                     np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["fastq", "unaligned", "oversized", "empty_call"])
+def test_record_scan_entry_point_equals_the_reference(case):
+    """The reference-named ``record_scan(chunks, rec_cap)``: one upload and
+    one launch a call, the reference's tables and tier stats (its launches
+    too, while the call's chunks fit one group of 128)."""
+    run = make_fastq(30, seed=13, crlf=True)
+    chunks = {
+        "fastq": chunks_of(run),
+        "unaligned": chunks_of(make_fastq(24, seed=3)[11:], aligned=False),
+        # a window past the reference's 128 KiB size gate tiers down before the launch
+        "oversized": chunks_of(run) + [(b"@x\n" + b"A" * (1 << 17), 300, True, True)],
+        "empty_call": [],
+    }[case]
+    got, st = trs.record_scan(chunks, rec_cap=REC_CAP, device="cpu")
+    want, jst = jrs.record_scan(chunks, rec_cap=REC_CAP)
+    assert len(got) == len(want) == len(chunks)
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert (a is None) == (b is None), k
+        if a is not None:
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b, err_msg=f"chunk {k}")
+    assert (st.lanes, st.host, st.reasons, st.launches) == (jst.lanes, jst.host, jst.reasons,
+                                                            jst.launches)
+    assert st.launches == (1 if st.lanes or st.reasons.get("scan") else 0)
+    if case == "oversized":
+        assert st.reasons["size"] == 1
+
+
+def test_record_scan_is_the_package_export_and_needs_a_card_unless_told(monkeypatch):
+    from hadoop_bam_tpu_torch.ops import kernels
+
+    chunks = chunks_of(make_fastq(4, seed=2))
+    got, st = kernels.record_scan(chunks, rec_cap=REC_CAP, device="cpu")
+    want, _ = trs.record_scan(chunks, rec_cap=REC_CAP, device="cpu")
+    assert all(np.array_equal(a, b) for a, b in zip(got, want)) and st.lanes == len(chunks)
+    assert kernels.record_scan.scan_windows is trs.scan_windows  # still the module
+    for name in ("RecordScanStats", "WindowOverrun", "scan_window_host", "scan_window_py"):
+        assert getattr(kernels, name) is getattr(trs, name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trs.record_scan(chunks, rec_cap=REC_CAP)

@@ -573,3 +573,60 @@ def test_region_entry_points_raise_when_no_card(corpus, monkeypatch):
                                          corpus["bai"], "chr1:1-100")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# The reference-named ``*_auto`` entry points of rows 6, 8 and 9
+
+
+@pytest.mark.parametrize("as_bool", [False, True], ids=["int_valid", "bool_valid"])
+def test_quality_histogram_auto_equals_the_reference(as_bool):
+    from hadoop_bam_tpu.ops.pallas import quality_histogram_auto as jauto
+    from hadoop_bam_tpu_torch.ops.kernels import quality_histogram_auto
+    from test_torch_region_kernels import _hist_case
+
+    values, valid = _hist_case(37, 32, 256)
+    got = quality_histogram_auto(values, valid.astype(bool) if as_bool else valid, nbins=256,
+                                 device="cpu")
+    want = np.asarray(jauto(values, valid, nbins=256))
+    assert got.dtype == torch.int32 and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32, np.int64])
+def test_unpack_nibbles_auto_equals_the_reference(dtype):
+    from hadoop_bam_tpu.ops.pallas import unpack_nibbles_auto as jauto
+    from hadoop_bam_tpu_torch.ops.kernels import unpack_nibbles_auto
+
+    packed = np.random.default_rng(4).integers(0, 256, (19, 11)).astype(dtype)
+    got = unpack_nibbles_auto(packed, device="cpu")
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jauto(packed)))
+    np.testing.assert_array_equal(unpack_nibbles_auto(torch.from_numpy(packed)).numpy(),
+                                  got.numpy())
+
+
+@pytest.mark.parametrize("k", [0, 3, 40])
+def test_overlap_mask_auto_equals_the_reference(k):
+    from hadoop_bam_tpu.ops.pallas import overlap_mask_auto as jauto
+    from hadoop_bam_tpu_torch.ops.kernels import overlap_mask_auto
+    from test_torch_region_kernels import _overlap_case
+
+    iv, refid, start, end = _overlap_case(k, n=600)
+    got = overlap_mask_auto(iv, refid, start, end, device="cpu")
+    assert got.dtype == torch.bool
+    want = np.asarray(jauto(iv.reshape(-1, 3), refid, start, end)) if k else np.zeros(600, bool)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_auto_entry_points_raise_without_a_card_unless_told(monkeypatch):
+    from hadoop_bam_tpu_torch.ops import kernels
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    one = np.ones((1, 4), np.int32)
+    for call in (lambda: kernels.quality_histogram_auto(one, one),
+                 lambda: kernels.unpack_nibbles_auto(one),
+                 lambda: kernels.overlap_mask_auto(np.array([[0, 1, 2]]), [0], [1], [2])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert kernels.unpack_nibbles_auto(one, device="cpu").shape == (1, 8)

@@ -24,6 +24,7 @@ import torch
 
 from hadoop_bam_tpu_torch import faults
 from hadoop_bam_tpu_torch.conf import (
+    ERRORS_MODE,
     SERVE_ADMISSION_TOKENS,
     SERVE_BATCH_WINDOW_MS,
     SERVE_MAX_QUEUE,
@@ -1083,3 +1084,99 @@ def test_a_view_misses_mapped_records_behind_a_tail_linear_offset_as_the_referen
     assert set(_oracle_names(path, 0, 20_000, 40_000)) >= {f"m{i}" for i in range(6)}
     assert _decode_blob_names(view_blob(_ctx(), path, "chr1:32769-40000")) == [
         f"m{i}" for i in range(6)]
+
+
+# ---------------------------------------------------------------------------
+# The daemon's sort and ingest jobs on damaged input, through both wires
+
+
+def _damaged(kind: str, damage: str, tmp_path) -> str:
+    """A damaged copy of a small input: ``trunc`` cuts it mid-member (no EOF
+    member), ``flip`` XORs bytes inside a member's DEFLATE payload, ``crc``
+    flips a member's CRC32 footer byte."""
+    import gzip
+
+    from test_faults import _build_bam
+    from test_ingest import make_fastq
+
+    if kind == "sort":
+        clean, _, _ = _build_bam(str(tmp_path / "clean.bam"), n=600)
+        co, cs, _ = bgzf.scan_blocks(clean)
+        start, size = int(co[-3]), int(cs[-3])  # a record member of the last (and only) split
+    else:
+        text = make_fastq(60, seed=21)
+        members = [gzip.compress(text[i: i + 800], 5) for i in range(0, len(text), 800)]
+        clean = b"".join(members)
+        k = len(members) // 2
+        start, size = sum(map(len, members[:k])), len(members[k])
+    bad = bytearray(clean)
+    if damage == "trunc":
+        bad = bad[: start + size // 2]
+    elif damage == "flip":
+        for j in range(start + 20, start + 28):
+            bad[j] ^= 0x5A
+    else:
+        bad[start + size - 8] ^= 0x01
+    p = tmp_path / ("in.bam" if kind == "sort" else "in.fastq.gz")
+    p.write_bytes(bytes(bad))
+    return str(p)
+
+
+def _job_outcome(client_mod, daemon, sock, kind, src, out, mode):
+    """Submit one job, poll it to its end, return its status, error class,
+    output bytes and the daemon's ``salvage.*``/``executor.*`` counters."""
+    t = _serve_in_thread(daemon)
+    try:
+        c = client_mod.ServeClient(socket_path=sock, timeout=60)
+        jid = (c.sort(src, out, level=1) if kind == "sort"
+               else c.ingest(src, out, level=1, errors=mode))
+        deadline = time.time() + 120
+        while True:
+            st = c.job(jid)
+            if st["status"] in ("done", "failed") or time.time() > deadline:
+                break
+            time.sleep(0.05)
+        counters = c.stats()["metrics"]["counters"]
+        c.shutdown()
+    finally:
+        if t.is_alive():
+            daemon.stop()
+        t.join(timeout=60)
+    assert not t.is_alive()
+    return {
+        "status": st["status"],
+        "error": (st.get("error") or "").split(":")[0],
+        "bytes": open(out, "rb").read() if st["status"] == "done" else None,
+        "counters": {k: v for k, v in counters.items()
+                     if k.startswith(("salvage.", "executor.")) and v},
+    }
+
+
+@pytest.mark.parametrize("mode", ["strict", "salvage"])
+@pytest.mark.parametrize("damage", ["trunc", "flip", "crc"])
+@pytest.mark.parametrize("kind", ["sort", "ingest"])
+def test_jobs_on_damaged_input_answer_as_the_reference(kind, damage, mode, tmp_path):
+    """A damaged input sent as a sort or an ingest job to each package's
+    daemon, strict and under salvage: the same job status and error class,
+    the same output bytes and the same ``salvage.*`` and ``executor.*``
+    counters in the daemon's ``stats``."""
+    from hadoop_bam_tpu.conf import Configuration as JConf
+    from hadoop_bam_tpu.serve import BamDaemon as JDaemon
+    from hadoop_bam_tpu.serve import client as jclient
+    from hadoop_bam_tpu_torch.serve import client as tclient
+
+    src = _damaged(kind, damage, tmp_path)
+    conf = {ERRORS_MODE: mode}
+    sock_dir = tempfile.mkdtemp(prefix="hbd")
+    try:
+        want = _job_outcome(jclient, JDaemon(conf=JConf(conf), socket_path=f"{sock_dir}/j.sock",
+                                             warmup=False),
+                            f"{sock_dir}/j.sock", kind, src, str(tmp_path / "j.bam"), mode)
+        got = _job_outcome(tclient, BamDaemon(conf=Configuration(conf),
+                                              socket_path=f"{sock_dir}/t.sock", warmup=False,
+                                              device="cpu"),
+                           f"{sock_dir}/t.sock", kind, src, str(tmp_path / "t.bam"), mode)
+    finally:
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    assert got == want
+    assert want["status"] in ("done", "failed")
